@@ -1,0 +1,79 @@
+"""Architecture and engine configuration (port of ``repro.configs.base``).
+
+Only the fields the dense GQA slot-serving path reads are kept; the other
+architecture families land with the slices that serve them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Continuous-batching serving knobs (consumed by ``repro_torch.serving``).
+
+    ``slots`` fixes the decode batch shape; ``max_len`` is the per-slot KV
+    capacity; prompts are processed in ``prefill_chunk``-token pieces.
+    Slot counts <= ``repro_torch.kernels.ops.DECODE_M_MAX`` run the packed
+    kernels' decode tile configuration on thin decode steps.
+    """
+
+    slots: int = 8
+    max_len: int = 256
+    prefill_chunk: int = 32
+    max_queue: int = 256
+    cache_dtype: str = "bfloat16"  # "bfloat16" | "float32"
+    interleave: bool = True  # alternate prefill/decode when both are pending
+    #: decode rows ride chunk-shaped prefill calls with n_valid=1, so a
+    #: running decode advances every iteration; off falls back to
+    #: whole-batch alternation (``interleave``)
+    mixed_batches: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: Literal["dense"]
+    n_layers: int
+    d_model: int
+    n_heads: int
+    kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+
+    norm: Literal["nonparametric_ln"] = "nonparametric_ln"
+    rope_theta: float = 10000.0
+    causal: bool = True
+    tie_embeddings: bool = False
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    def attn_config(self):
+        from repro_torch.nn.attention import AttnConfig
+
+        return AttnConfig(d_model=self.d_model, n_heads=self.n_heads,
+                          kv_heads=self.kv_heads, head_dim=self.head_dim,
+                          causal=self.causal, rope_theta=self.rope_theta)
+
+    def reduced(self) -> "ArchConfig":
+        """CPU smoke-test variant: same structure, tiny dims (the same
+        values as ``repro.configs.base.ArchConfig.reduced``)."""
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            n_layers=2,
+            d_model=64,
+            n_heads=4,
+            kv_heads=max(1, min(self.kv_heads, 2)),
+            head_dim=16,
+            d_ff=128,
+            vocab=256,
+            compute_dtype="float32",
+        )

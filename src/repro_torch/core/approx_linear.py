@@ -1,0 +1,355 @@
+"""The approximation-aware dense op used by every model in the port.
+
+Port of ``repro.core.approx_linear``.  Two parameter representations for a
+linear layer:
+
+  * float dict ``{"w": (k, n), "b": (n,)?}`` (or a (layers, k, n) stack);
+  * :class:`QuantizedDense` — an ``nn.Module`` whose buffers are the
+    offline pack (uint8 codes, quant params, CV constants) and, for
+    ``backend: "pallas"`` packs, the blocked kernel layout.
+
+``dense(p, x)`` dispatches on the representation, so model code is the
+same for float, exact-int8 and approximate+CV numerics.  A packed
+(layers, k, n) stack becomes a :class:`LayerStack` of per-layer modules at
+the same path; ``layer_params`` slices layer i out of a block tree.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.core.policy import ApproxPolicy, PolicyFn
+from repro_torch.quant.quantize import (BlockedPack, PackedLinear, QuantParams,
+                                        build_blocked_layout,
+                                        calibrate_minmax, concat_packs,
+                                        pack_linear, quantized_linear,
+                                        serving_blocks)
+
+_PACK_FIELDS = ("w_q", "w_scale", "w_zp", "sum_qw", "c", "c0", "bias")
+_BLOCKED_FIELDS = ("w_qb", "epilogue", "meta")
+
+
+class _Packed(nn.Module):
+    """Buffers of one pack (+ activation quant params, + blocked layout)."""
+
+    def __init__(self, pack: PackedLinear, a_qp: QuantParams,
+                 policy: ApproxPolicy, blocked: BlockedPack | None):
+        super().__init__()
+        self.policy = policy
+        for f in _PACK_FIELDS:
+            self.register_buffer(f, getattr(pack, f))
+        self.register_buffer("a_scale", a_qp.scale)
+        self.register_buffer("a_zp", a_qp.zero_point)
+        self._blocked_dims = None
+        for f in _BLOCKED_FIELDS:
+            self.register_buffer(f, getattr(blocked, f) if blocked else None)
+        if blocked is not None:
+            self._blocked_dims = (blocked.k, blocked.n, blocked.bk, blocked.bn)
+
+    @property
+    def pack(self) -> PackedLinear:
+        return PackedLinear(**{f: getattr(self, f) for f in _PACK_FIELDS})
+
+    @property
+    def a_qp(self) -> QuantParams:
+        return QuantParams(self.a_scale, self.a_zp)
+
+    @property
+    def blocked(self) -> BlockedPack | None:
+        if self._blocked_dims is None:
+            return None
+        k, n, bk, bn = self._blocked_dims
+        return BlockedPack(self.w_qb, self.epilogue, self.meta, k, n, bk, bn)
+
+
+class QuantizedDense(_Packed):
+    """Packed approximate linear layer; ``policy`` is static metadata."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _packed_forward(self, x)
+
+
+class QuantizedDenseGroup(_Packed):
+    """Fan-out-fused sibling linears (Q|K|V, gate|up) sharing one input.
+
+    One concatenated pack (per-column weight quant params) runs every
+    member in a single wide-N call: activations are quantized once and the
+    per-row statistics (sumx, sumqa) computed once, so the fused outputs
+    equal the separate member calls bit for bit.  ``members`` are the
+    individually packed layers for decode-shaped calls (see
+    :func:`dense_group`)."""
+
+    def __init__(self, pack, a_qp, policy, blocked, names: tuple[str, ...],
+                 splits: tuple[int, ...], members: list[QuantizedDense]):
+        super().__init__(pack, a_qp, policy, blocked)
+        self.names, self.splits = names, splits
+        self.members = nn.ModuleList(members)
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        return dense_group(self, x)
+
+
+class LayerStack(nn.Module):
+    """A packed (layers, k, n) stack: one packed module per layer, held at
+    the stack's parameter path (the reference keeps one vmapped pack)."""
+
+    def __init__(self, layers: list[nn.Module]):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+    def __getitem__(self, i: int) -> nn.Module:
+        return self.layers[i]
+
+    def __len__(self) -> int:
+        return len(self.layers)
+
+
+def is_linear_params(p: Any) -> bool:
+    """Float linear leaf: 2D weights, or 3D = (layers, k, n) stack."""
+    return isinstance(p, dict) and "w" in p and getattr(p["w"], "ndim", 0) in (2, 3)
+
+
+def layer_params(tree: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked block tree (tensors sliced on axis 0,
+    packed stacks indexed)."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, i) for k, v in tree.items()}
+    if isinstance(tree, LayerStack):
+        return tree[i]
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    return tree
+
+
+def _packed_forward(p: _Packed, x: torch.Tensor) -> torch.Tensor:
+    """Forward dispatch for one packed leaf (or fused group's wide call)."""
+    pol = p.policy
+    if pol.backend == "pallas" and pol.is_approx and pol.groups == 1:
+        from repro_torch.kernels import ops as kops
+
+        if not isinstance(p, QuantizedDenseGroup):
+            return kops.quantized_dense_pallas(x, p).to(x.dtype)
+        if p.blocked is not None:
+            return kops.quantized_dense_fused_op(
+                x, p.blocked, mode=pol.mode, m=pol.m, use_cv=pol.use_cv)
+    return quantized_linear(x, p.pack, p.a_qp, pol.mode, pol.m,
+                            use_cv=pol.use_cv).to(x.dtype)
+
+
+def dense(p: Any, x: torch.Tensor) -> torch.Tensor:
+    """y = x @ W (+ b), under whatever numerics ``p`` encodes."""
+    if isinstance(p, QuantizedDense):
+        return _packed_forward(p, x)
+    w = p["w"]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    y = torch.matmul(x.to(dt), w.to(dt))
+    if p.get("b") is not None:
+        y = y + p["b"]
+    return y
+
+
+def _fuse_m_min() -> int:
+    """Smallest flattened row count that runs the wide fused group call.
+
+    Decode-shaped calls (M <= DECODE_M_MAX) run the members instead: the
+    kernel's decode tiles stream each member's weights once either way,
+    and the members' outputs need no split.  Both paths are bit-identical,
+    so the choice is only about latency."""
+    from repro_torch.kernels import ops as kops
+
+    return kops.DECODE_M_MAX + 1
+
+
+def dense_group(g: QuantizedDenseGroup, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Run a fused fan-out group: one wide-N call, outputs split per member
+    (or, at decode shapes, the members one by one)."""
+    rows = math.prod(x.shape[:-1]) if x.ndim > 1 else 1
+    if len(g.members) and rows < _fuse_m_min():
+        return {name: dense(member, x)
+                for name, member in zip(g.names, g.members)}
+    y = _packed_forward(g, x)
+    return dict(zip(g.names, torch.split(y, list(g.splits), dim=-1)))
+
+
+def init_dense(k: int, n: int, *, generator: torch.Generator, bias: bool = True,
+               scale: float | None = None, device=None,
+               dtype=torch.float32) -> dict:
+    """Trunc-normal linear init (1/sqrt(k) fan-in scaling)."""
+    if scale is None:
+        scale = k ** -0.5
+    w = torch.empty(k, n, device=device, dtype=torch.float32)
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    p = {"w": (w * scale).to(dtype)}
+    if bias:
+        p["b"] = torch.zeros(n, device=device, dtype=dtype)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Offline packing: float params + calibration stats -> packed modules
+# ---------------------------------------------------------------------------
+
+
+def _maybe_blocked(pack: PackedLinear, a_qp: QuantParams,
+                   policy: ApproxPolicy) -> BlockedPack | None:
+    """Offline-blocked kernel layout for pallas-backend single-CV packs."""
+    if not (policy.backend == "pallas" and policy.is_approx
+            and policy.groups == 1):
+        return None
+    k, n = pack.w_q.shape[-2:]
+    bn, bk = serving_blocks(k, n)
+    return build_blocked_layout(pack, a_qp, bn, bk)
+
+
+def _per_layer(p: dict):
+    """[(w, b)] per layer for a 2D leaf or a (layers, k, n) stack."""
+    w, b = p["w"], p.get("b")
+    if w.ndim == 2:
+        return [(w, b)]
+    return [(w[i], None if b is None else b[i]) for i in range(w.shape[0])]
+
+
+def _pack_one(w, b, policy, a_qp) -> QuantizedDense:
+    pack = pack_linear(w, b, policy.mode, policy.m, policy.groups)
+    return QuantizedDense(pack, a_qp, policy, _maybe_blocked(pack, a_qp, policy))
+
+
+def pack_dense(p: dict, policy: ApproxPolicy,
+               act_range: tuple[float, float]) -> nn.Module:
+    """Pack one float linear layer (2D, or a (layers, k, n) stack whose
+    slices get their own quant/CV constants) for the approximate array."""
+    a_qp = calibrate_minmax(act_range[0], act_range[1], device=p["w"].device)
+    layers = [_pack_one(w, b, policy, a_qp) for w, b in _per_layer(p)]
+    return layers[0] if p["w"].ndim == 2 else LayerStack(layers)
+
+
+def pack_dense_group(members: list[tuple[str, dict]], policy: ApproxPolicy,
+                     act_range: tuple[float, float]) -> nn.Module:
+    """Pack sibling linears that consume the SAME activations into one
+    fan-out-fused wide-N pack, keeping the member packs for decode shapes."""
+    names = tuple(name for name, _ in members)
+    leaves = [leaf for _, leaf in members]
+    splits = tuple(int(leaf["w"].shape[-1]) for leaf in leaves)
+    a_qp = calibrate_minmax(act_range[0], act_range[1],
+                            device=leaves[0]["w"].device)
+    per_member = [_per_layer(leaf) for leaf in leaves]
+    groups = []
+    for li in range(len(per_member[0])):
+        mods = [_pack_one(w, b, policy, a_qp)
+                for w, b in (pm[li] for pm in per_member)]
+        pack = concat_packs([mod.pack for mod in mods])
+        groups.append(QuantizedDenseGroup(
+            pack, a_qp, policy, _maybe_blocked(pack, a_qp, policy), names,
+            splits, mods))
+    return groups[0] if leaves[0]["w"].ndim == 2 else LayerStack(groups)
+
+
+#: Sibling sets eligible for fan-out fusion: (member names, fused key,
+#: companion key).  The companion anchors the dict to the module shape
+#: whose call sites feed every member the same input.
+FUSABLE_GROUPS: tuple[tuple[tuple[str, ...], str, str], ...] = (
+    (("q", "k", "v"), "qkv", "o"),
+    (("gate", "up"), "gateup", "down"),
+)
+
+
+def _fusable(node: dict, names, companion, path, policy_fn, act_ranges,
+             default_range):
+    if companion not in node:
+        return None
+    if not all(n in node and is_linear_params(node[n]) for n in names):
+        return None
+    leaves = [node[n] for n in names]
+    w0 = leaves[0]["w"]
+    if any(leaf["w"].shape[:-1] != w0.shape[:-1] for leaf in leaves):
+        return None
+    if len({leaf.get("b") is not None for leaf in leaves}) > 1:
+        return None
+    policies = [policy_fn(path + (n,)) for n in names]
+    if policies[0] is None or any(p != policies[0] for p in policies):
+        return None
+    ranges = [tuple(float(v) for v in (act_ranges or {}).get(
+        "/".join(path + (n,)), default_range)) for n in names]
+    if any(r != ranges[0] for r in ranges):
+        return None
+    return policies[0], ranges[0]
+
+
+def pack_params(params: Any, policy_fn: PolicyFn,
+                act_ranges: dict[str, tuple[float, float]] | None = None,
+                default_range: tuple[float, float] = (-8.0, 8.0),
+                fuse: bool = True) -> Any:
+    """Walk a parameter tree, replacing float linear leaves with packed
+    modules (``policy_fn(path)`` None keeps a leaf float).  With ``fuse``,
+    sibling sets of :data:`FUSABLE_GROUPS` sharing a policy and activation
+    range become one :class:`QuantizedDenseGroup` at key "qkv"/"gateup"."""
+
+    def walk(node: Any, path: tuple[str, ...]) -> Any:
+        if is_linear_params(node):
+            policy = policy_fn(path)
+            if policy is None:
+                return node
+            rng = (act_ranges or {}).get("/".join(path), default_range)
+            return pack_dense(node, policy, rng)
+        if isinstance(node, dict):
+            groups: dict[str, tuple[str, Any]] = {}
+            consumed: set[str] = set()
+            if fuse:
+                for names, gkey, companion in FUSABLE_GROUPS:
+                    if consumed.intersection(names):
+                        continue
+                    hit = _fusable(node, names, companion, path, policy_fn,
+                                   act_ranges, default_range)
+                    if hit is None:
+                        continue
+                    policy, rng = hit
+                    groups[names[0]] = (gkey, pack_dense_group(
+                        [(n, node[n]) for n in names], policy, rng))
+                    consumed.update(names)
+            out: dict[str, Any] = {}
+            for k, v in node.items():
+                if k in groups:
+                    gkey, g = groups[k]
+                    out[gkey] = g
+                elif k not in consumed:
+                    out[k] = walk(v, path + (str(k),))
+            return out
+        return node
+
+    return walk(params, ())
+
+
+def packed_layer_paths(params: Any) -> list[str]:
+    """All paths that hold packed layers, fused groups reported by their
+    member paths, sorted (stable across fused and unfused packs)."""
+    out: list[str] = []
+
+    def walk(node: Any, path: tuple[str, ...]):
+        if isinstance(node, LayerStack):
+            node = node[0]
+        if isinstance(node, QuantizedDenseGroup):
+            out.extend("/".join(path[:-1] + (name,)) for name in node.names)
+        elif isinstance(node, QuantizedDense):
+            out.append("/".join(path))
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (str(k),))
+
+    walk(params, ())
+    return sorted(out)
+
+
+def iter_tensors(tree: Any):
+    """Every tensor of a parameter or cache tree (dicts, modules)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, nn.Module):
+        yield from tree.buffers()
+        yield from tree.parameters()
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from iter_tensors(v)

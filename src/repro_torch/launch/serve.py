@@ -1,0 +1,189 @@
+"""Serving driver (port of the engine part of ``repro.launch.serve``).
+
+A :class:`~repro_torch.numerics.NumericsSpec` (preset, JSON file, or built
+in code) resolves against the float parameters into a plan, and
+:func:`build_serving_params` executes it: float linears become packed
+approximate modules, float leaves outside packs go bf16.  A spec whose
+policy says ``"backend": "pallas"`` runs every approximate layer on the
+hand-written CUDA kernel; the default CLI policy keeps the reference's
+``"jnp"`` backend (the plain exact-integer path).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
+        --spec-json spec.json --requests 8 --slots 4 --max-len 256
+
+runs on the card (``--device cpu`` for the plain path on the CPU).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ArchConfig, EngineConfig
+from repro_torch.core.policy import ApproxPolicy
+from repro_torch.models import build_model
+from repro_torch.numerics import (NumericsSpec, PackPlan, apply_numerics,
+                                  get_preset)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Serving numerics + cache configuration.  ``spec`` is the source of
+    truth; ``policy`` alone is wrapped into the ``serve-default`` preset."""
+
+    spec: NumericsSpec | None = None
+    policy: ApproxPolicy | None = None
+    act_range: tuple[float, float] = (-8.0, 8.0)  # default when uncalibrated
+    cache_dtype: str = "bfloat16"
+    fuse: bool = True  # fan-out fusion (Q|K|V, gate|up groups)
+
+    def numerics_spec(self) -> NumericsSpec:
+        if self.spec is not None:
+            return self.spec
+        return get_preset("serve-default", policy=self.policy)
+
+
+def _to_device(tree: Any, dev: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    return tree
+
+
+def build_serving_params(params: Any, cfg: ArchConfig, scfg: ServeConfig,
+                         act_ranges: dict | None = None,
+                         plan: PackPlan | None = None, device=None) -> Any:
+    """float params -> packed serving params on ``device`` (default
+    ``cuda``; raises without it).  Only float leaves OUTSIDE packs go bf16;
+    pack internals stay exact."""
+    params = _to_device(params, resolve_device(device))
+    if plan is None:
+        plan = scfg.numerics_spec().resolve(params)
+    packed = apply_numerics(params, plan, act_ranges=act_ranges,
+                            default_range=scfg.act_range, fuse=scfg.fuse)
+
+    def walk(node):
+        if isinstance(node, nn.Module):
+            return node
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if (isinstance(node, torch.Tensor) and node.dtype == torch.float32
+                and node.ndim >= 1):
+            return node.to(torch.bfloat16)
+        return node
+
+    return walk(packed)
+
+
+def _spec_from_args(args) -> NumericsSpec | None:
+    """--spec-json wins, then --preset, then --mode/--m shorthand; None is
+    float serving (no packing)."""
+    if getattr(args, "spec_json", None):
+        with open(args.spec_json) as f:
+            return NumericsSpec.from_json(f.read())
+    if getattr(args, "preset", None):
+        return get_preset(args.preset)
+    if args.mode == "float":
+        return None
+    policy = ApproxPolicy(args.mode, 0 if args.mode == "exact" else args.m,
+                          use_cv=not args.no_cv)
+    return get_preset("serve-default", policy=policy)
+
+
+def mixed_trace(cfg: ArchConfig, n_requests: int, max_len: int,
+                prefill_chunk: int, seed: int = 0):
+    """A heterogeneous request trace: short chat turns + long documents
+    (the reference's generator: same seed, same trace)."""
+    rng = np.random.default_rng(seed)
+    trace = []
+    for i in range(n_requests):
+        if i % 3 == 2:  # long-document request
+            plen = int(rng.integers(max_len // 2,
+                                    max(max_len - 16, max_len // 2 + 1)))
+        else:  # short chat turn
+            plen = int(rng.integers(2, max(prefill_chunk, 3)))
+        gen = int(rng.integers(4, 17))
+        gen = min(gen, max_len - plen)
+        plen = min(plen, max_len - gen)
+        trace.append((rng.integers(0, cfg.vocab, plen).tolist(), gen))
+    return trace
+
+
+def run_engine(args) -> dict:
+    """Serve ``mixed_trace`` through the engine; returns the metrics
+    snapshot."""
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config(args.arch)
+    api = build_model(cfg, args.device)
+    params = api.init(0)
+    spec = _spec_from_args(args)
+    label = "float"
+    if spec is not None:
+        params = build_serving_params(params, cfg, ServeConfig(spec=spec),
+                                      device=api.device)
+        label = spec.name
+    ecfg = EngineConfig(slots=args.slots, max_len=args.max_len,
+                        prefill_chunk=args.chunk, cache_dtype=args.cache_dtype,
+                        mixed_batches=not args.no_mixed)
+    eng = ServingEngine(cfg, params, ecfg, api=api, numerics=label)
+    print(f"arch={cfg.name} numerics={label} slots={ecfg.slots} "
+          f"max_len={ecfg.max_len} chunk={ecfg.prefill_chunk} "
+          f"kv={ecfg.cache_dtype} mixed={ecfg.mixed_batches} "
+          f"device={api.device}")
+    trace = mixed_trace(cfg, args.requests, ecfg.max_len, ecfg.prefill_chunk)
+    for prompt, gen in trace:
+        r = eng.submit(prompt, gen)
+        if r.state.value == "rejected":
+            print(f"  request {r.rid} rejected: {r.reject_reason}")
+    finished = eng.run()
+    snap = eng.snapshot()
+    print(f"finished {len(finished)}/{len(trace)} requests")
+    print(json.dumps(snap, indent=2))
+    for r in finished[:4]:
+        print(f"  req {r.rid}: prompt {r.prompt_len:4d} -> gen "
+              f"{len(r.generated):3d} [{r.finish_reason}] "
+              f"sample {r.generated[:8]}")
+    return snap
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="olmo-1b-reduced")
+    ap.add_argument("--mode", default="perforated",
+                    choices=["float", "exact", "perforated", "recursive",
+                             "truncated"])
+    ap.add_argument("--m", type=int, default=2)
+    ap.add_argument("--no-cv", action="store_true")
+    ap.add_argument("--preset", default=None, help="numerics preset name")
+    ap.add_argument("--spec-json", default=None, metavar="FILE",
+                    help="serve under a NumericsSpec JSON file (the same "
+                    "payload the reference package reads)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--chunk", type=int, default=32)
+    ap.add_argument("--cache-dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
+    ap.add_argument("--no-mixed", action="store_true",
+                    help="alternate prefill and decode batches instead of "
+                    "mixing decode rows into chunk-shaped calls")
+    ap.add_argument("--device", default="cuda",
+                    help="device to serve on (cuda by default; cpu runs the "
+                    "plain PyTorch path)")
+    run_engine(ap.parse_args(argv))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

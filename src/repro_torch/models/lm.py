@@ -1,0 +1,167 @@
+"""Dense GQA transformer LM, slot-serving surface (port of the
+continuous-batching part of ``repro.models.lm``).
+
+Parameters are a nested dict keyed like the reference's tree: ``embed``,
+``blocks`` (every leaf stacked with a leading layer axis, as the
+reference's scanned stack; packed stacks are ``LayerStack`` modules) and
+``final_norm``.  The layer ``lax.scan`` becomes a Python loop.
+
+The pooled slot cache is ``{"k", "v": (L, slots, Hkv, S, hd),
+"lengths": (slots,) int32}``.  :func:`decode_slots` UPDATES IT IN PLACE
+(the K/V writes and the cursor advance) and returns the same dict; the
+reference returns a new pytree, which at olmo-1b width would copy the whole
+cache every step.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.approx_linear import QuantizedDense, dense, layer_params
+from repro_torch.nn import attention as attn_lib
+from repro_torch.nn.layers import (apply_norm, embed, init_norm, init_swiglu,
+                                   swiglu)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
+    """Seeded float32 init (the reference's distributions: normal*0.02
+    embedding, trunc-normal/sqrt(fan-in) linears), built on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d = cfg.d_model
+    table = torch.randn(cfg.vocab, d, generator=gen, device=device) * 0.02
+    layers = []
+    for _ in range(cfg.n_layers):
+        layers.append({
+            "attn_norm": init_norm(cfg.norm, d, device),
+            "mlp_norm": init_norm(cfg.norm, d, device),
+            "attn": attn_lib.init_attention(cfg.attn_config(), generator=gen,
+                                            device=device),
+            "mlp": init_swiglu(d, cfg.d_ff, generator=gen, device=device),
+        })
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return torch.stack(nodes)
+
+    p = {"embed": {"table": table}, "blocks": stack(layers),
+         "final_norm": init_norm(cfg.norm, d, device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = {"w": torch.randn(d, cfg.vocab, generator=gen,
+                                         device=device) * d ** -0.5}
+    return p
+
+
+def _logits_head(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Unembedding (tied table or linear leaf, float or packed) -> f32."""
+    head = params.get("lm_head", params["embed"])
+    if isinstance(head, QuantizedDense):
+        return dense(head, x).to(torch.float32)
+    w = head["table"].T if "table" in head else head["w"]
+    return torch.matmul(x, w.to(x.dtype)).to(torch.float32)
+
+
+def init_slot_cache(cfg: ArchConfig, slots: int, max_len: int,
+                    dtype=torch.bfloat16, device=None) -> dict:
+    """Pooled (slots, ...) decode cache with per-slot write cursors."""
+    shape = (cfg.n_layers, slots, cfg.kv_heads, max_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "lengths": torch.zeros(slots, dtype=torch.int32, device=device)}
+
+
+def rollback_slots(cache: dict, new_lengths) -> dict:
+    """Retreat per-slot write cursors (in place).  A cursor move is a
+    complete rollback: positions >= lengths[b] are masked and overwritten
+    before they are attended."""
+    cache["lengths"].copy_(torch.as_tensor(np.asarray(new_lengths),
+                                           dtype=torch.int32))
+    return cache
+
+
+def _slot_update(cache_arr: torch.Tensor, update: torch.Tensor, idx) -> None:
+    """Per-row write, in place: row b's first ``n_valid[b]`` update columns
+    land at [lengths[b], lengths[b] + n_valid[b]) on the -2 axis.  ``idx``
+    = (row, cache column, update column) of every valid entry; padding
+    columns are not written at all, so no write can clamp over history.
+    cache_arr (B, H, S, d), update (B, H, C, d)."""
+    rows, cols, src = idx
+    cache_arr[rows, :, cols] = update[rows, :, src]
+
+
+def _gqa_slots(bp: dict, h: torch.Tensor, lc: dict, idx, angles, mask,
+               cfg: ArchConfig) -> torch.Tensor:
+    """Multi-token slot attention.  h (B, C, D); lc k/v (B, Hkv, S, hd)
+    views of the pooled cache (written in place); ``angles`` the RoPE
+    tables and ``mask`` (B, C, S) the visible keys, both shared by every
+    layer of the step."""
+    acfg = cfg.attn_config()
+    b, c, _ = h.shape
+    q, k, v = attn_lib._project_qkv(bp, h, acfg, angles)
+    _slot_update(lc["k"], attn_lib._to_cache(k.transpose(1, 2),
+                                             lc["k"].dtype), idx)
+    _slot_update(lc["v"], attn_lib._to_cache(v.transpose(1, 2),
+                                             lc["v"].dtype), idx)
+    hq, hkv, d = acfg.n_heads, acfg.kv_heads, acfg.head_dim
+    qg = q.reshape(b, c, hkv, hq // hkv, d)
+    logits = torch.einsum("bqhgd,bhkd->bhgqk", qg,
+                          attn_lib._from_cache(lc["k"], q.dtype)) * (d ** -0.5)
+    logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
+    ctx = torch.einsum("bhgqk,bhkd->bqhgd", probs,
+                       attn_lib._from_cache(lc["v"], q.dtype))
+    return dense(bp["o"], ctx.reshape(b, c, acfg.q_dim))
+
+
+def _block_decode_slots(bp: dict, x: torch.Tensor, lc: dict, idx, angles,
+                        mask, cfg: ArchConfig) -> torch.Tensor:
+    h = apply_norm(cfg.norm, bp.get("attn_norm"), x)
+    a = _gqa_slots(bp["attn"], h, lc, idx, angles, mask, cfg)
+    x = (x + a).to(x.dtype)
+    h = apply_norm(cfg.norm, bp.get("mlp_norm"), x)
+    return (x + swiglu(bp["mlp"], h)).to(x.dtype)
+
+
+def decode_slots(params: dict, tokens: torch.Tensor, cache: dict,
+                 cfg: ArchConfig, n_valid) -> tuple[torch.Tensor, dict]:
+    """Fixed-shape continuous-batching step.
+
+    tokens (slots, C) int — row b's first ``n_valid[b]`` entries are real
+    (a prompt chunk, or one decode token), the rest padding.  Returns
+    (logits (slots, C, V) float32, cache), the cache UPDATED IN PLACE with
+    per-row cursors advanced by ``n_valid``.  Row b's next token is read at
+    column ``n_valid[b] - 1``.
+    """
+    b, c = tokens.shape
+    dev = tokens.device
+    lengths = cache["lengths"].cpu().numpy().astype(np.int64)
+    nv = np.asarray(n_valid.cpu() if torch.is_tensor(n_valid) else n_valid,
+                    dtype=np.int64)
+    pos = lengths[:, None] + np.arange(c)[None, :]
+    rows, src = np.nonzero(np.arange(c)[None, :] < nv[:, None])
+    cols = pos[rows, src]
+    s = cache["k"].shape[3]
+    if cols.size and cols.max() >= s:
+        raise ValueError(f"slot write past the cache capacity {s}")
+    idx = tuple(torch.as_tensor(a, device=dev) for a in (rows, cols, src))
+    positions = torch.as_tensor(pos, device=dev)
+    angles = attn_lib._angles(cfg.attn_config(), positions)
+    # causal + filled-cache combined: key j visible to query i iff j <= pos_i
+    mask = torch.arange(s, device=dev)[None, None, :] <= positions[:, :, None]
+
+    x = embed(params["embed"], tokens).to(_dtype(cfg.compute_dtype))
+    for i in range(cfg.n_layers):
+        lc = {"k": cache["k"][i], "v": cache["v"][i]}
+        x = _block_decode_slots(layer_params(params["blocks"], i), x, lc, idx,
+                                angles, mask, cfg)
+    cache["lengths"] += torch.as_tensor(nv, dtype=torch.int32, device=dev)
+    x = apply_norm(cfg.norm, params.get("final_norm"), x)
+    return _logits_head(params, x), cache

@@ -1,0 +1,85 @@
+"""Common layers: norms, embeddings, swiglu MLP, rotary embeddings.
+
+Port of ``repro.nn.layers`` (the parts the dense GQA path runs).  Linear
+leaves are ``{"w": (k, n)[, "b": (n,)]}`` or packed modules, consumed by
+:func:`repro_torch.core.approx_linear.dense`.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.approx_linear import dense, dense_group, init_dense
+
+
+def layernorm(p: dict | None, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Parametric LN, or non-parametric (olmo-style) when ``p`` is None."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    if p is not None:
+        x = x * p["scale"] + p["bias"]
+    return x.to(dt)
+
+
+def init_norm(kind: str, d: int, device=None) -> dict:
+    """Norm parameters; the non-parametric LN (the only kind ported) has
+    none."""
+    if kind == "nonparametric_ln":
+        return {}
+    raise NotImplementedError(f"norm {kind!r} is not ported yet")
+
+
+def apply_norm(kind: str, p, x: torch.Tensor) -> torch.Tensor:
+    if kind == "nonparametric_ln":
+        return layernorm(None, x)
+    raise NotImplementedError(f"norm {kind!r} is not ported yet")
+
+
+def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]
+
+
+def init_swiglu(d: int, ff: int, *, generator, device=None) -> dict:
+    return {name: init_dense(k, n, generator=generator, bias=False,
+                             device=device)
+            for name, (k, n) in (("gate", (d, ff)), ("up", (d, ff)),
+                                 ("down", (ff, d)))}
+
+
+def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    if "gateup" in p:  # fan-out-fused serving pack
+        gu = dense_group(p["gateup"], x)
+        g, u = gu["gate"], gu["up"]
+    else:
+        g, u = dense(p["gate"], x), dense(p["up"], x)
+    return dense(p["down"], F.silu(g) * u)
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    """Inverse frequencies, shape (head_dim // 2,)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float = 10000.0):
+    """cos/sin for integer positions (..., T) -> (..., T, head_dim//2)."""
+    ang = positions[..., None].to(torch.float32) * rope_freqs(
+        head_dim, theta, positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (B, T, H, D) with cos/sin (B, T, D//2); rotate-half convention."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    cos, sin = cos[..., None, :], sin[..., None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)

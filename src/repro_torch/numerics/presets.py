@@ -1,0 +1,55 @@
+"""Named NumericsSpec presets (port of ``repro.numerics.presets``).
+
+  * ``serve-default`` — the serving keep-float rule-set plus one uniform
+    policy (perforated m=2 + CV by default) everywhere else;
+  * ``int8`` — the same rule-set, exact int8 everywhere else.
+"""
+
+from __future__ import annotations
+
+from repro_torch.core.policy import INT8_EXACT, ApproxPolicy
+from repro_torch.numerics.spec import FLOAT, NumericsSpec, Rule
+
+#: The serving keep-float rule-set (segment-anchored globs).
+SERVE_FLOAT_RULES: tuple[Rule, ...] = (
+    Rule("embed*", FLOAT, note="token embedding: a lookup, not a GEMM"),
+    Rule("router", FLOAT, note="MoE router: control logic stays exact"),
+    Rule("kv_a", FLOAT, note="MLA latent down-proj: absorbed-decode einsum"),
+    Rule("kv_b", FLOAT, note="MLA latent up-proj: absorbed-decode einsum"),
+    Rule("*norm", FLOAT, note="norm scales: elementwise, no MAC array"),
+    Rule("dt_proj", FLOAT, note="SSM dt projection: tiny, timestep-critical"),
+    Rule("x_proj", FLOAT, note="SSM input mix: tiny low-rank projection"),
+)
+
+
+def serve_default(policy: ApproxPolicy | None = None) -> NumericsSpec:
+    pol = policy if policy is not None else ApproxPolicy("perforated", 2,
+                                                         use_cv=True)
+    return NumericsSpec(name=f"serve-default[{pol.label()}]",
+                        rules=SERVE_FLOAT_RULES, default=pol)
+
+
+def int8() -> NumericsSpec:
+    return NumericsSpec(name="int8", rules=SERVE_FLOAT_RULES,
+                        default=INT8_EXACT)
+
+
+PRESETS = {"serve-default": serve_default, "int8": int8}
+
+
+def get_preset(name: str, **kwargs) -> NumericsSpec:
+    """Build a named preset spec (``policy=`` for serve-default)."""
+    try:
+        builder = PRESETS[name]
+    except KeyError:
+        raise ValueError(f"unknown numerics preset {name!r}; "
+                         f"known: {sorted(PRESETS)}") from None
+    return builder(**kwargs)
+
+
+def uniform_spec(policy: ApproxPolicy | None, rules: tuple[Rule, ...] = (),
+                 name: str | None = None) -> NumericsSpec:
+    """One policy everywhere (after ``rules``)."""
+    label = "float" if policy is None else policy.label()
+    return NumericsSpec(name=name or f"uniform[{label}]", rules=rules,
+                        default=policy)

@@ -1,0 +1,62 @@
+"""Pooled, slot-indexed KV-cache manager (port of
+``repro.serving.kv_pool``).
+
+One preallocated cache holds ``(L, slots, heads, max_len, head_dim)`` K/V
+in the serving cache dtype with a per-slot write cursor
+(``cache["lengths"]``).  Slots are recycled by resetting the cursor: the
+attention mask hides stale entries and the next occupant overwrites them.
+The model step updates the cache in place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.registry import ModelApi
+
+_CACHE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class SlotPool:
+    """Fixed number of sequence slots over one pooled cache."""
+
+    def __init__(self, api: ModelApi, slots: int, max_len: int,
+                 cache_dtype: str = "bfloat16") -> None:
+        try:
+            dtype = _CACHE_DTYPES[cache_dtype]
+        except KeyError:
+            raise ValueError(f"unknown cache_dtype {cache_dtype!r}; valid "
+                             f"choices: {sorted(_CACHE_DTYPES)}") from None
+        self.slots = slots
+        self.max_len = max_len
+        self.cache = api.init_slot_cache(slots, max_len, dtype)
+        self._free: list[int] = list(range(slots - 1, -1, -1))  # slot 0 first
+        self._owner: dict[int, int] = {}
+
+    def acquire(self, rid: int) -> int | None:
+        """Claim a free slot for request ``rid`` (cursor reset to 0)."""
+        if not self._free:
+            return None
+        slot = self._free.pop()
+        self._owner[slot] = rid
+        self.cache["lengths"][slot] = 0
+        return slot
+
+    def acquire_for(self, req) -> int | None:
+        return self.acquire(req.rid)
+
+    def release(self, slot: int) -> None:
+        del self._owner[slot]
+        self._free.append(slot)
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_active(self) -> int:
+        return self.slots - len(self._free)
+
+    @property
+    def occupancy(self) -> float:
+        return self.n_active / self.slots

@@ -1,0 +1,82 @@
+"""The port stands alone: no JAX and nothing of the reference package, and
+its entry points run on the card unless the caller asks for the CPU."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _imports(path: pathlib.Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_and_no_reference_imports(path):
+    bad = {n for n in _imports(path)
+           if n.split(".")[0] in ("jax", "jaxlib", "flax", "repro")}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_port_runs_with_jax_unimportable():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import torch
+        from repro_torch.configs import get_config
+        from repro_torch.core.policy import ApproxPolicy
+        from repro_torch.launch.serve import ServeConfig, build_serving_params
+        from repro_torch.models import build_model
+        cfg = get_config("olmo-1b-reduced")
+        api = build_model(cfg, "cpu")
+        params = build_serving_params(api.init(0), cfg, ServeConfig(
+            policy=ApproxPolicy("perforated", 2, backend="pallas")),
+            device="cpu")
+        cache = api.init_slot_cache(2, 16, torch.bfloat16)
+        logits, cache = api.decode_slots(
+            params, torch.zeros(2, 4, dtype=torch.long), cache, [4, 2])
+        assert logits.shape == (2, 4, cfg.vocab) and torch.isfinite(logits).all()
+        assert cache["lengths"].tolist() == [4, 2]
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch.configs import EngineConfig, get_config
+    from repro_torch.launch.serve import ServeConfig, build_serving_params
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config("olmo-1b-reduced")
+    params = build_model(cfg, "cpu").init(0)
+    if torch.cuda.is_available():
+        assert build_model(cfg).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, params, EngineConfig(slots=2, max_len=16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_serving_params(params, cfg, ServeConfig())
