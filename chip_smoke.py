@@ -31,8 +31,6 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("device", "build", "kernels", "main", "times")
-
 #: data-sheet peaks by card name: (memory bytes/s, dense int8 ops/s)
 CARD_PEAKS = {
     "H100 80GB HBM3": (3.35e12, 1979e12),  # SXM5
@@ -75,7 +73,7 @@ def peaks(name: str) -> tuple[float, float]:
     for key, val in CARD_PEAKS.items():
         if key in name:
             return val
-    return CARD_PEAKS["H100 80GB HBM3"]
+    fail(f"no data-sheet peaks for card {name!r}: add it to CARD_PEAKS")
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +112,6 @@ def close(torch, got, want) -> float:
 def check_kernels(torch, dev) -> dict:
     """Phase 3: both kernels against their plain versions on the card."""
     from repro_torch.kernels import approx_matmul as amk
-    from repro_torch.kernels import ops
     from repro_torch.core import multipliers as am
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -127,10 +124,9 @@ def check_kernels(torch, dev) -> dict:
                                               fused_members=3 if n == 6144 else 1)
             for dt in (torch.bfloat16, torch.float32):
                 x = (torch.randn(mm, k, generator=gen, device=dev) * 1.5).to(dt)
-                dec = ops._pick_blocks(mm) == amk.DECODE_TILE
                 got = amk.approx_matmul_cv_fused(
                     x, blocked.w_qb, blocked.epilogue, blocked.meta, k=k, n=n,
-                    mode=mode, m=m, use_cv=True, decode=dec)
+                    mode=mode, m=m, use_cv=True)
                 want = amk.approx_matmul_cv_fused_plain(
                     x, blocked.w_qb, blocked.epilogue, blocked.meta, k=k, n=n,
                     mode=mode, m=m, use_cv=True)
@@ -148,8 +144,7 @@ def check_kernels(torch, dev) -> dict:
                                 device=dev)
             bias = torch.randn(n, generator=gen, device=dev)
             args = (a_q, pack.w_q, pack.c, pack.c0, pack.sum_qw, bias, meta)
-            got = amk.approx_matmul_cv(*args, mode=mode, m=m,
-                                       decode=mm <= ops.DECODE_M_MAX)
+            got = amk.approx_matmul_cv(*args, mode=mode, m=m)
             want = amk.approx_matmul_cv_plain(*args, mode=mode, m=m)
             torch.cuda.synchronize()
             errs["approx_matmul_cv"] = max(errs["approx_matmul_cv"],
@@ -171,13 +166,13 @@ def check_kernels(torch, dev) -> dict:
             meta[0, 0], meta[0, 2] = 1.0, float(k)  # sa, true_k
             got1 = amk.approx_matmul_cv_fused(
                 a_q.float(), w_q, epi, meta, k=k, n=n, mode=mode, m=m,
-                use_cv=False, decode=mm <= ops.DECODE_M_MAX)
+                use_cv=False)
             zeros = torch.zeros(n, device=dev)
             got2 = amk.approx_matmul_cv(
                 a_q, w_q, zeros, zeros, torch.zeros(n, dtype=torch.int32,
                                                     device=dev), zeros,
                 torch.tensor([1.0, 1.0, 0.0, 0.0, float(k)], device=dev),
-                mode=mode, m=m, use_cv=False, decode=mm <= ops.DECODE_M_MAX)
+                mode=mode, m=m, use_cv=False)
             torch.cuda.synchronize()
             for name, got in (("fused", got1), ("codes", got2)):
                 if not torch.equal(got, want):
@@ -230,7 +225,6 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
     library matmul the approximate layer replaces, and the bound
     (perforated m=2 + CV, bf16 activations, as served)."""
     from repro_torch.kernels import approx_matmul as amk
-    from repro_torch.kernels import ops
 
     bw, int8_peak = peaks(card)
     mode, m = "perforated", 2
@@ -255,11 +249,10 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
                             dtype=torch.uint8)
         meta5 = torch.tensor([0.015, 0.02, 7.0, 131.0, float(k)], device=dev)
         bias = torch.zeros(n, device=dev)
-        dec = ops._pick_blocks(mm) == amk.DECODE_TILE
         fused = dict(
             kern=[lambda b=b: amk.approx_matmul_cv_fused(
-                x, b.w_qb, b.epilogue, b.meta, k=k, n=n, mode=mode, m=m,
-                decode=dec) for b in blks],
+                x, b.w_qb, b.epilogue, b.meta, k=k, n=n, mode=mode, m=m)
+                for b in blks],
             plain=[lambda b=b: amk.approx_matmul_cv_fused_plain(
                 x, b.w_qb, b.epilogue, b.meta, k=k, n=n, mode=mode, m=m)
                 for b in blks[:2]],
@@ -268,7 +261,7 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
         codes = dict(
             kern=[lambda w=w: amk.approx_matmul_cv(
                 a_q, w, pack.c, pack.c0, pack.sum_qw, bias, meta5, mode=mode,
-                m=m, decode=dec) for w in wqs],
+                m=m) for w in wqs],
             plain=[lambda w=w: amk.approx_matmul_cv_plain(
                 a_q, w, pack.c, pack.c0, pack.sum_qw, bias, meta5, mode=mode,
                 m=m) for w in wqs[:2]],
@@ -383,8 +376,9 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
     chunk_steps = snap["prefill_steps"] + snap["mixed_steps"]
     expected = cfg.n_layers * (4 * chunk_steps + 7 * snap["decode_steps"])
     print(f"main: steps prefill={snap['prefill_steps']} mixed="
-          f"{snap['mixed_steps']} decode={snap['decode_steps']}; launches "
-          f"{launches} expected fused {expected}", flush=True)
+          f"{snap['mixed_steps']} decode={snap['decode_steps']}; wrapper "
+          f"launches {launches} expected fused {expected} (each fused call "
+          f"is two CUDA launches: quantize, then matmul)", flush=True)
     if launches["approx_matmul_cv_fused"] != expected:
         fail(f"main: {launches['approx_matmul_cv_fused']} fused launches, the "
              f"schedule implies {expected}")
@@ -427,14 +421,23 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
 
     @contextlib.contextmanager
     def plain_kernels():
-        kern = amk.approx_matmul_cv_fused
-        amk.approx_matmul_cv_fused = (
-            lambda *a, decode=False, **kw:
-            amk.approx_matmul_cv_fused_plain(*a, **kw))
+        """Swaps the fused wrapper for its plain version; fails unless the
+        plain version ran and the kernel did not."""
+        kern, before, calls = (amk.approx_matmul_cv_fused,
+                               amk.approx_matmul_cv_fused.launches, [0])
+
+        def plain(*a, **kw):
+            calls[0] += 1
+            return amk.approx_matmul_cv_fused_plain(*a, **kw)
+
+        amk.approx_matmul_cv_fused = plain
         try:
             yield
         finally:
             amk.approx_matmul_cv_fused = kern
+        if calls[0] == 0 or kern.launches != before:
+            fail(f"main: plain run made {calls[0]} plain calls and "
+                 f"{kern.launches - before} kernel launches")
 
     thin = toks[:, :1]
     lk_thin = api.decode_slots(packed, thin, api.init_slot_cache(
@@ -454,7 +457,7 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
     breakdown = {kind: profile_call(torch, api, packed, ecfg, c)
                  for kind, c in (("thin", 1), ("chunk", ecfg.prefill_chunk))}
 
-    print("main: " + json.dumps({
+    main_line = json.dumps({
         "requests_finished": snap["requests_finished"],
         "generated_tokens": snap["generated_tokens"],
         "prompt_tokens": snap["prompt_tokens"],
@@ -464,7 +467,10 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
         "ttft_p50_s": snap["ttft_p50_s"], "ttft_p95_s": snap["ttft_p95_s"],
         "itl_p50_s": snap["itl_p50_s"], "itl_p95_s": snap["itl_p95_s"],
         "peak_mem_gib": peak / 2**30, "pack_gib": pack_bytes / 2**30,
-        "launches": launches, "step_breakdown": breakdown}), flush=True)
+        "launches": launches, "step_breakdown": breakdown})
+    print("main: " + main_line, flush=True)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "main_path.json").write_text(main_line + "\n")
     return launches
 
 
@@ -532,13 +538,10 @@ def profile_call(torch, api, params, ecfg, c: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {PHASES}")
     ap.add_argument("--layers", type=int, default=16,
                     help="olmo-1b depth for the main path (widths are never "
                     "cut)")
     args = ap.parse_args()
-    phases = args.phases.split(",")
 
     import torch
 
@@ -548,6 +551,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = card_line()
+    peaks(card)  # a card without data-sheet peaks fails here, not at the end
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {card}; allow_tf32 matmul="
@@ -567,42 +571,37 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print("  ptxas " + line.strip(), flush=True)
 
-    errs = {"approx_matmul_cv_fused": None, "approx_matmul_cv": None}
-    if "kernels" in phases:
-        errs = check_kernels(torch, dev)
-
-    launches = {"approx_matmul_cv_fused": 0, "approx_matmul_cv": 0}
-    if "main" in phases:
-        launches = run_main_path(torch, dev, args.layers)
-
-    if "times" in phases:
-        rows = kernel_times(torch, dev, card)
-        (ROOT / "chiprun_out").mkdir(exist_ok=True)
-        (ROOT / "chiprun_out" / "kernel_times.json").write_text(
-            json.dumps({"card": card, "rows": rows}, indent=1))
-        entries = []
-        for name, src_line in (("approx_matmul_cv_fused", 332),
-                               ("approx_matmul_cv", 166)):
-            dec = step_entry(rows, name, DECODE_KN, 4)
-            pre = step_entry(rows, name, PREFILL_KN, 128)
-            print(f"{name} per layer, decode step (7 launches, M=4): "
-                  + json.dumps(dec), flush=True)
-            print(f"{name} per layer, prefill step (4 launches, M=128): "
-                  + json.dumps(pre), flush=True)
-            entries.append({
-                "name": name, "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/approx_matmul.cu",
-                "replaces": f"src/repro/kernels/approx_matmul.py:{src_line}",
-                "launches": launches[name],
-                "max_abs_err": errs[name],
-                "ms": (dec["kernel_us"] + pre["kernel_us"]) / 1e3,
-                "plain_ms": (dec["plain_us"] + pre["plain_us"]) / 1e3,
-                "bound_ms": (dec["bound_us"] + pre["bound_us"]) / 1e3,
-                "bound_by": dec["bound_by"],
-                "library_ms": (dec["library_us"] + pre["library_us"]) / 1e3,
-            })
-        print(card, flush=True)
-        print(json.dumps({"kernels": entries}), flush=True)
+    errs = check_kernels(torch, dev)
+    launches = run_main_path(torch, dev, args.layers)
+    rows = kernel_times(torch, dev, card)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "kernel_times.json").write_text(
+        json.dumps({"card": card, "rows": rows}, indent=1))
+    entries = []
+    for name, src_line in (("approx_matmul_cv_fused", 332),
+                           ("approx_matmul_cv", 166)):
+        dec = step_entry(rows, name, DECODE_KN, 4)
+        pre = step_entry(rows, name, PREFILL_KN, 128)
+        print(f"{name} per layer, decode step (7 launches, M=4): "
+              + json.dumps(dec), flush=True)
+        print(f"{name} per layer, prefill step (4 launches, M=128): "
+              + json.dumps(pre), flush=True)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/approx_matmul.cu",
+            "replaces": f"src/repro/kernels/approx_matmul.py:{src_line}",
+            # wrapper calls on the main path (a fused call runs the
+            # quantize kernel and the matmul kernel)
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": (dec["kernel_us"] + pre["kernel_us"]) / 1e3,
+            "plain_ms": (dec["plain_us"] + pre["plain_us"]) / 1e3,
+            "bound_ms": (dec["bound_us"] + pre["bound_us"]) / 1e3,
+            "bound_by": dec["bound_by"],
+            "library_ms": (dec["library_us"] + pre["library_us"]) / 1e3,
+        })
+    print(card, flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,7 +7,7 @@ Two entries of one hand-written CUDA source (``csrc/approx_matmul.cu``):
   ``_fused_kernel``): float activations against an offline-blocked pack
   (uint8 codes + (EPI_ROWS, Nb) epilogue table + meta scalars).  One
   wrapper call quantizes x once on the card (a small quantize kernel) and
-  runs the tensor-core matmul with the CV epilogue; it counts as one launch;
+  runs the tensor-core matmul with the CV epilogue: two CUDA launches;
 * :func:`approx_matmul_cv` replaces ``approx_matmul_cv`` (body ``_kernel``):
   the same arithmetic over pre-quantized codes with per-tensor quant params.
 
@@ -19,7 +19,9 @@ design notes are in the source.  The source is compiled with ``nvcc`` for
 Each wrapper takes a CPU tensor to its plain PyTorch version
 (``*_plain``, the float64-exact integer product of
 :mod:`repro_torch.core.multipliers`) and, for a CUDA tensor, launches the
-kernel or raises.  ``<wrapper>.launches`` counts kernel launches.
+kernel or raises.  ``<wrapper>.launches`` counts the wrapper's calls that
+launched on the card (for the fused entry, each such call is the quantize
+kernel plus the matmul kernel).
 """
 
 from __future__ import annotations
@@ -50,9 +52,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               # step by step like the reference's separate operations
               "-fmad=false", "-Xptxas", "-v")
 
-#: the kernel's tile configurations (BM, BN, BK), as compiled in the source
-DECODE_TILE = (16, 32, 512)
-PREFILL_TILE = (64, 64, 128)
+#: Row counts at or below this are decode-shaped (engine slot counts): the
+#: kernel runs its thin-M tile configuration, whose blocks each stream a
+#: narrow column strip of the weights once.
+DECODE_M_MAX = 8
 
 #: largest fan-in whose accumulators stay exact in 32 bits: 255*255*K < 2^31
 MAX_K = 33025
@@ -185,13 +188,11 @@ def approx_matmul_cv_fused_plain(x: torch.Tensor, w_qb: torch.Tensor,
 def approx_matmul_cv_fused(x: torch.Tensor, w_qb: torch.Tensor,
                            epilogue: torch.Tensor, meta: torch.Tensor, *,
                            k: int, n: int, mode: am.Mode, m: int,
-                           use_cv: bool = True,
-                           decode: bool = False) -> torch.Tensor:
+                           use_cv: bool = True) -> torch.Tensor:
     """Fused float -> float approximate matmul over a blocked pack.
 
     x (M, k) float32/bfloat16; w_qb (Kb, Nb) uint8; epilogue (EPI_ROWS, Nb)
     float32; meta (1, META_LEN) float32.  Returns (M, n) in x's dtype.
-    ``decode`` selects the thin-M tile configuration (M <= 8).
     """
     if x.device.type == "cpu":
         return approx_matmul_cv_fused_plain(x, w_qb, epilogue, meta, k=k, n=n,
@@ -223,7 +224,7 @@ def approx_matmul_cv_fused(x: torch.Tensor, w_qb: torch.Tensor,
     status = lib.am_fused_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(), ldq,
         w_qb.data_ptr(), nb, w_vec, epilogue.data_ptr(), meta.data_ptr(),
-        out.data_ptr(), mm, k, n, int(decode), *_mode_args(mode, m, use_cv),
+        out.data_ptr(), mm, k, n, int(mm <= DECODE_M_MAX), *_mode_args(mode, m, use_cv),
         torch.cuda.current_stream(x.device).cuda_stream)
     _launch_status("approx_matmul_cv_fused", status)
     approx_matmul_cv_fused.launches += 1
@@ -260,8 +261,7 @@ def approx_matmul_cv_plain(a_q: torch.Tensor, w_q: torch.Tensor,
 def approx_matmul_cv(a_q: torch.Tensor, w_q: torch.Tensor, c: torch.Tensor,
                      c0: torch.Tensor, sum_qw: torch.Tensor,
                      bias: torch.Tensor | None, meta: torch.Tensor, *,
-                     mode: am.Mode, m: int, use_cv: bool = True,
-                     decode: bool = False) -> torch.Tensor:
+                     mode: am.Mode, m: int, use_cv: bool = True) -> torch.Tensor:
     """Approximate matmul + CV over uint8 codes a_q (M, K) and w_q (K, N),
     with c, c0, bias float32 (N,), sum_qw int32 (N,) and meta float32
     [sa, sw, za, zw, true_k].  Returns float32 (M, N)."""
@@ -296,7 +296,7 @@ def approx_matmul_cv(a_q: torch.Tensor, w_q: torch.Tensor, c: torch.Tensor,
     status = lib.am_codes_launch(
         a_q.data_ptr(), w_q.data_ptr(), vec_ok, c.data_ptr(), c0.data_ptr(),
         sum_qw.data_ptr(), bias.data_ptr() if bias is not None else None,
-        meta.data_ptr(), out.data_ptr(), mm, kk, nn, int(decode),
+        meta.data_ptr(), out.data_ptr(), mm, kk, nn, int(mm <= DECODE_M_MAX),
         *_mode_args(mode, m, use_cv),
         torch.cuda.current_stream(a_q.device).cuda_stream)
     _launch_status("approx_matmul_cv", status)

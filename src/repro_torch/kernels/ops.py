@@ -1,7 +1,7 @@
 """Public wrappers around the approx-matmul kernels.
 
-Port of ``repro.kernels.ops``: arbitrary leading batch dims, the tile
-choice for decode-shaped calls, and the bridge from packed layers
+Port of ``repro.kernels.ops``: arbitrary leading batch dims, the
+decode-shaped row window, and the bridge from packed layers
 (``QuantizedDense``) to kernel operands.  The CUDA kernels mask their own
 K/N edges, so nothing is padded per call.
 """
@@ -13,15 +13,9 @@ import torch
 from repro_torch.core.multipliers import Mode
 from repro_torch.kernels import approx_matmul as _amk
 
-#: Row counts at or below this are decode-shaped (engine slot counts): the
-#: kernel runs its thin-M tile configuration, whose blocks each stream a
-#: narrow column strip of the weights once.
-DECODE_M_MAX = 8
-
-
-def _pick_blocks(mm: int) -> tuple[int, int, int]:
-    """(BM, BN, BK) tile configuration for ``mm`` flattened rows."""
-    return _amk.DECODE_TILE if mm <= DECODE_M_MAX else _amk.PREFILL_TILE
+#: Row counts at or below this are decode-shaped: the kernel wrappers pick
+#: the thin-M tile from the row count, and fan-out groups run their members.
+DECODE_M_MAX = _amk.DECODE_M_MAX
 
 
 def approx_matmul_cv_op(a_q: torch.Tensor, w_q: torch.Tensor,
@@ -41,8 +35,7 @@ def approx_matmul_cv_op(a_q: torch.Tensor, w_q: torch.Tensor,
         c0.to(torch.float32).contiguous(),
         sum_qw.to(torch.int32).contiguous(),
         None if bias is None else bias.to(torch.float32).contiguous(),
-        meta, mode=mode, m=m, use_cv=use_cv,
-        decode=_pick_blocks(a2.shape[0]) == _amk.DECODE_TILE)
+        meta, mode=mode, m=m, use_cv=use_cv)
     return out.reshape(*lead, nn)
 
 
@@ -56,8 +49,7 @@ def quantized_dense_fused_op(x: torch.Tensor, blocked, *, mode: Mode, m: int,
     x2 = x.reshape(-1, kk).contiguous()
     out = _amk.approx_matmul_cv_fused(
         x2, blocked.w_qb, blocked.epilogue, blocked.meta, k=blocked.k,
-        n=blocked.n, mode=mode, m=m, use_cv=use_cv,
-        decode=_pick_blocks(x2.shape[0]) == _amk.DECODE_TILE)
+        n=blocked.n, mode=mode, m=m, use_cv=use_cv)
     return out.reshape(*lead, blocked.n)
 
 
