@@ -3,15 +3,24 @@
 Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
 
 1. device: name and power limit; TF32 off;
-2. build: compiles the CUDA kernels from the checkout's sources;
-3. kernels: every kernel against its plain PyTorch version on the card,
-   for every multiplier mode, at the serving shapes, plus exact-integer
-   accumulator checks;
-4. main path: full-width olmo-1b served by the port's continuous-batching
+2. build: compiles the three CUDA sources from the checkout, one `nvcc`
+   each, all at once;
+3. kernels: every kernel against its plain PyTorch version on the card:
+   approx-matmul for every multiplier mode at the serving shapes plus
+   exact-integer accumulator checks; flash attention at the olmo-1b
+   prefill shape, the JAX kernel tests' shapes and a ragged length; the
+   RWKV6 scan (out and final state) at the rwkv6-1.6b prefill shape, the
+   JAX tests' shapes and a ragged length;
+4. engine path: full-width olmo-1b served by the port's continuous-batching
    engine with `backend: "pallas"` packs; checks completion, the kernel
    launch count the schedule implies, device placement, determinism and
    that the control variate reaches the logits;
-5. kernel times at the path's shapes (kernel, plain, library, bound).
+5. lock-step paths (`launch.serve.run_legacy`): full-width olmo-1b (B=4,
+   T=1024) and rwkv6-1.6b (B=4, T=512), 32 tokens each, `serve-default`
+   with `backend: "pallas"`; checks finite logits, determinism, the launch
+   counts the schedule implies, and the logit gap to the same prefill with
+   the flash and scan kernels swapped for their plain versions;
+6. kernel times at the paths' shapes (kernel, plain, library, bound).
 
 Prints the card line and one `kernels` JSON line before the last line, and
 ends with `{"ok": true, "device": {...}}`.  Any failure exits non-zero.
@@ -20,7 +29,9 @@ ends with `{"ok": true, "device": {...}}`.  Any failure exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import os
 import pathlib
 import statistics
@@ -31,11 +42,12 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: data-sheet peaks by card name: (memory bytes/s, dense int8 ops/s)
+#: data-sheet peaks by card name: (memory bytes/s, dense int8 ops/s, dense
+#: bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores)
 CARD_PEAKS = {
-    "H100 80GB HBM3": (3.35e12, 1979e12),  # SXM5
-    "H100 PCIe": (2.0e12, 1513e12),
-    "H100 NVL": (3.9e12, 1671e12),
+    "H100 80GB HBM3": (3.35e12, 1979e12, 989e12, 67e12),  # SXM5
+    "H100 PCIe": (2.0e12, 1513e12, 756e12, 51e12),
+    "H100 NVL": (3.9e12, 1671e12, 835e12, 60e12),
 }
 
 #: kernel comparison tolerance: the kernel and its plain version run the
@@ -69,7 +81,34 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def peaks(name: str) -> tuple[float, float]:
+@contextlib.contextmanager
+def plain_swapped(what: str, swaps):
+    """Swaps each ``(module, wrapper name, plain version)`` for the plain
+    version inside the block; fails unless every plain version ran and no
+    swapped kernel launched."""
+    saved, calls = [], {}
+    for mod, name, plain in swaps:
+        kern = getattr(mod, name)
+        saved.append((mod, name, kern, kern.launches))
+        calls[name] = 0
+
+        def counted(*a, _plain=plain, _name=name, **kw):
+            calls[_name] += 1
+            return _plain(*a, **kw)
+
+        setattr(mod, name, counted)
+    try:
+        yield
+    finally:
+        for mod, name, kern, _ in saved:
+            setattr(mod, name, kern)
+    for mod, name, kern, before in saved:
+        if calls[name] == 0 or kern.launches != before:
+            fail(f"{what}: plain run made {calls[name]} calls of {name}'s "
+                 f"plain version and {kern.launches - before} kernel launches")
+
+
+def peaks(name: str) -> tuple[float, float, float, float]:
     for key, val in CARD_PEAKS.items():
         if key in name:
             return val
@@ -97,15 +136,16 @@ def random_pack(torch, k: int, n: int, mode: str, m: int, gen, dev,
     return pack, a_qp, build_blocked_layout(pack, a_qp)
 
 
-def close(torch, got, want) -> float:
-    """Max abs error; fails unless |got - want| <= RTOL*(|want| + scale)."""
+def close(torch, got, want, rtol: float = RTOL) -> float:
+    """Max abs error; fails unless |got - want| <= rtol*(|want| + scale)
+    everywhere (a NaN on either side fails)."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     scale = float(want.abs().max()) if want.numel() else 0.0
-    bad = err > RTOL * (want.abs() + scale)
+    bad = ~(err <= rtol * (want.abs() + scale))
     if bool(bad.any()):
         fail(f"kernel disagrees with its plain version: max abs err "
-             f"{float(err.max())} at scale {scale}")
+             f"{float(err.max())} at scale {scale} (rtol {rtol})")
     return float(err.max()) if err.numel() else 0.0
 
 
@@ -184,6 +224,84 @@ def check_kernels(torch, dev) -> dict:
     return errs
 
 
+#: flash attention against its plain version: float32 inputs differ only in
+#: the order of float32 sums (2e-5, the JAX kernel tests' tolerance); a
+#: bfloat16 output is one bf16 rounding (2^-7 relative) of float32 values
+#: that agree to ulps
+FLASH_RTOL = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
+#: the RWKV6 scan against its plain version: the same chunked float32
+#: algebra with its sums in another order; the k / D_s terms reach e^8
+#: within a chunk, so ulps of them show
+SCAN_RTOL = 1e-4
+#: (B, Hq, Hkv, Tq, Tk, D, causal, window, dtype): the olmo-1b prefill
+#: shape, the JAX kernel tests' cases (tests/test_kernels.py), a ragged T
+FLASH_CASES = [
+    (4, 16, 16, 1024, 1024, 128, True, None, "bfloat16"),
+    (2, 4, 4, 128, 128, 32, True, None, "float32"),
+    (2, 8, 2, 128, 128, 32, True, None, "float32"),
+    (2, 4, 4, 128, 128, 32, False, None, "float32"),
+    (2, 4, 2, 128, 128, 32, True, 64, "float32"),
+    (1, 4, 2, 64, 256, 64, True, None, "float32"),
+    (4, 16, 16, 1000, 1000, 128, True, None, "bfloat16"),
+]
+#: (B, T, H, Dk, Dv, dtype of r/k/v): the rwkv6-1.6b prefill shape, the JAX
+#: tests' cases, a ragged T
+SCAN_CASES = [(4, 512, 32, 64, 64, "bfloat16"), (2, 64, 2, 64, 64, "float32"),
+              (2, 96, 2, 32, 32, "float32"), (4, 500, 32, 64, 64, "bfloat16")]
+
+
+def scan_inputs(torch, b, t, h, dk, dv, dtype, gen, dev):
+    """r, k, v in ``dtype``; float32 decays with the JAX tests'
+    distribution (exp(-exp(N(-1, 1.5))) clipped to [e^-8, 0.9999])."""
+    r = torch.randn(b, t, h, dk, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, t, h, dk, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, t, h, dv, generator=gen, device=dev).to(dtype)
+    w = torch.exp(-torch.exp(torch.randn(b, t, h, dk, generator=gen,
+                                         device=dev) * 1.5 - 1.0))
+    w = w.clamp(math.exp(-8.0), 0.9999)
+    u = torch.randn(h, dk, generator=gen, device=dev) * 0.5
+    return r, k, v, w, u
+
+
+def check_attention_and_scan(torch, dev) -> dict:
+    """Phase 3, second half: flash attention and the RWKV6 scan against
+    their plain versions on the card."""
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.kernels import rwkv6_scan as rsk
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    errs = {"flash_attention": 0.0, "rwkv6_scan": 0.0}
+    for b, hq, hkv, tq, tk, d, causal, window, dt in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn(b, hq, tq, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, hkv, tk, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, hkv, tk, d, generator=gen, device=dev).to(dtype)
+        got = fak.flash_attention(q, k, v, causal=causal, window=window)
+        want = fak.flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if got.dtype != dtype or got.shape != want.shape:
+            fail(f"flash output {got.dtype} {tuple(got.shape)}")
+        err = close(torch, got, want, FLASH_RTOL[dt])
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        print(f"kernels: flash_attention B={b} Hq={hq} Hkv={hkv} Tq={tq} "
+              f"Tk={tk} D={d} causal={causal} window={window} {dt}: max abs "
+              f"err {err:.3g} (rtol {FLASH_RTOL[dt]:.3g})", flush=True)
+    for b, t, h, dk, dv, dt in SCAN_CASES:
+        args = scan_inputs(torch, b, t, h, dk, dv, getattr(torch, dt), gen, dev)
+        out, state = rsk.rwkv6_scan(*args)
+        out_p, state_p = rsk.rwkv6_scan_plain(*args)
+        torch.cuda.synchronize()
+        if out.shape != (b, t, h, dv) or state.shape != (b, h, dk, dv):
+            fail(f"scan output {tuple(out.shape)} state {tuple(state.shape)}")
+        err = max(close(torch, out, out_p, SCAN_RTOL),
+                  close(torch, state, state_p, SCAN_RTOL))
+        errs["rwkv6_scan"] = max(errs["rwkv6_scan"], err)
+        print(f"kernels: rwkv6_scan B={b} T={t} H={h} Dk={dk} Dv={dv} {dt}: "
+              f"max abs err (out, state) {err:.3g} (rtol {SCAN_RTOL})",
+              flush=True)
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
@@ -226,7 +344,7 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
     (perforated m=2 + CV, bf16 activations, as served)."""
     from repro_torch.kernels import approx_matmul as amk
 
-    bw, int8_peak = peaks(card)
+    bw, int8_peak, _, _ = peaks(card)
     mode, m = "perforated", 2
     n_planes = amk._mode_args(mode, m, True)[0]
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -358,13 +476,13 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
 
     eng = ServingEngine(cfg, packed, ecfg, api=api, numerics=spec.name)
     torch.cuda.reset_peak_memory_stats()
-    amk.approx_matmul_cv_fused.launches = 0
-    amk.approx_matmul_cv.launches = 0
+    wr = wrappers()
+    for w in wr.values():
+        w.launches = 0
     reqs = [eng.submit(p, g) for p, g in trace]
     finished = eng.run()
     torch.cuda.synchronize()
-    launches = {"approx_matmul_cv_fused": amk.approx_matmul_cv_fused.launches,
-                "approx_matmul_cv": amk.approx_matmul_cv.launches}
+    launches = {n: w.launches for n, w in wr.items()}
     snap = eng.snapshot()
     peak = torch.cuda.max_memory_allocated()
 
@@ -417,32 +535,11 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
     # model again with the kernel wrappers swapped for their plain versions
     # (every other operation is the same deterministic GPU code), so the
     # logits of a chunk-shaped and a thin call must be equal
-    import contextlib
-
-    @contextlib.contextmanager
-    def plain_kernels():
-        """Swaps the fused wrapper for its plain version; fails unless the
-        plain version ran and the kernel did not."""
-        kern, before, calls = (amk.approx_matmul_cv_fused,
-                               amk.approx_matmul_cv_fused.launches, [0])
-
-        def plain(*a, **kw):
-            calls[0] += 1
-            return amk.approx_matmul_cv_fused_plain(*a, **kw)
-
-        amk.approx_matmul_cv_fused = plain
-        try:
-            yield
-        finally:
-            amk.approx_matmul_cv_fused = kern
-        if calls[0] == 0 or kern.launches != before:
-            fail(f"main: plain run made {calls[0]} plain calls and "
-                 f"{kern.launches - before} kernel launches")
-
+    swaps = [(amk, "approx_matmul_cv_fused", amk.approx_matmul_cv_fused_plain)]
     thin = toks[:, :1]
     lk_thin = api.decode_slots(packed, thin, api.init_slot_cache(
         ecfg.slots, ecfg.max_len, torch.bfloat16), [1] * ecfg.slots)[0]
-    with plain_kernels():
+    with plain_swapped("main", swaps):
         lp = chunk_logits(packed)
         lp_thin = api.decode_slots(packed, thin, api.init_slot_cache(
             ecfg.slots, ecfg.max_len, torch.bfloat16), [1] * ecfg.slots)[0]
@@ -474,18 +571,13 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
     return launches
 
 
-def profile_call(torch, api, params, ecfg, c: int) -> dict:
-    """Wall time of one (slots, c) model step (host clock around a
-    synchronised call, median of 5) against its device time (the kernels'
-    self time from torch.profiler), and the kernels that take the most."""
+def profile_fn(torch, label: str, call, host_profile: str) -> dict:
+    """Wall time of ``call`` (host clock around a synchronised call, median
+    of 5) against its device time (the sum of the CUDA kernels' times from
+    torch.profiler; the CPU ops that launched them are not counted again),
+    and the kernels that take the most."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    dev = api.device
-    toks = torch.zeros(ecfg.slots, c, dtype=torch.long, device=dev)
-
-    def call():
-        cache = api.init_slot_cache(ecfg.slots, ecfg.max_len, torch.bfloat16)
-        api.decode_slots(params, toks, cache, [c] * ecfg.slots)
 
     call()
     torch.cuda.synchronize()
@@ -509,7 +601,7 @@ def profile_call(torch, api, params, ecfg, c: int) -> dict:
     buf = io.StringIO()
     pstats.Stats(cprof, stream=buf).sort_stats("tottime").print_stats(25)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / f"host_profile_c{c}.txt").write_text(buf.getvalue())
+    (ROOT / "chiprun_out" / host_profile).write_text(buf.getvalue())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             call()
@@ -519,16 +611,225 @@ def profile_call(torch, api, params, ecfg, c: int) -> dict:
         return getattr(evt, "self_device_time_total",
                        getattr(evt, "self_cuda_time_total", 0.0))
 
-    events = [e for e in prof.key_averages() if dev_us(e) > 0]
-    device_s = sum(dev_us(e) for e in events) / 3 / 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    device_s = sum(dev_us(e) for e in kernels) / 3 / 1e6
     wall_s = statistics.median(walls)
-    top = sorted(events, key=dev_us, reverse=True)[:6]
+    top = sorted(kernels, key=dev_us, reverse=True)[:6]
     out = {"wall_ms": wall_s * 1e3,
-           "device_ms": device_s * 1e3 if events else None,
-           "device_idle_share": 1 - device_s / wall_s if events else None,
+           "device_ms": device_s * 1e3 if kernels else None,
+           "device_idle_share": 1 - device_s / wall_s if kernels else None,
            "top_device_us": {e.key[:48]: dev_us(e) / 3 for e in top}}
-    print(f"main: profile (slots, {c}) step: " + json.dumps(out), flush=True)
+    print(f"{label}: " + json.dumps(out), flush=True)
     return out
+
+
+def profile_call(torch, api, params, ecfg, c: int) -> dict:
+    """One (slots, c) engine model step on a fresh cache."""
+    toks = torch.zeros(ecfg.slots, c, dtype=torch.long, device=api.device)
+
+    def call():
+        cache = api.init_slot_cache(ecfg.slots, ecfg.max_len, torch.bfloat16)
+        api.decode_slots(params, toks, cache, [c] * ecfg.slots)
+
+    return profile_fn(torch, f"main: profile (slots, {c}) step", call,
+                      f"host_profile_c{c}.txt")
+
+
+# ---------------------------------------------------------------------------
+# lock-step paths
+# ---------------------------------------------------------------------------
+
+BATCH, GEN = 4, 32
+#: arch: (prompt length, packed-layer wrapper calls per layer at prefill and
+#: at decode, packed head calls per step).  olmo-1b runs its fused q|k|v
+#: and gate|up groups at prefill rows and their members at decode rows
+#: (M = 4 <= DECODE_M_MAX) and has a tied float head; rwkv6 has no fusable
+#: group and a packed head.
+LEGACY = {"olmo-1b": (1024, 4, 7, 0), "rwkv6-1.6b": (512, 8, 8, 1)}
+
+
+def wrappers() -> dict:
+    from repro_torch.kernels import approx_matmul as amk
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.kernels import rwkv6_scan as rsk
+
+    return {"approx_matmul_cv_fused": amk.approx_matmul_cv_fused,
+            "approx_matmul_cv": amk.approx_matmul_cv,
+            "flash_attention": fak.flash_attention,
+            "rwkv6_scan": rsk.rwkv6_scan}
+
+
+def run_legacy_path(torch, dev, arch: str) -> dict:
+    """Phase 5: one arch through ``launch.serve.run_legacy`` at full width
+    and depth: B=4, the arch's prompt length, 32 greedy tokens."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ApproxPolicy
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.kernels import rwkv6_scan as rsk
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.numerics import get_preset
+
+    prompt_len, pre_calls, dec_calls, head_calls = LEGACY[arch]
+    cfg = get_config(arch)
+    print(f"legacy: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab} rwkv={cfg.rwkv} "
+          f"compute={cfg.compute_dtype}; B={BATCH} T={prompt_len} G={GEN}",
+          flush=True)
+    spec = get_preset("serve-default", policy=ApproxPolicy(
+        "perforated", 2, use_cv=True, backend="pallas"))
+    spec_path = ROOT / "build" / "legacy_spec.json"
+    spec_path.parent.mkdir(exist_ok=True)
+    spec_path.write_text(spec.to_json())
+
+    def args(gen):
+        return argparse.Namespace(
+            arch=arch, batch=BATCH, prompt_len=prompt_len, gen=gen,
+            mode="perforated", m=2, no_cv=False, preset=None,
+            spec_json=str(spec_path), device="cuda")
+
+    api = build_model(cfg, dev)
+    params = api.init(0)
+    serve.run_legacy(args(2), params=params)  # warm-up, not counted
+    torch.cuda.synchronize()
+    wr = wrappers()
+    for w in wr.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = serve.run_legacy(args(GEN), params=params)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wr.items()}
+    peak = torch.cuda.max_memory_allocated()
+    packed = res["params"]
+    del params
+
+    per_prefill = cfg.n_layers
+    expected = {
+        "approx_matmul_cv_fused": cfg.n_layers * (pre_calls + dec_calls * (
+            GEN - 1)) + head_calls * GEN,
+        "approx_matmul_cv": 0,
+        "flash_attention": 0 if cfg.rwkv else per_prefill,
+        "rwkv6_scan": per_prefill if cfg.rwkv else 0}
+    print(f"legacy: {arch} wrapper launches {launches}, the schedule implies "
+          f"{expected} (one prefill, {GEN - 1} decode steps)", flush=True)
+    if launches != expected:
+        fail(f"legacy {arch}: launches {launches} != {expected}")
+    toks = res["tokens"]
+    if toks.shape != (BATCH, GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        fail(f"legacy {arch}: tokens {tuple(toks.shape)} out of range")
+
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (BATCH, prompt_len)), device=dev)
+
+    def last_logits():
+        return api.prefill(packed, {"tokens": prompt}, prompt_len + GEN)[0]
+
+    l1, l2 = last_logits(), last_logits()
+    torch.cuda.synchronize()
+    if l1.shape != (BATCH, cfg.vocab) or l1.dtype != torch.float32 \
+            or not bool(torch.isfinite(l1).all()):
+        fail(f"legacy {arch}: logits {l1.dtype} {tuple(l1.shape)} not finite")
+    if not torch.equal(l1, l2):
+        fail(f"legacy {arch}: two identical prefills gave different logits")
+    swap = ([(rsk, "rwkv6_scan", rsk.rwkv6_scan_plain)] if cfg.rwkv else
+            [(fak, "flash_attention", fak.flash_attention_plain)])
+    with plain_swapped(f"legacy {arch}", swap):
+        lp = last_logits()
+    torch.cuda.synchronize()
+    gap = float((l1 - lp).abs().max())
+    agree = float((l1.argmax(-1) == lp.argmax(-1)).float().mean())
+    print(f"legacy: {arch} deterministic; last-token prefill logits with "
+          f"{swap[0][1]} swapped for its plain version: max gap {gap:.4g} "
+          f"(logit scale {float(l1.abs().max()):.4g}), argmax agreement "
+          f"{agree:.2f}", flush=True)
+    cache = api.prefill(packed, {"tokens": prompt}, prompt_len + GEN)[1]
+    tok = torch.zeros(BATCH, 1, dtype=torch.long, device=dev)
+    breakdown = {
+        "prefill": profile_fn(torch, f"legacy: {arch} profile prefill",
+                              last_logits, f"host_profile_{arch}_prefill.txt"),
+        # one decode step after the prompt; the ten profiled steps stay
+        # inside the cache's GEN free positions
+        "decode": profile_fn(torch, f"legacy: {arch} profile decode step",
+                             lambda: api.decode_step(packed, tok, cache),
+                             f"host_profile_{arch}_decode.txt")}
+    line = {"arch": arch, "layers": cfg.n_layers, "batch": BATCH,
+            "prompt_len": prompt_len, "gen": GEN,
+            "prefill_ms": res["prefill_s"] * 1e3,
+            "decode_ms_per_token": res["decode_s_per_step"] * 1e3,
+            "tok_per_s": res["tok_per_s"], "peak_mem_gib": peak / 2**30,
+            "plain_gap": gap, "plain_argmax_agreement": agree,
+            "launches": launches, "step_breakdown": breakdown}
+    print(f"legacy: {arch} prefill_ms {line['prefill_ms']:.2f}", flush=True)
+    print(f"legacy: {arch} decode_ms_per_token "
+          f"{line['decode_ms_per_token']:.2f} (one token per sequence per "
+          f"step, {BATCH} sequences)", flush=True)
+    print(f"legacy: {arch} tok_per_s {line['tok_per_s']:.1f}", flush=True)
+    print(f"legacy: {arch} peak_mem_gib {line['peak_mem_gib']:.3f}",
+          flush=True)
+    print("legacy: " + json.dumps(line), flush=True)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / f"legacy_{arch}.json").write_text(
+        json.dumps(line) + "\n")
+    return line
+
+
+def attn_scan_times(torch, dev, card: str) -> dict:
+    """Phase 6, second half: flash attention at the olmo-1b prefill shape
+    and the scan at the rwkv6-1.6b prefill shape (kernel, plain, library,
+    bound)."""
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.kernels import rwkv6_scan as rsk
+
+    bw, _, bf16_peak, f32_peak = peaks(card)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = {}
+
+    b, hq, hkv, t, _, d, *_ = FLASH_CASES[0]
+    bf = torch.bfloat16
+    # 48 MB of q, k, v per call: three copies exceed the 50 MB L2
+    qkv = [tuple(torch.randn(b, h, t, d, generator=gen, device=dev).to(bf)
+                 for h in (hq, hkv, hkv)) for _ in range(3)]
+    flops = 4.0 * b * hq * d * t * (t + 1) / 2  # QK and PV, visible pairs
+    nbytes = 2.0 * (2 * b * hq * t * d + 2 * b * hkv * t * d)  # q, out, k, v
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_ops, t_bytes = flops / bf16_peak, nbytes / bw
+    rows["flash_attention"] = {
+        "shape": [b, hq, hkv, t, d], "dtype": "bfloat16", "causal": True,
+        "kernel_us": time_calls(torch, [lambda a=a: fak.flash_attention(*a)
+                                        for a in qkv]) * 1e6,
+        "plain_us": time_calls(torch, [lambda a=a: fak.flash_attention_plain(*a)
+                                       for a in qkv[:2]], reps=5) * 1e6,
+        "library_us": time_calls(torch, [lambda a=a: sdpa(*a, is_causal=True)
+                                         for a in qkv]) * 1e6,
+        "bound_us": max(t_ops, t_bytes) * 1e6,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print("time " + json.dumps(rows["flash_attention"]), flush=True)
+    del qkv
+
+    b, t, h, dk, dv, _ = SCAN_CASES[0]
+    ins = [scan_inputs(torch, b, t, h, dk, dv, bf, gen, dev) for _ in range(3)]
+    n_ch, ell = -(-t // 32), 32
+    # A = r~ k~^T and A V over the strict lower triangle, r~ S and k~^T V
+    flops = 2.0 * b * h * n_ch * (ell * (ell - 1) / 2 * (dk + dv)
+                                  + 2 * ell * dk * dv)
+    nbytes = (b * t * h * (2 * dk * 2 + dv * 2 + dk * 4 + dv * 4)
+              + b * h * dk * dv * 4 + h * dk * 4)
+    t_ops, t_bytes = flops / f32_peak, nbytes / bw
+    rows["rwkv6_scan"] = {
+        "shape": [b, t, h, dk, dv], "dtype": "bfloat16",
+        "kernel_us": time_calls(torch, [lambda a=a: rsk.rwkv6_scan(*a)
+                                        for a in ins]) * 1e6,
+        "plain_us": time_calls(torch, [lambda a=a: rsk.rwkv6_scan_plain(*a)
+                                       for a in ins[:2]], reps=5) * 1e6,
+        "library_us": None,
+        "bound_us": max(t_ops, t_bytes) * 1e6,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print("time " + json.dumps(rows["rwkv6_scan"]), flush=True)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -539,9 +840,10 @@ def profile_call(torch, api, params, ecfg, c: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=16,
-                    help="olmo-1b depth for the main path (widths are never "
-                    "cut)")
+                    help="olmo-1b depth for the engine path (widths are "
+                    "never cut; the lock-step paths run at full depth)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -559,24 +861,37 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    from repro_torch.kernels import approx_matmul as amk
+    from repro_torch import kernels
+    from repro_torch.kernels import nvcc
 
     t0 = time.perf_counter()
-    amk.build()
+    kernels.build_all()  # one nvcc per source, all at once
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    if amk.BUILD_LOG:
+    if nvcc.BUILD_LOG:
         os.makedirs(ROOT / "chiprun_out", exist_ok=True)
-        (ROOT / "chiprun_out" / "build.log").write_text(amk.BUILD_LOG["output"])
-        for line in amk.BUILD_LOG["output"].splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas " + line.strip(), flush=True)
+        (ROOT / "chiprun_out" / "build.log").write_text("\n".join(
+            f"== {name} ({log['seconds']:.1f} s)\n{log['output']}"
+            for name, log in nvcc.BUILD_LOG.items()))
+        for name, log in nvcc.BUILD_LOG.items():
+            for line in log["output"].splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {name}: " + line.strip(), flush=True)
 
     errs = check_kernels(torch, dev)
-    launches = run_main_path(torch, dev, args.layers)
+    errs.update(check_attention_and_scan(torch, dev))
+    # every path is driven with the launch counts zeroed just before it and
+    # read just after it
+    paths = {"engine olmo-1b": run_main_path(torch, dev, args.layers)}
+    for arch in LEGACY:
+        paths[f"legacy {arch}"] = run_legacy_path(torch, dev, arch)["launches"]
+    launches = {n: sum(p[n] for p in paths.values()) for n in wrappers()}
+    print("launches by path: " + json.dumps(paths), flush=True)
     rows = kernel_times(torch, dev, card)
+    new_rows = attn_scan_times(torch, dev, card)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "kernel_times.json").write_text(
-        json.dumps({"card": card, "rows": rows}, indent=1))
+        json.dumps({"card": card, "rows": rows, "attention_scan": new_rows},
+                   indent=1))
     entries = []
     for name, src_line in (("approx_matmul_cv_fused", 332),
                            ("approx_matmul_cv", 166)):
@@ -590,7 +905,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/approx_matmul.cu",
             "replaces": f"src/repro/kernels/approx_matmul.py:{src_line}",
-            # wrapper calls on the main path (a fused call runs the
+            # wrapper calls on the three paths (a fused call runs the
             # quantize kernel and the matmul kernel)
             "launches": launches[name],
             "max_abs_err": errs[name],
@@ -600,6 +915,20 @@ def main() -> int:
             "bound_by": dec["bound_by"],
             "library_ms": (dec["library_us"] + pre["library_us"]) / 1e3,
         })
+    for name, src in (("flash_attention", "flash_attention.py:114"),
+                      ("rwkv6_scan", "rwkv6_scan.py:95")):
+        r = new_rows[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{src}",
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": r["kernel_us"] / 1e3, "plain_ms": r["plain_us"] / 1e3,
+            "bound_ms": r["bound_us"] / 1e3, "bound_by": r["bound_by"],
+            "library_ms": (None if r["library_us"] is None
+                           else r["library_us"] / 1e3),
+        })
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,10 +35,11 @@ def from_jax_params(flat: dict[str, np.ndarray], cfg: ArchConfig,
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = _to_tensor(arr, device)
-    blocks = out.get("blocks", {})
-    for key in ("attn_norm", "mlp_norm"):  # parameter-free norms: no leaves
-        blocks.setdefault(key, {})
-    out.setdefault("final_norm", {})
+    if cfg.norm == "nonparametric_ln":  # parameter-free norms: no leaves
+        blocks = out.get("blocks", {})
+        for key in ("attn_norm", "mlp_norm"):
+            blocks.setdefault(key, {})
+        out.setdefault("final_norm", {})
     bad = [k for k, a in flat.items()
            if k.startswith("blocks/") and np.shape(a)[0] != cfg.n_layers]
     if bad:

@@ -1,7 +1,7 @@
 """Architecture and engine configuration (port of ``repro.configs.base``).
 
-Only the fields the dense GQA slot-serving path reads are kept; the other
-architecture families land with the slices that serve them.
+Only the fields the ported paths read are kept (dense GQA and RWKV6); the
+other architecture families land with the slices that serve them.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ class EngineConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: Literal["dense"]
+    family: Literal["dense", "ssm"]
     n_layers: int
     d_model: int
     n_heads: int
@@ -44,9 +44,13 @@ class ArchConfig:
     vocab: int
     head_dim: int = 0  # 0 -> d_model // n_heads
 
-    norm: Literal["nonparametric_ln"] = "nonparametric_ln"
+    attn: Literal["gqa", "none"] = "gqa"
+    norm: Literal["nonparametric_ln", "layernorm"] = "nonparametric_ln"
     rope_theta: float = 10000.0
     causal: bool = True
+    # rwkv
+    rwkv: bool = False
+    rwkv_head_dim: int = 64
     tie_embeddings: bool = False
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -62,6 +66,12 @@ class ArchConfig:
                           kv_heads=self.kv_heads, head_dim=self.head_dim,
                           causal=self.causal, rope_theta=self.rope_theta)
 
+    def rwkv_config(self):
+        from repro_torch.nn.rwkv import RWKVConfig
+
+        return RWKVConfig(d_model=self.d_model, d_ff=self.d_ff,
+                          head_dim=self.rwkv_head_dim)
+
     def reduced(self) -> "ArchConfig":
         """CPU smoke-test variant: same structure, tiny dims (the same
         values as ``repro.configs.base.ArchConfig.reduced``)."""
@@ -75,5 +85,6 @@ class ArchConfig:
             head_dim=16,
             d_ff=128,
             vocab=256,
+            rwkv_head_dim=16,
             compute_dtype="float32",
         )

@@ -28,29 +28,23 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
 import pathlib
-import subprocess
-import time
 
 import torch
 
 from repro_torch.core import control_variate as cvlib
 from repro_torch.core import multipliers as am
+from repro_torch.kernels import nvcc
 from repro_torch.quant.quantize import (EPI_BIAS, EPI_C, EPI_C0, EPI_ROWS,
                                         EPI_SUM_QW, EPI_SW, EPI_ZW, META_SA,
                                         META_TRUE_K, META_ZA, QMAX, QMIN)
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "approx_matmul.cu"
-#: kernel build directory (listed in .gitignore), at the checkout root
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
+BUILD_DIR = nvcc.BUILD_DIR
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC",
-              # no multiply-add contraction: the float32 epilogue rounds
-              # step by step like the reference's separate operations
-              "-fmad=false", "-Xptxas", "-v")
+#: no multiply-add contraction: the float32 epilogue rounds step by step
+#: like the reference's separate operations
+NVCC_FLAGS = nvcc.BASE_FLAGS + ("-fmad=false",)
 
 #: Row counts at or below this are decode-shaped (engine slot counts): the
 #: kernel runs its thin-M tile configuration, whose blocks each stream a
@@ -61,42 +55,16 @@ DECODE_M_MAX = 8
 MAX_K = 33025
 
 _LIB: ctypes.CDLL | None = None
-#: what the last build printed (nvcc/ptxas) and how long it took
-BUILD_LOG: dict = {}
 
 
-def build(force: bool = False) -> pathlib.Path:
-    """Compile the CUDA source into ``build/`` (keyed by its content hash)
-    and return the shared library's path.  Raises if nvcc fails."""
-    digest = hashlib.sha1(SOURCE.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"approx_matmul-{digest}.so"
-    if lib.exists() and not force:
-        return lib
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the approx-matmul kernel")
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    BUILD_LOG.update(seconds=time.perf_counter() - t0,
-                     output=proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{BUILD_LOG['output']}")
-    os.replace(tmp, lib)
-    return lib
+def build_job() -> tuple[pathlib.Path, tuple[str, ...], pathlib.Path]:
+    return SOURCE, NVCC_FLAGS, BUILD_DIR
 
 
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(nvcc.build_many([build_job()])[0]))
         P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
         lib.am_fused_launch.argtypes = [P, I, P, I, P, I, I, P, P, P, I, I, I,
                                         I, I, U, U, I, I, I, P]

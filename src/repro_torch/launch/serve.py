@@ -1,4 +1,5 @@
-"""Serving driver (port of the engine part of ``repro.launch.serve``).
+"""Serving driver (port of the engine and lock-step parts of
+``repro.launch.serve``).
 
 A :class:`~repro_torch.numerics.NumericsSpec` (preset, JSON file, or built
 in code) resolves against the float parameters into a plan, and
@@ -12,6 +13,11 @@ hand-written CUDA kernel; the default CLI policy keeps the reference's
         --spec-json spec.json --requests 8 --slots 4 --max-len 256
 
 runs on the card (``--device cpu`` for the plain path on the CPU).
+``--legacy`` runs the lock-step loop instead (one prefill of a (B, T)
+prompt, then G-1 greedy decode steps), for every ported arch:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --legacy \
+        --arch rwkv6-1.6b --spec-json spec.json --batch 4 --prompt-len 512
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import argparse
 import dataclasses
 import json
 import sys
+import time
 from typing import Any
 
 import numpy as np
@@ -119,6 +126,92 @@ def mixed_trace(cfg: ArchConfig, n_requests: int, max_len: int,
     return trace
 
 
+_CACHE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _cache_dt(scfg: ServeConfig) -> torch.dtype:
+    try:
+        return _CACHE_DTYPES[scfg.cache_dtype]
+    except KeyError:
+        raise ValueError(f"unknown cache_dtype {scfg.cache_dtype!r}; valid "
+                         f"choices: {sorted(_CACHE_DTYPES)}") from None
+
+
+def make_prefill_step(cfg: ArchConfig, max_len: int,
+                      scfg: ServeConfig = ServeConfig(), device=None):
+    api = build_model(cfg, device)
+
+    def step(params, batch):
+        return api.prefill(params, batch, max_len, cache_dtype=_cache_dt(scfg))
+
+    return step
+
+
+def make_decode_step(cfg: ArchConfig, device=None):
+    api = build_model(cfg, device)
+
+    def step(params, tokens, cache):
+        return api.decode_step(params, tokens, cache)
+
+    return step
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_legacy(args, params: Any = None) -> dict:
+    """Lock-step batch loop: the prompt ``default_rng(0).integers(0, vocab,
+    (batch, prompt_len))``, one prefill, ``gen - 1`` greedy decode steps.
+    ``params`` are float parameters to serve instead of the seeded init.
+    Returns the generated tokens (B, gen), the timings and the serving
+    parameters."""
+    cfg = get_config(args.arch)
+    api = build_model(cfg, args.device)
+    if params is None:
+        params = api.init(0)
+    spec = _spec_from_args(args)
+    label = "float"
+    if spec is not None:
+        params = build_serving_params(params, cfg, ServeConfig(spec=spec),
+                                      device=api.device)
+        label = spec.name
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          (args.batch, args.prompt_len)),
+                             device=api.device)
+    max_len = args.prompt_len + args.gen
+    prefill = make_prefill_step(cfg, max_len, device=api.device)
+    decode = make_decode_step(cfg, device=api.device)
+
+    _sync(api.device)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": prompt})
+    tok = torch.argmax(logits, -1)[:, None]
+    _sync(api.device)
+    t1 = time.perf_counter()
+    outs = [tok]
+    for _ in range(args.gen - 1):
+        logits, cache = decode(params, tok, cache)
+        tok = torch.argmax(logits, -1)[:, None]
+        outs.append(tok)
+    gen = torch.cat(outs, dim=1)
+    _sync(api.device)
+    t2 = time.perf_counter()
+    dt = t2 - t0
+    decode_s = (t2 - t1) / max(args.gen - 1, 1)
+    print(f"arch={cfg.name} numerics={label} device={api.device}")
+    print(f"generated {args.batch}x{args.gen} tokens in {dt:.2f}s "
+          f"({args.batch * args.gen / dt:.1f} tok/s)")
+    print(f"prefill {args.batch}x{args.prompt_len}: {(t1 - t0) * 1e3:.1f} ms; "
+          f"decode {decode_s * 1e3:.2f} ms/step")
+    print("sample:", gen[0].cpu()[:16].tolist())
+    return {"tokens": gen, "prefill_s": t1 - t0, "decode_s_per_step": decode_s,
+            "tok_per_s": args.batch * args.gen / dt, "params": params,
+            "numerics": label}
+
+
 def run_engine(args) -> dict:
     """Serve ``mixed_trace`` through the engine; returns the metrics
     snapshot."""
@@ -181,7 +274,19 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="device to serve on (cuda by default; cpu runs the "
                     "plain PyTorch path)")
-    run_engine(ap.parse_args(argv))
+    ap.add_argument("--legacy", action="store_true",
+                    help="lock-step prefill + greedy decode loop instead of "
+                    "the continuous-batching engine")
+    ap.add_argument("--batch", type=int, default=4, help="--legacy batch")
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="--legacy prompt length")
+    ap.add_argument("--gen", type=int, default=32,
+                    help="--legacy tokens generated per row")
+    args = ap.parse_args(argv)
+    if args.legacy:
+        run_legacy(args)
+    else:
+        run_engine(args)
     return 0
 
 

@@ -1,11 +1,20 @@
-"""Dense GQA transformer LM, slot-serving surface (port of the
-continuous-batching part of ``repro.models.lm``).
+"""Dense GQA transformer LM (port of the dense GQA + swiglu part of
+``repro.models.lm``): the full-sequence forward, the lock-step
+prefill/decode surface and the continuous-batching slot surface.
 
 Parameters are a nested dict keyed like the reference's tree: ``embed``,
 ``blocks`` (every leaf stacked with a leading layer axis, as the
 reference's scanned stack; packed stacks are ``LayerStack`` modules) and
 ``final_norm``.  The layer ``lax.scan`` becomes a Python loop.
 
+Prefill attention runs the flash kernel on the card
+(:func:`repro_torch.kernels.flash_attention.flash_attention` on the whole
+(B, Hq, T, d) block: the kernel tiles the query axis itself, so the
+reference's ``Q_CHUNK`` scan is not needed) and the plain ``_sdpa`` on the
+CPU, as the reference does.
+
+The lock-step cache is ``{"k", "v": (L, B, Hkv, S, hd), "pos": int}``;
+:func:`decode_step` writes it IN PLACE and returns the same dict.
 The pooled slot cache is ``{"k", "v": (L, slots, Hkv, S, hd),
 "lengths": (slots,) int32}``.  :func:`decode_slots` UPDATES IT IN PLACE
 (the K/V writes and the cursor advance) and returns the same dict; the
@@ -20,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.approx_linear import QuantizedDense, dense, layer_params
+from repro_torch.kernels import flash_attention as fak
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn.layers import (apply_norm, embed, init_norm, init_swiglu,
                                    swiglu)
@@ -67,6 +77,110 @@ def _logits_head(params: dict, x: torch.Tensor) -> torch.Tensor:
         return dense(head, x).to(torch.float32)
     w = head["table"].T if "table" in head else head["w"]
     return torch.matmul(x, w.to(x.dtype)).to(torch.float32)
+
+
+def _gqa_full(bp: dict, h: torch.Tensor, cfg: ArchConfig, positions,
+              want_cache: bool):
+    """Full-sequence attention, h (B, T, D); returns (out, cache entry
+    {"k", "v": (B, Hkv, T, hd)} or None)."""
+    acfg = cfg.attn_config()
+    b, t, _ = h.shape
+    q, k, v = attn_lib._project_qkv(bp, h, acfg,
+                                    attn_lib._angles(acfg, positions))
+    if h.device.type == "cuda":
+        ctx = fak.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2),
+                                  causal=acfg.causal).transpose(1, 2)
+    else:
+        ctx = attn_lib._sdpa(q, k, v, causal=acfg.causal)
+    out = dense(bp["o"], ctx.reshape(b, t, acfg.q_dim))
+    entry = None
+    if want_cache:
+        entry = {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}
+    return out, entry
+
+
+def _block_forward(bp: dict, x: torch.Tensor, cfg: ArchConfig, positions,
+                   want_cache: bool = False):
+    h = apply_norm(cfg.norm, bp.get("attn_norm"), x)
+    a, entry = _gqa_full(bp["attn"], h, cfg, positions, want_cache)
+    x = (x + a).to(x.dtype)
+    h = apply_norm(cfg.norm, bp.get("mlp_norm"), x)
+    return (x + swiglu(bp["mlp"], h)).to(x.dtype), entry
+
+
+def _positions(b: int, t: int, device) -> torch.Tensor:
+    return torch.arange(t, device=device).expand(b, t)
+
+
+def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Embedded input -> final-norm output (the forward path)."""
+    x = x.to(_dtype(cfg.compute_dtype))
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+    for i in range(cfg.n_layers):
+        x, _ = _block_forward(layer_params(params["blocks"], i), x, cfg,
+                              positions)
+    return apply_norm(cfg.norm, params.get("final_norm"), x)
+
+
+def forward(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Full-sequence logits (B, T, V) float32."""
+    x = backbone(params, embed(params["embed"], batch["tokens"]), cfg)
+    return _logits_head(params, x)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """Stacked-over-layers lock-step decode cache."""
+    shape = (cfg.n_layers, batch, cfg.kv_heads, max_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device), "pos": 0}
+
+
+def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int,
+            cache_dtype=torch.bfloat16) -> tuple[torch.Tensor, dict]:
+    """Single-pass prompt processing: last-token logits (B, V) float32 and
+    the filled cache (each layer's K/V written into it as it is made)."""
+    tokens = batch["tokens"]
+    b, t = tokens.shape
+    if t > max_len:
+        raise ValueError(f"prompt of {t} tokens exceeds max_len {max_len}")
+    x = embed(params["embed"], tokens).to(_dtype(cfg.compute_dtype))
+    positions = _positions(b, t, x.device)
+    cache = init_cache(cfg, b, max_len, cache_dtype, x.device)
+    for i in range(cfg.n_layers):
+        x, entry = _block_forward(layer_params(params["blocks"], i), x, cfg,
+                                  positions, want_cache=True)
+        for key in ("k", "v"):
+            cache[key][i, :, :, :t] = attn_lib._to_cache(entry[key],
+                                                         cache_dtype)
+    cache["pos"] = t
+    x = apply_norm(cfg.norm, params.get("final_norm"), x)
+    return _logits_head(params, x[:, -1]), cache
+
+
+def _block_decode(bp: dict, x: torch.Tensor, lc: dict,
+                  cfg: ArchConfig) -> torch.Tensor:
+    """One block's decode step; ``lc`` this layer's cache views + pos."""
+    h = apply_norm(cfg.norm, bp.get("attn_norm"), x)
+    a, _ = attn_lib.attention_decode_step(bp["attn"], h, lc,
+                                          cfg.attn_config())
+    x = (x + a).to(x.dtype)
+    h = apply_norm(cfg.norm, bp.get("mlp_norm"), x)
+    return (x + swiglu(bp["mlp"], h)).to(x.dtype)
+
+
+def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
+                cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    """tokens (B, 1) -> (logits (B, V) float32, cache UPDATED IN PLACE)."""
+    x = embed(params["embed"], tokens).to(_dtype(cfg.compute_dtype))
+    pos = int(cache["pos"])
+    for i in range(cfg.n_layers):
+        lc = {"k": cache["k"][i], "v": cache["v"][i], "pos": pos}
+        x = _block_decode(layer_params(params["blocks"], i), x, lc, cfg)
+    cache["pos"] = pos + 1
+    x = apply_norm(cfg.norm, params.get("final_norm"), x)
+    return _logits_head(params, x[:, 0]), cache
 
 
 def init_slot_cache(cfg: ArchConfig, slots: int, max_len: int,

@@ -1,5 +1,6 @@
-"""Uniform model API, slot-serving surface (port of
-``repro.models.registry``)."""
+"""Uniform model API (port of ``repro.models.registry``): the lock-step
+surface of every ported arch, and the slot-serving surface of the dense
+GQA arch."""
 
 from __future__ import annotations
 
@@ -17,20 +18,50 @@ class ModelApi:
     cfg: ArchConfig
     device: torch.device
     init: Callable  # (seed) -> float params on ``device``
-    #: (slots, max_len, dtype) -> pooled slot cache on ``device``
-    init_slot_cache: Callable
+    #: (params, {"tokens": (B, T)}) -> logits (B, T, V) float32
+    forward: Callable
+    #: (params, {"tokens": (B, T)}, max_len, cache_dtype) -> (logits (B, V),
+    #: cache)
+    prefill: Callable
+    #: (params, tokens (B, 1), cache) -> (logits (B, V), cache updated in
+    #: place)
+    decode_step: Callable
+    #: (batch, max_len, dtype) -> lock-step cache on ``device``
+    init_cache: Callable
+    #: (slots, max_len, dtype) -> pooled slot cache on ``device``; None for
+    #: an arch the continuous-batching engine does not serve yet
+    init_slot_cache: Callable | None = None
     #: (params, tokens, cache, n_valid) -> (logits, cache updated in place)
-    decode_slots: Callable
+    decode_slots: Callable | None = None
 
 
 def build_model(cfg: ArchConfig, device=None) -> ModelApi:
     """The model API on ``device`` (default ``cuda``; raises without it)."""
+    dev = resolve_device(device)
+    if cfg.rwkv:
+        from repro_torch.models import rwkv_lm as m
+
+        return ModelApi(
+            cfg=cfg, device=dev,
+            init=lambda seed=0: m.init_params(cfg, seed, dev),
+            forward=lambda p, b: m.forward(p, b, cfg),
+            prefill=lambda p, b, max_len=0, cache_dtype=torch.bfloat16:
+                m.prefill(p, b, cfg, max_len, cache_dtype),
+            decode_step=lambda p, t, c: m.decode_step(p, t, c, cfg),
+            init_cache=lambda batch, max_len=0, dtype=torch.bfloat16:
+                m.init_cache(cfg, batch, max_len, dtype, dev),
+        )
     from repro_torch.models import lm as m
 
-    dev = resolve_device(device)
     return ModelApi(
         cfg=cfg, device=dev,
         init=lambda seed=0: m.init_params(cfg, seed, dev),
+        forward=lambda p, b: m.forward(p, b, cfg),
+        prefill=lambda p, b, max_len, cache_dtype=torch.bfloat16:
+            m.prefill(p, b, cfg, max_len, cache_dtype),
+        decode_step=lambda p, t, c: m.decode_step(p, t, c, cfg),
+        init_cache=lambda batch, max_len, dtype=torch.bfloat16:
+            m.init_cache(cfg, batch, max_len, dtype, dev),
         init_slot_cache=lambda slots, max_len, dtype=torch.bfloat16:
             m.init_slot_cache(cfg, slots, max_len, dtype, dev),
         decode_slots=lambda p, t, c, n_valid: m.decode_slots(p, t, c, cfg,

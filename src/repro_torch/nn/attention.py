@@ -1,7 +1,12 @@
-"""GQA attention pieces of the slot-serving path (port of the GQA half of
-``repro.nn.attention``): config, RoPE angles, the Q/K/V projection and the
-KV-cache storage casts.  The score/softmax/context math lives in
-``repro_torch.models.lm._gqa_slots``.
+"""GQA attention (port of the GQA half of ``repro.nn.attention``): config,
+RoPE angles, the Q/K/V projection, the plain full-sequence attention
+``_sdpa``, the KV-cache storage casts and the one-token decode step.  The
+slot attention lives in ``repro_torch.models.lm._gqa_slots``; the prefill
+attention on the card is the flash kernel
+(:mod:`repro_torch.kernels.flash_attention`).
+
+GQA cache: ``{"k": (B, Hkv, S, hd), "v": (B, Hkv, S, hd), "pos": int}``.
+:func:`attention_decode_step` writes it IN PLACE.
 """
 
 from __future__ import annotations
@@ -66,3 +71,59 @@ def _to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def _from_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype)
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+          window: int | None = None) -> torch.Tensor:
+    """Grouped-head attention without materializing repeated KV heads.
+    q (B, Tq, Hq, d), k/v (B, Tk, Hkv, d); query rows aligned to the END of
+    the key axis."""
+    b, tq, hq, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, tq, hkv, hq // hkv, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * (d ** -0.5)
+    q_pos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    k_pos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window is not None:
+        mask = mask & (k_pos > q_pos - window)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
+    ctx = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return ctx.reshape(b, tq, hq, d)
+
+
+def init_kv_cache(cfg: AttnConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device=None) -> dict:
+    shape = (batch, cfg.kv_heads, max_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device), "pos": 0}
+
+
+def attention_decode_step(p: dict, x: torch.Tensor, cache: dict,
+                          cfg: AttnConfig) -> tuple[torch.Tensor, dict]:
+    """One-token decode against the (B, Hkv, S, d) cache, x (B, 1, D).
+    Writes the token's K/V at ``cache["pos"]`` IN PLACE (the reference
+    returns a new cache) and returns (y, cache with pos + 1)."""
+    b = x.shape[0]
+    pos = int(cache["pos"])
+    s = cache["k"].shape[2]
+    if pos >= s:
+        raise ValueError(f"decode write at {pos} past the cache capacity {s}")
+    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, _angles(cfg, positions))
+    cache["k"][:, :, pos] = _to_cache(k[:, 0], cache["k"].dtype)
+    cache["v"][:, :, pos] = _to_cache(v[:, 0], cache["v"].dtype)
+    hq, hkv, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    qg = q.reshape(b, 1, hkv, hq // hkv, d)
+    logits = torch.einsum("bqhgd,bhkd->bhgqk", qg,
+                          _from_cache(cache["k"], q.dtype)) * (d ** -0.5)
+    mask = torch.arange(s, device=x.device) < pos + 1
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
+    ctx = torch.einsum("bhgqk,bhkd->bqhgd", probs,
+                       _from_cache(cache["v"], q.dtype))
+    y = dense(p["o"], ctx.reshape(b, 1, cfg.q_dim))
+    return y, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

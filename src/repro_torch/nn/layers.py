@@ -1,6 +1,6 @@
 """Common layers: norms, embeddings, swiglu MLP, rotary embeddings.
 
-Port of ``repro.nn.layers`` (the parts the dense GQA path runs).  Linear
+Port of ``repro.nn.layers`` (the parts the dense GQA and RWKV6 paths run).  Linear
 leaves are ``{"w": (k, n)[, "b": (n,)]}`` or packed modules, consumed by
 :func:`repro_torch.core.approx_linear.dense`.
 """
@@ -26,14 +26,19 @@ def layernorm(p: dict | None, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
 
 
 def init_norm(kind: str, d: int, device=None) -> dict:
-    """Norm parameters; the non-parametric LN (the only kind ported) has
-    none."""
+    """Norm parameters: scale and bias for the parametric LN, none for the
+    non-parametric one."""
+    if kind == "layernorm":
+        return {"scale": torch.ones(d, device=device),
+                "bias": torch.zeros(d, device=device)}
     if kind == "nonparametric_ln":
         return {}
     raise NotImplementedError(f"norm {kind!r} is not ported yet")
 
 
 def apply_norm(kind: str, p, x: torch.Tensor) -> torch.Tensor:
+    if kind == "layernorm":
+        return layernorm(p, x)
     if kind == "nonparametric_ln":
         return layernorm(None, x)
     raise NotImplementedError(f"norm {kind!r} is not ported yet")

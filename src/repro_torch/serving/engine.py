@@ -43,6 +43,11 @@ class ServingEngine:
         self.ecfg = ecfg
         self.params = params
         self.api = api or build_model(cfg, device)
+        if self.api.init_slot_cache is None or self.api.decode_slots is None:
+            raise NotImplementedError(
+                f"{cfg.name}: the continuous-batching engine does not serve "
+                "this arch yet (no slot cache); use the lock-step path "
+                "(`python -m repro_torch.launch.serve --legacy`)")
         self.numerics = numerics
         self.pool = SlotPool(self.api, ecfg.slots, ecfg.max_len,
                              ecfg.cache_dtype)

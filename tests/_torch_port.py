@@ -1,6 +1,7 @@
 """Shared set-up for the port's CPU tests (tests/test_torch_*.py): one JAX
-init of olmo-1b-reduced, carried into the port through the bridge, packed
-in both packages under the same spec."""
+init per arch (olmo-1b-reduced by default, rwkv6-1.6b-reduced), carried
+into the port through the bridge, packed in both packages under the same
+spec."""
 
 from __future__ import annotations
 
@@ -23,27 +24,28 @@ from repro_torch.launch.serve import ServeConfig, build_serving_params
 from repro_torch.models import build_model
 
 ARCH = "olmo-1b-reduced"
+RWKV_ARCH = "rwkv6-1.6b-reduced"
 
 
 @functools.lru_cache(maxsize=None)
-def jax_side():
-    cfg = jax_get_config(ARCH)
+def jax_side(arch: str = ARCH):
+    cfg = jax_get_config(arch)
     api = jax_build_model(cfg)
     return cfg, api, api.init(jax.random.PRNGKey(0))
 
 
-def torch_side():
-    cfg = get_config(ARCH)
-    _, _, jparams = jax_side()
+def torch_side(arch: str = ARCH):
+    cfg = get_config(arch)
+    _, _, jparams = jax_side(arch)
     flat = dict(_flatten(jparams)[0])
     return cfg, build_model(cfg, "cpu"), from_jax_params(flat, cfg)
 
 
-def packed_pair(policy: tuple | None):
+def packed_pair(policy: tuple | None, arch: str = ARCH):
     """(jax params, port params) for ``policy`` = (mode, m, use_cv, backend)
     wrapped in serve-default, or None for float."""
-    jcfg, _, jparams = jax_side()
-    tcfg, _, tparams = torch_side()
+    jcfg, _, jparams = jax_side(arch)
+    tcfg, _, tparams = torch_side(arch)
     if policy is None:
         return jparams, tparams
     mode, m, use_cv, backend = policy

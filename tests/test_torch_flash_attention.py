@@ -1,0 +1,141 @@
+"""The port's flash-attention op on the CPU (its plain version) against the
+JAX kernel in interpret mode and both packages' oracles.
+
+Tolerance: rtol = atol = 2e-5, the JAX kernel tests' own
+(tests/test_kernels.py): every side computes float32 softmax attention,
+and only the order of the sums differs.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.nn import attention as jattn
+from repro_torch.kernels import flash_attention as fak
+from repro_torch.kernels import ref as tref
+from repro_torch.nn import attention as tattn
+
+from _torch_port import to_np
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _qkv(seed, b, hq, hkv, tq, tk, d):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, (b, hq, tq, d)).astype(np.float32),
+            rng.normal(0, 1, (b, hkv, tk, d)).astype(np.float32),
+            rng.normal(0, 1, (b, hkv, tk, d)).astype(np.float32))
+
+
+#: (b, hq, hkv, tq, tk, d, causal, window, jax tile): the JAX kernel tests'
+#: cases (tests/test_kernels.py), then ragged lengths no tile divides
+CASES = [
+    (2, 4, 4, 128, 128, 32, True, None, 64),
+    (2, 8, 2, 128, 128, 32, True, None, 64),
+    (2, 4, 4, 128, 128, 32, False, None, 64),
+    (2, 4, 2, 128, 128, 32, True, 64, 64),
+    (1, 4, 2, 64, 256, 64, True, None, 64),   # Tq < Tk, rows end-aligned
+    (2, 4, 2, 100, 100, 32, True, None, 100),  # ragged T
+    (1, 2, 1, 37, 90, 16, True, 20, None),     # ragged Tq < Tk with window
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,causal,window,tile", CASES)
+def test_plain_vs_jax_kernel_and_oracles(b, hq, hkv, tq, tk, d, causal,
+                                         window, tile):
+    q, k, v = _qkv(tq * 7 + d, b, hq, hkv, tq, tk, d)
+    got = to_np(fak.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                    causal=causal, window=window))
+    assert got.shape == (b, hq, tq, d) and got.dtype == np.float32
+    want_r = np.asarray(jref.flash_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window))
+    np.testing.assert_allclose(got, want_r, **TOL)
+    np.testing.assert_allclose(
+        to_np(tref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
+                                       causal=causal, window=window)),
+        want_r, **TOL)
+    if tile is not None:  # the JAX kernel needs tiles dividing Tq and Tk
+        want_k = np.asarray(jax_flash(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+            window=window, bq=tile, bk=tile, interpret=True))
+        np.testing.assert_allclose(got, want_k, **TOL)
+
+
+def test_row_with_no_visible_key_gives_zero():
+    """Tq > Tk: the first Tq - Tk rows see no key.  The kernel (as the TPU
+    kernel, through its max(l, 1e-30) clamp) gives 0 there; the oracle NaN."""
+    q, k, v = _qkv(5, 1, 2, 2, 8, 4, 16)
+    got = to_np(fak.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                    causal=True))
+    want_k = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=True, bq=8, bk=4,
+                                  interpret=True))
+    oracle = to_np(tref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
+                                            causal=True))
+    assert np.all(got[:, :, :4] == 0.0)
+    assert np.all(np.isnan(oracle[:, :, :4]))
+    np.testing.assert_allclose(got, want_k, **TOL)
+    np.testing.assert_allclose(got[:, :, 4:], oracle[:, :, 4:], **TOL)
+
+
+def test_bfloat16_in_bfloat16_out():
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(6, 1, 4, 2, 48, 48, 32))
+    got = fak.flash_attention(q, k, v, causal=True)
+    want = fak.flash_attention_plain(q.float(), k.float(), v.float(),
+                                     causal=True)
+    assert got.dtype == torch.bfloat16
+    # one bf16 rounding of the float32 result
+    torch.testing.assert_close(got.float(), want, rtol=2 ** -8, atol=2 ** -8)
+
+
+@pytest.mark.parametrize("hq,hkv,t,causal", [(4, 4, 24, True), (8, 2, 24, True),
+                                             (4, 2, 17, False)])
+def test_sdpa_vs_jax(hq, hkv, t, causal):
+    """The model's plain prefill attention (B, T, H, d) layout."""
+    rng = np.random.default_rng(hq * t)
+    q = rng.normal(0, 1, (2, t, hq, 16)).astype(np.float32)
+    k = rng.normal(0, 1, (2, t, hkv, 16)).astype(np.float32)
+    v = rng.normal(0, 1, (2, t, hkv, 16)).astype(np.float32)
+    got = to_np(tattn._sdpa(*map(torch.from_numpy, (q, k, v)), causal=causal))
+    want = np.asarray(jattn._sdpa(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal, window=None))
+    np.testing.assert_allclose(got, want, **TOL)
+    # the kernel's function on the (B, H, T, d) layout is the same one
+    flash = to_np(fak.flash_attention(
+        *(torch.from_numpy(a).transpose(1, 2) for a in (q, k, v)),
+        causal=causal)).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(flash, want, **TOL)
+
+
+def test_launch_counter_stays_zero_on_cpu():
+    before = fak.flash_attention.launches
+    q, k, v = map(torch.from_numpy, _qkv(7, 1, 2, 2, 16, 16, 16))
+    fak.flash_attention(q, k, v)
+    assert fak.flash_attention.launches == before == 0
+
+
+class _CudaLike:
+    """Stands in for a CUDA tensor on a machine without a card: the
+    wrapper reads only its device before it needs the kernel library."""
+
+    def __init__(self, t: torch.Tensor):
+        self.device = torch.device("cuda")
+        self.dtype, self.shape = t.dtype, t.shape
+
+
+def test_cuda_call_without_the_library_raises(monkeypatch):
+    monkeypatch.setattr(fak, "_LIB", None)
+    monkeypatch.setattr(fak, "BUILD_DIR", fak.BUILD_DIR.parent / "no-such-build")
+    monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
+    q = _CudaLike(torch.zeros(1, 2, 8, 16))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fak.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="unsupported device"):
+        t = torch.empty(1, 2, 8, 16, device="meta")
+        fak.flash_attention(t, t, t)
+    assert fak.flash_attention.launches == 0

@@ -53,6 +53,16 @@ def test_port_runs_with_jax_unimportable():
             params, torch.zeros(2, 4, dtype=torch.long), cache, [4, 2])
         assert logits.shape == (2, 4, cfg.vocab) and torch.isfinite(logits).all()
         assert cache["lengths"].tolist() == [4, 2]
+        for arch in ("olmo-1b-reduced", "rwkv6-1.6b-reduced"):
+            cfg = get_config(arch)
+            api = build_model(cfg, "cpu")
+            params = build_serving_params(api.init(0), cfg, ServeConfig(
+                policy=ApproxPolicy("perforated", 2, backend="pallas")),
+                device="cpu")
+            toks = torch.zeros(2, 5, dtype=torch.long)
+            logits, cache = api.prefill(params, {"tokens": toks}, 8)
+            logits, cache = api.decode_step(params, toks[:, :1], cache)
+            assert logits.shape == (2, cfg.vocab) and cache["pos"] == 6
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
