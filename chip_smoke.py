@@ -6,11 +6,16 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
 2. build: compiles the three CUDA sources from the checkout, one `nvcc`
    each, all at once;
 3. kernels: every kernel against its plain PyTorch version on the card:
-   approx-matmul for every multiplier mode at the serving shapes plus
-   exact-integer accumulator checks; flash attention at the olmo-1b
-   prefill shape, the JAX kernel tests' shapes and a ragged length; the
-   RWKV6 scan (out and final state) at the rwkv6-1.6b prefill shape, the
-   JAX tests' shapes and a ragged length;
+   approx-matmul for every multiplier mode at the serving shapes (decode
+   M=4, engine chunk M=128, olmo-1b prefill M=4096 at K=2048 and 8192,
+   rwkv6-1.6b prefill M=2048 at K=7168, a ragged M=1000 with a K off the
+   tile) plus exact-integer accumulator checks (M=4, 128, 300), equal to
+   the plain version on every matmul tile of the source; flash attention
+   at the olmo-1b prefill shape, the JAX kernel tests' shapes in float32
+   and bfloat16 (GQA, window, non-causal, Tq < Tk at D=64 and 128) and a
+   ragged length, each row held to its own scale; the RWKV6 scan (out and
+   final state) at the rwkv6-1.6b prefill shape, the JAX tests' shapes and
+   a ragged length;
 4. engine path: full-width olmo-1b served by the port's continuous-batching
    engine with `backend: "pallas"` packs; checks completion, the kernel
    launch count the schedule implies, device placement, determinism and
@@ -20,7 +25,8 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    with `backend: "pallas"`; checks finite logits, determinism, the launch
    counts the schedule implies, and the logit gap to the same prefill with
    the flash and scan kernels swapped for their plain versions;
-6. kernel times at the paths' shapes (kernel, plain, library, bound).
+6. kernel times at the paths' shapes (kernel, plain, library, bound),
+   the approx-matmul also at both lock-step prefills' shapes.
 
 Prints the card line and one `kernels` JSON line before the last line, and
 ends with `{"ok": true, "device": {...}}`.  Any failure exits non-zero.
@@ -65,6 +71,11 @@ MODES = [("perforated", 1), ("perforated", 2), ("perforated", 4),
 PATH_KN = [(2048, 6144), (2048, 2048), (2048, 16384), (8192, 2048)]
 DECODE_KN = [(2048, 2048)] * 4 + [(2048, 8192)] * 2 + [(8192, 2048)]
 PREFILL_KN = PATH_KN
+#: rwkv6-1.6b's packed layers of one layer's prefill: r, k, v, g, out,
+#: receptance; key; value
+RWKV_KN = [(2048, 2048)] * 6 + [(2048, 7168), (7168, 2048)]
+#: rows of one lock-step prefill call: B=4 x T
+OLMO_PREFILL_M, RWKV_PREFILL_M = 4096, 2048
 
 
 def fail(msg: str) -> None:
@@ -108,6 +119,20 @@ def plain_swapped(what: str, swaps):
                  f"plain version and {kern.launches - before} kernel launches")
 
 
+def k_major_gib(tree) -> float:
+    """GiB of the packs' K-major weight copies (``w_qbt``) in a parameter
+    tree: what the prefill tile's operand layout adds to the card."""
+    import torch.nn as nn
+
+    if isinstance(tree, nn.Module):
+        return sum(b.numel() * b.element_size()
+                   for name, b in tree.named_buffers()
+                   if name.split(".")[-1] == "w_qbt") / 2**30
+    if isinstance(tree, dict):
+        return sum(k_major_gib(v) for v in tree.values())
+    return 0.0
+
+
 def peaks(name: str) -> tuple[float, float, float, float]:
     for key, val in CARD_PEAKS.items():
         if key in name:
@@ -136,27 +161,57 @@ def random_pack(torch, k: int, n: int, mode: str, m: int, gen, dev,
     return pack, a_qp, build_blocked_layout(pack, a_qp)
 
 
-def close(torch, got, want, rtol: float = RTOL) -> float:
+def close(torch, got, want, rtol: float = RTOL, per_row: bool = False
+          ) -> float:
     """Max abs error; fails unless |got - want| <= rtol*(|want| + scale)
-    everywhere (a NaN on either side fails)."""
+    everywhere (a NaN on either side fails).  ``scale`` is max |want| over
+    the whole output, or with ``per_row`` over each row of its last axis,
+    so that rows of small values are held to their own size."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    scale = float(want.abs().max()) if want.numel() else 0.0
+    if not want.numel():
+        return 0.0
+    scale = (want.abs().amax(dim=-1, keepdim=True) if per_row
+             else want.abs().max())
     bad = ~(err <= rtol * (want.abs() + scale))
     if bool(bad.any()):
         fail(f"kernel disagrees with its plain version: max abs err "
-             f"{float(err.max())} at scale {scale} (rtol {rtol})")
-    return float(err.max()) if err.numel() else 0.0
+             f"{float(err.max())} at scale {float(scale.max())} (rtol "
+             f"{rtol}{', scale per row' if per_row else ''})")
+    return float(err.max())
 
 
 def check_kernels(torch, dev) -> dict:
-    """Phase 3: both kernels against their plain versions on the card."""
+    """Phase 3: both approx-matmul entries against their plain versions on
+    the card, equal (max abs err 0) in every case; fails unless each entry
+    was compared on every matmul tile the source instantiates
+    (``approx_matmul.TILES``)."""
     from repro_torch.kernels import approx_matmul as amk
     from repro_torch.core import multipliers as am
 
+    from repro_torch.quant.quantize import k_major
+
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {"approx_matmul_cv_fused": 0.0, "approx_matmul_cv": 0.0}
-    shapes = [(mm, k, n) for mm in (4, 128) for k, n in PATH_KN] + [(5, 200, 48)]
+    tiles = {name: set() for name in errs}
+
+    def equal(name, got, want, mm, k, n, mode, m):
+        err = close(torch, got, want)
+        if err != 0.0:
+            fail(f"{name} {mode} m={m} ({mm}, {k}, {n}): max abs err {err} "
+                 "against its plain version, not 0")
+        errs[name] = max(errs[name], err)
+        tiles[name].add(amk.tile(mm, k, n, mode, m))
+
+    # decode and engine-chunk rows at every path shape; lock-step prefill
+    # calls: olmo-1b's fused q|k|v and down projection (K=8192: the 128 x
+    # 256 tile), rwkv6-1.6b's key projection; a ragged call whose K (2000)
+    # is off the 128-byte K tile and whose M and N are off the row and
+    # column tiles
+    shapes = ([(mm, k, n) for mm in (4, 128) for k, n in PATH_KN]
+              + [(5, 200, 48), (OLMO_PREFILL_M, 2048, 6144),
+                 (OLMO_PREFILL_M, 8192, 2048), (RWKV_PREFILL_M, 7168, 2048),
+                 (1000, 2000, 1000)])
     n_cases = 0
     for mode, m in MODES:
         for mm, k, n in shapes:
@@ -166,15 +221,14 @@ def check_kernels(torch, dev) -> dict:
                 x = (torch.randn(mm, k, generator=gen, device=dev) * 1.5).to(dt)
                 got = amk.approx_matmul_cv_fused(
                     x, blocked.w_qb, blocked.epilogue, blocked.meta, k=k, n=n,
-                    mode=mode, m=m, use_cv=True)
+                    mode=mode, m=m, use_cv=True, w_qbt=blocked.w_qbt)
                 want = amk.approx_matmul_cv_fused_plain(
                     x, blocked.w_qb, blocked.epilogue, blocked.meta, k=k, n=n,
                     mode=mode, m=m, use_cv=True)
                 torch.cuda.synchronize()
                 if got.dtype != dt or got.shape != (mm, n):
                     fail(f"fused kernel output {got.dtype} {tuple(got.shape)}")
-                errs["approx_matmul_cv_fused"] = max(
-                    errs["approx_matmul_cv_fused"], close(torch, got, want))
+                equal("approx_matmul_cv_fused", got, want, mm, k, n, mode, m)
                 n_cases += 1
             # codes-in kernel on the same pack (per-tensor quant params are
             # exact for an unfused pack; use the first member's for fused)
@@ -187,14 +241,15 @@ def check_kernels(torch, dev) -> dict:
             got = amk.approx_matmul_cv(*args, mode=mode, m=m)
             want = amk.approx_matmul_cv_plain(*args, mode=mode, m=m)
             torch.cuda.synchronize()
-            errs["approx_matmul_cv"] = max(errs["approx_matmul_cv"],
-                                           close(torch, got, want))
+            equal("approx_matmul_cv", got, want, mm, k, n, mode, m)
             n_cases += 1
         # exact integer accumulators: sa = sw = 1, za = zw = 0, no bias, no
         # CV, integer x in [0, 255] (codes == x); K <= 258 keeps the f32
-        # output an exact integer, so it must equal the scalar oracle
-        for mm in (4, 128):
-            k, n = 258, 96
+        # output an exact integer, so it must equal the scalar oracle.  M=4
+        # takes the decode tile; 128 and 300 the prefill tile (300 rows and
+        # columns cross its row and column tiles, K=258 three K tiles)
+        for mm, n in ((4, 96), (128, 96), (300, 300)):
+            k = 258
             w_q = torch.randint(0, 256, (k, n), generator=gen, device=dev,
                                 dtype=torch.uint8)
             a_q = torch.randint(0, 256, (mm, k), generator=gen, device=dev,
@@ -206,7 +261,7 @@ def check_kernels(torch, dev) -> dict:
             meta[0, 0], meta[0, 2] = 1.0, float(k)  # sa, true_k
             got1 = amk.approx_matmul_cv_fused(
                 a_q.float(), w_q, epi, meta, k=k, n=n, mode=mode, m=m,
-                use_cv=False)
+                use_cv=False, w_qbt=k_major(w_q))
             zeros = torch.zeros(n, device=dev)
             got2 = amk.approx_matmul_cv(
                 a_q, w_q, zeros, zeros, torch.zeros(n, dtype=torch.int32,
@@ -214,27 +269,37 @@ def check_kernels(torch, dev) -> dict:
                 torch.tensor([1.0, 1.0, 0.0, 0.0, float(k)], device=dev),
                 mode=mode, m=m, use_cv=False)
             torch.cuda.synchronize()
-            for name, got in (("fused", got1), ("codes", got2)):
+            for name, got in (("approx_matmul_cv_fused", got1),
+                              ("approx_matmul_cv", got2)):
                 if not torch.equal(got, want):
-                    fail(f"{name} kernel accumulator not exact for {mode} m={m}"
+                    fail(f"{name} accumulator not exact for {mode} m={m}"
                          f" M={mm}: max diff {float((got - want).abs().max())}")
+                tiles[name].add(amk.tile(mm, k, n, mode, m))
             n_cases += 2
-    print(f"kernels: {n_cases} cases agree with their plain versions "
-          f"(rtol {RTOL}); max abs err {errs}", flush=True)
+    for name, seen in tiles.items():
+        if set(amk.TILES) - seen:
+            fail(f"{name}: tiles {sorted(set(amk.TILES) - seen)} were never "
+                 "compared with the plain version")
+    print(f"kernels: {n_cases} approx-matmul cases equal their plain "
+          f"versions (max abs err 0) on every tile {list(amk.TILES)}",
+          flush=True)
     return errs
 
 
-#: flash attention against its plain version: float32 inputs differ only in
-#: the order of float32 sums (2e-5, the JAX kernel tests' tolerance); a
-#: bfloat16 output is one bf16 rounding (2^-7 relative) of float32 values
-#: that agree to ulps
+#: flash attention against its plain version, each output row against its
+#: own largest value: float32 inputs differ only in the order of float32
+#: sums (2e-5, the JAX kernel tests' tolerance); a bfloat16 output is one
+#: bf16 rounding (2^-7 relative) of float32 values that differ by the
+#: rounding of P to bf16 (~2^-9 of the row's scale, averaged over the keys)
 FLASH_RTOL = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
 #: the RWKV6 scan against its plain version: the same chunked float32
 #: algebra with its sums in another order; the k / D_s terms reach e^8
 #: within a chunk, so ulps of them show
 SCAN_RTOL = 1e-4
 #: (B, Hq, Hkv, Tq, Tk, D, causal, window, dtype): the olmo-1b prefill
-#: shape, the JAX kernel tests' cases (tests/test_kernels.py), a ragged T
+#: shape, the JAX kernel tests' cases (tests/test_kernels.py) in float32
+#: (CUDA-core route) and their GQA, window, non-causal and Tq < Tk cases in
+#: bfloat16 at D=64 and 128 (tensor-core route), a ragged T
 FLASH_CASES = [
     (4, 16, 16, 1024, 1024, 128, True, None, "bfloat16"),
     (2, 4, 4, 128, 128, 32, True, None, "float32"),
@@ -243,7 +308,11 @@ FLASH_CASES = [
     (2, 4, 2, 128, 128, 32, True, 64, "float32"),
     (1, 4, 2, 64, 256, 64, True, None, "float32"),
     (4, 16, 16, 1000, 1000, 128, True, None, "bfloat16"),
-]
+] + [case for d in (64, 128) for case in (
+    (2, 8, 2, 128, 128, d, True, None, "bfloat16"),
+    (2, 4, 2, 128, 128, d, True, 64, "bfloat16"),
+    (2, 4, 4, 128, 128, d, False, None, "bfloat16"),
+    (1, 4, 2, 64, 256, d, True, None, "bfloat16"))]
 #: (B, T, H, Dk, Dv, dtype of r/k/v): the rwkv6-1.6b prefill shape, the JAX
 #: tests' cases, a ragged T
 SCAN_CASES = [(4, 512, 32, 64, 64, "bfloat16"), (2, 64, 2, 64, 64, "float32"),
@@ -281,7 +350,7 @@ def check_attention_and_scan(torch, dev) -> dict:
         torch.cuda.synchronize()
         if got.dtype != dtype or got.shape != want.shape:
             fail(f"flash output {got.dtype} {tuple(got.shape)}")
-        err = close(torch, got, want, FLASH_RTOL[dt])
+        err = close(torch, got, want, FLASH_RTOL[dt], per_row=True)
         errs["flash_attention"] = max(errs["flash_attention"], err)
         print(f"kernels: flash_attention B={b} Hq={hq} Hkv={hkv} Tq={tq} "
               f"Tk={tk} D={d} causal={causal} window={window} {dt}: max abs "
@@ -339,67 +408,96 @@ def time_calls(torch, fns, reps: int = 21) -> float:
 
 
 def kernel_times(torch, dev, card: str) -> list[dict]:
-    """Phase 5: per-shape times of both kernels, their plain versions, the
-    library matmul the approximate layer replaces, and the bound
-    (perforated m=2 + CV, bf16 activations, as served)."""
+    """Phase 6: per-shape times of both kernels, their plain versions, the
+    library matmuls the approximate layer stands beside, and the bound
+    (perforated m=2 + CV, bf16 activations, as served): decode and engine
+    chunk rows for both entries, both lock-step prefills' rows for the
+    fused entry (its plain version timed at one prefill shape only)."""
     from repro_torch.kernels import approx_matmul as amk
+    from repro_torch.quant.quantize import BlockedPack
 
     bw, int8_peak, _, _ = peaks(card)
     mode, m = "perforated", 2
-    n_planes = amk._mode_args(mode, m, True)[0]
+    # least work: one product per plane plus the main one (perforated and
+    # exact: one; recursive: two; truncated: m + 1)
+    products = 1 + len(amk.decomposition(mode, m)[1])
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    shapes = sorted({(4, k, n) for k, n in DECODE_KN + PATH_KN}
-                    | {(128, k, n) for k, n in PATH_KN})
-    for mm, k, n in shapes:
+    small = sorted({(4, k, n) for k, n in DECODE_KN + PATH_KN}
+                   | {(128, k, n) for k, n in PATH_KN})
+    prefill = sorted({(OLMO_PREFILL_M, k, n) for k, n in PREFILL_KN}
+                     | {(RWKV_PREFILL_M, k, n) for k, n in RWKV_KN})
+    plain_at = (OLMO_PREFILL_M, 2048, 2048)
+    for mm, k, n in small + prefill:
         pack, a_qp, blocked = random_pack(torch, k, n, mode, m, gen, dev)
         w_bytes = blocked.w_qb.numel()
         # enough operand copies that the 50 MB L2 cannot serve one call's
         # weights from the previous call (as in a served step)
         copies = max(2, -(-(128 << 20) // w_bytes))
-        blks = [blocked] + [type(blocked)(
+        blks = [blocked] + [BlockedPack(
             w_qb=blocked.w_qb.clone(), epilogue=blocked.epilogue.clone(),
-            meta=blocked.meta.clone(), k=k, n=n, bk=blocked.bk, bn=blocked.bn)
-            for _ in range(copies - 1)]
-        wqs = [pack.w_q] + [pack.w_q.clone() for _ in range(copies - 1)]
+            meta=blocked.meta.clone(), k=k, n=n, bk=blocked.bk, bn=blocked.bn,
+            w_qbt=blocked.w_qbt.clone()) for _ in range(copies - 1)]
         x = torch.randn(mm, k, generator=gen, device=dev).to(torch.bfloat16)
-        a_q = torch.randint(0, 256, (mm, k), generator=gen, device=dev,
-                            dtype=torch.uint8)
-        meta5 = torch.tensor([0.015, 0.02, 7.0, 131.0, float(k)], device=dev)
-        bias = torch.zeros(n, device=dev)
+        # the weight bytes the call's tile reads: the row-major codes for
+        # decode rows, the K-major copy above them
+        w_read = (w_bytes if mm <= amk.DECODE_M_MAX
+                  else blocked.w_qbt.numel())
         fused = dict(
             kern=[lambda b=b: amk.approx_matmul_cv_fused(
-                x, b.w_qb, b.epilogue, b.meta, k=k, n=n, mode=mode, m=m)
-                for b in blks],
+                x, b.w_qb, b.epilogue, b.meta, k=k, n=n, mode=mode, m=m,
+                w_qbt=b.w_qbt) for b in blks],
             plain=[lambda b=b: amk.approx_matmul_cv_fused_plain(
                 x, b.w_qb, b.epilogue, b.meta, k=k, n=n, mode=mode, m=m)
                 for b in blks[:2]],
-            nbytes=(x.numel() * 2 + w_bytes + blocked.epilogue.numel() * 4
+            nbytes=(x.numel() * 2 + w_read + blocked.epilogue.numel() * 4
                     + blocked.meta.numel() * 4 + mm * n * 2))
-        codes = dict(
-            kern=[lambda w=w: amk.approx_matmul_cv(
-                a_q, w, pack.c, pack.c0, pack.sum_qw, bias, meta5, mode=mode,
-                m=m) for w in wqs],
-            plain=[lambda w=w: amk.approx_matmul_cv_plain(
-                a_q, w, pack.c, pack.c0, pack.sum_qw, bias, meta5, mode=mode,
-                m=m) for w in wqs[:2]],
-            nbytes=(mm * k + k * n + 4 * 4 * n + 4 * 5 + mm * n * 4))
+        entries = [("approx_matmul_cv_fused", fused)]
+        if mm <= 128:
+            wqs = [pack.w_q] + [pack.w_q.clone() for _ in range(copies - 1)]
+            a_q = torch.randint(0, 256, (mm, k), generator=gen, device=dev,
+                                dtype=torch.uint8)
+            meta5 = torch.tensor([0.015, 0.02, 7.0, 131.0, float(k)],
+                                 device=dev)
+            bias = torch.zeros(n, device=dev)
+            # as callers call it: above DECODE_M_MAX the wrapper makes the
+            # K-major copy of w_q each call, and that transpose is timed
+            entries.append(("approx_matmul_cv", dict(
+                kern=[lambda w=w: amk.approx_matmul_cv(
+                    a_q, w, pack.c, pack.c0, pack.sum_qw, bias, meta5,
+                    mode=mode, m=m) for w in wqs],
+                plain=[lambda w=w: amk.approx_matmul_cv_plain(
+                    a_q, w, pack.c, pack.c0, pack.sum_qw, bias, meta5,
+                    mode=mode, m=m) for w in wqs[:2]],
+                nbytes=(mm * k + k * n + 4 * 4 * n + 4 * 5 + mm * n * 4))))
         w_f = [torch.randn(k, n, generator=gen, device=dev).to(torch.bfloat16)
                for _ in range(copies)]
         t_lib = time_calls(torch, [lambda w=w: torch.matmul(x, w) for w in w_f])
-        t_ops = 2.0 * mm * k * n * (1 + n_planes) / int8_peak
-        for name, d in (("approx_matmul_cv_fused", fused),
-                        ("approx_matmul_cv", codes)):
+        del w_f
+        t_int8 = None
+        if mm >= 32:  # torch._int_mm needs more than 16 rows
+            x8 = torch.randint(-128, 128, (mm, k), generator=gen, device=dev,
+                               dtype=torch.int8)
+            w8 = [torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(copies)]
+            t_int8 = time_calls(torch, [lambda w=w: torch._int_mm(x8, w)
+                                        for w in w8])
+            del w8, x8
+        t_ops = 2.0 * mm * k * n * products / int8_peak
+        for name, d in entries:
             t_bytes = d["nbytes"] / bw
-            rows.append({"kernel": name, "M": mm, "K": k, "N": n,
-                         "kernel_us": time_calls(torch, d["kern"]) * 1e6,
-                         "plain_us": time_calls(torch, d["plain"], reps=5) * 1e6,
-                         "library_us": t_lib * 1e6,
-                         "bound_us": max(t_bytes, t_ops) * 1e6,
-                         "bound_by": ("bytes" if t_bytes >= t_ops
-                                      else "operations")})
+            timed_plain = mm <= 128 or (mm, k, n) == plain_at
+            rows.append({
+                "kernel": name, "M": mm, "K": k, "N": n,
+                "kernel_us": time_calls(torch, d["kern"]) * 1e6,
+                "plain_us": (time_calls(torch, d["plain"], reps=3) * 1e6
+                             if timed_plain else None),
+                "library_us": t_lib * 1e6,
+                "int8_library_us": None if t_int8 is None else t_int8 * 1e6,
+                "bound_us": max(t_bytes, t_ops) * 1e6,
+                "bound_by": ("bytes" if t_bytes >= t_ops else "operations")})
             print("time " + json.dumps(rows[-1]), flush=True)
-        del blks, wqs, w_f, fused, codes
+        del blks, fused, entries
     return rows
 
 
@@ -407,8 +505,13 @@ def step_entry(rows: list[dict], name: str, kn_list, mm) -> dict:
     """Sums over one layer's launches of one step kind."""
     by = {(r["kernel"], r["M"], r["K"], r["N"]): r for r in rows}
     sel = [by[(name, mm, k, n)] for k, n in kn_list]
-    out = {key: sum(r[key] for r in sel)
-           for key in ("kernel_us", "plain_us", "library_us", "bound_us")}
+    out = {key: (None if any(r[key] is None for r in sel)
+                 else sum(r[key] for r in sel))
+           for key in ("kernel_us", "plain_us", "library_us",
+                       "int8_library_us", "bound_us")}
+    out["launches"] = len(sel)
+    out["kernel_us_per_call"] = out["kernel_us"] / len(sel)
+    out["bound_us_per_call"] = out["bound_us"] / len(sel)
     by_bytes = sum(r["bound_us"] for r in sel if r["bound_by"] == "bytes")
     out["bound_by"] = ("bytes" if by_bytes >= out["bound_us"] / 2
                        else "operations")
@@ -460,7 +563,8 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
     torch.cuda.synchronize()
     pack_bytes = sum(t.numel() * t.element_size() for t in iter_tensors(packed))
     print(f"main: init + pack {time.perf_counter() - t0:.1f} s; "
-          f"serving params {pack_bytes / 2**30:.3f} GiB", flush=True)
+          f"serving params {pack_bytes / 2**30:.3f} GiB, of which K-major "
+          f"weight copies {k_major_gib(packed):.3f} GiB", flush=True)
 
     ecfg = EngineConfig(slots=4, max_len=256, prefill_chunk=32,
                         cache_dtype="bfloat16")
@@ -496,7 +600,7 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
     print(f"main: steps prefill={snap['prefill_steps']} mixed="
           f"{snap['mixed_steps']} decode={snap['decode_steps']}; wrapper "
           f"launches {launches} expected fused {expected} (each fused call "
-          f"is two CUDA launches: quantize, then matmul)", flush=True)
+          f"is two CUDA launches: prep, then matmul)", flush=True)
     if launches["approx_matmul_cv_fused"] != expected:
         fail(f"main: {launches['approx_matmul_cv_fused']} fused launches, the "
              f"schedule implies {expected}")
@@ -564,6 +668,7 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
         "ttft_p50_s": snap["ttft_p50_s"], "ttft_p95_s": snap["ttft_p95_s"],
         "itl_p50_s": snap["itl_p50_s"], "itl_p95_s": snap["itl_p95_s"],
         "peak_mem_gib": peak / 2**30, "pack_gib": pack_bytes / 2**30,
+        "k_major_gib": k_major_gib(packed),
         "launches": launches, "step_breakdown": breakdown})
     print("main: " + main_line, flush=True)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
@@ -615,11 +720,16 @@ def profile_fn(torch, label: str, call, host_profile: str) -> dict:
                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     device_s = sum(dev_us(e) for e in kernels) / 3 / 1e6
     wall_s = statistics.median(walls)
-    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    # kernels by name, instantiations of one template summed (their names
+    # agree in the first 48 characters)
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.key[:48]] = by_name.get(e.key[:48], 0.0) + dev_us(e) / 3
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:6]
     out = {"wall_ms": wall_s * 1e3,
            "device_ms": device_s * 1e3 if kernels else None,
            "device_idle_share": 1 - device_s / wall_s if kernels else None,
-           "top_device_us": {e.key[:48]: dev_us(e) / 3 for e in top}}
+           "top_device_us": dict(top)}
     print(f"{label}: " + json.dumps(out), flush=True)
     return out
 
@@ -759,6 +869,7 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
     line = {"arch": arch, "layers": cfg.n_layers, "batch": BATCH,
             "prompt_len": prompt_len, "gen": GEN,
             "prefill_ms": res["prefill_s"] * 1e3,
+            "k_major_gib": k_major_gib(packed),
             "decode_ms_per_token": res["decode_s_per_step"] * 1e3,
             "tok_per_s": res["tok_per_s"], "peak_mem_gib": peak / 2**30,
             "plain_gap": gap, "plain_argmax_agreement": agree,
@@ -768,8 +879,8 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
           f"{line['decode_ms_per_token']:.2f} (one token per sequence per "
           f"step, {BATCH} sequences)", flush=True)
     print(f"legacy: {arch} tok_per_s {line['tok_per_s']:.1f}", flush=True)
-    print(f"legacy: {arch} peak_mem_gib {line['peak_mem_gib']:.3f}",
-          flush=True)
+    print(f"legacy: {arch} peak_mem_gib {line['peak_mem_gib']:.3f} (K-major "
+          f"weight copies {line['k_major_gib']:.3f} GiB of it)", flush=True)
     print("legacy: " + json.dumps(line), flush=True)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / f"legacy_{arch}.json").write_text(
@@ -901,6 +1012,13 @@ def main() -> int:
               + json.dumps(dec), flush=True)
         print(f"{name} per layer, prefill step (4 launches, M=128): "
               + json.dumps(pre), flush=True)
+        if name == "approx_matmul_cv_fused":
+            for label, kn, mm in (("olmo-1b", PREFILL_KN, OLMO_PREFILL_M),
+                                  ("rwkv6-1.6b", RWKV_KN, RWKV_PREFILL_M)):
+                print(f"{name} per layer, {label} lock-step prefill "
+                      f"({len(kn)} launches, M={mm}): "
+                      + json.dumps(step_entry(rows, name, kn, mm)),
+                      flush=True)
         entries.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/approx_matmul.cu",

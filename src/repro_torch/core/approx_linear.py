@@ -30,7 +30,7 @@ from repro_torch.quant.quantize import (BlockedPack, PackedLinear, QuantParams,
                                         serving_blocks)
 
 _PACK_FIELDS = ("w_q", "w_scale", "w_zp", "sum_qw", "c", "c0", "bias")
-_BLOCKED_FIELDS = ("w_qb", "epilogue", "meta")
+_BLOCKED_FIELDS = ("w_qb", "epilogue", "meta", "w_qbt")
 
 
 class _Packed(nn.Module):
@@ -63,7 +63,8 @@ class _Packed(nn.Module):
         if self._blocked_dims is None:
             return None
         k, n, bk, bn = self._blocked_dims
-        return BlockedPack(self.w_qb, self.epilogue, self.meta, k, n, bk, bn)
+        return BlockedPack(self.w_qb, self.epilogue, self.meta, k, n, bk, bn,
+                           self.w_qbt)
 
 
 class QuantizedDense(_Packed):
@@ -133,9 +134,10 @@ def _packed_forward(p: _Packed, x: torch.Tensor) -> torch.Tensor:
 
         if not isinstance(p, QuantizedDenseGroup):
             return kops.quantized_dense_pallas(x, p).to(x.dtype)
-        if p.blocked is not None:
+        blocked = p.blocked
+        if blocked is not None:
             return kops.quantized_dense_fused_op(
-                x, p.blocked, mode=pol.mode, m=pol.m, use_cv=pol.use_cv)
+                x, blocked, mode=pol.mode, m=pol.m, use_cv=pol.use_cv)
     return quantized_linear(x, p.pack, p.a_qp, pol.mode, pol.m,
                             use_cv=pol.use_cv).to(x.dtype)
 
@@ -241,6 +243,8 @@ def pack_dense_group(members: list[tuple[str, dict]], policy: ApproxPolicy,
     for li in range(len(per_member[0])):
         mods = [_pack_one(w, b, policy, a_qp)
                 for w, b in (pm[li] for pm in per_member)]
+        for mod in mods:  # members run decode rows only: the thin tile
+            mod.w_qbt = None  # reads w_qb, so they need no K-major copy
         pack = concat_packs([mod.pack for mod in mods])
         groups.append(QuantizedDenseGroup(
             pack, a_qp, policy, _maybe_blocked(pack, a_qp, policy), names,

@@ -5,16 +5,19 @@ Two entries of one hand-written CUDA source (``csrc/approx_matmul.cu``):
 * :func:`approx_matmul_cv_fused` replaces the TPU kernel
   ``repro/kernels/approx_matmul.py::approx_matmul_cv_fused`` (body
   ``_fused_kernel``): float activations against an offline-blocked pack
-  (uint8 codes + (EPI_ROWS, Nb) epilogue table + meta scalars).  One
-  wrapper call quantizes x once on the card (a small quantize kernel) and
-  runs the tensor-core matmul with the CV epilogue: two CUDA launches;
+  (uint8 codes, their K-major copy, an (EPI_ROWS, Nb) epilogue table and
+  meta scalars).  One wrapper call runs a prep kernel (quantize x once,
+  mask the codes, per-row statistics) and one tensor-core matmul kernel
+  with the CV epilogue: two CUDA launches;
 * :func:`approx_matmul_cv` replaces ``approx_matmul_cv`` (body ``_kernel``):
   the same arithmetic over pre-quantized codes with per-tensor quant params.
 
-Both are bound by bytes on the H100 at the serving shapes (decode reads
-each weight byte once; prefill at M=128 stays below the int8 ridge); the
-design notes are in the source.  The source is compiled with ``nvcc`` for
-``sm_90a`` into ``build/`` at first use and bound with ``ctypes``.
+Rows above :data:`DECODE_M_MAX` take the prefill tile (TMA + ``wgmma``,
+reading the K-major weight copy, bound by int8 operations at prefill
+sizes); decode-shaped rows take the thin ``mma.sync`` tile over the
+row-major codes (bound by the weight bytes).  The design notes are in the
+source.  The source is compiled with ``nvcc`` for ``sm_90a`` into
+``build/`` at first use and bound with ``ctypes``.
 
 Each wrapper takes a CPU tensor to its plain PyTorch version
 (``*_plain``, the float64-exact integer product of
@@ -37,7 +40,8 @@ from repro_torch.core import multipliers as am
 from repro_torch.kernels import nvcc
 from repro_torch.quant.quantize import (EPI_BIAS, EPI_C, EPI_C0, EPI_ROWS,
                                         EPI_SUM_QW, EPI_SW, EPI_ZW, META_SA,
-                                        META_TRUE_K, META_ZA, QMAX, QMIN)
+                                        META_TRUE_K, META_ZA, QMAX, QMIN,
+                                        k_major)
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "approx_matmul.cu"
 BUILD_DIR = nvcc.BUILD_DIR
@@ -48,8 +52,16 @@ NVCC_FLAGS = nvcc.BASE_FLAGS + ("-fmad=false",)
 
 #: Row counts at or below this are decode-shaped (engine slot counts): the
 #: kernel runs its thin-M tile configuration, whose blocks each stream a
-#: narrow column strip of the weights once.
+#: narrow column strip of the weights once.  Above it the prefill tile
+#: reads the K-major weight copy.
 DECODE_M_MAX = 8
+
+#: K-major weight rows are padded to this many bytes (TMA row strides)
+K_ALIGN = 16
+
+#: the source's own failure statuses (below cudaError_t's range)
+_STATUS = {-1: "cuTensorMapEncodeTiled not found in the driver",
+           -2: "the driver refused a TMA tensor map"}
 
 #: largest fan-in whose accumulators stay exact in 32 bits: 255*255*K < 2^31
 MAX_K = 33025
@@ -66,37 +78,69 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(nvcc.build_many([build_job()])[0]))
         P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
-        lib.am_fused_launch.argtypes = [P, I, P, I, P, I, I, P, P, P, I, I, I,
-                                        I, I, U, U, I, I, I, P]
+        # x, x_bf16, codes, ldq, stats, w_qb, ldw, w_vec, w_qbt, ldt,
+        # epilogue, meta, out, M, K, N, decode, then _mode_args, stream
+        lib.am_fused_launch.argtypes = [P, I, P, I, P, P, I, I, P, I, P, P, P,
+                                        I, I, I, I, I, I, U, U, I, I, I, P]
         lib.am_fused_launch.restype = I
-        lib.am_codes_launch.argtypes = [P, P, I, P, P, P, P, P, P, I, I, I, I,
-                                        I, U, U, I, I, I, P]
+        # a_q, codes, ldq, stats, w_q, w_vec, w_qt, ldt, c, c0, sum_qw, bias,
+        # meta, out, M, K, N, decode, then _mode_args, stream
+        lib.am_codes_launch.argtypes = [P, P, I, P, P, I, P, I, P, P, P, P, P,
+                                        P, I, I, I, I, I, I, U, U, I, I, I, P]
         lib.am_codes_launch.restype = I
+        lib.am_tile.argtypes = [I, I, I, I, I]
+        lib.am_tile.restype = I
         _LIB = lib
     return _LIB
 
 
+#: the matmul kernel instantiations, named in the order of the source's
+#: ``TileId`` (``am_tile``): the thin-M decode tile, the wgmma tiles for
+#: modes with subtractive planes, then those for one product
+TILES = ("decode", "128x128 planes", "64x128 planes", "128x256", "128x128",
+         "64x128")
+
+
+def tile(mm: int, k: int, n: int, mode: am.Mode, m: int) -> str:
+    """The matmul kernel that a call of ``mm`` rows against a (k, n) pack
+    launches, as the source chooses it (needs the built library)."""
+    planes = len(decomposition(mode, m)[1])
+    return TILES[_lib().am_tile(int(mm <= DECODE_M_MAX), mm, k, n, planes)]
+
+
+def decomposition(mode: am.Mode, m: int) -> tuple[int, list[tuple[int, int]]]:
+    """The kernel's exact integer form of ``mode``/``m``: ``(main, planes)``
+    with  acc = (A & main) . W - sum over planes (A & amask) . (W & wmask).
+
+    perforated: main = ~(2^m - 1), no plane (A_hi . W: one product);
+    exact: main = 0xFF, no plane; recursive: main = 0xFF, one plane
+    (2^m - 1, 2^m - 1); truncated: main = 0xFF, m planes (1 << i,
+    2^(m-i) - 1)."""
+    if mode == "exact" or m == 0:
+        return 0xFF, []
+    low = (1 << m) - 1
+    if mode == "perforated":
+        return 0xFF & ~low, []
+    if mode == "recursive":
+        return 0xFF, [(low, low)]
+    if mode == "truncated":
+        return 0xFF, [(1 << i, (1 << (m - i)) - 1) for i in range(m)]
+    raise ValueError(f"unknown mode {mode}")
+
+
 @functools.lru_cache(maxsize=None)
 def _mode_args(mode: am.Mode, m: int, use_cv: bool):
-    """(n_planes, amasks, wmasks, stat_kind, stat_mask, use_cv) for the
-    kernel: the subtractive bit-slice planes of the mode and the CV
-    statistic (0 none, 1 low bits, 2 nonzero low bits)."""
-    planes: list[tuple[int, int]] = []
-    if mode != "exact" and m > 0:
-        low = (1 << m) - 1
-        if mode == "perforated":
-            planes = [(low, 0xFF)]
-        elif mode == "recursive":
-            planes = [(low, low)]
-        elif mode == "truncated":
-            planes = [(1 << i, (1 << (m - i)) - 1) for i in range(m)]
-        else:
-            raise ValueError(f"unknown mode {mode}")
+    """(main_mask, n_planes, amasks, wmasks, stat_kind, stat_mask, use_cv)
+    for the kernel: :func:`decomposition` with the plane masks packed one
+    byte each, and the CV statistic (0 none, 1 low bits, 2 nonzero low
+    bits).  The prep kernel applies ``main_mask`` to the codes it writes, so
+    the matmul kernels multiply the stored codes as they are."""
+    main, planes = decomposition(mode, m)
     amasks = sum(a << (8 * i) for i, (a, _) in enumerate(planes))
     wmasks = sum(w << (8 * i) for i, (_, w) in enumerate(planes))
     cv_on = use_cv and mode != "exact" and m > 0
     stat_kind = 0 if not cv_on else (2 if mode == "truncated" else 1)
-    return (len(planes), amasks, wmasks, stat_kind,
+    return (main, len(planes), amasks, wmasks, stat_kind,
             (1 << m) - 1 if cv_on else 0, int(cv_on))
 
 
@@ -111,8 +155,45 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 def _launch_status(name: str, status: int) -> None:
     if status != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{status}")
+        what = _STATUS.get(status, f"CUDA error {status}")
+        raise RuntimeError(f"{name}: kernel launch failed: {what}")
+
+
+def _check_k_major(name: str, w_t: torch.Tensor | None, rows: int, k: int,
+                   mm: int) -> None:
+    """The prefill tile's weight operand: (rows, ldt) uint8, K contiguous,
+    ldt >= k a multiple of K_ALIGN, 16-byte aligned (TMA reads it).
+    Decode-shaped calls do not read it."""
+    if mm <= DECODE_M_MAX and w_t is None:
+        return
+    if w_t is None:
+        raise ValueError(f"{name}: {mm} rows take the prefill tile, which "
+                         "needs the K-major weight copy")
+    if w_t.dtype != torch.uint8 or w_t.dim() != 2 or w_t.shape[0] != rows \
+            or w_t.shape[1] < k or w_t.shape[1] % K_ALIGN \
+            or w_t.data_ptr() % 16:
+        raise ValueError(f"{name}: K-major weights {w_t.dtype} "
+                         f"{tuple(w_t.shape)}, want uint8 ({rows}, >= {k}, a "
+                         f"multiple of {K_ALIGN}), 16-byte aligned")
+
+
+def _scratch(mm: int, k: int, device) -> tuple[torch.Tensor, int]:
+    """The prep kernel's outputs in one allocation (one ``torch.empty`` per
+    call: decode steps are bound by the host): (M, ldq) uint8 codes, ldq = k
+    rounded up to 16, then the (M, 2) int32 row statistics from byte
+    M * ldq (a multiple of 16).  Returns the buffer and ldq."""
+    ldq = -(-k // 16) * 16
+    return torch.empty(mm * (ldq + 8), dtype=torch.uint8, device=device), ldq
+
+
+def _check_scratch(name: str, buf: torch.Tensor, mm: int, ldq: int) -> None:
+    """The scratch holds M * ldq code bytes and M * 8 bytes of int32 row
+    statistics."""
+    if buf.dtype != torch.uint8 or buf.numel() != mm * (ldq + 8) \
+            or ldq % 16:
+        raise ValueError(f"{name}: scratch {buf.dtype} of {buf.numel()} "
+                         f"elements, want uint8 codes ({mm}, {ldq}) and int32 "
+                         f"statistics ({mm}, 2): {mm * (ldq + 8)} bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -137,9 +218,12 @@ def _epilogue(acc: torch.Tensor, sqa: torch.Tensor, sx: torch.Tensor | None,
 def approx_matmul_cv_fused_plain(x: torch.Tensor, w_qb: torch.Tensor,
                                  epilogue: torch.Tensor, meta: torch.Tensor,
                                  *, k: int, n: int, mode: am.Mode, m: int,
-                                 use_cv: bool = True) -> torch.Tensor:
+                                 use_cv: bool = True,
+                                 w_qbt: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`approx_matmul_cv_fused`.
-    x (M, k) float -> (M, n) in x's dtype."""
+    x (M, k) float -> (M, n) in x's dtype.  It reads w_qb; ``w_qbt`` is
+    accepted so that the two are called alike, and not read."""
     sa, za, true_k = meta[0, META_SA], meta[0, META_ZA], meta[0, META_TRUE_K]
     a = torch.clamp(torch.round(x.to(torch.float32) / sa) + za, QMIN,
                     QMAX).to(torch.int32)
@@ -156,45 +240,55 @@ def approx_matmul_cv_fused_plain(x: torch.Tensor, w_qb: torch.Tensor,
 def approx_matmul_cv_fused(x: torch.Tensor, w_qb: torch.Tensor,
                            epilogue: torch.Tensor, meta: torch.Tensor, *,
                            k: int, n: int, mode: am.Mode, m: int,
-                           use_cv: bool = True) -> torch.Tensor:
+                           use_cv: bool = True,
+                           w_qbt: torch.Tensor | None = None) -> torch.Tensor:
     """Fused float -> float approximate matmul over a blocked pack.
 
     x (M, k) float32/bfloat16; w_qb (Kb, Nb) uint8; epilogue (EPI_ROWS, Nb)
-    float32; meta (1, META_LEN) float32.  Returns (M, n) in x's dtype.
+    float32; meta (1, META_LEN) float32; w_qbt (Nb, >= Kb) uint8, the pack's
+    K-major copy of w_qb, which calls of more than DECODE_M_MAX rows on the
+    card need.  Returns (M, n) in x's dtype.
     """
+    name = "approx_matmul_cv_fused"
     if x.device.type == "cpu":
         return approx_matmul_cv_fused_plain(x, w_qb, epilogue, meta, k=k, n=n,
                                             mode=mode, m=m, use_cv=use_cv)
-    if x.device.type != "cuda":
-        raise ValueError(f"approx_matmul_cv_fused: unsupported device "
-                         f"{x.device}")
-    lib = _lib()
-    _check_cuda("approx_matmul_cv_fused", x, w_qb, epilogue, meta)
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"approx_matmul_cv_fused: x dtype {x.dtype}")
+        raise ValueError(f"{name}: x dtype {x.dtype}")
     if w_qb.dtype != torch.uint8 or epilogue.dtype != torch.float32 \
             or meta.dtype != torch.float32:
-        raise ValueError("approx_matmul_cv_fused: operand dtypes")
+        raise ValueError(f"{name}: operand dtypes")
     mm, kk = x.shape
     kb, nb = w_qb.shape
     if kk != k or k > kb or n > nb or epilogue.shape != (EPI_ROWS, nb):
-        raise ValueError(f"approx_matmul_cv_fused: shapes x {tuple(x.shape)} "
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)} "
                          f"w_qb {tuple(w_qb.shape)} k={k} n={n}")
     if k > MAX_K:
         raise ValueError(f"fan-in {k} > {MAX_K} overflows the int32 "
                          "accumulator")
+    _check_k_major(name, w_qbt, nb, k, mm)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    lib = _lib()
+    _check_cuda(name, x, w_qb, epilogue, meta,
+                *(() if w_qbt is None else (w_qbt,)))
     out = torch.empty((mm, n), dtype=x.dtype, device=x.device)
     if mm == 0:
         return out
-    ldq = -(-k // 16) * 16  # code rows padded to 16 bytes (zeros past k)
-    codes = torch.empty((mm, ldq), dtype=torch.uint8, device=x.device)
+    scratch, ldq = _scratch(mm, k, x.device)
+    _check_scratch(name, scratch, mm, ldq)
+    codes = scratch.data_ptr()
+    decode = mm <= DECODE_M_MAX
     w_vec = int(nb % 16 == 0 and w_qb.data_ptr() % 16 == 0)
     status = lib.am_fused_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(), ldq,
-        w_qb.data_ptr(), nb, w_vec, epilogue.data_ptr(), meta.data_ptr(),
-        out.data_ptr(), mm, k, n, int(mm <= DECODE_M_MAX), *_mode_args(mode, m, use_cv),
+        x.data_ptr(), int(x.dtype == torch.bfloat16), codes, ldq,
+        codes + mm * ldq, w_qb.data_ptr(), nb, w_vec,
+        None if w_qbt is None else w_qbt.data_ptr(),
+        0 if w_qbt is None else w_qbt.shape[1], epilogue.data_ptr(),
+        meta.data_ptr(), out.data_ptr(), mm, k, n, int(decode),
+        *_mode_args(mode, m, use_cv),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _launch_status("approx_matmul_cv_fused", status)
+    _launch_status(name, status)
     approx_matmul_cv_fused.launches += 1
     return out
 
@@ -232,7 +326,10 @@ def approx_matmul_cv(a_q: torch.Tensor, w_q: torch.Tensor, c: torch.Tensor,
                      mode: am.Mode, m: int, use_cv: bool = True) -> torch.Tensor:
     """Approximate matmul + CV over uint8 codes a_q (M, K) and w_q (K, N),
     with c, c0, bias float32 (N,), sum_qw int32 (N,) and meta float32
-    [sa, sw, za, zw, true_k].  Returns float32 (M, N)."""
+    [sa, sw, za, zw, true_k].  Returns float32 (M, N).  Calls of more than
+    DECODE_M_MAX rows on the card make :func:`k_major` of w_q for the
+    prefill tile, each call (no path runs this entry: every served pack
+    carries its own K-major copy and takes the fused entry)."""
     if a_q.device.type == "cpu":
         return approx_matmul_cv_plain(a_q, w_q, c, c0, sum_qw, bias, meta,
                                       mode=mode, m=m, use_cv=use_cv)
@@ -259,12 +356,19 @@ def approx_matmul_cv(a_q: torch.Tensor, w_q: torch.Tensor, c: torch.Tensor,
     out = torch.empty((mm, nn), dtype=torch.float32, device=a_q.device)
     if mm == 0:
         return out
-    vec_ok = int(kk % 16 == 0 and nn % 16 == 0 and a_q.data_ptr() % 16 == 0
-                 and w_q.data_ptr() % 16 == 0)
+    scratch, ldq = _scratch(mm, kk, a_q.device)
+    _check_scratch("approx_matmul_cv", scratch, mm, ldq)
+    codes = scratch.data_ptr()
+    decode = mm <= DECODE_M_MAX
+    w_qt = None if decode else k_major(w_q)
+    _check_k_major("approx_matmul_cv", w_qt, nn, kk, mm)
+    w_vec = int(nn % 16 == 0 and w_q.data_ptr() % 16 == 0)
     status = lib.am_codes_launch(
-        a_q.data_ptr(), w_q.data_ptr(), vec_ok, c.data_ptr(), c0.data_ptr(),
+        a_q.data_ptr(), codes, ldq, codes + mm * ldq,
+        w_q.data_ptr(), w_vec, None if w_qt is None else w_qt.data_ptr(),
+        0 if w_qt is None else w_qt.shape[1], c.data_ptr(), c0.data_ptr(),
         sum_qw.data_ptr(), bias.data_ptr() if bias is not None else None,
-        meta.data_ptr(), out.data_ptr(), mm, kk, nn, int(mm <= DECODE_M_MAX),
+        meta.data_ptr(), out.data_ptr(), mm, kk, nn, int(decode),
         *_mode_args(mode, m, use_cv),
         torch.cuda.current_stream(a_q.device).cuda_stream)
     _launch_status("approx_matmul_cv", status)

@@ -11,28 +11,46 @@
 // never repeated.  A row with no visible key gives 0 (the TPU kernel's
 // max(l, 1e-30) clamp).  Output in the input type (float32 or bfloat16).
 //
-// Design.  One block of 256 threads owns one (batch * q-head, 64-row query
-// tile) and walks the key axis in 64-key tiles (the TPU's sequential K grid
-// axis becomes a loop; blocks of heavy causal tiles are issued first).  The
-// loop visits only the key tiles that the causal/window mask does not hide
-// entirely, so a causal prefill does about half the work of a full one.
-// Running max m, denominator l and the (64, D) accumulator stay in float32
-// registers: each thread owns 4 query rows and 4 key columns of the score
-// tile and D/16 columns of the accumulator, and the 16 threads sharing a
-// row group reduce row max and sum with warp shuffles.  Q (pre-scaled) and
-// K sit transposed in shared memory so that one 16-byte load feeds 16 FMAs;
-// V and the probability tile sit row-major.  Tq/Tk edges are masked in the
-// kernel (rows past Tq are zero-filled and not stored).  Arithmetic is
-// float32 FMA on the CUDA cores: no tensor cores yet.
+// Both routes: one block owns one (batch * q-head, 64-row query tile) and
+// walks the key axis in 64-key tiles (the TPU's sequential K grid axis
+// becomes a loop; blocks of heavy causal tiles are issued first).  The loop
+// visits only the key tiles that the causal/window mask does not hide
+// entirely, and masks element by element only the tiles that the mask
+// cuts.  Running max m, denominator l and the (64, D) accumulator stay in
+// float32 registers.  Tq/Tk edges are zero-filled in the kernel (rows past
+// Tq are not stored).
 //
-// Bound on the H100: causal prefill at (4, 16, 1024, 128) is ~17 GFLOP on
-// ~67 MB of bf16 q/k/v/out, so it is bound by operations — at the bf16
-// tensor-core rate the least time is ~17 us.  On the CUDA cores in float32
-// (67 TFLOP/s peak) this kernel cannot come closer than ~0.26 ms; moving the
-// two products to bf16 mma/wgmma with TMA-fed tiles is the redesign.
+// bfloat16 route (fa_tc_kernel, every path): both products on the bf16
+// tensor cores, mma.sync m16n8k16 with float32 accumulation, in the
+// FlashAttention-2 pattern.  Four warps own 16 query rows each; Q's
+// fragments stay in registers for the whole key loop; K and V tiles are
+// double-buffered in shared memory by cp.async (the next tile loads while
+// this one is multiplied), rows of 16-byte chunks XOR-swizzled so that
+// ldmatrix (K, for S = Q.K^T) and ldmatrix.trans (V, for O += P.V) read
+// conflict-free.  Q is staged in the second buffer's K slot before the
+// loop, so a block holds 64 KB (D = 128) and three fit on an SM.  S is
+// scaled in float32 by scale*log2(e) and exponentiated with exp2f; P is
+// rounded to bf16 as the A operand of P.V straight from the S accumulator
+// registers (no trip through shared memory); the output is staged through
+// shared memory for 16-byte stores.
+//
+// float32 route (fa_kernel; only the float32 cases of the tests and the
+// card check use it): float32 FMA on the CUDA cores, Q (pre-scaled) and K
+// transposed in shared memory.  The tensor cores would round float32
+// inputs to bf16 or TF32, so this route keeps them exact to float32 sums.
+//
+// Bound on the H100: causal prefill at (4, 16, 1024, 128) bf16 is ~17
+// GFLOP of products on ~67 MB of q/k/v/out: ~17 us at the bf16 tensor-core
+// rate, ~20 us at the memory rate.  What holds this route above that:
+// mma.sync does not reach wgmma's rate on Hopper; every warp reads the
+// whole K and V tile from shared memory for its 16 rows (one ldmatrix per
+// two mma); and each 64-row block fetches its K/V tiles from L2 on its
+// own.  A wgmma tile with 64 rows per warpgroup, K/V by TMA and P from
+// registers would address all three.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -43,27 +61,14 @@ constexpr int PS = BK + 4;    // padded row stride of the probability tile
 constexpr int NT = 256;       // threads per block (16 row groups x 16)
 constexpr float NEG = -1e30f; // masked score (finite, as in the TPU kernel)
 
-// 8 consecutive elements (16-byte aligned for bf16, 32 bytes for f32)
+// 8 consecutive floats from a 32-byte aligned address
 __device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
   o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
 }
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&o)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
-}
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
 
 // accumulator column c (of D/16) of thread tx
 template <int D>
@@ -286,20 +291,318 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int d, const void* q, const void* k, const void* v, void* o,
-             int b, int hq, int hkv, int tq, int tk, int causal, int window,
-             float scale, const long long* st, cudaStream_t stream) {
+// --- bfloat16 route: tensor cores ------------------------------------------
+
+namespace tc {
+
+constexpr int BQ = 64;   // query rows per block: four warps of 16
+constexpr int BKV = 64;  // keys per tile
+constexpr int NT = 128;  // threads per block
+
+// 16-byte chunk index of (row r, chunk c) in a tile of D-element rows: the
+// chunk is XOR-swizzled with the row so that the 8 rows one ldmatrix reads
+// hit distinct banks
+template <int D>
+__device__ __forceinline__ int chunk(int r, int c) {
+  constexpr int CH = D / 8;
+  constexpr int MASK = CH < 8 ? CH - 1 : 7;
+  return r * CH + (c ^ (r & MASK));
+}
+
+template <int D>
+constexpr int smem_bytes() {
+  return 4 * BKV * D * 2;  // two (K, V) buffers; Q passes through the second
+}
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   saddr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+// d += a . b: (16 x 16, row) bf16 by (16 x 8, col) bf16, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// rows [r0, r0 + R) of a (T, D) operand (row stride st elements) into a
+// swizzled tile; rows at or past t are zero-filled
+template <int D, int R>
+__device__ __forceinline__ void load_tile(uint4* dst, const __nv_bfloat16* src,
+                                          long long st, int r0, int t,
+                                          int tid) {
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int i = tid; i < R * CH; i += NT) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = r0 + r < t;
+    cp_async16(dst + chunk<D>(r, c),
+               ok ? src + (long long)(r0 + r) * st + c * 8 : src, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 3) fa_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    int hq, int hkv, int tq, int tk, int causal, int window, float scale_log2,
+    long long qsb, long long qsh, long long qst, long long ksb, long long ksh,
+    long long kst, long long vsb, long long vsh, long long vst, long long osb,
+    long long osh, long long ost) {
+  constexpr int CH = D / 8, KS = D / 16, NB = BKV / 8, DB = D / 8;
+  static_assert(BQ == BKV, "Q is staged in a K slot");
+  extern __shared__ __align__(128) uint4 KVs[];  // buffer b: K at 2b, V at
+                                                 // 2b + 1
+  uint4* Qs = KVs + 2 * BKV * CH;  // Q arrives in buffer 1's K slot
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heavy tiles first
+  const int bi = blockIdx.y / hq, h = blockIdx.y % hq;
+  const int hk = h / (hq / hkv);
+  const __nv_bfloat16* qb = q + bi * qsb + h * qsh;
+  const __nv_bfloat16* kb = k + bi * ksb + hk * ksh;
+  const __nv_bfloat16* vb = v + bi * vsb + hk * vsh;
+
+  // key tiles the mask does not hide entirely
+  const int off = tk - tq;
+  const int first_q = q0 + off;
+  const int last_q = min(q0 + BQ, tq) - 1 + off;
+  const int kend = causal ? min(tk, last_q + 1) : tk;
+  int kbeg = window > 0 ? max(0, first_q - window + 1) : 0;
+  kbeg = (kbeg / BKV) * BKV;
+  const int ntiles = kend > kbeg ? (kend - kbeg + BKV - 1) / BKV : 0;
+
+  auto load_kv = [&](int it) {
+    const int k0 = kbeg + it * BKV;
+    uint4* buf = KVs + (it & 1) * 2 * BKV * CH;
+    load_tile<D, BKV>(buf, kb, kst, k0, tk, tid);
+    load_tile<D, BKV>(buf + BKV * CH, vb, vst, k0, tk, tid);
+  };
+
+  load_tile<D, BQ>(Qs, qb, qst, q0, tq, tid);
+  if (ntiles > 0) load_kv(0);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+
+  // this warp's 16 query rows as A fragments, one per 16 columns of D;
+  // buffer 1 is refilled once every warp holds its fragments
+  const int wr = warp * 16;
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    ldsm_x4(qf[ks], saddr(Qs + chunk<D>(wr + (lane & 15), 2 * ks + (lane >> 4))));
+  __syncthreads();
+
+  float acc[DB][4];
+#pragma unroll
+  for (int j = 0; j < DB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = kbeg + it * BKV;
+    if (it + 1 < ntiles) {
+      load_kv(it + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const uint4* Ks = KVs + (it & 1) * 2 * BKV * CH;
+    const uint4* Vs = Ks + BKV * CH;
+
+    // S = Q . K^T for this warp's 16 rows and the tile's 64 keys
+    float s[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int jj = 0; jj < NB / 2; ++jj) {
+        uint32_t b[4];
+        ldsm_x4(b, saddr(Ks + chunk<D>(jj * 16 + (lane & 7) + 8 * (lane >> 4),
+                                       2 * ks + ((lane >> 3) & 1))));
+        mma_bf16(s[2 * jj], qf[ks], b[0], b[1]);
+        mma_bf16(s[2 * jj + 1], qf[ks], b[2], b[3]);
+      }
+    }
+
+    // scale to log2 units in float32; mask only the tiles the mask cuts
+    const bool cut = (k0 + BKV > tk) || (causal && k0 + BKV - 1 > first_q) ||
+                     (window > 0 && k0 <= last_q - window);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (cut) {
+          const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
+          const int qp = q0 + wr + g + 8 * (e >> 1) + off;
+          const bool vis = kp < tk && (!causal || kp <= qp) &&
+                           (window <= 0 || kp > qp - window);
+          x = vis ? x : -INFINITY;
+        }
+        s[j][e] = x;
+      }
+
+    // online softmax, rows g (e = 0, 1) and g + 8 (e = 2, 3)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mnew = fmaxf(m[hh], mx);
+      const float base = mnew == -INFINITY ? 0.f : mnew;  // empty so far
+      const float corr = exp2f(m[hh] - base);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
+          const float p = exp2f(s[j][e] - base);
+          s[j][e] = p;
+          sum += p;
+        }
+      l[hh] = l[hh] * corr + sum;  // this thread's share of the row
+      m[hh] = mnew;
+#pragma unroll
+      for (int j = 0; j < DB; ++j) {
+        acc[j][2 * hh] *= corr;
+        acc[j][2 * hh + 1] *= corr;
+      }
+    }
+
+    // O += P . V: P (bf16) from the S registers as A fragments
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dd = 0; dd < DB / 2; ++dd) {
+        uint32_t b[4];
+        ldsm_x4_t(b, saddr(Vs + chunk<D>(kk * 16 + (lane & 7) +
+                                             8 * ((lane >> 3) & 1),
+                                         2 * dd + (lane >> 4))));
+        mma_bf16(acc[2 * dd], a, b[0], b[1]);
+        mma_bf16(acc[2 * dd + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this buffer is refilled two tiles on
+  }
+
+  // normalise, stage the warp's rows in buffer 0's K slot (free after the
+  // loop's last barrier; each warp its own 16 rows), 16-byte stores
+  uint4* Os = KVs;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    const float inv = 1.f / fmaxf(l[hh], 1e-30f);
+    const int r = wr + g + 8 * hh;
+#pragma unroll
+    for (int j = 0; j < DB; ++j) {
+      uint32_t* dst = reinterpret_cast<uint32_t*>(Os + chunk<D>(r, j)) + t4;
+      *dst = pack_bf16(acc[j][2 * hh] * inv, acc[j][2 * hh + 1] * inv);
+    }
+  }
+  __syncwarp();
+  __nv_bfloat16* ob = o + bi * osb + h * osh;
+#pragma unroll
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = wr + i / CH, c = i % CH;
+    if (q0 + r < tq)
+      *reinterpret_cast<uint4*>(ob + (long long)(q0 + r) * ost + c * 8) =
+          Os[chunk<D>(r, c)];
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int b,
+           int hq, int hkv, int tq, int tk, int causal, int window,
+           float scale, const long long* st, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D>();
+  static bool attr_set = false;  // per instantiation, outside graph capture
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fa_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const dim3 grid((tq + BQ - 1) / BQ, b * hq);
+  fa_tc_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), hq,
+      hkv, tq, tk, causal, window, scale * 1.4426950408889634f, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// bfloat16 -> tensor-core route, float32 -> CUDA-core route
+int launch_d(int bf16, int d, const void* q, const void* k, const void* v,
+             void* o, int b, int hq, int hkv, int tq, int tk, int causal,
+             int window, float scale, const long long* st,
+             cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch<T, 32>(q, k, v, o, b, hq, hkv, tq, tk, causal, window,
-                           scale, st, stream);
+      return bf16 ? tc::launch<32>(q, k, v, o, b, hq, hkv, tq, tk, causal,
+                                   window, scale, st, stream)
+                  : launch<float, 32>(q, k, v, o, b, hq, hkv, tq, tk, causal,
+                                      window, scale, st, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, b, hq, hkv, tq, tk, causal, window,
-                           scale, st, stream);
+      return bf16 ? tc::launch<64>(q, k, v, o, b, hq, hkv, tq, tk, causal,
+                                   window, scale, st, stream)
+                  : launch<float, 64>(q, k, v, o, b, hq, hkv, tq, tk, causal,
+                                      window, scale, st, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, b, hq, hkv, tq, tk, causal, window,
-                            scale, st, stream);
+      return bf16 ? tc::launch<128>(q, k, v, o, b, hq, hkv, tq, tk, causal,
+                                    window, scale, st, stream)
+                  : launch<float, 128>(q, k, v, o, b, hq, hkv, tq, tk,
+                                       causal, window, scale, st, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -319,10 +622,6 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
                          void* stream) {
   const long long st[12] = {qsb, qsh, qst, ksb, ksh, kst,
                             vsb, vsh, vst, osb, osh, ost};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch_d<__nv_bfloat16>(d, q, k, v, o, b, hq, hkv, tq, tk, causal,
-                                   window, scale, st, s);
-  return launch_d<float>(d, q, k, v, o, b, hq, hkv, tq, tk, causal, window,
-                         scale, st, s);
+  return launch_d(bf16, d, q, k, v, o, b, hq, hkv, tq, tk, causal, window,
+                  scale, st, static_cast<cudaStream_t>(stream));
 }

@@ -8,7 +8,11 @@ rows aligned to the END of the key axis (Tq <= Tk), a float32 running max,
 denominator and accumulator, key tiles that the mask hides entirely
 skipped, output in q's dtype.  The hand-written CUDA source is
 ``csrc/flash_attention.cu``, compiled with ``nvcc`` for ``sm_90a`` into
-``build/`` at first use and bound with ``ctypes``.
+``build/`` at first use and bound with ``ctypes``.  bfloat16 inputs (every
+path) run both products on the bf16 tensor cores (``mma.sync`` m16n8k16,
+float32 sums, P rounded to bf16 for P.V as FlashAttention does); float32
+inputs keep a CUDA-core kernel, which the tensor cores' rounding would not
+match.
 
 Unlike the TPU wrapper, Tq and Tk need not divide a tile: the kernel masks
 the ragged edges.  A query row with no visible key (possible with a window,

@@ -49,7 +49,7 @@ def quantized_dense_fused_op(x: torch.Tensor, blocked, *, mode: Mode, m: int,
     x2 = x.reshape(-1, kk).contiguous()
     out = _amk.approx_matmul_cv_fused(
         x2, blocked.w_qb, blocked.epilogue, blocked.meta, k=blocked.k,
-        n=blocked.n, mode=mode, m=m, use_cv=use_cv)
+        n=blocked.n, mode=mode, m=m, use_cv=use_cv, w_qbt=blocked.w_qbt)
     return out.reshape(*lead, blocked.n)
 
 
@@ -65,8 +65,9 @@ def quantized_dense_pallas(x: torch.Tensor, qd) -> torch.Tensor:
     pol = qd.policy
     if pol.groups != 1:
         raise NotImplementedError("grouped CV has no kernel")
-    if qd.blocked is not None:
-        return quantized_dense_fused_op(x, qd.blocked, mode=pol.mode, m=pol.m,
+    blocked = qd.blocked  # a property that builds the layout's dataclass
+    if blocked is not None:
+        return quantized_dense_fused_op(x, blocked, mode=pol.mode, m=pol.m,
                                         use_cv=pol.use_cv)
     pack, a_qp = qd.pack, qd.a_qp
     return approx_matmul_cv_op(

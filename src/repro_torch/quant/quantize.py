@@ -152,6 +152,14 @@ def serving_blocks(k: int, n: int) -> tuple[int, int]:
             shrink_block(k, SERVE_BK, 128 if k >= 128 else 8))
 
 
+def k_major(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) uint8 codes -> their (N, K16) copy with K contiguous, K16 = K
+    rounded up to 16 bytes (zeros past K): the operand layout of the CUDA
+    kernel's prefill tile, whose 8-bit tensor-core products read both
+    operands K-major."""
+    return F.pad(w.t(), (0, -w.shape[0] % 16)).contiguous()
+
+
 @dataclasses.dataclass(frozen=True)
 class BlockedPack:
     """Offline-blocked serving layout for one (possibly fused) linear.
@@ -159,7 +167,9 @@ class BlockedPack:
     w_qb (Kb, Nb) uint8 codes zero-padded to (bk, bn) multiples; epilogue
     (EPI_ROWS, Nb) float32 table; meta (1, META_LEN) float32 scalars.
     ``k``/``n`` are the true extents.  The CUDA kernel masks the K and N
-    edges itself, so the padding is only a stride to it.
+    edges itself, so the padding is only a stride to it.  w_qbt is
+    :func:`k_major` of w_qb, made once with the pack: the kernel's prefill
+    tile reads it, its decode tile and the plain version read w_qb.
     """
 
     w_qb: torch.Tensor
@@ -169,6 +179,7 @@ class BlockedPack:
     n: int
     bk: int
     bn: int
+    w_qbt: torch.Tensor | None = None
 
 
 def build_blocked_layout(pack: PackedLinear, a_qp: QuantParams,
@@ -201,7 +212,7 @@ def build_blocked_layout(pack: PackedLinear, a_qp: QuantParams,
     meta[0, META_ZA] = a_qp.zero_point.to(torch.float32)
     meta[0, META_TRUE_K] = float(k)
     return BlockedPack(w_qb=w_qb, epilogue=epi, meta=meta, k=k, n=n, bk=bk,
-                       bn=bn)
+                       bn=bn, w_qbt=k_major(w_qb))
 
 
 def quantized_linear(a: torch.Tensor, pack: PackedLinear, a_qp: QuantParams,

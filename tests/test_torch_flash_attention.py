@@ -139,3 +139,72 @@ def test_cuda_call_without_the_library_raises(monkeypatch):
         t = torch.empty(1, 2, 8, 16, device="meta")
         fak.flash_attention(t, t, t)
     assert fak.flash_attention.launches == 0
+
+
+def _tensor_core_route(q, k, v, *, causal, window, bkv=64):
+    """The arithmetic of the kernel's bfloat16 route, in plain PyTorch:
+    float32 scores of the bf16 q and k over 64-key tiles, scaled by
+    scale*log2(e) in float32 and exponentiated base 2 against the running
+    max, P rounded to bf16 for P.V, float32 running max, denominator and
+    accumulator, rows with no visible key giving 0."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, hkv, hq // hkv, tq, d)
+    kf, vf = k.float(), v.float()
+    c = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(
+        1.4426950408889634, dtype=torch.float32)
+    qi = torch.arange(tq)[:, None] + (tk - tq)
+    m = torch.full((b, hkv, hq // hkv, tq), float("-inf"))
+    den = torch.zeros_like(m)
+    acc = torch.zeros(b, hkv, hq // hkv, tq, d)
+    for k0 in range(0, tk, bkv):
+        kt, vt = kf[:, :, k0:k0 + bkv], vf[:, :, k0:k0 + bkv]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kt) * c
+        ki = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        vis = torch.ones(tq, kt.shape[2], dtype=torch.bool)
+        if causal:
+            vis = vis & (ki <= qi)
+        if window is not None:
+            vis = vis & (ki > qi - window)
+        s = s.masked_fill(~vis, float("-inf"))
+        mnew = torch.maximum(m, s.amax(-1))
+        base = torch.where(mnew == float("-inf"), 0.0, mnew)
+        p = torch.exp2(s - base[..., None])
+        corr = torch.exp2(m - base)
+        den = den * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p.to(torch.bfloat16).float(), vt)
+        m = mnew
+    out = acc / den.clamp_min(1e-30)[..., None]
+    return out.reshape(b, hq, tq, d).to(torch.bfloat16)
+
+
+#: the bfloat16 cases chip_smoke.py runs on the card (GQA, window,
+#: non-causal, Tq < Tk) at D = 64 and 128, cut to one batch row
+BF16_CASES = [case for d in (64, 128) for case in (
+    (1, 8, 2, 128, 128, d, True, None),
+    (1, 4, 2, 128, 128, d, True, 64),
+    (1, 4, 4, 128, 128, d, False, None),
+    (1, 4, 2, 64, 256, d, True, None))]
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,causal,window", BF16_CASES)
+def test_tensor_core_route_arithmetic_vs_jax_kernel(b, hq, hkv, tq, tk, d,
+                                                    causal, window):
+    """Rounding P to bf16 for P.V (as the kernel's bf16 route and
+    FlashAttention do) keeps the result within chip_smoke.py's bf16
+    tolerance of the JAX kernel (interpret mode, float32 on the same bf16
+    values): |got - want| <= 2^-7 (|want| + max|want|)."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(tq + d, b, hq, hkv, tq, tk, d))
+    got = _tensor_core_route(q, k, v, causal=causal, window=window)
+    want = np.asarray(jax_flash(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)), causal=causal,
+        window=window, bq=64, bk=64, interpret=True))
+    err = np.abs(to_np(got.float()) - want)
+    assert np.all(err <= 2.0 ** -7 * (np.abs(want) + np.abs(want).max()))
+    # the plain version (the wrapper's CPU route) meets the same bound
+    plain = fak.flash_attention(q, k, v, causal=causal, window=window)
+    assert plain.dtype == torch.bfloat16
+    err_p = np.abs(to_np(plain.float()) - want)
+    assert np.all(err_p <= 2.0 ** -7 * (np.abs(want) + np.abs(want).max()))

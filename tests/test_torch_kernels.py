@@ -180,6 +180,17 @@ def test_cuda_call_without_the_library_raises(monkeypatch):
     assert amk.approx_matmul_cv_fused.launches == 0
 
 
+def test_tile_names_follow_the_source():
+    """``approx_matmul.TILES`` names the source's ``TileId`` values in their
+    order, since ``tile()`` indexes it by the ``am_tile`` result."""
+    import re
+
+    body = re.search(r"enum TileId \{([^}]*)\}", amk.SOURCE.read_text())
+    ids = [t.strip() for t in body.group(1).split(",") if t.strip()]
+    assert [i.removeprefix("TILE_").replace("_PLANES", " planes").lower()
+            for i in ids] == list(amk.TILES)
+
+
 @pytest.mark.parametrize("mode,m", [("perforated", 2), ("truncated", 5)])
 def test_quantized_dense_pallas_dispatch(mode, m):
     """A packed layer without a blocked layout takes the codes-in kernel and
@@ -197,3 +208,133 @@ def test_quantized_dense_pallas_dispatch(mode, m):
         atol=_atol(48, float(qd.a_scale), float(qd.w_scale)))
     assert JaxPolicy(mode, m, backend="pallas").to_dict() == \
         dataclasses.asdict(qd.policy)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' integer decomposition, the K-major copy, the wrapper's checks
+# ---------------------------------------------------------------------------
+
+DECOMP_MODES = MODES + [("perforated", 8), ("recursive", 8), ("truncated", 8)]
+
+
+@pytest.mark.parametrize("mode,m", DECOMP_MODES)
+def test_kernel_decomposition_matches_both_oracles(mode, m):
+    """acc = (A & main).W - sum over planes (A & amask).(W & wmask), the
+    integer form both tiles compute, evaluated with int64 matmuls: equal to
+    both packages' elementwise oracles at every (a, w) code pair (K = 1)
+    and over a K = 300 sum."""
+    import jax.numpy as jnp_
+
+    from repro.core import multipliers as jam
+    from repro_torch.core import multipliers as tam
+
+    main, planes = amk.decomposition(mode, m)
+    assert (main == 0xFF) == (mode != "perforated" or m == 0)
+    assert len(planes) == {"exact": 0, "perforated": 0, "recursive": 1,
+                           "truncated": m}[mode] * (m > 0)
+    args = amk._mode_args(mode, m, True)
+    assert args[:4] == (main, len(planes),
+                        sum(a << (8 * i) for i, (a, _) in enumerate(planes)),
+                        sum(w << (8 * i) for i, (_, w) in enumerate(planes)))
+    codes = torch.arange(256, dtype=torch.int64)
+    rng = np.random.default_rng(m + 1)
+    for a, w in ((codes[:, None], codes[None, :]),
+                 (torch.from_numpy(rng.integers(0, 256, (16, 300))),
+                  torch.from_numpy(rng.integers(0, 256, (300, 24))))):
+        got = (a & main) @ w
+        for am_, wm_ in planes:
+            got = got - (a & am_) @ (w & wm_)
+        want_t = tam.approx_matmul_ref(a, w, mode, m).to(torch.int64)
+        want_j = np.asarray(jam.approx_matmul_ref(
+            jnp_.asarray(a.numpy(), jnp_.int32),
+            jnp_.asarray(w.numpy(), jnp_.int32), mode, m)).astype(np.int64)
+        assert torch.equal(got, want_t)
+        np.testing.assert_array_equal(got.numpy(), want_j)
+
+
+@pytest.mark.parametrize("mod,name", [("attn", "o"), ("attn", "qkv"),
+                                      ("mlp", "down"), ("mlp", "gateup")])
+def test_k_major_copy_is_the_reference_w_qb_transposed(mod, name):
+    """Packs of a model carried across by the bridge: each layer's K-major
+    copy, transposed, is byte-equal to the reference's blocked w_qb (zeros
+    past Kb, rows padded to 16 bytes); fused groups' decode-only members
+    carry none."""
+    from repro.core.approx_linear import pack_params as jax_pack_params
+    from repro_torch.core.approx_linear import pack_params
+
+    from _torch_port import jax_side, torch_side
+
+    _, _, jparams = jax_side()
+    _, _, tparams = torch_side()
+    jp = jax_pack_params(jparams, lambda p: JaxPolicy("perforated", 2,
+                                                      backend="pallas"))
+    tp = pack_params(tparams, lambda p: ApproxPolicy("perforated", 2,
+                                                     backend="pallas"))
+    jl, tl = jp["blocks"][mod][name], tp["blocks"][mod][name]
+    jw = np.asarray(jl.blocked.w_qb)
+    assert len(tl) == jw.shape[0]
+    for i in range(len(tl)):
+        kb, nb = jw[i].shape
+        t = to_np(tl[i].blocked.w_qbt)
+        assert t.dtype == np.uint8 and t.shape == (nb, -(-kb // 16) * 16)
+        assert np.ascontiguousarray(t.T[:kb]).tobytes() == jw[i].tobytes()
+        assert not t[:, kb:].any()
+        for member in getattr(tl[i], "members", []):
+            assert member.w_qbt is None and member.blocked.w_qbt is None
+
+
+def _meta_pack(mm):
+    rng = np.random.default_rng(12)
+    _, tb = _blocked_pair(rng, 32, 16, "perforated", 2)
+    return (torch.empty(mm, 32, device="meta"), tb.w_qb.to("meta"),
+            tb.epilogue.to("meta"), tb.meta.to("meta"), tb.w_qbt)
+
+
+@pytest.mark.parametrize("w_qbt,match", [
+    (None, "needs the K-major weight copy"),
+    (torch.zeros(16, 16, dtype=torch.uint8), "K-major weights"),   # < k
+    (torch.zeros(8, 32, dtype=torch.uint8), "K-major weights"),    # rows
+    (torch.zeros(16, 40, dtype=torch.uint8), "K-major weights"),   # stride
+    (torch.zeros(16, 32, dtype=torch.int8), "K-major weights"),    # dtype
+    ("pack", "unsupported device"),                                # valid
+])
+def test_fused_prefill_rows_check_the_k_major_operand(w_qbt, match):
+    """More than DECODE_M_MAX rows take the prefill tile, which reads the
+    pack's K-major copy: the wrapper checks it before it needs a card."""
+    x, w_qb, epi, meta, packed = _meta_pack(amk.DECODE_M_MAX + 1)
+    w_qbt = packed.to("meta") if isinstance(w_qbt, str) else w_qbt
+    if isinstance(w_qbt, torch.Tensor):
+        w_qbt = w_qbt.to("meta")
+    with pytest.raises(ValueError, match=match):
+        amk.approx_matmul_cv_fused(x, w_qb, epi, meta, k=32, n=16,
+                                   mode="perforated", m=2, w_qbt=w_qbt)
+    assert amk.approx_matmul_cv_fused.launches == 0
+
+
+def test_fused_decode_rows_need_no_k_major_operand():
+    x, w_qb, epi, meta, _ = _meta_pack(amk.DECODE_M_MAX)
+    with pytest.raises(ValueError, match="unsupported device"):
+        amk.approx_matmul_cv_fused(x, w_qb, epi, meta, k=32, n=16,
+                                   mode="perforated", m=2)
+
+
+@pytest.mark.parametrize("dtype,numel,ldq,match", [
+    (torch.uint8, 64 * (48 + 8), 48, None),
+    (torch.int32, 64 * (48 + 8), 48, "scratch"),        # wrong dtype
+    (torch.uint8, 64 * 48, 48, "scratch"),              # no statistics
+    (torch.uint8, 63 * (48 + 8), 48, "scratch"),        # rows
+    (torch.uint8, 64 * (40 + 8), 40, "scratch"),        # ldq not 16-aligned
+])
+def test_scratch_checks(dtype, numel, ldq, match):
+    """The prep kernel's outputs in one buffer: (M, k rounded up to 16)
+    uint8 codes, then (M, 2) int32 row statistics."""
+    mm, k = 64, 40
+    buf = torch.empty(numel, dtype=dtype, device="meta")
+    if match is None:
+        amk._check_scratch("t", buf, mm, ldq)
+        made, made_ldq = amk._scratch(mm, k, "meta")
+        assert made_ldq == 48 and made.dtype == torch.uint8
+        amk._check_scratch("t", made, mm, made_ldq)
+    else:
+        with pytest.raises(ValueError, match=match):
+            amk._check_scratch("t", buf, mm, ldq)
