@@ -14,8 +14,9 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    at the olmo-1b prefill shape, the JAX kernel tests' shapes in float32
    and bfloat16 (GQA, window, non-causal, Tq < Tk at D=64 and 128) and a
    ragged length, each row held to its own scale; the RWKV6 scan (out and
-   final state) at the rwkv6-1.6b prefill shape, the JAX tests' shapes and
-   a ragged length;
+   final state, and two calls bit-equal) at the rwkv6-1.6b prefill shape,
+   the JAX tests' shapes, ragged and partial chunks, one head, Dk != Dv and
+   the extreme decays;
 4. engine path: full-width olmo-1b served by the port's continuous-batching
    engine with `backend: "pallas"` packs; checks completion, the kernel
    launch count the schedule implies, device placement, determinism and
@@ -313,30 +314,80 @@ FLASH_CASES = [
     (2, 4, 2, 128, 128, d, True, 64, "bfloat16"),
     (2, 4, 4, 128, 128, d, False, None, "bfloat16"),
     (1, 4, 2, 64, 256, d, True, None, "bfloat16"))]
-#: (B, T, H, Dk, Dv, dtype of r/k/v): the rwkv6-1.6b prefill shape, the JAX
-#: tests' cases, a ragged T
-SCAN_CASES = [(4, 512, 32, 64, 64, "bfloat16"), (2, 64, 2, 64, 64, "float32"),
-              (2, 96, 2, 32, 32, "float32"), (4, 500, 32, 64, 64, "bfloat16")]
+#: (B, T, H, Dk, Dv, dtype of r/k/v, every decay at this value or None for
+#: the JAX tests' distribution): the rwkv6-1.6b prefill shape (the timed
+#: one), the JAX tests' cases, a ragged T; partial chunks (T = 1, 31, 33);
+#: one (batch, head); Dk != Dv; widths that leave a block of the cluster a
+#: partial or an empty value slice (40 / 24); the extreme decays.  Every
+#: decay at e^-8 runs 10 steps: from the 11th step of a chunk k~ = k e^88
+#: overflows float32 for |k| > 2, and the reference's chunked algebra
+#: (which both sides follow) gives inf and NaN.
+SCAN_CASES = [
+    (4, 512, 32, 64, 64, "bfloat16", None),
+    (2, 64, 2, 64, 64, "float32", None),
+    (2, 96, 2, 32, 32, "float32", None),
+    (4, 500, 32, 64, 64, "bfloat16", None),
+    (2, 1, 3, 64, 64, "bfloat16", None),
+    (2, 31, 3, 64, 64, "float32", None),
+    (2, 33, 3, 64, 64, "bfloat16", None),
+    (1, 200, 1, 64, 64, "bfloat16", None),
+    (2, 96, 4, 64, 32, "float32", None),
+    (2, 80, 4, 32, 64, "bfloat16", None),
+    (2, 70, 2, 40, 24, "float32", None),
+    (2, 10, 4, 64, 64, "bfloat16", math.exp(-8.0)),
+    (2, 256, 4, 64, 64, "bfloat16", 0.9999),
+]
 
 
-def scan_inputs(torch, b, t, h, dk, dv, dtype, gen, dev):
+def scan_inputs(torch, b, t, h, dk, dv, dtype, gen, dev, decay=None):
     """r, k, v in ``dtype``; float32 decays with the JAX tests'
-    distribution (exp(-exp(N(-1, 1.5))) clipped to [e^-8, 0.9999])."""
+    distribution (exp(-exp(N(-1, 1.5))) clipped to [e^-8, 0.9999]), or all
+    equal to ``decay``."""
     r = torch.randn(b, t, h, dk, generator=gen, device=dev).to(dtype)
     k = torch.randn(b, t, h, dk, generator=gen, device=dev).to(dtype)
     v = torch.randn(b, t, h, dv, generator=gen, device=dev).to(dtype)
     w = torch.exp(-torch.exp(torch.randn(b, t, h, dk, generator=gen,
                                          device=dev) * 1.5 - 1.0))
     w = w.clamp(math.exp(-8.0), 0.9999)
+    if decay is not None:
+        w = torch.full_like(w, decay)
     u = torch.randn(h, dk, generator=gen, device=dev) * 0.5
     return r, k, v, w, u
+
+
+def check_scan(torch, dev, gen) -> float:
+    """The RWKV6 scan against its plain version in every case of
+    ``SCAN_CASES`` (out and final state), and two calls on the same inputs
+    bit-equal.  Returns the largest absolute error."""
+    from repro_torch.kernels import rwkv6_scan as rsk
+
+    worst = 0.0
+    for b, t, h, dk, dv, dt, decay in SCAN_CASES:
+        args = scan_inputs(torch, b, t, h, dk, dv, getattr(torch, dt), gen,
+                           dev, decay)
+        out, state = rsk.rwkv6_scan(*args)
+        out2, state2 = rsk.rwkv6_scan(*args)
+        out_p, state_p = rsk.rwkv6_scan_plain(*args)
+        torch.cuda.synchronize()
+        if out.shape != (b, t, h, dv) or state.shape != (b, h, dk, dv):
+            fail(f"scan output {tuple(out.shape)} state {tuple(state.shape)}")
+        if not (torch.equal(out, out2) and torch.equal(state, state2)):
+            fail(f"scan B={b} T={t} H={h} Dk={dk} Dv={dv} {dt}: two calls "
+                 "on the same inputs differ")
+        err = max(close(torch, out, out_p, SCAN_RTOL),
+                  close(torch, state, state_p, SCAN_RTOL))
+        worst = max(worst, err)
+        print(f"kernels: rwkv6_scan B={b} T={t} H={h} Dk={dk} Dv={dv} {dt}"
+              f"{'' if decay is None else f' decays {decay:.6g}'}: max abs "
+              f"err (out, state) {err:.3g} (rtol {SCAN_RTOL}), two calls "
+              "bit-equal", flush=True)
+    return worst
 
 
 def check_attention_and_scan(torch, dev) -> dict:
     """Phase 3, second half: flash attention and the RWKV6 scan against
     their plain versions on the card."""
     from repro_torch.kernels import flash_attention as fak
-    from repro_torch.kernels import rwkv6_scan as rsk
 
     gen = torch.Generator(device=dev).manual_seed(2)
     errs = {"flash_attention": 0.0, "rwkv6_scan": 0.0}
@@ -355,19 +406,7 @@ def check_attention_and_scan(torch, dev) -> dict:
         print(f"kernels: flash_attention B={b} Hq={hq} Hkv={hkv} Tq={tq} "
               f"Tk={tk} D={d} causal={causal} window={window} {dt}: max abs "
               f"err {err:.3g} (rtol {FLASH_RTOL[dt]:.3g})", flush=True)
-    for b, t, h, dk, dv, dt in SCAN_CASES:
-        args = scan_inputs(torch, b, t, h, dk, dv, getattr(torch, dt), gen, dev)
-        out, state = rsk.rwkv6_scan(*args)
-        out_p, state_p = rsk.rwkv6_scan_plain(*args)
-        torch.cuda.synchronize()
-        if out.shape != (b, t, h, dv) or state.shape != (b, h, dk, dv):
-            fail(f"scan output {tuple(out.shape)} state {tuple(state.shape)}")
-        err = max(close(torch, out, out_p, SCAN_RTOL),
-                  close(torch, state, state_p, SCAN_RTOL))
-        errs["rwkv6_scan"] = max(errs["rwkv6_scan"], err)
-        print(f"kernels: rwkv6_scan B={b} T={t} H={h} Dk={dk} Dv={dv} {dt}: "
-              f"max abs err (out, state) {err:.3g} (rtol {SCAN_RTOL})",
-              flush=True)
+    errs["rwkv6_scan"] = check_scan(torch, dev, gen)
     return errs
 
 
@@ -845,7 +884,14 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
         fail(f"legacy {arch}: logits {l1.dtype} {tuple(l1.shape)} not finite")
     if not torch.equal(l1, l2):
         fail(f"legacy {arch}: two identical prefills gave different logits")
-    swap = ([(rsk, "rwkv6_scan", rsk.rwkv6_scan_plain)] if cfg.rwkv else
+    first = []  # the first layer's scan inputs in the plain run
+
+    def scan_plain(*a, **kw):
+        if not first:
+            first.append(a)
+        return rsk.rwkv6_scan_plain(*a, **kw)
+
+    swap = ([(rsk, "rwkv6_scan", scan_plain)] if cfg.rwkv else
             [(fak, "flash_attention", fak.flash_attention_plain)])
     with plain_swapped(f"legacy {arch}", swap):
         lp = last_logits()
@@ -856,6 +902,18 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
           f"{swap[0][1]} swapped for its plain version: max gap {gap:.4g} "
           f"(logit scale {float(l1.abs().max()):.4g}), argmax agreement "
           f"{agree:.2f}", flush=True)
+    flips = None
+    if first:  # where the gap starts: the model casts the WKV output to bf16
+        o_k, o_p = rsk.rwkv6_scan(*first[0])[0], rsk.rwkv6_scan_plain(
+            *first[0])[0]
+        diff = (o_k - o_p).abs()
+        flips = int((o_k.bfloat16() != o_p.bfloat16()).sum())
+        print(f"legacy: {arch} first layer's WKV output, kernel against plain "
+              f"on the same inputs: max abs diff {float(diff.max()):.3g}, "
+              f"median relative diff "
+              f"{float((diff / o_p.abs().clamp_min(1e-30)).median()):.3g}; "
+              f"{flips} of {o_p.numel()} values differ once rounded to "
+              "bfloat16", flush=True)
     cache = api.prefill(packed, {"tokens": prompt}, prompt_len + GEN)[1]
     tok = torch.zeros(BATCH, 1, dtype=torch.long, device=dev)
     breakdown = {
@@ -873,6 +931,7 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
             "decode_ms_per_token": res["decode_s_per_step"] * 1e3,
             "tok_per_s": res["tok_per_s"], "peak_mem_gib": peak / 2**30,
             "plain_gap": gap, "plain_argmax_agreement": agree,
+            "scan_bf16_flips_layer0": flips,
             "launches": launches, "step_breakdown": breakdown}
     print(f"legacy: {arch} prefill_ms {line['prefill_ms']:.2f}", flush=True)
     print(f"legacy: {arch} decode_ms_per_token "
@@ -895,7 +954,7 @@ def attn_scan_times(torch, dev, card: str) -> dict:
     from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import rwkv6_scan as rsk
 
-    bw, _, bf16_peak, f32_peak = peaks(card)
+    bw, _, bf16_peak, _ = peaks(card)
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = {}
 
@@ -921,17 +980,20 @@ def attn_scan_times(torch, dev, card: str) -> dict:
     print("time " + json.dumps(rows["flash_attention"]), flush=True)
     del qkv
 
-    b, t, h, dk, dv, _ = SCAN_CASES[0]
+    b, t, h, dk, dv, *_ = SCAN_CASES[0]
     ins = [scan_inputs(torch, b, t, h, dk, dv, bf, gen, dev) for _ in range(3)]
-    n_ch, ell = -(-t // 32), 32
-    # A = r~ k~^T and A V over the strict lower triangle, r~ S and k~^T V
-    flops = 2.0 * b * h * n_ch * (ell * (ell - 1) / 2 * (dk + dv)
-                                  + 2 * ell * dk * dv)
+    n_ch, ell, tri = -(-t // 32), 32, 32 * 31 / 2
+    # the products on the TF32 tensor cores (half the bf16 rate on Hopper),
+    # each in the passes the kernel runs: A = r~ k~^T (3) and A V (2, v is
+    # bf16) over the strict lower triangle, r~ S (3) and k~^T V (2) in full
+    flops = 2.0 * b * h * n_ch * (3 * tri * dk + 2 * tri * dv
+                                  + 5 * ell * dk * dv)
     nbytes = (b * t * h * (2 * dk * 2 + dv * 2 + dk * 4 + dv * 4)
               + b * h * dk * dv * 4 + h * dk * 4)
-    t_ops, t_bytes = flops / f32_peak, nbytes / bw
+    t_ops, t_bytes = flops / (bf16_peak / 2), nbytes / bw
     rows["rwkv6_scan"] = {
         "shape": [b, t, h, dk, dv], "dtype": "bfloat16",
+        "blocks": rsk.grid_blocks(b, h),
         "kernel_us": time_calls(torch, [lambda a=a: rsk.rwkv6_scan(*a)
                                         for a in ins]) * 1e6,
         "plain_us": time_calls(torch, [lambda a=a: rsk.rwkv6_scan_plain(*a)

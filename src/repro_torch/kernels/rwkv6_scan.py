@@ -16,7 +16,11 @@ needs for its decode cache.  T need not divide the chunk: the tail is
 padded as :func:`wkv_chunked` pads it (w = 1, r = k = v = 0 leave the
 state unchanged).  The hand-written CUDA source is ``csrc/rwkv6_scan.cu``,
 compiled with ``nvcc`` for ``sm_90a`` into ``build/`` at first use and bound
-with ``ctypes``.
+with ``ctypes``: a cluster of four blocks per (batch, head)
+(:func:`grid_blocks`), each owning 16 key columns and the matching rows of
+the state in registers; their partial outputs are added up in a fixed
+order, so a call is deterministic.  The chunk products run on the tensor
+cores in 3xTF32.
 
 The wrapper takes a CPU tensor to its plain version (:func:`wkv_chunked`
 from a zero state) and, for a CUDA tensor, launches the kernel or raises.
@@ -54,8 +58,16 @@ def _lib() -> ctypes.CDLL:
         # r, k, v, w, u, out, state; bf16 flag; B, T, H, Dk, Dv; stream
         lib.rwkv6_launch.argtypes = [P] * 7 + [I] * 6 + [P]
         lib.rwkv6_launch.restype = I
+        lib.rwkv6_grid_blocks.argtypes = [I]
+        lib.rwkv6_grid_blocks.restype = I
         _LIB = lib
     return _LIB
+
+
+def grid_blocks(b: int, h: int) -> int:
+    """Blocks the kernel launches for ``b`` sequences of ``h`` heads (asks
+    the built library, so it needs the CUDA toolkit)."""
+    return _lib().rwkv6_grid_blocks(b * h)
 
 
 def wkv_chunked(r, k, v, w, u, state, chunk: int):
