@@ -9,8 +9,12 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    approx-matmul for every multiplier mode at the serving shapes (decode
    M=4, engine chunk M=128, olmo-1b prefill M=4096 at K=2048 and 8192,
    rwkv6-1.6b prefill M=2048 at K=7168, a ragged M=1000 with a K off the
-   tile) plus exact-integer accumulator checks (M=4, 128, 300), equal to
-   the plain version on every matmul tile of the source; flash attention
+   tile), decode rows at M=1 and 8, rwkv6-1.6b's decode shapes and head, a
+   fused-group member reading a row slice of its group's codes, ragged
+   decode calls, inputs on quantization ties, plus exact-integer
+   accumulator checks (M=4, 128, 300), equal to the plain version on every
+   matmul tile of the source, and every decode call twice bit-equal; flash
+   attention
    at the olmo-1b prefill shape, the JAX kernel tests' shapes in float32
    and bfloat16 (GQA, window, non-causal, Tq < Tk at D=64 and 128) and a
    ragged length, each row held to its own scale; the RWKV6 scan (out and
@@ -19,15 +23,19 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    the extreme decays;
 4. engine path: full-width olmo-1b served by the port's continuous-batching
    engine with `backend: "pallas"` packs; checks completion, the kernel
-   launch count the schedule implies, device placement, determinism and
-   that the control variate reaches the logits;
+   launch count the schedule implies, that the packs hold their codes only
+   K-major (fused-group members as row slices of the group's), that a
+   decode step's fused calls are one CUDA launch each, device placement,
+   determinism and that the control variate reaches the logits;
 5. lock-step paths (`launch.serve.run_legacy`): full-width olmo-1b (B=4,
    T=1024) and rwkv6-1.6b (B=4, T=512), 32 tokens each, `serve-default`
    with `backend: "pallas"`; checks finite logits, determinism, the launch
-   counts the schedule implies, and the logit gap to the same prefill with
-   the flash and scan kernels swapped for their plain versions;
+   counts the schedule implies, the packs and one launch a decode call as
+   above, and the logit gap to the same prefill with the flash and scan
+   kernels swapped for their plain versions;
 6. kernel times at the paths' shapes (kernel, plain, library, bound),
-   the approx-matmul also at both lock-step prefills' shapes.
+   the approx-matmul also at both lock-step prefills' shapes and at
+   rwkv6-1.6b's decode shapes and head.
 
 Prints the card line and one `kernels` JSON line before the last line, and
 ends with `{"ok": true, "device": {...}}`.  Any failure exits non-zero.
@@ -75,8 +83,16 @@ PREFILL_KN = PATH_KN
 #: rwkv6-1.6b's packed layers of one layer's prefill: r, k, v, g, out,
 #: receptance; key; value
 RWKV_KN = [(2048, 2048)] * 6 + [(2048, 7168), (7168, 2048)]
+#: rwkv6-1.6b's packed head (one call a step)
+RWKV_HEAD_KN = (2048, 65536)
 #: rows of one lock-step prefill call: B=4 x T
 OLMO_PREFILL_M, RWKV_PREFILL_M = 4096, 2048
+#: decode-row cases (M, K, N) beyond the path shapes: one and DECODE_M_MAX
+#: rows at olmo-1b's shapes, rwkv6-1.6b's key and value projections and head,
+#: a ragged call (K off 16 bytes, N off the 32-column tile)
+DECODE_CASES = [(1, 2048, 2048), (8, 2048, 2048), (1, 8192, 2048),
+                (8, 8192, 2048), (8, 2048, 8192), (4, 2048, 7168),
+                (4, 7168, 2048), (4,) + RWKV_HEAD_KN, (3, 1000, 1000)]
 
 
 def fail(msg: str) -> None:
@@ -120,18 +136,54 @@ def plain_swapped(what: str, swaps):
                  f"plain version and {kern.launches - before} kernel launches")
 
 
-def k_major_gib(tree) -> float:
-    """GiB of the packs' K-major weight copies (``w_qbt``) in a parameter
-    tree: what the prefill tile's operand layout adds to the card."""
+def storage_gib(tensors) -> float:
+    """GiB of the storages under ``tensors``, each storage counted once (a
+    fused-group member's codes are a view of its group's)."""
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values()) / 2**30
+
+
+def modules(tree):
+    """Every module of a parameter tree (dicts of modules and tensors)."""
     import torch.nn as nn
 
     if isinstance(tree, nn.Module):
-        return sum(b.numel() * b.element_size()
-                   for name, b in tree.named_buffers()
-                   if name.split(".")[-1] == "w_qbt") / 2**30
-    if isinstance(tree, dict):
-        return sum(k_major_gib(v) for v in tree.values())
-    return 0.0
+        yield from tree.modules()
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from modules(v)
+
+
+def k_major_gib(tree) -> float:
+    """GiB of the packs' weight codes (``w_qbt``, K-major) in a parameter
+    tree."""
+    return storage_gib([b for m in modules(tree)
+                        for name, b in m.named_buffers(recurse=False)
+                        if name == "w_qbt" and b is not None])
+
+
+def check_packs(label: str, tree) -> int:
+    """Fails unless every pack holds its weight codes once, K-major: no
+    module keeps a row-major ``w_qb`` buffer, and each fused-group member's
+    ``w_qbt`` is a row slice of its group's (the same storage).  Returns
+    the number of members checked."""
+    from repro_torch.core.approx_linear import QuantizedDenseGroup
+
+    members = 0
+    for m in modules(tree):
+        if "w_qb" in dict(m.named_buffers(recurse=False)):
+            fail(f"{label}: a pack still holds row-major w_qb codes")
+        if isinstance(m, QuantizedDenseGroup) and m.w_qbt is not None:
+            for member in m.members:
+                if member.w_qbt is None or member.w_qbt.untyped_storage(
+                        ).data_ptr() != m.w_qbt.untyped_storage().data_ptr():
+                    fail(f"{label}: a fused-group member holds its own copy "
+                         "of the group's K-major codes")
+                members += 1
+    return members
 
 
 def peaks(name: str) -> tuple[float, float, float, float]:
@@ -184,9 +236,12 @@ def close(torch, got, want, rtol: float = RTOL, per_row: bool = False
 
 def check_kernels(torch, dev) -> dict:
     """Phase 3: both approx-matmul entries against their plain versions on
-    the card, equal (max abs err 0) in every case; fails unless each entry
-    was compared on every matmul tile the source instantiates
+    the card, equal (max abs err 0) in every case, and every decode-row
+    call of the fused entry made twice with bit-equal outputs; fails unless
+    each entry was compared on every matmul tile the source instantiates
     (``approx_matmul.TILES``)."""
+    import dataclasses
+
     from repro_torch.kernels import approx_matmul as amk
     from repro_torch.core import multipliers as am
 
@@ -204,33 +259,56 @@ def check_kernels(torch, dev) -> dict:
         errs[name] = max(errs[name], err)
         tiles[name].add(amk.tile(mm, k, n, mode, m))
 
+    def fused(x, blocked, mode, m, label):
+        """The fused kernel against its plain version; decode rows twice."""
+        k, n = blocked.k, blocked.n
+        args = (x, blocked.w_qbt, blocked.epilogue, blocked.meta)
+        got = amk.approx_matmul_cv_fused(*args, k=k, n=n, mode=mode, m=m)
+        again = (amk.approx_matmul_cv_fused(*args, k=k, n=n, mode=mode, m=m)
+                 if x.shape[0] <= amk.DECODE_M_MAX else got)
+        want = amk.approx_matmul_cv_fused_plain(*args, k=k, n=n, mode=mode,
+                                                m=m)
+        torch.cuda.synchronize()
+        if got.dtype != x.dtype or got.shape != (x.shape[0], n):
+            fail(f"fused kernel output {got.dtype} {tuple(got.shape)}")
+        if not torch.equal(got, again):
+            fail(f"fused kernel {label} {mode} m={m} ({x.shape[0]}, {k}, "
+                 f"{n}): two calls on the same inputs differ")
+        equal("approx_matmul_cv_fused", got, want, x.shape[0], k, n, mode, m)
+        return got
+
     # decode and engine-chunk rows at every path shape; lock-step prefill
     # calls: olmo-1b's fused q|k|v and down projection (K=8192: the 128 x
     # 256 tile), rwkv6-1.6b's key projection; a ragged call whose K (2000)
     # is off the 128-byte K tile and whose M and N are off the row and
-    # column tiles
+    # column tiles; the decode cases
     shapes = ([(mm, k, n) for mm in (4, 128) for k, n in PATH_KN]
               + [(5, 200, 48), (OLMO_PREFILL_M, 2048, 6144),
                  (OLMO_PREFILL_M, 8192, 2048), (RWKV_PREFILL_M, 7168, 2048),
-                 (1000, 2000, 1000)])
-    n_cases = 0
+                 (1000, 2000, 1000)] + DECODE_CASES)
+    n_cases = n_twice = 0
     for mode, m in MODES:
         for mm, k, n in shapes:
             pack, a_qp, blocked = random_pack(torch, k, n, mode, m, gen, dev,
                                               fused_members=3 if n == 6144 else 1)
             for dt in (torch.bfloat16, torch.float32):
                 x = (torch.randn(mm, k, generator=gen, device=dev) * 1.5).to(dt)
-                got = amk.approx_matmul_cv_fused(
-                    x, blocked.w_qb, blocked.epilogue, blocked.meta, k=k, n=n,
-                    mode=mode, m=m, use_cv=True, w_qbt=blocked.w_qbt)
-                want = amk.approx_matmul_cv_fused_plain(
-                    x, blocked.w_qb, blocked.epilogue, blocked.meta, k=k, n=n,
-                    mode=mode, m=m, use_cv=True)
-                torch.cuda.synchronize()
-                if got.dtype != dt or got.shape != (mm, n):
-                    fail(f"fused kernel output {got.dtype} {tuple(got.shape)}")
-                equal("approx_matmul_cv_fused", got, want, mm, k, n, mode, m)
+                got = fused(x, blocked, mode, m, "path")
                 n_cases += 1
+                n_twice += mm <= amk.DECODE_M_MAX
+                if n == 6144 and mm <= amk.DECODE_M_MAX:
+                    # a fused group's member (k of q|k|v) over its rows of
+                    # the group's K-major codes, as packs serve it: equal to
+                    # its plain version and to the group call's columns
+                    member = dataclasses.replace(
+                        blocked, n=2048, w_qbt=blocked.w_qbt[2048:4096],
+                        epilogue=blocked.epilogue[:, 2048:4096].contiguous())
+                    got_m = fused(x, member, mode, m, "member")
+                    if not torch.equal(got_m, got[:, 2048:4096]):
+                        fail(f"member slice {mode} m={m}: differs from the "
+                             "group call's columns")
+                    n_cases += 1
+                    n_twice += 1
             # codes-in kernel on the same pack (per-tensor quant params are
             # exact for an unfused pack; use the first member's for fused)
             a_q = torch.randint(0, 256, (mm, k), generator=gen, device=dev,
@@ -244,11 +322,12 @@ def check_kernels(torch, dev) -> dict:
             torch.cuda.synchronize()
             equal("approx_matmul_cv", got, want, mm, k, n, mode, m)
             n_cases += 1
+            del pack, blocked
         # exact integer accumulators: sa = sw = 1, za = zw = 0, no bias, no
         # CV, integer x in [0, 255] (codes == x); K <= 258 keeps the f32
         # output an exact integer, so it must equal the scalar oracle.  M=4
-        # takes the decode tile; 128 and 300 the prefill tile (300 rows and
-        # columns cross its row and column tiles, K=258 three K tiles)
+        # takes the split-K kernel; 128 and 300 the prefill tile (300 rows
+        # and columns cross its row and column tiles, K=258 three K tiles)
         for mm, n in ((4, 96), (128, 96), (300, 300)):
             k = 258
             w_q = torch.randint(0, 256, (k, n), generator=gen, device=dev,
@@ -261,8 +340,8 @@ def check_kernels(torch, dev) -> dict:
             meta = torch.zeros(1, 8, device=dev)
             meta[0, 0], meta[0, 2] = 1.0, float(k)  # sa, true_k
             got1 = amk.approx_matmul_cv_fused(
-                a_q.float(), w_q, epi, meta, k=k, n=n, mode=mode, m=m,
-                use_cv=False, w_qbt=k_major(w_q))
+                a_q.float(), k_major(w_q), epi, meta, k=k, n=n, mode=mode,
+                m=m, use_cv=False)
             zeros = torch.zeros(n, device=dev)
             got2 = amk.approx_matmul_cv(
                 a_q, w_q, zeros, zeros, torch.zeros(n, dtype=torch.int32,
@@ -277,13 +356,28 @@ def check_kernels(torch, dev) -> dict:
                          f" M={mm}: max diff {float((got - want).abs().max())}")
                 tiles[name].add(amk.tile(mm, k, n, mode, m))
             n_cases += 2
+    # quantization on ties: x within a few float32 ulps of (j + 1/2) * sa,
+    # where the kernels' fast quotient hands over to the IEEE division; the
+    # split-K kernel (M=4) and the prep kernel (M=64)
+    for mm in (4, 64):
+        _, _, blocked = random_pack(torch, 2048, 256, "perforated", 2, gen,
+                                    dev)
+        sa = float(blocked.meta[0, 0])
+        half = (torch.randint(-300, 300, (mm, 2048), generator=gen,
+                              device=dev).float() + 0.5) * sa
+        ulps = torch.randint(-3, 4, (mm, 2048), generator=gen, device=dev)
+        x = (half.view(torch.int32) + ulps.to(torch.int32)).view(torch.float32)
+        for xx in (x, x.to(torch.bfloat16)):
+            fused(xx, blocked, "perforated", 2, "ties")
+            n_cases += 1
+            n_twice += mm <= amk.DECODE_M_MAX
     for name, seen in tiles.items():
         if set(amk.TILES) - seen:
             fail(f"{name}: tiles {sorted(set(amk.TILES) - seen)} were never "
                  "compared with the plain version")
     print(f"kernels: {n_cases} approx-matmul cases equal their plain "
-          f"versions (max abs err 0) on every tile {list(amk.TILES)}",
-          flush=True)
+          f"versions (max abs err 0) on every tile {list(amk.TILES)}; "
+          f"{n_twice} decode-row cases called twice, bit-equal", flush=True)
     return errs
 
 
@@ -449,9 +543,10 @@ def time_calls(torch, fns, reps: int = 21) -> float:
 def kernel_times(torch, dev, card: str) -> list[dict]:
     """Phase 6: per-shape times of both kernels, their plain versions, the
     library matmuls the approximate layer stands beside, and the bound
-    (perforated m=2 + CV, bf16 activations, as served): decode and engine
-    chunk rows for both entries, both lock-step prefills' rows for the
-    fused entry (its plain version timed at one prefill shape only)."""
+    (perforated m=2 + CV, bf16 activations, as served): decode rows (olmo-1b
+    and rwkv6-1.6b, head included) and engine chunk rows for both entries,
+    both lock-step prefills' rows for the fused entry (its plain version
+    timed at one prefill shape only)."""
     from repro_torch.kernels import approx_matmul as amk
     from repro_torch.quant.quantize import BlockedPack
 
@@ -462,34 +557,32 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
     products = 1 + len(amk.decomposition(mode, m)[1])
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    small = sorted({(4, k, n) for k, n in DECODE_KN + PATH_KN}
+    small = sorted({(4, k, n) for k, n in DECODE_KN + PATH_KN + RWKV_KN
+                    + [RWKV_HEAD_KN]}
                    | {(128, k, n) for k, n in PATH_KN})
     prefill = sorted({(OLMO_PREFILL_M, k, n) for k, n in PREFILL_KN}
                      | {(RWKV_PREFILL_M, k, n) for k, n in RWKV_KN})
     plain_at = (OLMO_PREFILL_M, 2048, 2048)
     for mm, k, n in small + prefill:
         pack, a_qp, blocked = random_pack(torch, k, n, mode, m, gen, dev)
-        w_bytes = blocked.w_qb.numel()
+        # the weight bytes every call reads: the pack's K-major codes
+        w_bytes = blocked.w_qbt.numel()
         # enough operand copies that the 50 MB L2 cannot serve one call's
         # weights from the previous call (as in a served step)
         copies = max(2, -(-(128 << 20) // w_bytes))
         blks = [blocked] + [BlockedPack(
-            w_qb=blocked.w_qb.clone(), epilogue=blocked.epilogue.clone(),
-            meta=blocked.meta.clone(), k=k, n=n, bk=blocked.bk, bn=blocked.bn,
-            w_qbt=blocked.w_qbt.clone()) for _ in range(copies - 1)]
+            w_qbt=blocked.w_qbt.clone(), epilogue=blocked.epilogue.clone(),
+            meta=blocked.meta.clone(), k=k, n=n, bk=blocked.bk, bn=blocked.bn)
+            for _ in range(copies - 1)]
         x = torch.randn(mm, k, generator=gen, device=dev).to(torch.bfloat16)
-        # the weight bytes the call's tile reads: the row-major codes for
-        # decode rows, the K-major copy above them
-        w_read = (w_bytes if mm <= amk.DECODE_M_MAX
-                  else blocked.w_qbt.numel())
         fused = dict(
             kern=[lambda b=b: amk.approx_matmul_cv_fused(
-                x, b.w_qb, b.epilogue, b.meta, k=k, n=n, mode=mode, m=m,
-                w_qbt=b.w_qbt) for b in blks],
+                x, b.w_qbt, b.epilogue, b.meta, k=k, n=n, mode=mode, m=m)
+                for b in blks],
             plain=[lambda b=b: amk.approx_matmul_cv_fused_plain(
-                x, b.w_qb, b.epilogue, b.meta, k=k, n=n, mode=mode, m=m)
+                x, b.w_qbt, b.epilogue, b.meta, k=k, n=n, mode=mode, m=m)
                 for b in blks[:2]],
-            nbytes=(x.numel() * 2 + w_read + blocked.epilogue.numel() * 4
+            nbytes=(x.numel() * 2 + w_bytes + blocked.epilogue.numel() * 4
                     + blocked.meta.numel() * 4 + mm * n * 2))
         entries = [("approx_matmul_cv_fused", fused)]
         if mm <= 128:
@@ -499,8 +592,8 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
             meta5 = torch.tensor([0.015, 0.02, 7.0, 131.0, float(k)],
                                  device=dev)
             bias = torch.zeros(n, device=dev)
-            # as callers call it: above DECODE_M_MAX the wrapper makes the
-            # K-major copy of w_q each call, and that transpose is timed
+            # as callers call it: the wrapper makes the K-major copy of w_q
+            # each call, and that transpose is timed
             entries.append(("approx_matmul_cv", dict(
                 kern=[lambda w=w: amk.approx_matmul_cv(
                     a_q, w, pack.c, pack.c0, pack.sum_qw, bias, meta5,
@@ -600,10 +693,12 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
                                        device=dev)
     del params
     torch.cuda.synchronize()
-    pack_bytes = sum(t.numel() * t.element_size() for t in iter_tensors(packed))
+    pack_gib = storage_gib(iter_tensors(packed))
+    members = check_packs("main", packed)
     print(f"main: init + pack {time.perf_counter() - t0:.1f} s; "
-          f"serving params {pack_bytes / 2**30:.3f} GiB, of which K-major "
-          f"weight copies {k_major_gib(packed):.3f} GiB", flush=True)
+          f"serving params {pack_gib:.3f} GiB, of which K-major weight codes "
+          f"{k_major_gib(packed):.3f} GiB (no row-major copy; {members} "
+          "fused-group members read row slices of their group's)", flush=True)
 
     ecfg = EngineConfig(slots=4, max_len=256, prefill_chunk=32,
                         cache_dtype="bfloat16")
@@ -638,8 +733,8 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
     expected = cfg.n_layers * (4 * chunk_steps + 7 * snap["decode_steps"])
     print(f"main: steps prefill={snap['prefill_steps']} mixed="
           f"{snap['mixed_steps']} decode={snap['decode_steps']}; wrapper "
-          f"launches {launches} expected fused {expected} (each fused call "
-          f"is two CUDA launches: prep, then matmul)", flush=True)
+          f"launches {launches} expected fused {expected} (a fused call is "
+          f"one CUDA launch at decode rows, prep and matmul above)", flush=True)
     if launches["approx_matmul_cv_fused"] != expected:
         fail(f"main: {launches['approx_matmul_cv_fused']} fused launches, the "
              f"schedule implies {expected}")
@@ -696,6 +791,7 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
 
     breakdown = {kind: profile_call(torch, api, packed, ecfg, c)
                  for kind, c in (("thin", 1), ("chunk", ecfg.prefill_chunk))}
+    check_one_launch("main: thin step", breakdown["thin"])
 
     main_line = json.dumps({
         "requests_finished": snap["requests_finished"],
@@ -706,7 +802,7 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
         "total_tok_per_s": snap["total_tok_per_s"],
         "ttft_p50_s": snap["ttft_p50_s"], "ttft_p95_s": snap["ttft_p95_s"],
         "itl_p50_s": snap["itl_p50_s"], "itl_p95_s": snap["itl_p95_s"],
-        "peak_mem_gib": peak / 2**30, "pack_gib": pack_bytes / 2**30,
+        "peak_mem_gib": peak / 2**30, "pack_gib": pack_gib,
         "k_major_gib": k_major_gib(packed),
         "launches": launches, "step_breakdown": breakdown})
     print("main: " + main_line, flush=True)
@@ -746,10 +842,14 @@ def profile_fn(torch, label: str, call, host_profile: str) -> dict:
     pstats.Stats(cprof, stream=buf).sort_stats("tottime").print_stats(25)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / host_profile).write_text(buf.getvalue())
+    from repro_torch.kernels import approx_matmul as amk
+
+    calls0 = amk.approx_matmul_cv_fused.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             call()
         torch.cuda.synchronize()
+    fused_calls = amk.approx_matmul_cv_fused.launches - calls0
 
     def dev_us(evt):
         return getattr(evt, "self_device_time_total",
@@ -765,12 +865,34 @@ def profile_fn(torch, label: str, call, host_profile: str) -> dict:
     for e in kernels:
         by_name[e.key[:48]] = by_name.get(e.key[:48], 0.0) + dev_us(e) / 3
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:6]
+    # the approx-matmul source's CUDA launches in the profiled calls, by
+    # kernel, beside the fused wrapper's calls there
+    approx = {}
+    for e in kernels:
+        for kern in ("prep_kernel", "am_splitk_kernel", "am_wgmma_kernel"):
+            if kern in e.key:
+                approx[kern] = approx.get(kern, 0) + e.count
     out = {"wall_ms": wall_s * 1e3,
            "device_ms": device_s * 1e3 if kernels else None,
            "device_idle_share": 1 - device_s / wall_s if kernels else None,
-           "top_device_us": dict(top)}
+           "top_device_us": dict(top),
+           "fused_calls": fused_calls, "approx_launches": approx}
     print(f"{label}: " + json.dumps(out), flush=True)
     return out
+
+
+def check_one_launch(label: str, prof: dict) -> None:
+    """A decode step's fused calls (M <= DECODE_M_MAX) are one CUDA launch
+    each: the step's profile holds no prep kernel and no prefill tile, and
+    as many split-K launches as fused wrapper calls."""
+    got = prof["approx_launches"]
+    if set(got) - {"am_splitk_kernel"} or \
+            got.get("am_splitk_kernel", 0) != prof["fused_calls"]:
+        fail(f"{label}: {prof['fused_calls']} fused calls launched {got}, "
+             "want one split-K launch each and nothing else")
+    print(f"{label}: {prof['fused_calls']} fused calls, "
+          f"{got.get('am_splitk_kernel', 0)} CUDA launches (split-K only, no "
+          "prep kernel)", flush=True)
 
 
 def profile_call(torch, api, params, ecfg, c: int) -> dict:
@@ -815,6 +937,7 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.core.approx_linear import iter_tensors
     from repro_torch.core.policy import ApproxPolicy
     from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import rwkv6_scan as rsk
@@ -854,6 +977,7 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     packed = res["params"]
     del params
+    check_packs(f"legacy {arch}", packed)
 
     per_prefill = cfg.n_layers
     expected = {
@@ -924,9 +1048,11 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
         "decode": profile_fn(torch, f"legacy: {arch} profile decode step",
                              lambda: api.decode_step(packed, tok, cache),
                              f"host_profile_{arch}_decode.txt")}
+    check_one_launch(f"legacy: {arch} decode step", breakdown["decode"])
     line = {"arch": arch, "layers": cfg.n_layers, "batch": BATCH,
             "prompt_len": prompt_len, "gen": GEN,
             "prefill_ms": res["prefill_s"] * 1e3,
+            "pack_gib": storage_gib(iter_tensors(packed)),
             "k_major_gib": k_major_gib(packed),
             "decode_ms_per_token": res["decode_s_per_step"] * 1e3,
             "tok_per_s": res["tok_per_s"], "peak_mem_gib": peak / 2**30,
@@ -938,8 +1064,9 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
           f"{line['decode_ms_per_token']:.2f} (one token per sequence per "
           f"step, {BATCH} sequences)", flush=True)
     print(f"legacy: {arch} tok_per_s {line['tok_per_s']:.1f}", flush=True)
-    print(f"legacy: {arch} peak_mem_gib {line['peak_mem_gib']:.3f} (K-major "
-          f"weight copies {line['k_major_gib']:.3f} GiB of it)", flush=True)
+    print(f"legacy: {arch} peak_mem_gib {line['peak_mem_gib']:.3f} (serving "
+          f"params {line['pack_gib']:.3f} GiB, K-major weight codes "
+          f"{line['k_major_gib']:.3f} GiB of it)", flush=True)
     print("legacy: " + json.dumps(line), flush=True)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / f"legacy_{arch}.json").write_text(
@@ -1072,6 +1199,12 @@ def main() -> int:
         pre = step_entry(rows, name, PREFILL_KN, 128)
         print(f"{name} per layer, decode step (7 launches, M=4): "
               + json.dumps(dec), flush=True)
+        print(f"{name} per layer, rwkv6-1.6b decode step ({len(RWKV_KN)} "
+              "launches, M=4): " + json.dumps(step_entry(rows, name, RWKV_KN,
+                                                        4)), flush=True)
+        print(f"{name} rwkv6-1.6b head, decode step (1 launch, M=4): "
+              + json.dumps(step_entry(rows, name, [RWKV_HEAD_KN], 4)),
+              flush=True)
         print(f"{name} per layer, prefill step (4 launches, M=128): "
               + json.dumps(pre), flush=True)
         if name == "approx_matmul_cv_fused":
@@ -1085,8 +1218,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/approx_matmul.cu",
             "replaces": f"src/repro/kernels/approx_matmul.py:{src_line}",
-            # wrapper calls on the three paths (a fused call runs the
-            # quantize kernel and the matmul kernel)
+            # wrapper calls on the three paths (a fused call is one CUDA
+            # launch at decode rows, the prep and a matmul kernel above)
             "launches": launches[name],
             "max_abs_err": errs[name],
             "ms": (dec["kernel_us"] + pre["kernel_us"]) / 1e3,

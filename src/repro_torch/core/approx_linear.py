@@ -30,7 +30,7 @@ from repro_torch.quant.quantize import (BlockedPack, PackedLinear, QuantParams,
                                         serving_blocks)
 
 _PACK_FIELDS = ("w_q", "w_scale", "w_zp", "sum_qw", "c", "c0", "bias")
-_BLOCKED_FIELDS = ("w_qb", "epilogue", "meta", "w_qbt")
+_BLOCKED_FIELDS = ("w_qbt", "epilogue", "meta")
 
 
 class _Packed(nn.Module):
@@ -63,8 +63,7 @@ class _Packed(nn.Module):
         if self._blocked_dims is None:
             return None
         k, n, bk, bn = self._blocked_dims
-        return BlockedPack(self.w_qb, self.epilogue, self.meta, k, n, bk, bn,
-                           self.w_qbt)
+        return BlockedPack(self.w_qbt, self.epilogue, self.meta, k, n, bk, bn)
 
 
 class QuantizedDense(_Packed):
@@ -82,7 +81,8 @@ class QuantizedDenseGroup(_Packed):
     per-row statistics (sumx, sumqa) computed once, so the fused outputs
     equal the separate member calls bit for bit.  ``members`` are the
     individually packed layers for decode-shaped calls (see
-    :func:`dense_group`)."""
+    :func:`dense_group`); their K-major codes are row slices of the
+    group's, so the weights are on the card once."""
 
     def __init__(self, pack, a_qp, policy, blocked, names: tuple[str, ...],
                  splits: tuple[int, ...], members: list[QuantizedDense]):
@@ -158,9 +158,9 @@ def _fuse_m_min() -> int:
     """Smallest flattened row count that runs the wide fused group call.
 
     Decode-shaped calls (M <= DECODE_M_MAX) run the members instead: the
-    kernel's decode tiles stream each member's weights once either way,
-    and the members' outputs need no split.  Both paths are bit-identical,
-    so the choice is only about latency."""
+    kernel's split-K decode launches stream each member's weights once
+    either way, and the members' outputs need no split.  Both paths are
+    bit-identical, so the choice is only about latency."""
     from repro_torch.kernels import ops as kops
 
     return kops.DECODE_M_MAX + 1
@@ -243,12 +243,18 @@ def pack_dense_group(members: list[tuple[str, dict]], policy: ApproxPolicy,
     for li in range(len(per_member[0])):
         mods = [_pack_one(w, b, policy, a_qp)
                 for w, b in (pm[li] for pm in per_member)]
-        for mod in mods:  # members run decode rows only: the thin tile
-            mod.w_qbt = None  # reads w_qb, so they need no K-major copy
         pack = concat_packs([mod.pack for mod in mods])
-        groups.append(QuantizedDenseGroup(
+        group = QuantizedDenseGroup(
             pack, a_qp, policy, _maybe_blocked(pack, a_qp, policy), names,
-            splits, mods))
+            splits, mods)
+        if group.w_qbt is not None:
+            # a member's columns are a contiguous range of the group's, so
+            # its K-major codes are those rows of the group's (same ldt)
+            lo = 0
+            for mod, n in zip(mods, splits):
+                mod.w_qbt = group.w_qbt[lo:lo + n]
+                lo += n
+        groups.append(group)
     return groups[0] if leaves[0]["w"].ndim == 2 else LayerStack(groups)
 
 

@@ -5,26 +5,26 @@ Two entries of one hand-written CUDA source (``csrc/approx_matmul.cu``):
 * :func:`approx_matmul_cv_fused` replaces the TPU kernel
   ``repro/kernels/approx_matmul.py::approx_matmul_cv_fused`` (body
   ``_fused_kernel``): float activations against an offline-blocked pack
-  (uint8 codes, their K-major copy, an (EPI_ROWS, Nb) epilogue table and
-  meta scalars).  One wrapper call runs a prep kernel (quantize x once,
-  mask the codes, per-row statistics) and one tensor-core matmul kernel
-  with the CV epilogue: two CUDA launches;
+  (the K-major uint8 codes ``w_qbt``, an (EPI_ROWS, Nb) epilogue table and
+  meta scalars);
 * :func:`approx_matmul_cv` replaces ``approx_matmul_cv`` (body ``_kernel``):
   the same arithmetic over pre-quantized codes with per-tensor quant params.
 
-Rows above :data:`DECODE_M_MAX` take the prefill tile (TMA + ``wgmma``,
-reading the K-major weight copy, bound by int8 operations at prefill
-sizes); decode-shaped rows take the thin ``mma.sync`` tile over the
-row-major codes (bound by the weight bytes).  The design notes are in the
-source.  The source is compiled with ``nvcc`` for ``sm_90a`` into
+Both read the weights K-major.  Decode-shaped calls (at most
+:data:`DECODE_M_MAX` rows) are one CUDA launch: a split-K kernel that
+quantizes x itself, multiplies on ``mma.sync`` and adds the K slices of a
+thread-block cluster in the leader's shared memory (bound by the weight
+bytes).  Larger calls run a prep kernel (quantize x once, mask the codes,
+per-row statistics) and then the TMA + ``wgmma`` prefill tile (bound by
+int8 operations at prefill sizes): two launches.  The design notes are in
+the source.  The source is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/`` at first use and bound with ``ctypes``.
 
 Each wrapper takes a CPU tensor to its plain PyTorch version
 (``*_plain``, the float64-exact integer product of
 :mod:`repro_torch.core.multipliers`) and, for a CUDA tensor, launches the
 kernel or raises.  ``<wrapper>.launches`` counts the wrapper's calls that
-launched on the card (for the fused entry, each such call is the quantize
-kernel plus the matmul kernel).
+launched on the card.
 """
 
 from __future__ import annotations
@@ -50,10 +50,9 @@ BUILD_DIR = nvcc.BUILD_DIR
 #: like the reference's separate operations
 NVCC_FLAGS = nvcc.BASE_FLAGS + ("-fmad=false",)
 
-#: Row counts at or below this are decode-shaped (engine slot counts): the
-#: kernel runs its thin-M tile configuration, whose blocks each stream a
-#: narrow column strip of the weights once.  Above it the prefill tile
-#: reads the K-major weight copy.
+#: Row counts at or below this are decode-shaped (engine slot counts): one
+#: split-K launch, which quantizes x in each block.  Above it the prep
+#: kernel and the prefill tile.
 DECODE_M_MAX = 8
 
 #: K-major weight rows are padded to this many bytes (TMA row strides)
@@ -78,15 +77,15 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(nvcc.build_many([build_job()])[0]))
         P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
-        # x, x_bf16, codes, ldq, stats, w_qb, ldw, w_vec, w_qbt, ldt,
-        # epilogue, meta, out, M, K, N, decode, then _mode_args, stream
-        lib.am_fused_launch.argtypes = [P, I, P, I, P, P, I, I, P, I, P, P, P,
+        # x, x_bf16, codes, ldq, stats, w_qbt, ldt, wt_rows, epilogue, lde,
+        # meta, out, M, K, N, decode, then _mode_args, stream
+        lib.am_fused_launch.argtypes = [P, I, P, I, P, P, I, I, P, I, P, P,
                                         I, I, I, I, I, I, U, U, I, I, I, P]
         lib.am_fused_launch.restype = I
-        # a_q, codes, ldq, stats, w_q, w_vec, w_qt, ldt, c, c0, sum_qw, bias,
-        # meta, out, M, K, N, decode, then _mode_args, stream
-        lib.am_codes_launch.argtypes = [P, P, I, P, P, I, P, I, P, P, P, P, P,
-                                        P, I, I, I, I, I, I, U, U, I, I, I, P]
+        # a_q, codes, ldq, stats, w_qt, ldt, c, c0, sum_qw, bias, meta, out,
+        # M, K, N, decode, then _mode_args, stream
+        lib.am_codes_launch.argtypes = [P, P, I, P, P, I, P, P, P, P, P, P,
+                                        I, I, I, I, I, I, U, U, I, I, I, P]
         lib.am_codes_launch.restype = I
         lib.am_tile.argtypes = [I, I, I, I, I]
         lib.am_tile.restype = I
@@ -95,9 +94,9 @@ def _lib() -> ctypes.CDLL:
 
 
 #: the matmul kernel instantiations, named in the order of the source's
-#: ``TileId`` (``am_tile``): the thin-M decode tile, the wgmma tiles for
+#: ``TileId`` (``am_tile``): the split-K decode kernel, the wgmma tiles for
 #: modes with subtractive planes, then those for one product
-TILES = ("decode", "128x128 planes", "64x128 planes", "128x256", "128x128",
+TILES = ("split_k", "128x128 planes", "64x128 planes", "128x256", "128x128",
          "64x128")
 
 
@@ -133,8 +132,8 @@ def _mode_args(mode: am.Mode, m: int, use_cv: bool):
     """(main_mask, n_planes, amasks, wmasks, stat_kind, stat_mask, use_cv)
     for the kernel: :func:`decomposition` with the plane masks packed one
     byte each, and the CV statistic (0 none, 1 low bits, 2 nonzero low
-    bits).  The prep kernel applies ``main_mask`` to the codes it writes, so
-    the matmul kernels multiply the stored codes as they are."""
+    bits).  The prep kernel applies ``main_mask`` to the codes it writes,
+    the split-K kernel to the codes it multiplies."""
     main, planes = decomposition(mode, m)
     amasks = sum(a << (8 * i) for i, (a, _) in enumerate(planes))
     wmasks = sum(w << (8 * i) for i, (_, w) in enumerate(planes))
@@ -159,29 +158,28 @@ def _launch_status(name: str, status: int) -> None:
         raise RuntimeError(f"{name}: kernel launch failed: {what}")
 
 
-def _check_k_major(name: str, w_t: torch.Tensor | None, rows: int, k: int,
-                   mm: int) -> None:
-    """The prefill tile's weight operand: (rows, ldt) uint8, K contiguous,
-    ldt >= k a multiple of K_ALIGN, 16-byte aligned (TMA reads it).
-    Decode-shaped calls do not read it."""
-    if mm <= DECODE_M_MAX and w_t is None:
-        return
+def _check_k_major(name: str, w_t: torch.Tensor | None, n: int,
+                   k: int) -> None:
+    """The kernels' weight operand: (rows >= n, ldt) uint8, K contiguous,
+    ldt >= k a multiple of K_ALIGN, 16-byte aligned (TMA reads it).  A
+    fused group's member passes its rows of the group's copy: a row slice
+    with the group's ldt."""
     if w_t is None:
-        raise ValueError(f"{name}: {mm} rows take the prefill tile, which "
-                         "needs the K-major weight copy")
-    if w_t.dtype != torch.uint8 or w_t.dim() != 2 or w_t.shape[0] != rows \
+        raise ValueError(f"{name}: the kernels read the K-major weight codes "
+                         "(w_qbt); the call needs the K-major weight copy")
+    if w_t.dtype != torch.uint8 or w_t.dim() != 2 or w_t.shape[0] < n \
             or w_t.shape[1] < k or w_t.shape[1] % K_ALIGN \
             or w_t.data_ptr() % 16:
         raise ValueError(f"{name}: K-major weights {w_t.dtype} "
-                         f"{tuple(w_t.shape)}, want uint8 ({rows}, >= {k}, a "
+                         f"{tuple(w_t.shape)}, want uint8 (>= {n}, >= {k}, a "
                          f"multiple of {K_ALIGN}), 16-byte aligned")
 
 
 def _scratch(mm: int, k: int, device) -> tuple[torch.Tensor, int]:
-    """The prep kernel's outputs in one allocation (one ``torch.empty`` per
-    call: decode steps are bound by the host): (M, ldq) uint8 codes, ldq = k
-    rounded up to 16, then the (M, 2) int32 row statistics from byte
-    M * ldq (a multiple of 16).  Returns the buffer and ldq."""
+    """The prep kernel's outputs in one allocation, for calls above
+    DECODE_M_MAX rows: (M, ldq) uint8 codes, ldq = k rounded up to 16, then
+    the (M, 2) int32 row statistics from byte M * ldq (a multiple of 16).
+    Returns the buffer and ldq."""
     ldq = -(-k // 16) * 16
     return torch.empty(mm * (ldq + 8), dtype=torch.uint8, device=device), ldq
 
@@ -194,6 +192,17 @@ def _check_scratch(name: str, buf: torch.Tensor, mm: int, ldq: int) -> None:
         raise ValueError(f"{name}: scratch {buf.dtype} of {buf.numel()} "
                          f"elements, want uint8 codes ({mm}, {ldq}) and int32 "
                          f"statistics ({mm}, 2): {mm * (ldq + 8)} bytes")
+
+
+def _prep_scratch(name: str, mm: int, k: int, device, decode: bool):
+    """(buffer, ldq, address of its codes) of the prep kernel's scratch, or
+    (None, 0, 0) for decode rows, which take none: the kernel reads the
+    statistics at codes + M * ldq."""
+    if decode:
+        return None, 0, 0
+    buf, ldq = _scratch(mm, k, device)
+    _check_scratch(name, buf, mm, ldq)
+    return buf, ldq, buf.data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -215,19 +224,17 @@ def _epilogue(acc: torch.Tensor, sqa: torch.Tensor, sx: torch.Tensor | None,
     return out * (sa * sw) + bias
 
 
-def approx_matmul_cv_fused_plain(x: torch.Tensor, w_qb: torch.Tensor,
+def approx_matmul_cv_fused_plain(x: torch.Tensor, w_qbt: torch.Tensor,
                                  epilogue: torch.Tensor, meta: torch.Tensor,
                                  *, k: int, n: int, mode: am.Mode, m: int,
-                                 use_cv: bool = True,
-                                 w_qbt: torch.Tensor | None = None
-                                 ) -> torch.Tensor:
+                                 use_cv: bool = True) -> torch.Tensor:
     """Plain PyTorch version of :func:`approx_matmul_cv_fused`.
-    x (M, k) float -> (M, n) in x's dtype.  It reads w_qb; ``w_qbt`` is
-    accepted so that the two are called alike, and not read."""
+    x (M, k) float -> (M, n) in x's dtype.  It reads the row-major codes
+    as a view of w_qbt (``w_qbt[:n, :k].t()``)."""
     sa, za, true_k = meta[0, META_SA], meta[0, META_ZA], meta[0, META_TRUE_K]
     a = torch.clamp(torch.round(x.to(torch.float32) / sa) + za, QMIN,
                     QMAX).to(torch.int32)
-    acc = am.approx_matmul(a, w_qb[:k, :n], mode, m)
+    acc = am.approx_matmul(a, w_qbt[:n, :k].t(), mode, m)
     sqa = a.sum(dim=-1, dtype=torch.int64)
     cv_on = use_cv and mode != "exact" and m > 0
     sx = cvlib.sum_x(a, mode, m) if cv_on else None
@@ -237,56 +244,50 @@ def approx_matmul_cv_fused_plain(x: torch.Tensor, w_qb: torch.Tensor,
     return out.to(x.dtype)
 
 
-def approx_matmul_cv_fused(x: torch.Tensor, w_qb: torch.Tensor,
+def approx_matmul_cv_fused(x: torch.Tensor, w_qbt: torch.Tensor | None,
                            epilogue: torch.Tensor, meta: torch.Tensor, *,
                            k: int, n: int, mode: am.Mode, m: int,
-                           use_cv: bool = True,
-                           w_qbt: torch.Tensor | None = None) -> torch.Tensor:
+                           use_cv: bool = True) -> torch.Tensor:
     """Fused float -> float approximate matmul over a blocked pack.
 
-    x (M, k) float32/bfloat16; w_qb (Kb, Nb) uint8; epilogue (EPI_ROWS, Nb)
-    float32; meta (1, META_LEN) float32; w_qbt (Nb, >= Kb) uint8, the pack's
-    K-major copy of w_qb, which calls of more than DECODE_M_MAX rows on the
-    card need.  Returns (M, n) in x's dtype.
+    x (M, k) float32/bfloat16; w_qbt (>= n, ldt) uint8, the pack's K-major
+    codes (ldt >= k, a multiple of K_ALIGN); epilogue (EPI_ROWS, >= n)
+    float32; meta (1, META_LEN) float32.  Returns (M, n) in x's dtype.  On
+    the card a call of at most DECODE_M_MAX rows is one CUDA launch and
+    allocates only its output.
     """
     name = "approx_matmul_cv_fused"
     if x.device.type == "cpu":
-        return approx_matmul_cv_fused_plain(x, w_qb, epilogue, meta, k=k, n=n,
-                                            mode=mode, m=m, use_cv=use_cv)
+        return approx_matmul_cv_fused_plain(x, w_qbt, epilogue, meta, k=k,
+                                            n=n, mode=mode, m=m, use_cv=use_cv)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: x dtype {x.dtype}")
-    if w_qb.dtype != torch.uint8 or epilogue.dtype != torch.float32 \
-            or meta.dtype != torch.float32:
+    _check_k_major(name, w_qbt, n, k)
+    if epilogue.dtype != torch.float32 or meta.dtype != torch.float32:
         raise ValueError(f"{name}: operand dtypes")
     mm, kk = x.shape
-    kb, nb = w_qb.shape
-    if kk != k or k > kb or n > nb or epilogue.shape != (EPI_ROWS, nb):
-        raise ValueError(f"{name}: shapes x {tuple(x.shape)} "
-                         f"w_qb {tuple(w_qb.shape)} k={k} n={n}")
+    if kk != k or epilogue.dim() != 2 or epilogue.shape[0] != EPI_ROWS \
+            or epilogue.shape[1] < n:
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)} epilogue "
+                         f"{tuple(epilogue.shape)} k={k} n={n}")
     if k > MAX_K:
         raise ValueError(f"fan-in {k} > {MAX_K} overflows the int32 "
                          "accumulator")
-    _check_k_major(name, w_qbt, nb, k, mm)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     lib = _lib()
-    _check_cuda(name, x, w_qb, epilogue, meta,
-                *(() if w_qbt is None else (w_qbt,)))
+    _check_cuda(name, x, w_qbt, epilogue, meta)
     out = torch.empty((mm, n), dtype=x.dtype, device=x.device)
     if mm == 0:
         return out
-    scratch, ldq = _scratch(mm, k, x.device)
-    _check_scratch(name, scratch, mm, ldq)
-    codes = scratch.data_ptr()
     decode = mm <= DECODE_M_MAX
-    w_vec = int(nb % 16 == 0 and w_qb.data_ptr() % 16 == 0)
+    scratch, ldq, codes = _prep_scratch(name, mm, k, x.device, decode)
     status = lib.am_fused_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), codes, ldq,
-        codes + mm * ldq, w_qb.data_ptr(), nb, w_vec,
-        None if w_qbt is None else w_qbt.data_ptr(),
-        0 if w_qbt is None else w_qbt.shape[1], epilogue.data_ptr(),
-        meta.data_ptr(), out.data_ptr(), mm, k, n, int(decode),
-        *_mode_args(mode, m, use_cv),
+        codes + mm * ldq, w_qbt.data_ptr(),
+        w_qbt.shape[1], w_qbt.shape[0], epilogue.data_ptr(),
+        epilogue.shape[1], meta.data_ptr(), out.data_ptr(), mm, k, n,
+        int(decode), *_mode_args(mode, m, use_cv),
         torch.cuda.current_stream(x.device).cuda_stream)
     _launch_status(name, status)
     approx_matmul_cv_fused.launches += 1
@@ -326,10 +327,10 @@ def approx_matmul_cv(a_q: torch.Tensor, w_q: torch.Tensor, c: torch.Tensor,
                      mode: am.Mode, m: int, use_cv: bool = True) -> torch.Tensor:
     """Approximate matmul + CV over uint8 codes a_q (M, K) and w_q (K, N),
     with c, c0, bias float32 (N,), sum_qw int32 (N,) and meta float32
-    [sa, sw, za, zw, true_k].  Returns float32 (M, N).  Calls of more than
-    DECODE_M_MAX rows on the card make :func:`k_major` of w_q for the
-    prefill tile, each call (no path runs this entry: every served pack
-    carries its own K-major copy and takes the fused entry)."""
+    [sa, sw, za, zw, true_k].  Returns float32 (M, N).  Every call on the
+    card makes :func:`k_major` of w_q, the layout both kernels read (no path
+    runs this entry: every served pack carries its K-major codes and takes
+    the fused entry)."""
     if a_q.device.type == "cpu":
         return approx_matmul_cv_plain(a_q, w_q, c, c0, sum_qw, bias, meta,
                                       mode=mode, m=m, use_cv=use_cv)
@@ -356,20 +357,16 @@ def approx_matmul_cv(a_q: torch.Tensor, w_q: torch.Tensor, c: torch.Tensor,
     out = torch.empty((mm, nn), dtype=torch.float32, device=a_q.device)
     if mm == 0:
         return out
-    scratch, ldq = _scratch(mm, kk, a_q.device)
-    _check_scratch("approx_matmul_cv", scratch, mm, ldq)
-    codes = scratch.data_ptr()
     decode = mm <= DECODE_M_MAX
-    w_qt = None if decode else k_major(w_q)
-    _check_k_major("approx_matmul_cv", w_qt, nn, kk, mm)
-    w_vec = int(nn % 16 == 0 and w_q.data_ptr() % 16 == 0)
+    scratch, ldq, codes = _prep_scratch("approx_matmul_cv", mm, kk,
+                                        a_q.device, decode)
+    w_qt = k_major(w_q)
+    _check_k_major("approx_matmul_cv", w_qt, nn, kk)
     status = lib.am_codes_launch(
-        a_q.data_ptr(), codes, ldq, codes + mm * ldq,
-        w_q.data_ptr(), w_vec, None if w_qt is None else w_qt.data_ptr(),
-        0 if w_qt is None else w_qt.shape[1], c.data_ptr(), c0.data_ptr(),
-        sum_qw.data_ptr(), bias.data_ptr() if bias is not None else None,
-        meta.data_ptr(), out.data_ptr(), mm, kk, nn, int(decode),
-        *_mode_args(mode, m, use_cv),
+        a_q.data_ptr(), codes, ldq, codes + mm * ldq, w_qt.data_ptr(),
+        w_qt.shape[1], c.data_ptr(), c0.data_ptr(), sum_qw.data_ptr(),
+        bias.data_ptr() if bias is not None else None, meta.data_ptr(),
+        out.data_ptr(), mm, kk, nn, int(decode), *_mode_args(mode, m, use_cv),
         torch.cuda.current_stream(a_q.device).cuda_stream)
     _launch_status("approx_matmul_cv", status)
     approx_matmul_cv.launches += 1

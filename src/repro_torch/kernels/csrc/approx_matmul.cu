@@ -29,17 +29,24 @@
 // Partial sums stay below 255*255*K < 2^31 for K <= 33025 (the wrapper
 // checks), so the 32-bit accumulators hold the exact value.
 //
-// Pipeline of one call: a prep kernel (one block of eight warps per row)
-// quantizes x once (IEEE division, round half to even), writes the codes
-// masked with `main` into an (M, ldq) buffer (zeros past K, rows padded to
-// 16 bytes), and writes each row's sum of codes and CV statistic into an
-// (M, 2) int32 scratch from its unmasked codes, so no matmul block sums
-// codes again.  Then one of two matmul kernels:
+// Both routes read the weights from the pack's K-major codes w_qbt (N rows
+// of ldt bytes, K contiguous; made once with the pack, so no tile is
+// transposed on the card):
 //
-// * Prefill tile (M > DECODE_M_MAX): warp-specialised wgmma.  A producer
-//   thread issues TMA loads of 128-byte K slices of the codes (BM rows) and
-//   of the K-major weight copy (BN rows; built once with the pack, so no
-//   tile is transposed on the card) into a ring of stages with 128-byte
+// * Decode rows (M <= DECODE_M_MAX): one split-K kernel per call, which
+//   quantizes its own slice of x, runs mma.sync m16n8k32 over the codes
+//   staged in a two-stage shared-memory ring and adds the K slices of a
+//   cluster through distributed shared memory (design notes at
+//   am_splitk_kernel).
+// * Prefill rows: a prep kernel (one block of eight warps per row)
+//   quantizes x once (to_code: quantize_i32's quotient, round half to
+//   even), writes the codes
+//   masked with `main` into an (M, ldq) buffer (zeros past K, rows padded
+//   to 16 bytes), and writes each row's sum of codes and CV statistic into
+//   an (M, 2) int32 scratch from its unmasked codes, so no matmul block
+//   sums codes again.  Then the prefill tile, warp-specialised wgmma.  A
+//   producer thread issues TMA loads of 128-byte K slices of the codes (BM
+//   rows) and of w_qbt (BN rows) into a ring of stages with 128-byte
 //   swizzle (one slice is one swizzle atom), paced by full/empty mbarriers.
 //   Two consumer warpgroups run wgmma.mma_async m64nNk32 u8.u8.s32 straight
 //   from shared memory, each on a 64 x N slab, and keep the K loop whole (no
@@ -58,23 +65,20 @@
 //   served path) mask a copy of each stage into a scratch slot and
 //   accumulate into a second register array, so those modes take the
 //   one-block 128 x 128 and 64 x 128 tiles.
-// * Decode tile (M <= DECODE_M_MAX): mma.sync m16n8k32 on 16 x 32 strips of
-//   the row-major weights, STAGES-deep cp.async pipeline, eight warps
-//   splitting K, weight tile transposed in shared memory with byte permutes
-//   (decode is bound by the weight bytes, which it reads once).
 // K and N edges are masked in the kernels (TMA zero-fills out of bounds),
 // so the caller pads nothing.
 //
 // Bound on the H100: prefill at M >= 2048 is bound by int8 operations (one
 // product per output for perforated: 2*M*K*N at 1,979 TOP/s).  The main
-// loop alone comes close to that rate (tools/tile_variants.py times it with
-// the epilogue cut out); what keeps the tile from it is the float32
+// loop alone comes close to that rate with the epilogue cut out; what
+// keeps the tile from it is the float32
 // epilogue, a chain of seven dependent operations per output that the
 // reference's rounding fixes, run by only eight warps per block.  Two
 // blocks per SM hide part of it; a persistent kernel whose consumer
 // warpgroups alternate between tiles would hide the rest.  The prep pass
 // reads x once and writes one byte per code, so it is bound by bytes.
-// Decode and the engine's M = 128 chunks are bound by the weight bytes.
+// Decode rows and the engine's M = 128 chunks are bound by the weight
+// bytes.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the CUDA driver's
                    // tensor-map encoder is fetched at run time, libcuda is
@@ -83,27 +87,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 // --- PTX helpers ------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16-byte async copy; bytes beyond src_bytes (0..16) are zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // d += a . b over a 16x32 (row) by 32x8 (col) tile of unsigned bytes
@@ -263,51 +254,109 @@ __device__ __forceinline__ void wgmma_u8(int (&d)[N / 2], uint64_t a,
 
 // --- prep: quantize, mask, row statistics -----------------------------------
 
-// quant.quantize_i32: clip(round(x / sa) + za, 0, 255), IEEE division,
-// round half to even
-__device__ __forceinline__ uint32_t to_code(float x, float sa, float za) {
-  float q = rintf(__fdiv_rn(x, sa)) + za;
-  q = fminf(fmaxf(q, 0.0f), 255.0f);
-  return (uint32_t)q;
+// 16-byte load through the read-only path, issued where it is written
+__device__ __forceinline__ uint4 ldg_nc(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
 }
-__device__ __forceinline__ uint32_t code_of(float v, float sa, float za) {
-  return to_code(v, sa, za);
-}
-__device__ __forceinline__ uint32_t code_of(__nv_bfloat16 v, float sa,
-                                            float za) {
-  return to_code(__bfloat162float(v), sa, za);
-}
-__device__ __forceinline__ uint32_t code_of(uint8_t v, float, float) {
+__device__ __forceinline__ float ldg_nc(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
   return v;
 }
 
-// codes of 8 consecutive inputs, from a 16-byte aligned (bf16, float) or
-// 8-byte aligned (uint8) address, packed 4 to a word
-__device__ __forceinline__ void codes8(const __nv_bfloat16* p, float sa,
-                                       float za, uint32_t (&w)[2]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    w[i / 2] |= (to_code(f.x, sa, za) | (to_code(f.y, sa, za) << 8))
-                << (16 * (i % 2));
-  }
+// The activation quant params, with 1/sa rounded once (IEEE division).
+struct Quant {
+  float sa, inv, za;
+};
+__device__ __forceinline__ Quant make_quant(float sa, float za) {
+  return {sa, __fdiv_rn(1.0f, sa), za};
 }
-__device__ __forceinline__ void codes8(const float* p, float sa, float za,
-                                       uint32_t (&w)[2]) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float4 f = reinterpret_cast<const float4*>(p)[h];
-    w[h] = to_code(f.x, sa, za) | (to_code(f.y, sa, za) << 8) |
-           (to_code(f.z, sa, za) << 16) | (to_code(f.w, sa, za) << 24);
+
+// quant.quantize_i32: clip(round(x / sa) + za, 0, 255), IEEE division,
+// round half to even.  Where |x / sa| < 512, x * inv is within 2^-13 of the
+// correctly rounded quotient (two roundings of 2^-24 relative, plus half an
+// ulp), so both round to the same integer unless x * inv lies within 2^-12
+// of a half-integer: those few take the IEEE division.  Beyond 512 both clip
+// alike.  Adding 1.5 * 2^23 rounds to an integer (half to even, exact below
+// 2^22), adding 2^23 leaves an integer in [0, 255] in the low mantissa bits.
+__device__ __forceinline__ uint32_t to_code(float x, const Quant& qp) {
+  constexpr float kRound = 12582912.0f, kInt = 8388608.0f;
+  float q = x * qp.inv;
+  float r = (q + kRound) - kRound;
+  if (fabsf(q) < 512.0f && fabsf(q - r) > 0.5f - 0x1p-12f) {
+    q = __fdiv_rn(x, qp.sa);
+    r = (q + kRound) - kRound;
   }
+  const float c = fminf(fmaxf(r + qp.za, 0.0f), 255.0f);
+  return __float_as_uint(c + kInt) & 0xFFu;
 }
-__device__ __forceinline__ void codes8(const uint8_t* p, float, float,
+__device__ __forceinline__ uint32_t code_of(float v, const Quant& qp) {
+  return to_code(v, qp);
+}
+__device__ __forceinline__ uint32_t code_of(__nv_bfloat16 v, const Quant& qp) {
+  return to_code(__bfloat162float(v), qp);
+}
+__device__ __forceinline__ uint32_t code_of(uint8_t v, const Quant&) {
+  return v;
+}
+
+// 8 consecutive inputs, loaded raw from a 16-byte aligned (bf16, float) or
+// 8-byte aligned (uint8) address, and their codes packed 4 to a word
+template <typename InT>
+struct Item;
+template <>
+struct Item<__nv_bfloat16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    u = ldg_nc(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void codes(const Quant& qp, uint32_t (&w)[2]) const {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      w[i / 2] |= (to_code(f.x, qp) | (to_code(f.y, qp) << 8))
+                  << (16 * (i % 2));
+    }
+  }
+};
+template <>
+struct Item<float> {
+  uint4 u[2];
+  __device__ __forceinline__ void load(const float* p) {
+    u[0] = ldg_nc(reinterpret_cast<const uint4*>(p));
+    u[1] = ldg_nc(reinterpret_cast<const uint4*>(p) + 1);
+  }
+  __device__ __forceinline__ void codes(const Quant& qp, uint32_t (&w)[2]) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 f = *reinterpret_cast<const float4*>(&u[h]);
+      w[h] = to_code(f.x, qp) | (to_code(f.y, qp) << 8) |
+             (to_code(f.z, qp) << 16) | (to_code(f.w, qp) << 24);
+    }
+  }
+};
+template <>
+struct Item<uint8_t> {
+  uint2 u;
+  __device__ __forceinline__ void load(const uint8_t* p) {
+    u = *reinterpret_cast<const uint2*>(p);
+  }
+  __device__ __forceinline__ void codes(const Quant&, uint32_t (&w)[2]) const {
+    w[0] = u.x;
+    w[1] = u.y;
+  }
+};
+template <typename InT>
+__device__ __forceinline__ void codes8(const InT* p, const Quant& qp,
                                        uint32_t (&w)[2]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  w[0] = u.x;
-  w[1] = u.y;
+  Item<InT> it;
+  it.load(p);
+  it.codes(qp, w);
 }
 
 // Byte-wise "is this byte nonzero", one bit per byte at bit 7 of it.
@@ -327,7 +376,7 @@ prep_kernel(const InT* __restrict__ x, int K, int vec,
             uint32_t stat4) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = blockIdx.x;
-  const float sa = meta[0], za = meta[1];
+  const Quant qp = make_quant(meta[0], meta[1]);
   const InT* row = x + (size_t)r * K;
   uint2* qrow = reinterpret_cast<uint2*>(q + (size_t)r * ldq);
   uint32_t sqa = 0u, sx = 0u;
@@ -336,11 +385,11 @@ prep_kernel(const InT* __restrict__ x, int K, int vec,
     const int k0 = g * 8;
     uint32_t w[2] = {0u, 0u};
     if (vec && k0 + 8 <= K) {
-      codes8(row + k0, sa, za, w);
+      codes8(row + k0, qp, w);
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        if (k0 + i < K) w[i / 4] |= code_of(row[k0 + i], sa, za) << (8 * (i % 4));
+        if (k0 + i < K) w[i / 4] |= code_of(row[k0 + i], qp) << (8 * (i % 4));
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -659,188 +708,335 @@ am_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
   }
 }
 
-// --- decode tile: mma.sync over row-major weights ---------------------------
+// --- split-K decode kernel: quantize + mma.sync over the K-major codes -----
+//
+// Decode rows (M <= DECODE_M_MAX) are bound by the weight bytes: each code is
+// read once and used for at most 8 products.  One launch does the whole
+// call:
+//   * Grid (cs, ceil(N / SK_BN)), launched as clusters of cs blocks along K.
+//     Block `rank` of a cluster owns a K slice of `ks` bytes of 32 columns.
+//     split_k() picks cs (1..8) and ks from the shape (see there).
+//   * Weights are read from w_qbt, K contiguous, one round (256 K bytes of
+//     the 32 columns) at a time: cp.async copies it into a two-stage
+//     shared-memory ring, each warp two whole 256-byte runs of two columns,
+//     and lanes read their fragments back from there.  No tile is
+//     transposed.  A block quantizes its K slice of x (rows < M) into shared
+//     memory while its first round is in flight; the quant params and each
+//     thread's first inputs are its first loads, since the products wait on
+//     them.  So a call needs no prep launch and no scratch.  Measured on the
+//     served shapes, deeper rings, per-thread slots, loads straight into
+//     registers and bulk copies of whole slices were all slower: more bytes
+//     in flight a block did not buy bandwidth.
+//   * Products: mma.sync m16n8k32 u8, M padded to 16 with zero registers
+//     (rows 8-15 of A are the constant 0).  A lane (g, t) holds 16 bytes of
+//     column g at byte 16t of a 64-byte K chunk, and its 16 codes of row g at
+//     the same bytes; they feed two mmas as B and A fragments directly: the
+//     mma's K index 4t+i stands for byte 16t+i of the chunk and 16+4t+i for
+//     16t+4+i (the same K permutation for A and B, so the same products are
+//     summed).  dp4a on the CUDA cores would waste no rows, but needs 32x
+//     the instructions per weight byte, and they would share the issue slots
+//     with the quantization; the tensor cores leave the block bound by its
+//     copies.
+//   * Four warps split a 256-byte K round, two the 32 columns.  Row
+//     statistics (sum of codes, CV statistic) come from the unmasked codes
+//     in the same loop.  They, and acc - sub, are exact integers, summed over
+//     the block's warps in shared memory, then over the cluster: every block
+//     writes its partial into the leader's shared memory (distributed shared
+//     memory), and the leader adds the cs partials in rank order and runs
+//     the epilogue (its per-column constants are prefetched into L2 at the
+//     start).  No global scratch, no atomics: two calls are bit-equal.
 
-template <int BM_, int BN_, int BK_, int KS_, int STAGES_>
-struct Cfg {
-  static constexpr int BM = BM_, BN = BN_, BK = BK_;
-  static constexpr int KS = KS_, STAGES = STAGES_;
-  static constexpr int NT = 32 * KS;            // threads
-  static constexpr int KW = BK / 4;             // 32-bit words per tile row
-  static constexpr int LD = KW + 4;  // padded row stride (words), = 4 mod 8:
-                                     // mma fragment loads hit 32 banks
-  static constexpr int A_STAGE = BM * LD * 4;   // bytes
-  static constexpr int W_STAGE = BK * BN;       // bytes, raw (BK, BN)
-  static constexpr int WS = BN * LD * 4;        // transposed weight tile
-  static constexpr int OUT_LD = BN + 1;
-  static constexpr int OUT = BM * OUT_LD * 4;
-  static constexpr int SMEM = STAGES * (A_STAGE + W_STAGE) + WS + OUT;
-  static constexpr int MT = BM / 16;  // m16 tiles per warp
-  static constexpr int NT8 = BN / 8;  // n8 tiles per warp
-  static_assert(BK % 32 == 0 && BN % 16 == 0 && BM % 16 == 0, "tile shape");
-  static_assert((BK / 32) % KS == 0, "warp split");
-};
+constexpr int SK_BN = 32;                   // columns per block
+constexpr int SK_WN = 2, SK_WK = 4;         // warps along N, along K
+constexpr int SK_CG = SK_BN / (8 * SK_WN);  // 8-column groups per warp
+constexpr int SK_KR = 64 * SK_WK;           // K bytes per block round
+constexpr int SK_THREADS = 32 * SK_WN * SK_WK;
+constexpr int SK_STAGES = 2;                // rounds in the ring
+constexpr int SK_MAX_CS = 8;                // portable cluster size
+constexpr int SK_MAX_ROUNDS = 18;           // K up to MAX_K in 8 blocks
+constexpr int SK_RLD = SK_BN + 8;           // row stride of the warp sums
+constexpr int SK_SLOT = 8 * SK_BN + 16;     // a block's partial: acc, stats
+constexpr int SK_WLD = SK_KR + 64;          // weight ring row (one column)
+constexpr int SK_RING = SK_STAGES * SK_BN * SK_WLD;
+static_assert(SK_THREADS == 8 * SK_BN, "one output per thread");
+static_assert(SK_MAX_CS * SK_MAX_ROUNDS * SK_KR >= 33025, "MAX_K");
 
-// Decode (M <= 8) streams a 32-column strip per block with eight warps
-// splitting K.
-using DecodeCfg = Cfg<16, 32, 512, 8, 4>;
+// Dynamic shared memory: the weight ring (SK_STAGES, SK_BN, SK_WLD) and the
+// codes (8, ks + 64), whose 64-byte row pads put the 8 rows of a quarter
+// warp's 16-byte loads on distinct banks; the warps' sums (SK_WK, 8,
+// SK_RLD) and statistics (SK_WK, 8, 2); the cluster's partials (SK_MAX_CS
+// slots, written by the other blocks at any time after the first cluster
+// barrier).
+__host__ __device__ constexpr int sk_smem(int ks) {
+  return SK_RING + 8 * (ks + 64) +
+         4 * (SK_WK * 8 * SK_RLD + SK_WK * 16 + SK_MAX_CS * SK_SLOT);
+}
 
-template <typename C>
-__global__ void __launch_bounds__(C::NT)
-am_decode_kernel(const uint8_t* __restrict__ q, int ldq, int M, int K,
-                 const uint8_t* __restrict__ w, int ldw, int N, int vec,
-                 Epi epi, Planes pl) {
-  constexpr int BM = C::BM, BN = C::BN, BK = C::BK;
-  constexpr int LD = C::LD, NT = C::NT, S = C::STAGES, KS = C::KS;
+// 16-byte async copy; bytes beyond src_bytes (0 or 16) are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// address of the same shared-memory location in block `rank` of the cluster
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, int v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v)
+               : "memory");
+}
+// barrier.cluster.arrive has release, barrier.cluster.wait acquire semantics
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// d += A(rows g, bytes a0 | a2) . B(bytes b0 | b1), rows 8-15 of A zero
+__device__ __forceinline__ void mma_rows8(int (&d)[4], uint32_t a0,
+                                          uint32_t a2, uint32_t b0,
+                                          uint32_t b1) {
+  const uint32_t a[4] = {a0, 0u, a2, 0u};
+  const uint32_t b[2] = {b0, b1};
+  mma_u8(d, a, b);
+}
+
+template <typename InT>
+__global__ void __launch_bounds__(SK_THREADS, 4)
+am_splitk_kernel(const InT* __restrict__ x, int vec,
+                 const uint8_t* __restrict__ wt, int ldt, int M, int K,
+                 int N, int ks, Epi epi, Planes pl, uint32_t main4,
+                 int stat_kind, uint32_t stat4) {
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* a_st = smem;                            // S x (BM, LD) words
-  uint8_t* w_st = smem + S * C::A_STAGE;           // S x (BK, BN) bytes
-  uint32_t* ws = reinterpret_cast<uint32_t*>(w_st + S * C::W_STAGE);
-  int* out_s = reinterpret_cast<int*>(ws + BN * LD);
   __shared__ uint32_t s_am[8], s_wm[8];
+  const int lda = ks + 64;
+  uint8_t* ring = smem;  // (SK_STAGES, SK_BN, SK_WLD) weights
+  uint8_t* codes = smem + SK_RING;  // (8, lda)
+  int* red = reinterpret_cast<int*>(codes + 8 * lda);
+  int* sred = red + SK_WK * 8 * SK_RLD;
+  int* slots = sred + SK_WK * 16;
 
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  for (int i = tid; i < BM * C::OUT_LD; i += NT) out_s[i] = 0;
-  if (tid < 8) { s_am[tid] = pl.amask[tid]; s_wm[tid] = pl.wmask[tid]; }
-  const int n_planes = pl.n;
-  const int nkt = (K + BK - 1) / BK;
+  const int cs = gridDim.x;
+  const uint32_t rank = cluster_rank();
+  const int n0 = blockIdx.y * SK_BN, k0 = (int)rank * ks;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wn = warp % SK_WN, wk = warp / SK_WN;
+  // rounds of this block's slice that reach into K (split_k leaves every
+  // block at least one)
+  const int nr = min(ks, K - k0 + SK_KR - 1) / SK_KR;
+  cluster_arrive_relaxed();  // this block runs (waited on before DSMEM)
 
-  // stage s <- tile kt: codes (BM, BK) into operand layout, raw weights
-  auto load_tile = [&](int kt, int s) {
-    const int k0 = kt * BK;
-    uint8_t* a_dst = a_st + s * C::A_STAGE;
-    uint8_t* w_dst = w_st + s * C::W_STAGE;
-    for (int c = tid; c < BM * (BK / 16); c += NT) {
-      const int r = c / (BK / 16), kc = (c % (BK / 16)) * 16;
-      const bool ok = (m0 + r < M) && (k0 + kc < ldq);
-      const uint8_t* src = ok ? q + (size_t)(m0 + r) * ldq + k0 + kc : q;
-      cp_async16(a_dst + r * LD * 4 + kc, src, ok ? 16 : 0);
-    }
-    if (vec) {
-      for (int c = tid; c < BK * (BN / 16); c += NT) {
-        const int kr = c / (BN / 16), nc = (c % (BN / 16)) * 16;
-        const int cols = ldw - (n0 + nc);
-        const bool ok = (k0 + kr < K) && cols > 0;
-        const uint8_t* src = ok ? w + (size_t)(k0 + kr) * ldw + n0 + nc : w;
-        cp_async16(w_dst + kr * BN + nc, src, ok ? min(cols, 16) : 0);
-      }
-    } else {  // weight rows not 16-byte aligned: plain loads
-      for (int e = tid; e < BK * BN; e += NT) {
-        const int kr = e / BN, c = e % BN;
-        w_dst[kr * BN + c] = (k0 + kr < K && n0 + c < ldw)
-                                 ? w[(size_t)(k0 + kr) * ldw + n0 + c] : 0;
-      }
+  // a round's weights, (SK_BN, SK_KR) bytes, copied by 16-byte pieces:
+  // piece q = 256 j + tid is column q / 16, bytes 16 (q % 16) of the round,
+  // so a warp's copy covers two whole 256-byte runs; past ldt or N they read
+  // as zero
+  const int koff = 64 * wk + 16 * t;
+  const uint8_t* wsrc[SK_CG];
+  int wk0[SK_CG], wdst[SK_CG];
+#pragma unroll
+  for (int j = 0; j < SK_CG; ++j) {
+    const int q = j * SK_THREADS + tid, c = q / 16, b = 16 * (q % 16);
+    // a column past N reads as zero: its K offset is put past ldt
+    wk0[j] = n0 + c < N ? k0 + b : ldt;
+    wsrc[j] = wt + (size_t)(n0 + c < N ? n0 + c : 0) * ldt + k0 + b;
+    wdst[j] = c * SK_WLD + b;
+  }
+  auto load_round = [&](int r) {
+    uint8_t* stage = ring + (r % SK_STAGES) * SK_BN * SK_WLD;
+#pragma unroll
+    for (int j = 0; j < SK_CG; ++j) {
+      const bool ok = wk0[j] + r * SK_KR < ldt;  // 16-byte units
+      cp_async16(stage + wdst[j], ok ? wsrc[j] + r * SK_KR : wt, ok ? 16 : 0);
     }
   };
-
-  const int lane = tid & 31, kz = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  int acc[C::MT][C::NT8][4], sub[C::MT][C::NT8][4];
+  // first the quant params and this thread's first two items of x (8
+  // codes each): the quantization waits on them, and their latency then
+  // overlaps the weights'; then the first round
+  const int per_row = nr * SK_KR / 8, items = M * per_row;
+  auto item_src = [&](int i, int& kk) {  // row start, item's K offset
+    const int r = i / per_row;
+    kk = (i - r * per_row) * 8;
+    return x + (size_t)r * K;
+  };
+  auto whole = [&](int i) {  // a full vector load of item i
+    int kk;
+    item_src(i, kk);
+    return i < items && vec && k0 + kk + 8 <= K;
+  };
+  Item<InT> pre[2];
 #pragma unroll
-  for (int i = 0; i < C::MT; ++i)
+  for (int u = 0; u < 2; ++u) {
+    const int i = tid + u * SK_THREADS;
+    int kk;
+    const InT* row = item_src(i, kk);
+    if (whole(i)) pre[u].load(row + k0 + kk);
+  }
+  const float sa = ldg_nc(epi.meta), za = ldg_nc(epi.meta + (epi.sw ? 1 : 2));
 #pragma unroll
-    for (int j = 0; j < C::NT8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) { acc[i][j][e] = 0; sub[i][j][e] = 0; }
-
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < nkt) load_tile(s, s);
+  for (int r = 0; r < SK_STAGES - 1; ++r) {
+    if (r < nr) load_round(r);
     cp_async_commit();
   }
-  for (int kt = 0; kt < nkt; ++kt) {
-    cp_async_wait<S - 2>();
-    __syncthreads();
-    const int s = kt % S;
-    const uint32_t* a_w = reinterpret_cast<const uint32_t*>(a_st + s * C::A_STAGE);
-    const uint32_t* w_raw = reinterpret_cast<const uint32_t*>(w_st + s * C::W_STAGE);
-    // transpose the raw (BK, BN) weight tile into (BN, LD) words
-    for (int u = tid; u < C::KW * (BN / 4); u += NT) {
-      const int c4 = u % (BN / 4), kw = u / (BN / 4);
-      const uint32_t r0 = w_raw[(4 * kw + 0) * (BN / 4) + c4];
-      const uint32_t r1 = w_raw[(4 * kw + 1) * (BN / 4) + c4];
-      const uint32_t r2 = w_raw[(4 * kw + 2) * (BN / 4) + c4];
-      const uint32_t r3 = w_raw[(4 * kw + 3) * (BN / 4) + c4];
-      const uint32_t t0 = __byte_perm(r0, r1, 0x5140);
-      const uint32_t t1 = __byte_perm(r0, r1, 0x7362);
-      const uint32_t t2 = __byte_perm(r2, r3, 0x5140);
-      const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
-      ws[(4 * c4 + 0) * LD + kw] = __byte_perm(t0, t2, 0x5410);
-      ws[(4 * c4 + 1) * LD + kw] = __byte_perm(t0, t2, 0x7632);
-      ws[(4 * c4 + 2) * LD + kw] = __byte_perm(t1, t3, 0x5410);
-      ws[(4 * c4 + 3) * LD + kw] = __byte_perm(t1, t3, 0x7632);
-    }
-    __syncthreads();
-    // refill the stage consumed in the previous step
-    if (kt + S - 1 < nkt) load_tile(kt + S - 1, (kt + S - 1) % S);
-    cp_async_commit();
-
-#pragma unroll
-    for (int ks = kz; ks < BK / 32; ks += KS) {
-      uint32_t a[C::MT][4], b[C::NT8][2];
-#pragma unroll
-      for (int i = 0; i < C::MT; ++i) {
-        const int r = i * 16 + g;
-        a[i][0] = a_w[r * LD + 8 * ks + t];
-        a[i][1] = a_w[(r + 8) * LD + 8 * ks + t];
-        a[i][2] = a_w[r * LD + 8 * ks + 4 + t];
-        a[i][3] = a_w[(r + 8) * LD + 8 * ks + 4 + t];
-      }
-#pragma unroll
-      for (int j = 0; j < C::NT8; ++j) {
-        const int c = j * 8 + g;
-        b[j][0] = ws[c * LD + 8 * ks + t];
-        b[j][1] = ws[c * LD + 8 * ks + 4 + t];
-      }
-#pragma unroll
-      for (int i = 0; i < C::MT; ++i)
-#pragma unroll
-        for (int j = 0; j < C::NT8; ++j) mma_u8(acc[i][j], a[i], b[j]);
-      for (int p = 0; p < n_planes; ++p) {
-        const uint32_t am = s_am[p], wmk = s_wm[p];
-        uint32_t ap[C::MT][4], bp[C::NT8][2];
-#pragma unroll
-        for (int i = 0; i < C::MT; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) ap[i][e] = a[i][e] & am;
-#pragma unroll
-        for (int j = 0; j < C::NT8; ++j) {
-          bp[j][0] = b[j][0] & wmk;
-          bp[j][1] = b[j][1] & wmk;
-        }
-#pragma unroll
-        for (int i = 0; i < C::MT; ++i)
-#pragma unroll
-          for (int j = 0; j < C::NT8; ++j) mma_u8(sub[i][j], ap[i], bp[j]);
-      }
-    }
+  if (rank == 0 && tid < 6) {  // the leader's epilogue constants into L2
+    const void* p = tid == 0 ? (const void*)epi.c
+                  : tid == 1 ? (const void*)epi.c0
+                  : tid == 2 ? (epi.sumqw_f ? (const void*)epi.sumqw_f
+                                            : (const void*)epi.sumqw_i)
+                  : tid == 3 ? (const void*)epi.bias
+                  : tid == 4 ? (const void*)epi.sw : (const void*)epi.zw;
+    if (p) prefetch_l2(static_cast<const float*>(p) + n0);
   }
-  cp_async_wait<0>();
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) { s_am[i] = pl.amask[i]; s_wm[i] = pl.wmask[i]; }
+  }
 
-  // gather the integer accumulators of all warps into the output tile
+  // quantize rows < M of the slice into codes (zeros past K); rows >= M
+  // are never read
+  const Quant qp = make_quant(sa, za);
+  auto quantize = [&](int i, const Item<InT>* it) {
+    int kk;
+    const InT* row = item_src(i, kk);
+    const int k = k0 + kk;
+    uint32_t w[2] = {0u, 0u};
+    if (it) {
+      it->codes(qp, w);
+    } else if (whole(i)) {
+      codes8(row + k, qp, w);
+    } else {
 #pragma unroll
-  for (int i = 0; i < C::MT; ++i)
+      for (int e = 0; e < 8; ++e)
+        if (k + e < K) w[e / 4] |= code_of(row[k + e], qp) << (8 * (e % 4));
+    }
+    *reinterpret_cast<uint2*>(codes + (i / per_row) * lda + kk) =
+        make_uint2(w[0], w[1]);
+  };
 #pragma unroll
-    for (int j = 0; j < C::NT8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = i * 16 + g + (e >= 2 ? 8 : 0);
-        const int c = j * 8 + 2 * t + (e & 1);
-        atomicAdd(&out_s[r * C::OUT_LD + c], acc[i][j][e] - sub[i][j][e]);
-      }
+  for (int u = 0; u < 2; ++u) {
+    const int i = tid + u * SK_THREADS;
+    if (i < items) quantize(i, whole(i) ? &pre[u] : nullptr);
+  }
+  for (int i = tid + 2 * SK_THREADS; i < items; i += SK_THREADS)
+    quantize(i, nullptr);
   __syncthreads();
 
-  const Scalars sc = load_scalars(epi);
-  for (int e = tid; e < BM * BN; e += NT) {
-    const int rl = e / BN, cl = e % BN, r = m0 + rl, col = n0 + cl;
-    if (r >= M || col >= N) continue;
-    const Col k = load_col(epi, sc, col);
-    const float v = epi_value(out_s[rl * C::OUT_LD + cl],
-                              (float)epi.stats[2 * r + 1],
-                              (float)epi.stats[2 * r], k, epi.use_cv);
-    store1(epi, (size_t)r * N + col, v);
+  int acc[SK_CG][4], sub[SK_CG][4];
+#pragma unroll
+  for (int j = 0; j < SK_CG; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) { acc[j][e] = 0; sub[j][e] = 0; }
+  uint32_t sqa = 0u, sx = 0u;
+  const bool arow = g < M;
+  const uint8_t* afrag = codes + g * lda + koff;
+  const int n_planes = pl.n;
+  for (int r = 0; r < nr; ++r) {
+    cp_async_wait<SK_STAGES - 2>();  // this thread's pieces of round r
+    __syncthreads();  // everyone's; round r - 1's stage is free again
+    if (r + SK_STAGES - 1 < nr) load_round(r + SK_STAGES - 1);
+    cp_async_commit();
+    const uint4 a = arow ? *reinterpret_cast<const uint4*>(afrag + r * SK_KR)
+                         : make_uint4(0u, 0u, 0u, 0u);
+    const uint32_t au[4] = {a.x, a.y, a.z, a.w};
+    if (wn == 0) {  // row statistics, once per K byte
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sqa = __dp4a(au[e], 0x01010101u, sqa);
+        if (stat_kind == 1) sx = __dp4a(au[e] & stat4, 0x01010101u, sx);
+        else if (stat_kind == 2) sx += __popc(nonzero_bytes(au[e] & stat4));
+      }
+    }
+    const uint8_t* stage = ring + (r % SK_STAGES) * SK_BN * SK_WLD;
+    uint4 w[SK_CG];
+#pragma unroll
+    for (int j = 0; j < SK_CG; ++j) {
+      w[j] = *reinterpret_cast<const uint4*>(
+          stage + (wn * 8 * SK_CG + 8 * j + g) * SK_WLD + koff);
+      mma_rows8(acc[j], au[0] & main4, au[1] & main4, w[j].x, w[j].y);
+      mma_rows8(acc[j], au[2] & main4, au[3] & main4, w[j].z, w[j].w);
+    }
+    for (int p = 0; p < n_planes; ++p) {
+      const uint32_t am = s_am[p], wm = s_wm[p];
+#pragma unroll
+      for (int j = 0; j < SK_CG; ++j) {
+        mma_rows8(sub[j], au[0] & am, au[1] & am, w[j].x & wm, w[j].y & wm);
+        mma_rows8(sub[j], au[2] & am, au[3] & am, w[j].z & wm, w[j].w & wm);
+      }
+    }
   }
+
+  // the block's partial: warps' sums in shared memory, added in warp order
+#pragma unroll
+  for (int j = 0; j < SK_CG; ++j) {
+    const int c = wn * 8 * SK_CG + 8 * j + 2 * t;
+    *reinterpret_cast<int2*>(red + (wk * 8 + g) * SK_RLD + c) =
+        make_int2(acc[j][0] - sub[j][0], acc[j][1] - sub[j][1]);
+  }
+  if (wn == 0) {
+    sqa += __shfl_xor_sync(0xffffffffu, sqa, 1);
+    sqa += __shfl_xor_sync(0xffffffffu, sqa, 2);
+    sx += __shfl_xor_sync(0xffffffffu, sx, 1);
+    sx += __shfl_xor_sync(0xffffffffu, sx, 2);
+    if (t == 0) {
+      sred[wk * 16 + 2 * g] = (int)sqa;
+      sred[wk * 16 + 2 * g + 1] = (int)sx;
+    }
+  }
+  __syncthreads();
+  const int orow = tid / SK_BN, ocol = tid % SK_BN;
+  int v = 0, st = 0;
+#pragma unroll
+  for (int w = 0; w < SK_WK; ++w) {
+    v += red[(w * 8 + orow) * SK_RLD + ocol];
+    if (tid < 16) st += sred[w * 16 + tid];
+  }
+
+  // into slot `rank` of the leader's shared memory
+  cluster_wait();  // every block of the cluster runs
+  const uint32_t dst = mapa(smem_addr(slots + rank * SK_SLOT), 0);
+  st_cluster(dst + 4 * tid, v);
+  if (tid < 16) st_cluster(dst + 4 * (8 * SK_BN + tid), st);
+  cluster_arrive();
+  const int col = n0 + ocol;
+  const bool store = rank == 0 && orow < M && col < N;
+  Col kc;
+  if (store) kc = load_col(epi, load_scalars(epi), col);
+  cluster_wait();  // every partial is in the leader
+  if (!store) return;
+  int a_sum = 0, sqa_sum = 0, sx_sum = 0;
+  for (int q = 0; q < cs; ++q) {
+    const int* s = slots + q * SK_SLOT;
+    a_sum += s[tid];
+    sqa_sum += s[8 * SK_BN + 2 * orow];
+    sx_sum += s[8 * SK_BN + 2 * orow + 1];
+  }
+  store1(epi, (size_t)orow * N + col,
+         epi_value(a_sum, (float)sx_sum, (float)sqa_sum, kc, epi.use_cv));
 }
 
 // --- host side --------------------------------------------------------------
@@ -904,10 +1100,8 @@ int tma_map(CUtensorMap* map, const void* base, int inner, int rows, int ld,
 }
 
 struct Operands {
-  const uint8_t* q; int ldq;    // (M, ldq) masked codes
-  const uint8_t* w; int ldw;    // (K, ldw) row-major weights (decode tile)
-  int w_vec;                    // w rows 16-byte aligned
-  const uint8_t* wt; int ldt;   // (wt_rows, ldt) K-major weights (prefill)
+  const uint8_t* q; int ldq;    // (M, ldq) masked codes (prefill tile)
+  const uint8_t* wt; int ldt;   // (wt_rows >= N, ldt) K-major weights
   int wt_rows;
   int M, K, N;
 };
@@ -932,50 +1126,93 @@ int launch_wgmma(const Operands& o, const Epi& epi, const Planes& pl,
   return (int)cudaGetLastError();
 }
 
-int launch_decode(const Operands& o, const Epi& epi, const Planes& pl,
-                  cudaStream_t stream) {
-  using C = DecodeCfg;
-  auto kern = am_decode_kernel<C>;
-  static bool attr_set = false;
+constexpr int SMS = 132;
+
+// The split-K kernel's cluster: cs blocks of ks K bytes each (rounds of
+// SK_KR bytes).  Enough blocks for 2 * SMS where each block still gets two
+// rounds (at K = 2048, N = 2048 that is 256 blocks: eight blocks of one
+// round each were slower); more rounds a block where K needs them to fit
+// SK_MAX_CS blocks.
+struct SplitK {
+  int cs, ks;
+};
+SplitK split_k(int K, int N) {
+  const int tiles = (N + SK_BN - 1) / SK_BN;
+  const int chunks = (K + SK_KR - 1) / SK_KR;
+  const int want = std::min(SK_MAX_CS, (2 * SMS + tiles - 1) / tiles);
+  int r = std::max(2, chunks / want);
+  r = std::max(r, (chunks + SK_MAX_CS - 1) / SK_MAX_CS);
+  r = std::min(r, SK_MAX_ROUNDS);
+  return {(chunks + r - 1) / r, r * SK_KR};
+}
+
+// One launch: quantize, products, cluster reduction and epilogue
+template <typename InT>
+int launch_split_k(const InT* x, int vec, const Operands& o, const Epi& epi,
+                   const Planes& pl, uint32_t main4, int stat_kind,
+                   uint32_t stat4, cudaStream_t stream) {
+  auto kern = am_splitk_kernel<InT>;
+  static bool attr_set = false;  // per instantiation
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        sk_smem(SK_MAX_ROUNDS * SK_KR));
+    if (err == cudaSuccess)  // the largest shared-memory carveout: four
+      err = cudaFuncSetAttribute(  // blocks a SM at the served slices
+          kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  const dim3 grid((o.N + C::BN - 1) / C::BN, (o.M + C::BM - 1) / C::BM);
-  kern<<<grid, C::NT, C::SMEM, stream>>>(o.q, o.ldq, o.M, o.K, o.w, o.ldw,
-                                         o.N, o.w_vec, epi, pl);
+  const SplitK sp = split_k(o.K, o.N);
+  if (sp.cs > SK_MAX_CS || sp.ks > SK_MAX_ROUNDS * SK_KR)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(sp.cs, (o.N + SK_BN - 1) / SK_BN, 1);
+  cfg.blockDim = dim3(SK_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = sk_smem(sp.ks);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = sp.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kern, x, vec, o.wt, o.ldt, o.M,
+                                       o.K, o.N, sp.ks, epi, pl, main4,
+                                       stat_kind, stat4);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// The matmul kernel instantiations, as am_tile names them (the wrapper's
-// TILES lists the same names in this order).
+// The matmul kernels, as am_tile names them (the wrapper's TILES lists the
+// same names in this order).
 enum TileId {
-  TILE_DECODE, TILE_128x128_PLANES, TILE_64x128_PLANES, TILE_128x256,
+  TILE_SPLIT_K, TILE_128x128_PLANES, TILE_64x128_PLANES, TILE_128x256,
   TILE_128x128, TILE_64x128
 };
 
-// The tile: the widest whose grid still gives every SM a block.  128 x 256
-// (one block per SM) only where K >= 4096: its main loop is long enough to
-// hide an epilogue that nothing overlaps; at shorter K two 128 x 128 blocks
-// per SM, whose epilogues overlap each other's main loops, are faster.
+// Decode rows take the split-K kernel.  Above them the widest wgmma tile
+// whose grid still gives every SM a block.  128 x 256 (one block per SM)
+// only where K >= 4096: its main loop is long enough to hide an epilogue
+// that nothing overlaps; at shorter K two 128 x 128 blocks per SM, whose
+// epilogues overlap each other's main loops, are faster.
 int choose_tile(int decode, int M, int K, int N, int n_planes) {
-  constexpr int SMS = 132;
   auto blocks = [&](int bm, int bn) {
     return ((M + bm - 1) / bm) * ((N + bn - 1) / bn);
   };
-  if (decode) return TILE_DECODE;
+  if (decode) return TILE_SPLIT_K;
   if (n_planes > 0)
     return blocks(128, 128) >= SMS ? TILE_128x128_PLANES : TILE_64x128_PLANES;
   if (K >= 4096 && blocks(128, 256) >= SMS) return TILE_128x256;
   return blocks(128, 128) >= SMS ? TILE_128x128 : TILE_64x128;
 }
 
-int launch_matmul(int decode, const Operands& o, const Epi& epi,
-                  const Planes& pl, cudaStream_t stream) {
-  switch (choose_tile(decode, o.M, o.K, o.N, pl.n)) {
-    case TILE_DECODE: return launch_decode(o, epi, pl, stream);
+// The prefill route: the prep kernel, then one wgmma tile
+int launch_prefill(const Operands& o, const Epi& epi, const Planes& pl,
+                   cudaStream_t stream) {
+  switch (choose_tile(0, o.M, o.K, o.N, pl.n)) {
     case TILE_128x128_PLANES:
       return launch_wgmma<Tile<128, 128, true, 1>>(o, epi, pl, stream);
     case TILE_64x128_PLANES:
@@ -999,6 +1236,25 @@ int launch_prep(const InT* x, int M, int K, int vec, const float* meta,
   return (int)cudaGetLastError();
 }
 
+// Decode rows: one split-K launch.  Above them: prep, then a wgmma tile
+// (codes and stats are the prep kernel's scratch, unused for decode rows).
+template <typename InT>
+int launch_call(const InT* x, int vec, int decode, uint8_t* codes, int ldq,
+                int* stats, Operands o, const Epi& epi0, const Planes& pl,
+                uint32_t main4, int stat_kind, uint32_t stat4,
+                cudaStream_t s) {
+  Epi epi = epi0;
+  if (decode)
+    return launch_split_k(x, vec, o, epi, pl, main4, stat_kind, stat4, s);
+  int st = launch_prep(x, o.M, o.K, vec, epi.meta, codes, ldq, stats, main4,
+                       stat_kind, stat4, s);
+  if (st != 0) return st;
+  epi.stats = stats;
+  o.q = codes;
+  o.ldq = ldq;
+  return launch_prefill(o, epi, pl, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1010,68 +1266,58 @@ int am_tile(int decode, int M, int K, int N, int n_planes) {
 }
 
 // Float-in entry (kernel 1).  x (M, K) float32 (x_bf16 = 0) or bfloat16
-// (x_bf16 = 1), row-major; codes: scratch (M, ldq) uint8, ldq = K rounded up
-// to 16; stats: scratch (M, 2) int32; w_qb (Kb, Nb) uint8 with row stride
-// ldw = Nb (decode tile); w_qbt (Nb, ldt) its K-major copy (prefill tile,
-// may be null when decode); epilogue (8, Nb) float32; meta [sa, za, true_k,
-// ...]; out (M, N) in x's dtype.  Launches the prep kernel and one matmul
-// kernel; returns 0, a cudaError_t, or a negative status (tensor maps).
+// (x_bf16 = 1), row-major; w_qbt (wt_rows >= N, ldt) uint8, K contiguous,
+// ldt >= K a multiple of 16; epilogue (8, lde) float32, lde >= N; meta
+// [sa, za, true_k, ...]; out (M, N) in x's dtype.  decode (M <=
+// DECODE_M_MAX): one split-K launch, codes and stats unused (may be null);
+// else codes: scratch (M, ldq) uint8, ldq = K rounded up to 16, stats:
+// scratch (M, 2) int32, and the prep kernel then a wgmma tile.  Returns 0,
+// a cudaError_t, or a negative status (tensor maps).
 int am_fused_launch(const void* x, int x_bf16, uint8_t* codes, int ldq,
-                    int* stats, const uint8_t* w_qb, int ldw, int w_vec,
-                    const uint8_t* w_qbt, int ldt, const float* epilogue,
-                    const float* meta, void* out, int M, int K, int N,
-                    int decode, int main_mask, int n_planes,
-                    unsigned long long amasks, unsigned long long wmasks,
-                    int stat_kind, int stat_mask, int use_cv, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const uint32_t main4 = (uint32_t)main_mask * 0x01010101u;
-  const uint32_t stat4 = (uint32_t)stat_mask * 0x01010101u;
-  const int vec = (K % 8 == 0) && ((uintptr_t)x % 16 == 0);
-  int st = x_bf16
-      ? launch_prep((const __nv_bfloat16*)x, M, K, vec, meta, codes, ldq,
-                    stats, main4, stat_kind, stat4, s)
-      : launch_prep((const float*)x, M, K, vec, meta, codes, ldq, stats,
-                    main4, stat_kind, stat4, s);
-  if (st != 0) return st;
-  Epi epi;
-  epi.c = epilogue + 0 * ldw;
-  epi.c0 = epilogue + 1 * ldw;
-  epi.sumqw_f = epilogue + 2 * ldw;
-  epi.sumqw_i = nullptr;
-  epi.bias = epilogue + 3 * ldw;
-  epi.sw = epilogue + 4 * ldw;
-  epi.zw = epilogue + 5 * ldw;
-  epi.meta = meta;
-  epi.stats = stats;
-  epi.out = out;
-  epi.out_bf16 = x_bf16;
-  epi.use_cv = use_cv;
-  const Operands o{codes, ldq, w_qb, ldw, w_vec, w_qbt, ldt, ldw, M, K, N};
-  return launch_matmul(decode, o, epi, make_planes(n_planes, amasks, wmasks),
-                       s);
-}
-
-// Codes-in entry (kernel 2).  a_q (M, K) uint8; codes, stats: scratch as
-// above; w_q (K, N) uint8 with row stride N (decode tile); w_qt (N, ldt)
-// its K-major copy (prefill tile, may be null when decode); c, c0, bias
-// (N,) float32 (bias may be null); sum_qw (N,) int32; meta [sa, sw, za, zw,
-// true_k]; out (M, N) float32.
-int am_codes_launch(const uint8_t* a_q, uint8_t* codes, int ldq, int* stats,
-                    const uint8_t* w_q, int w_vec, const uint8_t* w_qt,
-                    int ldt, const float* c, const float* c0,
-                    const int* sum_qw, const float* bias, const float* meta,
-                    float* out, int M, int K, int N, int decode,
+                    int* stats, const uint8_t* w_qbt, int ldt, int wt_rows,
+                    const float* epilogue, int lde, const float* meta,
+                    void* out, int M, int K, int N, int decode,
                     int main_mask, int n_planes, unsigned long long amasks,
                     unsigned long long wmasks, int stat_kind, int stat_mask,
                     int use_cv, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const uint32_t main4 = (uint32_t)main_mask * 0x01010101u;
+  const uint32_t stat4 = (uint32_t)stat_mask * 0x01010101u;
+  const int vec = (K % 8 == 0) && ((uintptr_t)x % 16 == 0);
+  Epi epi;
+  epi.c = epilogue + 0 * lde;
+  epi.c0 = epilogue + 1 * lde;
+  epi.sumqw_f = epilogue + 2 * lde;
+  epi.sumqw_i = nullptr;
+  epi.bias = epilogue + 3 * lde;
+  epi.sw = epilogue + 4 * lde;
+  epi.zw = epilogue + 5 * lde;
+  epi.meta = meta;
+  epi.stats = nullptr;
+  epi.out = out;
+  epi.out_bf16 = x_bf16;
+  epi.use_cv = use_cv;
+  const Operands o{nullptr, 0, w_qbt, ldt, wt_rows, M, K, N};
+  const Planes pl = make_planes(n_planes, amasks, wmasks);
+  return x_bf16
+      ? launch_call((const __nv_bfloat16*)x, vec, decode, codes, ldq, stats,
+                    o, epi, pl, main4, stat_kind, stat4, s)
+      : launch_call((const float*)x, vec, decode, codes, ldq, stats, o, epi,
+                    pl, main4, stat_kind, stat4, s);
+}
+
+// Codes-in entry (kernel 2).  a_q (M, K) uint8; codes, stats: scratch as
+// above (unused for decode rows); w_qt (N, ldt) the K-major copy of the
+// (K, N) weight codes; c, c0, bias (N,) float32 (bias may be null); sum_qw
+// (N,) int32; meta [sa, sw, za, zw, true_k]; out (M, N) float32.
+int am_codes_launch(const uint8_t* a_q, uint8_t* codes, int ldq, int* stats,
+                    const uint8_t* w_qt, int ldt, const float* c,
+                    const float* c0, const int* sum_qw, const float* bias,
+                    const float* meta, float* out, int M, int K, int N,
+                    int decode, int main_mask, int n_planes,
+                    unsigned long long amasks, unsigned long long wmasks,
+                    int stat_kind, int stat_mask, int use_cv, void* stream) {
   const int vec = (K % 8 == 0) && ((uintptr_t)a_q % 8 == 0);
-  // the prep kernel reads za from meta[1]: the codes entry passes codes
-  // through unchanged, so sa and za are not read
-  int st = launch_prep(a_q, M, K, vec, meta, codes, ldq, stats,
-                       (uint32_t)main_mask * 0x01010101u, stat_kind,
-                       (uint32_t)stat_mask * 0x01010101u, s);
-  if (st != 0) return st;
   Epi epi;
   epi.c = c;
   epi.c0 = c0;
@@ -1081,13 +1327,16 @@ int am_codes_launch(const uint8_t* a_q, uint8_t* codes, int ldq, int* stats,
   epi.sw = nullptr;
   epi.zw = nullptr;
   epi.meta = meta;
-  epi.stats = stats;
+  epi.stats = nullptr;
   epi.out = out;
   epi.out_bf16 = 0;
   epi.use_cv = use_cv;
-  const Operands o{codes, ldq, w_q, N, w_vec, w_qt, ldt, N, M, K, N};
-  return launch_matmul(decode, o, epi, make_planes(n_planes, amasks, wmasks),
-                       s);
+  const Operands o{nullptr, 0, w_qt, ldt, N, M, K, N};
+  // the codes pass through unchanged, so the quantize reads no sa or za
+  return launch_call(a_q, vec, decode, codes, ldq, stats, o, epi,
+                     make_planes(n_planes, amasks, wmasks),
+                     (uint32_t)main_mask * 0x01010101u, stat_kind,
+                     (uint32_t)stat_mask * 0x01010101u, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -13,8 +13,8 @@ import torch
 from repro_torch.core.multipliers import Mode
 from repro_torch.kernels import approx_matmul as _amk
 
-#: Row counts at or below this are decode-shaped: the kernel wrappers pick
-#: the thin-M tile from the row count, and fan-out groups run their members.
+#: Row counts at or below this are decode-shaped: the kernel wrappers take
+#: the split-K kernel, and fan-out groups run their members.
 DECODE_M_MAX = _amk.DECODE_M_MAX
 
 
@@ -41,15 +41,16 @@ def approx_matmul_cv_op(a_q: torch.Tensor, w_q: torch.Tensor,
 
 def quantized_dense_fused_op(x: torch.Tensor, blocked, *, mode: Mode, m: int,
                              use_cv: bool = True) -> torch.Tensor:
-    """Serving path: float activations against an offline-blocked pack, one
-    kernel launch (quantize + matmul + epilogue).  Returns x.dtype (..., n)."""
+    """Serving path: float activations against an offline-blocked pack
+    (quantize + matmul + epilogue; one kernel launch at decode rows).
+    Returns x.dtype (..., n)."""
     lead, kk = x.shape[:-1], x.shape[-1]
     if kk != blocked.k:
         raise ValueError(f"fan-in {kk} != pack fan-in {blocked.k}")
     x2 = x.reshape(-1, kk).contiguous()
     out = _amk.approx_matmul_cv_fused(
-        x2, blocked.w_qb, blocked.epilogue, blocked.meta, k=blocked.k,
-        n=blocked.n, mode=mode, m=m, use_cv=use_cv, w_qbt=blocked.w_qbt)
+        x2, blocked.w_qbt, blocked.epilogue, blocked.meta, k=blocked.k,
+        n=blocked.n, mode=mode, m=m, use_cv=use_cv)
     return out.reshape(*lead, blocked.n)
 
 

@@ -155,8 +155,7 @@ def serving_blocks(k: int, n: int) -> tuple[int, int]:
 def k_major(w: torch.Tensor) -> torch.Tensor:
     """(K, N) uint8 codes -> their (N, K16) copy with K contiguous, K16 = K
     rounded up to 16 bytes (zeros past K): the operand layout of the CUDA
-    kernel's prefill tile, whose 8-bit tensor-core products read both
-    operands K-major."""
+    kernels, whose 8-bit tensor-core products read both operands K-major."""
     return F.pad(w.t(), (0, -w.shape[0] % 16)).contiguous()
 
 
@@ -164,22 +163,28 @@ def k_major(w: torch.Tensor) -> torch.Tensor:
 class BlockedPack:
     """Offline-blocked serving layout for one (possibly fused) linear.
 
-    w_qb (Kb, Nb) uint8 codes zero-padded to (bk, bn) multiples; epilogue
-    (EPI_ROWS, Nb) float32 table; meta (1, META_LEN) float32 scalars.
-    ``k``/``n`` are the true extents.  The CUDA kernel masks the K and N
-    edges itself, so the padding is only a stride to it.  w_qbt is
-    :func:`k_major` of w_qb, made once with the pack: the kernel's prefill
-    tile reads it, its decode tile and the plain version read w_qb.
+    w_qbt (rows, ldt) uint8: the codes K-major, :func:`k_major` of the
+    (Kb, Nb) codes zero-padded to (bk, bn) multiples, so rows = Nb and ldt
+    = Kb rounded up to 16 (a fused group's member holds its n rows of the
+    group's w_qbt instead); epilogue (EPI_ROWS, Nb) float32 table; meta (1,
+    META_LEN) float32 scalars.  ``k``/``n`` are the true extents.  The CUDA
+    kernels read w_qbt and mask the K and N edges themselves, so the
+    padding is only a stride to them.  :attr:`w_qb` is the row-major view
+    that the plain version reads; it holds no memory of its own.
     """
 
-    w_qb: torch.Tensor
+    w_qbt: torch.Tensor
     epilogue: torch.Tensor
     meta: torch.Tensor
     k: int
     n: int
     bk: int
     bn: int
-    w_qbt: torch.Tensor | None = None
+
+    @property
+    def w_qb(self) -> torch.Tensor:
+        """(Kb, rows) row-major codes: a transposed view of w_qbt."""
+        return self.w_qbt[:, :-(-self.k // self.bk) * self.bk].t()
 
 
 def build_blocked_layout(pack: PackedLinear, a_qp: QuantParams,
@@ -195,7 +200,7 @@ def build_blocked_layout(pack: PackedLinear, a_qp: QuantParams,
         bn, bk = bn or bn_d, bk or bk_d
     kb, nb = -(-k // bk) * bk, -(-n // bn) * bn
     dev = pack.w_q.device
-    w_qb = F.pad(pack.w_q, (0, nb - n, 0, kb - k))
+    w_qbt = F.pad(pack.w_q.t(), (0, -(-kb // 16) * 16 - k, 0, nb - n))
 
     def row(v):
         v = torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(-1)
@@ -211,8 +216,8 @@ def build_blocked_layout(pack: PackedLinear, a_qp: QuantParams,
     meta[0, META_SA] = a_qp.scale.to(torch.float32)
     meta[0, META_ZA] = a_qp.zero_point.to(torch.float32)
     meta[0, META_TRUE_K] = float(k)
-    return BlockedPack(w_qb=w_qb, epilogue=epi, meta=meta, k=k, n=n, bk=bk,
-                       bn=bn, w_qbt=k_major(w_qb))
+    return BlockedPack(w_qbt=w_qbt.contiguous(), epilogue=epi, meta=meta,
+                       k=k, n=n, bk=bk, bn=bn)
 
 
 def quantized_linear(a: torch.Tensor, pack: PackedLinear, a_qp: QuantParams,

@@ -104,7 +104,9 @@ def _blocked_pair(rng, kk, nn, mode, m, members=1):
 
 @pytest.mark.parametrize("mode,m", MODES)
 @pytest.mark.parametrize("mm,kk,nn,members,dtype", [
+    (1, 64, 192, 3, "bfloat16"),    # one decode row, fused q|k|v pack
     (4, 64, 192, 3, "float32"),     # decode M <= 8, fused q|k|v pack
+    (8, 200, 48, 1, "bfloat16"),    # DECODE_M_MAX rows, ragged K and N
     (16, 200, 48, 1, "float32"),    # ragged K and N
     (40, 128, 256, 2, "bfloat16"),  # prefill-shaped, bf16, fused gate|up
 ])
@@ -132,6 +134,81 @@ def test_fused_kernel_plain_vs_jax(mode, m, mm, kk, nn, members, dtype):
             a_q, tb.w_qb[:kk, :nn], epi[0], epi[1], epi[2], epi[3],
             tb.meta[0, 0], epi[4, 0], tb.meta[0, 1], epi[5, 0], mode=mode, m=m))
         np.testing.assert_allclose(got32, want_r, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("mode,m", MODES)
+@pytest.mark.parametrize("mm", [1, 4, 8])
+def test_member_slices_plain_vs_jax(mode, m, mm):
+    """A fused group's members read row slices of the group's K-major codes
+    (no copy of their own): each member's call over its slice agrees with
+    the JAX op on the member packed alone (interpret mode) and equals the
+    group call's columns bit for bit, at decode rows."""
+    rng = np.random.default_rng(100 * mm + m)
+    kk, widths = 96, (64, 32, 32)   # q | k | v of a GQA layer
+    ws = [rng.normal(0, kk ** -0.5, (kk, w)).astype(np.float32)
+          for w in widths]
+    a_lo, a_hi = -4.0, 4.0
+    tps = [tq.pack_linear(torch.from_numpy(w), None, mode, m) for w in ws]
+    group = tq.build_blocked_layout(tq.concat_packs(tps),
+                                    tq.calibrate_minmax(a_lo, a_hi))
+    x = rng.normal(0, 1.5, (mm, kk)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    whole = to_np(tops.quantized_dense_fused_op(xt, group, mode=mode, m=m))
+    lo = 0
+    for w, tp in zip(ws, tps):
+        n = w.shape[1]
+        own = tq.build_blocked_layout(tp, tq.calibrate_minmax(a_lo, a_hi))
+        member = dataclasses.replace(own, w_qbt=group.w_qbt[lo:lo + n])
+        assert member.w_qbt.untyped_storage().data_ptr() == \
+            group.w_qbt.untyped_storage().data_ptr()
+        got = to_np(tops.quantized_dense_fused_op(xt, member, mode=mode, m=m))
+        jb = jq.build_blocked_layout(jq.pack_linear(jnp.asarray(w), None,
+                                                    mode, m),
+                                     jq.calibrate_minmax(a_lo, a_hi))
+        want = np.asarray(jops.quantized_dense_fused_op(
+            jnp.asarray(x), jb, mode=mode, m=m, interpret=True))
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=_atol(
+            kk, float(own.meta[0, 0]), float(own.epilogue[4].max())))
+        np.testing.assert_array_equal(got, whole[:, lo:lo + n])
+        lo += n
+
+
+def _fast_codes(x: torch.Tensor, sa: float, za: float) -> torch.Tensor:
+    """The CUDA kernels' quantization (``to_code`` in csrc/approx_matmul.cu)
+    in float32 PyTorch: x * RN(1/sa), rounded to an integer by adding and
+    subtracting 1.5 * 2^23, with the IEEE division where |x * inv| < 512 lies
+    within 2^-12 of a half-integer."""
+    sa_t = torch.tensor(sa, dtype=torch.float32)
+    inv = torch.tensor(1.0, dtype=torch.float32) / sa_t
+    big = torch.tensor(12582912.0, dtype=torch.float32)
+    q = x * inv
+    r = (q + big) - big
+    tie = (q.abs() < 512) & ((q - r).abs() > 0.5 - 2.0 ** -12)
+    q_exact = x / sa_t
+    r = torch.where(tie, (q_exact + big) - big, r)
+    return torch.clamp(r + za, 0, 255).to(torch.int32)
+
+
+@pytest.mark.parametrize("sa", [8.0 / 255, 0.0123, 3.0e-4, 1.7])
+def test_fast_quotient_quantizes_like_the_division(sa):
+    """The kernels' quantization equals quantize_i32's IEEE division and
+    round-half-even on random inputs, on inputs a few ulps either side of
+    every half-integer quotient in range, and on extremes."""
+    rng = np.random.default_rng(int(sa * 1e6))
+    za = 131.0
+    ties = (np.arange(-600, 600) + 0.5) * np.float32(sa)
+    ties = ties.astype(np.float32).view(np.int32)
+    near = (ties[:, None] + np.arange(-4, 5)[None, :]).reshape(-1)
+    x = np.concatenate([
+        rng.normal(0, 300 * sa, 20000).astype(np.float32),
+        near.view(np.float32),
+        np.array([0.0, -0.0, 1e-40, -1e-40, 3e38, -3e38, 511.5 * sa,
+                  -511.5 * sa, 512.5 * sa], dtype=np.float32)])
+    xt = torch.from_numpy(x)
+    want = tq.quantize_i32(xt, tq.QuantParams(
+        torch.tensor(sa, dtype=torch.float32),
+        torch.tensor(int(za), dtype=torch.int32)))
+    assert torch.equal(_fast_codes(xt, sa, za), want)
 
 
 def test_launch_counter_stays_zero_on_cpu():
@@ -166,7 +243,7 @@ def test_cuda_call_without_the_library_raises(monkeypatch):
     _, tb = _blocked_pair(rng, 32, 16, "perforated", 2)
     x = _CudaLike(torch.randn(3, 32))
     with pytest.raises(RuntimeError, match="nvcc"):
-        amk.approx_matmul_cv_fused(x, tb.w_qb, tb.epilogue, tb.meta, k=32,
+        amk.approx_matmul_cv_fused(x, tb.w_qbt, tb.epilogue, tb.meta, k=32,
                                    n=16, mode="perforated", m=2)
     a = _CudaLike(torch.zeros(3, 32, dtype=torch.uint8))
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -174,8 +251,8 @@ def test_cuda_call_without_the_library_raises(monkeypatch):
                              torch.zeros(16, dtype=torch.int32), None,
                              torch.ones(5), mode="perforated", m=2)
     with pytest.raises(ValueError, match="unsupported device"):
-        amk.approx_matmul_cv_fused(torch.empty(3, 32, device="meta"), tb.w_qb,
-                                   tb.epilogue, tb.meta, k=32, n=16,
+        amk.approx_matmul_cv_fused(torch.empty(3, 32, device="meta"),
+                                   tb.w_qbt, tb.epilogue, tb.meta, k=32, n=16,
                                    mode="perforated", m=2)
     assert amk.approx_matmul_cv_fused.launches == 0
 
@@ -256,9 +333,10 @@ def test_kernel_decomposition_matches_both_oracles(mode, m):
                                       ("mlp", "down"), ("mlp", "gateup")])
 def test_k_major_copy_is_the_reference_w_qb_transposed(mod, name):
     """Packs of a model carried across by the bridge: each layer's K-major
-    copy, transposed, is byte-equal to the reference's blocked w_qb (zeros
-    past Kb, rows padded to 16 bytes); fused groups' decode-only members
-    carry none."""
+    codes, transposed, are byte-equal to the reference's blocked w_qb (zeros
+    past Kb, rows padded to 16 bytes), and no pack holds a row-major copy;
+    a fused group's members hold row slices of the group's codes (the same
+    storage), byte-equal to the reference member's w_qb transposed."""
     from repro.core.approx_linear import pack_params as jax_pack_params
     from repro_torch.core.approx_linear import pack_params
 
@@ -279,43 +357,57 @@ def test_k_major_copy_is_the_reference_w_qb_transposed(mod, name):
         assert t.dtype == np.uint8 and t.shape == (nb, -(-kb // 16) * 16)
         assert np.ascontiguousarray(t.T[:kb]).tobytes() == jw[i].tobytes()
         assert not t[:, kb:].any()
-        for member in getattr(tl[i], "members", []):
-            assert member.w_qbt is None and member.blocked.w_qbt is None
+        assert "w_qb" not in dict(tl[i].named_buffers())
+        members = list(getattr(tl[i], "members", []))
+        lo = 0
+        for jm, member in zip(getattr(jl, "members", []), members):
+            mt = member.blocked.w_qbt
+            assert mt is not None and "w_qb" not in dict(member.named_buffers())
+            assert mt.untyped_storage().data_ptr() == \
+                tl[i].w_qbt.untyped_storage().data_ptr()
+            assert torch.equal(mt, tl[i].w_qbt[lo:lo + mt.shape[0]])
+            jmw = np.asarray(jm.blocked.w_qb)[i]
+            assert np.ascontiguousarray(to_np(mt).T[:kb]).tobytes() == \
+                jmw.tobytes()
+            lo += mt.shape[0]
+        assert lo == (tl[i].blocked.n if members else 0)
 
 
 def _meta_pack(mm):
     rng = np.random.default_rng(12)
     _, tb = _blocked_pair(rng, 32, 16, "perforated", 2)
-    return (torch.empty(mm, 32, device="meta"), tb.w_qb.to("meta"),
-            tb.epilogue.to("meta"), tb.meta.to("meta"), tb.w_qbt)
+    return (torch.empty(mm, 32, device="meta"), tb.epilogue.to("meta"),
+            tb.meta.to("meta"), tb.w_qbt)
 
 
-@pytest.mark.parametrize("w_qbt,match", [
-    (None, "needs the K-major weight copy"),
-    (torch.zeros(16, 16, dtype=torch.uint8), "K-major weights"),   # < k
-    (torch.zeros(8, 32, dtype=torch.uint8), "K-major weights"),    # rows
-    (torch.zeros(16, 40, dtype=torch.uint8), "K-major weights"),   # stride
-    (torch.zeros(16, 32, dtype=torch.int8), "K-major weights"),    # dtype
-    ("pack", "unsupported device"),                                # valid
-])
-def test_fused_prefill_rows_check_the_k_major_operand(w_qbt, match):
-    """More than DECODE_M_MAX rows take the prefill tile, which reads the
-    pack's K-major copy: the wrapper checks it before it needs a card."""
-    x, w_qb, epi, meta, packed = _meta_pack(amk.DECODE_M_MAX + 1)
+_K_MAJOR_CASES = [  # (id, operand, error)
+    ("None", None, "needs the K-major weight copy"),
+    ("w_qbt1", torch.zeros(16, 16, dtype=torch.uint8), "K-major weights"),  # < k
+    ("w_qbt2", torch.zeros(8, 32, dtype=torch.uint8), "K-major weights"),   # rows
+    ("w_qbt3", torch.zeros(16, 40, dtype=torch.uint8), "K-major weights"),  # stride
+    ("w_qbt4", torch.zeros(16, 32, dtype=torch.int8), "K-major weights"),   # dtype
+    ("slice", torch.zeros(48, 32, dtype=torch.uint8), "unsupported device"),
+    ("pack", "pack", "unsupported device"),                                 # valid
+]
+
+
+@pytest.mark.parametrize("w_qbt,match,mm", [
+    pytest.param(w, match, mm, id=f"{pre}{name}-{match}")
+    for pre, mm in (("", amk.DECODE_M_MAX + 1), ("decode-", amk.DECODE_M_MAX))
+    for name, w, match in _K_MAJOR_CASES])
+def test_fused_prefill_rows_check_the_k_major_operand(w_qbt, match, mm):
+    """Every call on the card reads the pack's K-major codes: decode rows
+    (the split-K kernel) and prefill rows (the wgmma tile) alike.  The
+    wrapper checks the operand before it needs a card; more rows than n
+    (a fused group member's slice of the group's codes) are valid."""
+    x, epi, meta, packed = _meta_pack(mm)
     w_qbt = packed.to("meta") if isinstance(w_qbt, str) else w_qbt
     if isinstance(w_qbt, torch.Tensor):
         w_qbt = w_qbt.to("meta")
     with pytest.raises(ValueError, match=match):
-        amk.approx_matmul_cv_fused(x, w_qb, epi, meta, k=32, n=16,
-                                   mode="perforated", m=2, w_qbt=w_qbt)
-    assert amk.approx_matmul_cv_fused.launches == 0
-
-
-def test_fused_decode_rows_need_no_k_major_operand():
-    x, w_qb, epi, meta, _ = _meta_pack(amk.DECODE_M_MAX)
-    with pytest.raises(ValueError, match="unsupported device"):
-        amk.approx_matmul_cv_fused(x, w_qb, epi, meta, k=32, n=16,
+        amk.approx_matmul_cv_fused(x, w_qbt, epi, meta, k=32, n=16,
                                    mode="perforated", m=2)
+    assert amk.approx_matmul_cv_fused.launches == 0
 
 
 @pytest.mark.parametrize("dtype,numel,ldq,match", [
