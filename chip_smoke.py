@@ -8,34 +8,47 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
 3. kernels: every kernel against its plain PyTorch version on the card:
    approx-matmul for every multiplier mode at the serving shapes (decode
    M=4, engine chunk M=128, olmo-1b prefill M=4096 at K=2048 and 8192,
-   rwkv6-1.6b prefill M=2048 at K=7168, a ragged M=1000 with a K off the
-   tile), decode rows at M=1 and 8, rwkv6-1.6b's decode shapes and head, a
-   fused-group member reading a row slice of its group's codes, ragged
-   decode calls, inputs on quantization ties, plus exact-integer
-   accumulator checks (M=4, 128, 300), equal to the plain version on every
-   matmul tile of the source, and every decode call twice bit-equal; flash
-   attention
-   at the olmo-1b prefill shape, the JAX kernel tests' shapes in float32
-   and bfloat16 (GQA, window, non-causal, Tq < Tk at D=64 and 128) and a
-   ragged length, each row held to its own scale; the RWKV6 scan (out and
-   final state, and two calls bit-equal) at the rwkv6-1.6b prefill shape,
-   the JAX tests' shapes, ragged and partial chunks, one head, Dk != Dv and
-   the extreme decays;
-4. engine path: full-width olmo-1b served by the port's continuous-batching
-   engine with `backend: "pallas"` packs; checks completion, the kernel
-   launch count the schedule implies, that the packs hold their codes only
-   K-major (fused-group members as row slices of the group's), that a
-   decode step's fused calls are one CUDA launch each, device placement,
-   determinism and that the control variate reaches the logits;
-5. lock-step paths (`launch.serve.run_legacy`): full-width olmo-1b (B=4,
-   T=1024) and rwkv6-1.6b (B=4, T=512), 32 tokens each, `serve-default`
-   with `backend: "pallas"`; checks finite logits, determinism, the launch
-   counts the schedule implies, the packs and one launch a decode call as
-   above, and the logit gap to the same prefill with the flash and scan
-   kernels swapped for their plain versions;
+   rwkv6-1.6b prefill M=2048 at K=7168, qwen3-4b's layers at M=4, 128 and
+   4096 (K=2560, 4096, 9728) and its decode members, a ragged M=1000 with
+   a K off the tile), granite-8b's and deepseek-67b's layers at M=4 and
+   4096 in bf16, decode rows at M=1 and 8, rwkv6-1.6b's decode shapes and
+   head, fused-group members reading a row slice of their group's codes, a
+   fused q|k|v pack with per-column biases on both tiles, ragged decode
+   calls, inputs on quantization ties, plus exact-integer accumulator
+   checks (M=4, 128, 300), equal to the plain version on every matmul tile
+   of the source, and every decode call twice bit-equal; flash attention
+   at the olmo-1b and qwen3-4b (GQA 32/8) prefill shapes, the JAX kernel
+   tests' shapes in float32 and bfloat16 (GQA, window, non-causal, Tq < Tk
+   at D=64 and 128) and a ragged length, each row held to its own scale;
+   the RWKV6 scan (out and final state, and two calls bit-equal) at the
+   rwkv6-1.6b prefill shape, the JAX tests' shapes, ragged and partial
+   chunks, one head, Dk != Dv and the extreme decays;
+4. engine paths, each served by the port's continuous-batching engine (8
+   requests of `mixed_trace(seed=0)`, slots 4, max_len 256, chunk 32):
+   full-width olmo-1b and qwen3-4b (36 layers) on `backend: "pallas"`
+   packs with a bf16 KV cache, qwen3-4b again with the int8 KV cache and
+   under the `int8` preset (plain exact-integer products, 8 layers),
+   full-width rwkv6-1.6b (24 layers, per-slot recurrent state).  Checks
+   completion, the kernel launch count the schedule implies, that each
+   request's tokens equal a sequential decode of it on the same packs
+   (rwkv6: the lock-step recurrent decode), that the packs hold their
+   codes only K-major (fused-group members as row slices of the group's),
+   that a thin step's fused calls are one CUDA launch each, device
+   placement, determinism, kernel path equal to plain path, and (olmo-1b)
+   that the control variate reaches the logits;
+5. lock-step paths (`launch.serve.run_legacy`): full-width olmo-1b and
+   qwen3-4b (B=4, T=1024) and rwkv6-1.6b (B=4, T=512), 32 tokens each,
+   `serve-default` with `backend: "pallas"`; checks finite logits,
+   determinism, the launch counts the schedule implies, the packs and one
+   launch a decode call as above, the logit gap to the same prefill with
+   the flash and scan kernels swapped for their plain versions, and each
+   layer's flash (scan) call against its plain version on the kernel
+   path's own layer input (teacher-forced, so the gap cannot compound),
+   within the kernel's per-call tolerance;
 6. kernel times at the paths' shapes (kernel, plain, library, bound),
-   the approx-matmul also at both lock-step prefills' shapes and at
-   rwkv6-1.6b's decode shapes and head.
+   the approx-matmul also at the three lock-step prefills' shapes and at
+   qwen3-4b's and rwkv6-1.6b's decode shapes (rwkv6-1.6b's head too),
+   flash at both prefill shapes beside `scaled_dot_product_attention`.
 
 Prints the card line and one `kernels` JSON line before the last line, and
 ends with `{"ok": true, "device": {...}}`.  Any failure exits non-zero.
@@ -86,7 +99,23 @@ RWKV_KN = [(2048, 2048)] * 6 + [(2048, 7168), (7168, 2048)]
 #: rwkv6-1.6b's packed head (one call a step)
 RWKV_HEAD_KN = (2048, 65536)
 #: rows of one lock-step prefill call: B=4 x T
-OLMO_PREFILL_M, RWKV_PREFILL_M = 4096, 2048
+OLMO_PREFILL_M, RWKV_PREFILL_M, QWEN_PREFILL_M = 4096, 2048, 4096
+#: prefill rows of the kernel checks at granite-8b's and deepseek-67b's
+#: widths (B=4 x T=1024)
+WIDE_PREFILL_M = 4096
+#: qwen3-4b's packed layers: fused q|k|v (q 4096, k 1024, v 1024 columns),
+#: o (q_dim 4096 -> d_model 2560), fused gate|up, down; decode steps run
+#: the members (q, k, v, o, gate, up, down)
+QWEN_QKV = (4096, 1024, 1024)
+QWEN_KN = [(2560, 6144), (4096, 2560), (2560, 19456), (9728, 2560)]
+QWEN_DECODE_KN = [(2560, 4096), (2560, 1024), (2560, 1024), (4096, 2560),
+                  (2560, 9728), (2560, 9728), (9728, 2560)]
+#: the widths of granite-8b and deepseek-67b (kernels only; the models are
+#: not built here): (K, member widths) of fused q|k|v, fused gate|up, down
+WIDE_KN = {"granite-8b": [(4096, (4096, 1024, 1024)), (4096, (14336, 14336)),
+                          (14336, (4096,))],
+           "deepseek-67b": [(8192, (8192, 1024, 1024)),
+                            (8192, (22016, 22016)), (22016, (8192,))]}
 #: decode-row cases (M, K, N) beyond the path shapes: one and DECODE_M_MAX
 #: rows at olmo-1b's shapes, rwkv6-1.6b's key and value projections and head,
 #: a ragged call (K off 16 bytes, N off the 32-column tile)
@@ -199,16 +228,20 @@ def peaks(name: str) -> tuple[float, float, float, float]:
 
 
 def random_pack(torch, k: int, n: int, mode: str, m: int, gen, dev,
-                fused_members: int = 1):
-    """A blocked pack from random float weights through the port's own
-    packing path (pack_linear -> concat_packs -> build_blocked_layout)."""
+                widths=None, bias: bool = False):
+    """A blocked pack from random float weights (and per-column biases with
+    ``bias``) through the port's own packing path (pack_linear ->
+    concat_packs -> build_blocked_layout); ``widths`` are the members' of a
+    fused group (one member of n columns by default)."""
     from repro_torch.quant.quantize import (build_blocked_layout,
                                             calibrate_minmax, concat_packs,
                                             pack_linear)
 
-    widths = [n // fused_members] * fused_members
+    widths = widths or [n]
     packs = [pack_linear(torch.randn(k, w, generator=gen, device=dev)
-                         * k ** -0.5, None, mode, m) for w in widths]
+                         * k ** -0.5,
+                         torch.randn(w, generator=gen, device=dev) * 0.5
+                         if bias else None, mode, m) for w in widths]
     pack = packs[0] if len(packs) == 1 else concat_packs(packs)
     a_qp = calibrate_minmax(-4.0, 4.0, device=dev)
     return pack, a_qp, build_blocked_layout(pack, a_qp)
@@ -245,7 +278,7 @@ def check_kernels(torch, dev) -> dict:
     from repro_torch.kernels import approx_matmul as amk
     from repro_torch.core import multipliers as am
 
-    from repro_torch.quant.quantize import k_major
+    from repro_torch.quant.quantize import EPI_BIAS, k_major
 
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {"approx_matmul_cv_fused": 0.0, "approx_matmul_cv": 0.0}
@@ -277,51 +310,75 @@ def check_kernels(torch, dev) -> dict:
         equal("approx_matmul_cv_fused", got, want, x.shape[0], k, n, mode, m)
         return got
 
-    # decode and engine-chunk rows at every path shape; lock-step prefill
-    # calls: olmo-1b's fused q|k|v and down projection (K=8192: the 128 x
-    # 256 tile), rwkv6-1.6b's key projection; a ragged call whose K (2000)
-    # is off the 128-byte K tile and whose M and N are off the row and
-    # column tiles; the decode cases
-    shapes = ([(mm, k, n) for mm in (4, 128) for k, n in PATH_KN]
-              + [(5, 200, 48), (OLMO_PREFILL_M, 2048, 6144),
+    # (M, K, member widths, dtypes, codes-in entry too): decode and
+    # engine-chunk rows at every olmo-1b path shape; lock-step prefill calls:
+    # olmo-1b's fused q|k|v and down projection (K=8192: the 128 x 256
+    # tile), rwkv6-1.6b's key projection; a ragged call whose K (2000) is
+    # off the 128-byte K tile and whose M and N are off the row and column
+    # tiles; the decode cases; qwen3-4b's packed layers at decode, engine
+    # chunk and lock-step prefill rows (K = 2560, 4096, 9728: the split-K
+    # cluster rule at 76 rounds of 128) and its decode members; granite-8b's
+    # and deepseek-67b's at decode and prefill rows, in bf16 as served
+    both = (torch.bfloat16, torch.float32)
+
+    def widths(k, n):
+        return (2048,) * 3 if (k, n) == (2048, 6144) else (n,)
+
+    qwen = {(2560, 6144): QWEN_QKV, (2560, 19456): (9728, 9728)}
+    cases = ([(mm, k, widths(k, n), both, True)
+              for mm in (4, 128) for k, n in PATH_KN]
+             + [(mm, k, widths(k, n), both, True) for mm, k, n in
+                [(5, 200, 48), (OLMO_PREFILL_M, 2048, 6144),
                  (OLMO_PREFILL_M, 8192, 2048), (RWKV_PREFILL_M, 7168, 2048),
-                 (1000, 2000, 1000)] + DECODE_CASES)
+                 (1000, 2000, 1000)] + DECODE_CASES]
+             + [(mm, k, qwen.get((k, n), (n,)), both, False)
+                for mm in (4, 128, QWEN_PREFILL_M) for k, n in QWEN_KN]
+             + [(4, k, (n,), both, False)
+                for k, n in sorted(set(QWEN_DECODE_KN))]
+             + [(mm, k, ws, (torch.bfloat16,), False)
+                for kns in WIDE_KN.values() for k, ws in kns
+                for mm in (4, WIDE_PREFILL_M)])
     n_cases = n_twice = 0
     for mode, m in MODES:
-        for mm, k, n in shapes:
+        for mm, k, ws, dtypes, codes_in in cases:
+            n = sum(ws)
             pack, a_qp, blocked = random_pack(torch, k, n, mode, m, gen, dev,
-                                              fused_members=3 if n == 6144 else 1)
-            for dt in (torch.bfloat16, torch.float32):
+                                              widths=list(ws))
+            for dt in dtypes:
                 x = (torch.randn(mm, k, generator=gen, device=dev) * 1.5).to(dt)
                 got = fused(x, blocked, mode, m, "path")
                 n_cases += 1
                 n_twice += mm <= amk.DECODE_M_MAX
-                if n == 6144 and mm <= amk.DECODE_M_MAX:
+                if len(ws) == 3 and mm <= amk.DECODE_M_MAX:
                     # a fused group's member (k of q|k|v) over its rows of
                     # the group's K-major codes, as packs serve it: equal to
                     # its plain version and to the group call's columns
+                    lo, hi = ws[0], ws[0] + ws[1]
                     member = dataclasses.replace(
-                        blocked, n=2048, w_qbt=blocked.w_qbt[2048:4096],
-                        epilogue=blocked.epilogue[:, 2048:4096].contiguous())
+                        blocked, n=ws[1], w_qbt=blocked.w_qbt[lo:hi],
+                        epilogue=blocked.epilogue[:, lo:hi].contiguous())
                     got_m = fused(x, member, mode, m, "member")
-                    if not torch.equal(got_m, got[:, 2048:4096]):
-                        fail(f"member slice {mode} m={m}: differs from the "
-                             "group call's columns")
+                    if not torch.equal(got_m, got[:, lo:hi]):
+                        fail(f"member slice {mode} m={m} ({mm}, {k}, {n}): "
+                             "differs from the group call's columns")
                     n_cases += 1
                     n_twice += 1
-            # codes-in kernel on the same pack (per-tensor quant params are
-            # exact for an unfused pack; use the first member's for fused)
-            a_q = torch.randint(0, 256, (mm, k), generator=gen, device=dev,
-                                dtype=torch.uint8)
-            meta = torch.tensor([0.015, 0.02, 7.0, 131.0, float(k)],
-                                device=dev)
-            bias = torch.randn(n, generator=gen, device=dev)
-            args = (a_q, pack.w_q, pack.c, pack.c0, pack.sum_qw, bias, meta)
-            got = amk.approx_matmul_cv(*args, mode=mode, m=m)
-            want = amk.approx_matmul_cv_plain(*args, mode=mode, m=m)
-            torch.cuda.synchronize()
-            equal("approx_matmul_cv", got, want, mm, k, n, mode, m)
-            n_cases += 1
+            if codes_in:
+                # codes-in kernel on the same pack (per-tensor quant params
+                # are exact for an unfused pack; use the first member's for
+                # fused)
+                a_q = torch.randint(0, 256, (mm, k), generator=gen,
+                                    device=dev, dtype=torch.uint8)
+                meta = torch.tensor([0.015, 0.02, 7.0, 131.0, float(k)],
+                                    device=dev)
+                bias = torch.randn(n, generator=gen, device=dev)
+                args = (a_q, pack.w_q, pack.c, pack.c0, pack.sum_qw, bias,
+                        meta)
+                got = amk.approx_matmul_cv(*args, mode=mode, m=m)
+                want = amk.approx_matmul_cv_plain(*args, mode=mode, m=m)
+                torch.cuda.synchronize()
+                equal("approx_matmul_cv", got, want, mm, k, n, mode, m)
+                n_cases += 1
             del pack, blocked
         # exact integer accumulators: sa = sw = 1, za = zw = 0, no bias, no
         # CV, integer x in [0, 255] (codes == x); K <= 258 keeps the f32
@@ -356,6 +413,22 @@ def check_kernels(torch, dev) -> dict:
                          f" M={mm}: max diff {float((got - want).abs().max())}")
                 tiles[name].add(amk.tile(mm, k, n, mode, m))
             n_cases += 2
+    # a fused q|k|v pack with per-column biases (qkv_bias) at qwen3-4b's
+    # widths: the bias row of the epilogue on the split-K kernel (M=4) and
+    # the prefill tile (M=128); the bias must move the output
+    _, _, blocked = random_pack(torch, 2560, 6144, "perforated", 2, gen, dev,
+                                widths=list(QWEN_QKV), bias=True)
+    nobias = dataclasses.replace(blocked, epilogue=blocked.epilogue.clone())
+    nobias.epilogue[EPI_BIAS] = 0.0
+    for mm in (4, 128):
+        for dt in (torch.bfloat16, torch.float32):
+            x = (torch.randn(mm, 2560, generator=gen, device=dev) * 1.5).to(dt)
+            got = fused(x, blocked, "perforated", 2, "bias")
+            if torch.equal(got, fused(x, nobias, "perforated", 2, "bias")):
+                fail(f"bias pack M={mm}: the bias row did not reach the "
+                     "output")
+            n_cases += 2
+            n_twice += 2 * (mm <= amk.DECODE_M_MAX)
     # quantization on ties: x within a few float32 ulps of (j + 1/2) * sa,
     # where the kernels' fast quotient hands over to the IEEE division; the
     # split-K kernel (M=4) and the prep kernel (M=64)
@@ -391,12 +464,15 @@ FLASH_RTOL = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
 #: algebra with its sums in another order; the k / D_s terms reach e^8
 #: within a chunk, so ulps of them show
 SCAN_RTOL = 1e-4
-#: (B, Hq, Hkv, Tq, Tk, D, causal, window, dtype): the olmo-1b prefill
-#: shape, the JAX kernel tests' cases (tests/test_kernels.py) in float32
-#: (CUDA-core route) and their GQA, window, non-causal and Tq < Tk cases in
-#: bfloat16 at D=64 and 128 (tensor-core route), a ragged T
+#: (B, Hq, Hkv, Tq, Tk, D, causal, window, dtype): the olmo-1b and
+#: qwen3-4b (GQA group 4) prefill shapes, the JAX kernel tests' cases
+#: (tests/test_kernels.py) in float32 (CUDA-core route) and their GQA,
+#: window, non-causal and Tq < Tk cases in bfloat16 at D=64 and 128
+#: (tensor-core route), a ragged T
+QWEN_FLASH = (4, 32, 8, 1024, 1024, 128, True, None, "bfloat16")
 FLASH_CASES = [
     (4, 16, 16, 1024, 1024, 128, True, None, "bfloat16"),
+    QWEN_FLASH,
     (2, 4, 4, 128, 128, 32, True, None, "float32"),
     (2, 8, 2, 128, 128, 32, True, None, "float32"),
     (2, 4, 4, 128, 128, 32, False, None, "float32"),
@@ -543,10 +619,10 @@ def time_calls(torch, fns, reps: int = 21) -> float:
 def kernel_times(torch, dev, card: str) -> list[dict]:
     """Phase 6: per-shape times of both kernels, their plain versions, the
     library matmuls the approximate layer stands beside, and the bound
-    (perforated m=2 + CV, bf16 activations, as served): decode rows (olmo-1b
-    and rwkv6-1.6b, head included) and engine chunk rows for both entries,
-    both lock-step prefills' rows for the fused entry (its plain version
-    timed at one prefill shape only)."""
+    (perforated m=2 + CV, bf16 activations, as served): decode rows (olmo-1b,
+    qwen3-4b and rwkv6-1.6b, head included) and engine chunk rows (olmo-1b,
+    qwen3-4b) for both entries, the three lock-step prefills' rows for the
+    fused entry (its plain version timed at one prefill shape only)."""
     from repro_torch.kernels import approx_matmul as amk
     from repro_torch.quant.quantize import BlockedPack
 
@@ -558,10 +634,11 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
     small = sorted({(4, k, n) for k, n in DECODE_KN + PATH_KN + RWKV_KN
-                    + [RWKV_HEAD_KN]}
-                   | {(128, k, n) for k, n in PATH_KN})
+                    + [RWKV_HEAD_KN] + QWEN_DECODE_KN + QWEN_KN}
+                   | {(128, k, n) for k, n in PATH_KN + QWEN_KN})
     prefill = sorted({(OLMO_PREFILL_M, k, n) for k, n in PREFILL_KN}
-                     | {(RWKV_PREFILL_M, k, n) for k, n in RWKV_KN})
+                     | {(RWKV_PREFILL_M, k, n) for k, n in RWKV_KN}
+                     | {(QWEN_PREFILL_M, k, n) for k, n in QWEN_KN})
     plain_at = (OLMO_PREFILL_M, 2048, 2048)
     for mm, k, n in small + prefill:
         pack, a_qp, blocked = random_pack(torch, k, n, mode, m, gen, dev)
@@ -655,19 +732,181 @@ def step_entry(rows: list[dict], name: str, kn_list, mm) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def pallas_spec(use_cv: bool = True):
+    """serve-default, perforated m=2 (+ CV), on the approx kernel."""
+    from repro_torch.core.policy import ApproxPolicy
+    from repro_torch.numerics import get_preset
+
+    return get_preset("serve-default", policy=ApproxPolicy(
+        "perforated", 2, use_cv=use_cv, backend="pallas"))
+
+
+def dense_calls(cfg, slots: int):
+    """Fused-wrapper calls of one dense (slots, C) engine step: fused q|k|v,
+    o, fused gate|up and down a layer above DECODE_M_MAX rows, the seven
+    members at or below it; an untied packed head adds one."""
+    from repro_torch.kernels import approx_matmul as amk
+
+    head = 0 if cfg.tie_embeddings else 1
+    return lambda c: cfg.n_layers * (
+        7 if slots * c <= amk.DECODE_M_MAX else 4) + head
+
+
+def engine_run(torch, label: str, cfg, api, params, ecfg, trace, per_call,
+               numerics: str) -> dict:
+    """Serves ``trace`` through the port's engine, the wrapper launch
+    counts set to 0 just before and read just after.  Fails unless every
+    request finished with its token count and in-vocabulary ids, the fused
+    approx wrapper launched ``per_call(C)`` times in each (slots, C) step
+    (no other wrapper at all), and every parameter and cache tensor is on
+    the card.  Returns the requests, launches, metrics snapshot, peak
+    bytes, the pooled cache and each request's (C, n_valid) per step."""
+    from repro_torch.core.approx_linear import iter_tensors
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(cfg, params, ecfg, api=api, numerics=numerics)
+    steps, sched = [], {}
+    dispatch = eng._dispatch
+
+    def logged(p, batch):
+        c = batch.tokens.shape[1]
+        steps.append(c)
+        for r in batch.rows:
+            sched.setdefault(r.rid, []).append((c, int(batch.n_valid[r.slot])))
+        return dispatch(p, batch)
+
+    eng._dispatch = logged
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wr = wrappers()
+    for w in wr.values():
+        w.launches = 0
+    reqs = [eng.submit(p, g) for p, g in trace]
+    finished = eng.run()
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wr.items()}
+    snap = eng.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    if len(finished) != len(trace) or not all(
+            r.finished and len(r.generated) == g
+            for r, (_, g) in zip(reqs, trace)):
+        fail(f"{label}: finished {len(finished)}/{len(trace)} requests")
+    if any(not 0 <= t < cfg.vocab for r in reqs for t in r.generated):
+        fail(f"{label}: token id out of the vocabulary")
+    expected = {n: 0 for n in wr}
+    expected["approx_matmul_cv_fused"] = sum(per_call(c) for c in steps)
+    print(f"{label}: steps prefill={snap['prefill_steps']} mixed="
+          f"{snap['mixed_steps']} decode={snap['decode_steps']}; wrapper "
+          f"launches {launches}, the schedule implies {expected} (a fused "
+          "call is one CUDA launch at decode rows, prep and matmul above)",
+          flush=True)
+    if launches != expected:
+        fail(f"{label}: launches {launches} != {expected}")
+    off = [t.device for t in iter_tensors(params) if t.device.type != "cuda"]
+    off += [t.device for t in iter_tensors(eng.pool.cache)
+            if t.device.type != "cuda"]
+    if off:
+        fail(f"{label}: {len(off)} parameter/cache tensors off the card: "
+             f"{off[:3]}")
+    return {"reqs": reqs, "launches": launches, "snap": snap, "peak": peak,
+            "cache": eng.pool.cache, "sched": sched}
+
+
+def replay_dense(torch, api, params, ecfg, prompt, calls) -> list[int]:
+    """A sequential decode of one request: alone in slot 0 of a fresh
+    pooled cache (the other slots idle), its prompt and then its own
+    greedy tokens fed back, each call at the (slots, C) shape and n_valid
+    the engine gave that request.  The float operations around the kernels
+    (bf16 GEMMs of the attention and the tied head) pick their algorithm by
+    shape, so matched shapes make the comparison exact: it shows that a
+    request's tokens depend on neither its slot nor the other requests."""
+    from repro_torch.launch.serve import _CACHE_DTYPES
+
+    cache = api.init_slot_cache(ecfg.slots, ecfg.max_len,
+                                _CACHE_DTYPES[ecfg.cache_dtype])
+    fed, out = 0, []
+    for c, n in calls:
+        toks = torch.zeros(ecfg.slots, c, dtype=torch.long, device=api.device)
+        if fed < len(prompt):
+            row = prompt[fed:fed + n]
+            fed += n
+            emit = fed == len(prompt)
+        else:
+            row, emit = [out[-1]], True
+        toks[0, :n] = torch.tensor(row)
+        logits = api.decode_slots(params, toks, cache,
+                                  [n] + [0] * (ecfg.slots - 1))[0]
+        if emit:
+            out.append(int(logits[0, n - 1].argmax()))
+    return out
+
+
+def check_sequential(label: str, run: dict, trace, replay,
+                     what: str = "a sequential decode") -> None:
+    """Engine tokens equal ``replay(prompt, gen, calls)`` for every
+    request."""
+    t0 = time.perf_counter()
+    for r, (prompt, gen) in zip(run["reqs"], trace):
+        want = replay(prompt, gen, run["sched"][r.rid])
+        if r.generated != want:
+            fail(f"{label}: request {r.rid} engine tokens {r.generated} != "
+                 f"{what}'s {want}")
+    print(f"{label}: engine tokens equal {what} of every request on the "
+          f"same packs ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def cache_gib(cache: dict) -> float:
+    return sum(t.numel() * t.element_size() for t in cache.values()) / 2**30
+
+
+def kernel_vs_plain(torch, label, api, packed, ecfg, toks) -> torch.Tensor:
+    """Determinism and the kernel path against the plain path: one
+    chunk-shaped call on a fresh cache twice (bit-equal, finite float32
+    logits of the right shape), then the chunk-shaped and a thin call with
+    the approx wrapper swapped for its plain version (every other operation
+    is the same deterministic GPU code), equal to the kernel path's.
+    Returns the chunk call's logits."""
+    from repro_torch.kernels import approx_matmul as amk
+    from repro_torch.launch.serve import _CACHE_DTYPES
+
+    dt = _CACHE_DTYPES[ecfg.cache_dtype]
+    nv = [toks.shape[1]] * ecfg.slots
+
+    def logits(t, n):
+        cache = api.init_slot_cache(ecfg.slots, ecfg.max_len, dt)
+        return api.decode_slots(packed, t, cache, n)[0]
+
+    l1, l2 = logits(toks, nv), logits(toks, nv)
+    lk_thin = logits(toks[:, :1], [1] * ecfg.slots)
+    torch.cuda.synchronize()
+    vocab = api.cfg.vocab
+    if l1.shape != (ecfg.slots, toks.shape[1], vocab) \
+            or l1.dtype != torch.float32 or not bool(torch.isfinite(l1).all()):
+        fail(f"{label}: logits {l1.dtype} {tuple(l1.shape)} not finite f32")
+    if not torch.equal(l1, l2):
+        fail(f"{label}: two identical calls gave different logits")
+    swaps = [(amk, "approx_matmul_cv_fused", amk.approx_matmul_cv_fused_plain)]
+    with plain_swapped(label, swaps):
+        lp, lp_thin = logits(toks, nv), logits(toks[:, :1], [1] * ecfg.slots)
+    torch.cuda.synchronize()
+    if not (torch.equal(l1, lp) and torch.equal(lk_thin, lp_thin)):
+        fail(f"{label}: kernel path differs from the plain path by "
+             f"{float((l1 - lp).abs().max())} (chunk), "
+             f"{float((lk_thin - lp_thin).abs().max())} (thin)")
+    print(f"{label}: deterministic; full-depth logits through the kernels "
+          "equal the plain path's (chunk-shaped and thin calls)", flush=True)
+    return l1
+
+
 def run_main_path(torch, dev, n_layers: int) -> dict:
     """Phase 4: full-width olmo-1b through the port's engine."""
     import dataclasses
 
     from repro_torch.configs import EngineConfig, get_config
     from repro_torch.core.approx_linear import iter_tensors
-    from repro_torch.core.policy import ApproxPolicy
-    from repro_torch.kernels import approx_matmul as amk
     from repro_torch.launch.serve import (ServeConfig, build_serving_params,
                                           mixed_trace)
     from repro_torch.models import build_model
-    from repro_torch.numerics import get_preset
-    from repro_torch.serving import ServingEngine
 
     cfg = get_config("olmo-1b")
     if n_layers != cfg.n_layers:
@@ -681,15 +920,10 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
     api = build_model(cfg, dev)
     t0 = time.perf_counter()
     params = api.init(0)
-
-    def spec_for(use_cv):
-        return get_preset("serve-default", policy=ApproxPolicy(
-            "perforated", 2, use_cv=use_cv, backend="pallas"))
-
-    spec = spec_for(True)
+    spec = pallas_spec()
     packed = build_serving_params(params, cfg, ServeConfig(spec=spec), device=dev)
     packed_nocv = build_serving_params(params, cfg,
-                                       ServeConfig(spec=spec_for(False)),
+                                       ServeConfig(spec=pallas_spec(False)),
                                        device=dev)
     del params
     torch.cuda.synchronize()
@@ -703,112 +937,246 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
     ecfg = EngineConfig(slots=4, max_len=256, prefill_chunk=32,
                         cache_dtype="bfloat16")
     trace = mixed_trace(cfg, 8, ecfg.max_len, ecfg.prefill_chunk, seed=0)
-    # warm-up outside the measured run: one chunk-shaped and one thin call
-    warm = api.init_slot_cache(ecfg.slots, ecfg.max_len, torch.bfloat16)
+    warm_up(torch, api, packed, ecfg)
+    run = engine_run(torch, "main", cfg, api, packed, ecfg, trace,
+                     dense_calls(cfg, ecfg.slots), spec.name)
+    check_sequential("main", run, trace, lambda p, g, calls: replay_dense(
+        torch, api, packed, ecfg, p, calls))
+
+    # determinism, kernel against plain, and the CV's reach: the no-CV
+    # pack's logits differ
+    g = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (ecfg.slots, ecfg.prefill_chunk),
+                         generator=g, device=dev)
+    l1 = kernel_vs_plain(torch, "main", api, packed, ecfg, toks)
+    l3 = api.decode_slots(packed_nocv, toks, api.init_slot_cache(
+        ecfg.slots, ecfg.max_len, torch.bfloat16),
+        [ecfg.prefill_chunk] * ecfg.slots)[0]
+    if torch.equal(l1, l3):
+        fail("main: the no-CV pack gave the CV pack's logits")
+    print(f"main: CV moves logits by max {float((l1 - l3).abs().max()):.4g}",
+          flush=True)
+    del packed_nocv
+
+    breakdown = {kind: profile_call(torch, "main", api, packed, ecfg, c)
+                 for kind, c in (("thin", 1), ("chunk", ecfg.prefill_chunk))}
+    check_one_launch("main: thin step", breakdown["thin"])
+    snap = run["snap"]
+    write_line("main", "main_path.json", {
+        **served_metrics(snap), "peak_mem_gib": run["peak"] / 2**30,
+        "pack_gib": pack_gib, "k_major_gib": k_major_gib(packed),
+        "launches": run["launches"], "step_breakdown": breakdown})
+    return run["launches"]
+
+
+def served_metrics(snap: dict) -> dict:
+    return {key: snap[key] for key in (
+        "requests_finished", "generated_tokens", "prompt_tokens", "elapsed_s",
+        "gen_tok_per_s", "total_tok_per_s", "ttft_p50_s", "ttft_p95_s",
+        "itl_p50_s", "itl_p95_s")}
+
+
+def write_line(label: str, name: str, line: dict) -> None:
+    """Prints a phase's JSON line and keeps it under chiprun_out/."""
+    text = json.dumps(line)
+    print(f"{label}: " + text, flush=True)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / name).write_text(text + "\n")
+
+
+def warm_up(torch, api, params, ecfg) -> None:
+    """One chunk-shaped and one thin call outside the measured run."""
+    from repro_torch.launch.serve import _CACHE_DTYPES
+
+    warm = api.init_slot_cache(ecfg.slots, ecfg.max_len,
+                               _CACHE_DTYPES[ecfg.cache_dtype])
     for c in (ecfg.prefill_chunk, 1):
-        api.decode_slots(packed, torch.zeros(ecfg.slots, c, dtype=torch.long,
-                                             device=dev), warm,
+        api.decode_slots(params, torch.zeros(ecfg.slots, c, dtype=torch.long,
+                                             device=api.device), warm,
                          [c] * ecfg.slots)
     del warm
     torch.cuda.synchronize()
 
-    eng = ServingEngine(cfg, packed, ecfg, api=api, numerics=spec.name)
-    torch.cuda.reset_peak_memory_stats()
-    wr = wrappers()
-    for w in wr.values():
-        w.launches = 0
-    reqs = [eng.submit(p, g) for p, g in trace]
-    finished = eng.run()
+
+#: depth of the qwen3-4b engine run under the ``int8`` preset (widths
+#: full): its packed layers run the plain exact-integer product
+#: (``quantized_linear`` -> ``_int_matmul`` in float64), as the reference
+#: does at fan-ins above 258, and no kernel
+INT8_PRESET_LAYERS = 8
+
+
+def run_qwen3_engine(torch, dev) -> dict:
+    """Phase 4b: full-width qwen3-4b (36 layers) through the engine, with
+    the checks of the olmo-1b phase: ``serve-default`` packs on the approx
+    kernel with a bf16 KV cache; the same packs with the int8 KV cache;
+    the ``int8`` preset at INT8_PRESET_LAYERS layers.  Returns the launches
+    of each run."""
+    import dataclasses
+
+    from repro_torch.configs import EngineConfig, get_config
+    from repro_torch.core.approx_linear import iter_tensors
+    from repro_torch.launch.serve import (ServeConfig, build_serving_params,
+                                          mixed_trace)
+    from repro_torch.models import build_model
+    from repro_torch.numerics import get_preset
+
+    cfg = get_config("qwen3-4b")
+    print(f"qwen3: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads} kv={cfg.kv_heads} head_dim={cfg.head_dim} "
+          f"q_dim={cfg.n_heads * cfg.head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab} qk_norm={cfg.qk_norm} theta={cfg.rope_theta:g} "
+          f"tied={cfg.tie_embeddings} compute={cfg.compute_dtype}", flush=True)
+    api = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = api.init(0)
+    spec = pallas_spec()
+    packed = build_serving_params(params, cfg, ServeConfig(spec=spec),
+                                  device=dev)
+    cfg8 = dataclasses.replace(cfg, n_layers=min(INT8_PRESET_LAYERS,
+                                                 cfg.n_layers))
+    params8 = {k: v for k, v in params.items() if k != "blocks"}
+    params8["blocks"] = _slice_layers(params["blocks"], cfg8.n_layers)
+    int8_spec = get_preset("int8")
+    packed8 = build_serving_params(params8, cfg8, ServeConfig(spec=int8_spec),
+                                   device=dev)
+    del params, params8
     torch.cuda.synchronize()
-    launches = {n: w.launches for n, w in wr.items()}
-    snap = eng.snapshot()
-    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    pack_gib = storage_gib(iter_tensors(packed))
+    members = check_packs("qwen3", packed)
+    print(f"qwen3: init + two packs {time.perf_counter() - t0:.1f} s; "
+          f"serving params {pack_gib:.3f} GiB, of which K-major weight codes "
+          f"{k_major_gib(packed):.3f} GiB ({members} fused-group members "
+          "read row slices of their group's)", flush=True)
 
-    if len(finished) != len(trace) or not all(
-            r.finished and len(r.generated) == g for r, (_, g) in zip(reqs, trace)):
-        fail(f"main: finished {len(finished)}/{len(trace)} requests")
-    if any(not 0 <= t < cfg.vocab for r in reqs for t in r.generated):
-        fail("main: token id out of the vocabulary")
-    chunk_steps = snap["prefill_steps"] + snap["mixed_steps"]
-    expected = cfg.n_layers * (4 * chunk_steps + 7 * snap["decode_steps"])
-    print(f"main: steps prefill={snap['prefill_steps']} mixed="
-          f"{snap['mixed_steps']} decode={snap['decode_steps']}; wrapper "
-          f"launches {launches} expected fused {expected} (a fused call is "
-          f"one CUDA launch at decode rows, prep and matmul above)", flush=True)
-    if launches["approx_matmul_cv_fused"] != expected:
-        fail(f"main: {launches['approx_matmul_cv_fused']} fused launches, the "
-             f"schedule implies {expected}")
-    if launches["approx_matmul_cv_fused"] == 0:
-        fail("main: the path never launched the kernel")
-    off = [t.device for t in iter_tensors(packed) if t.device.type != "cuda"]
-    off += [t.device for t in iter_tensors(eng.pool.cache)
-            if t.device.type != "cuda"]
-    if off:
-        fail(f"main: {len(off)} parameter/cache tensors off the card: {off[:3]}")
+    out, bf16_run = {}, None
+    for label, ecfg, params, run_cfg, run_api, numerics in (
+            ("qwen3", EngineConfig(slots=4, max_len=256, prefill_chunk=32,
+                                   cache_dtype="bfloat16"),
+             packed, cfg, api, spec.name),
+            ("qwen3 int8-cache", EngineConfig(
+                slots=4, max_len=256, prefill_chunk=32, cache_dtype="int8"),
+             packed, cfg, api, spec.name),
+            ("qwen3 int8-preset", EngineConfig(
+                slots=4, max_len=256, prefill_chunk=32,
+                cache_dtype="bfloat16"),
+             packed8, cfg8, build_model(cfg8, dev), int8_spec.name)):
+        trace = mixed_trace(run_cfg, 8, ecfg.max_len, ecfg.prefill_chunk,
+                            seed=0)
+        warm_up(torch, run_api, params, ecfg)
+        per_call = (dense_calls(run_cfg, ecfg.slots)
+                    if params is packed else lambda c: 0)
+        run = engine_run(torch, label, run_cfg, run_api, params, ecfg, trace,
+                         per_call, numerics)
+        check_sequential(label, run, trace, lambda p, g, calls: replay_dense(
+            torch, run_api, params, ecfg, p, calls))
+        line = {**served_metrics(run["snap"]), "layers": run_cfg.n_layers,
+                "numerics": numerics, "cache_dtype": ecfg.cache_dtype,
+                "peak_mem_gib": run["peak"] / 2**30,
+                "pack_gib": storage_gib(iter_tensors(params)),
+                "cache_gib": cache_gib(run["cache"]),
+                "launches": run["launches"]}
+        g = torch.Generator(device=dev).manual_seed(5)
+        toks = torch.randint(0, run_cfg.vocab,
+                             (ecfg.slots, ecfg.prefill_chunk), generator=g,
+                             device=dev)
+        if label == "qwen3":
+            line["k_major_gib"] = k_major_gib(packed)
+            kernel_vs_plain(torch, label, run_api, params, ecfg, toks)
+            bf16_run = (run, line)
+        elif label == "qwen3 int8-cache":
+            # a different numeric from the bf16 cache: report, not assert
+            a = [r.generated for r in bf16_run[0]["reqs"]]
+            b = [r.generated for r in run["reqs"]]
+            same = sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+            first = next((i for i, (ra, rb) in enumerate(zip(a, b))
+                          if ra != rb), None)
+            line["token_agreement_with_bf16"] = same / sum(map(len, a))
+            line["cache_bytes_ratio_to_bf16"] = (
+                line["cache_gib"] / bf16_run[1]["cache_gib"])
+            print(f"{label}: KV cache {line['cache_gib']:.4f} GiB against "
+                  f"bf16's {bf16_run[1]['cache_gib']:.4f} "
+                  f"({line['cache_bytes_ratio_to_bf16']:.3f}x); "
+                  f"{same}/{sum(map(len, a))} generated tokens equal the bf16 "
+                  f"cache run's (first request that differs: {first})",
+                  flush=True)
+        if label != "qwen3 int8-cache":
+            line["step_breakdown"] = {
+                kind: profile_call(torch, label, run_api, params, ecfg, c)
+                for kind, c in (("thin", 1), ("chunk", ecfg.prefill_chunk))}
+            if params is packed:
+                check_one_launch(f"{label}: thin step",
+                                 line["step_breakdown"]["thin"])
+        write_line(label, f"engine_{label.replace(' ', '_')}.json", line)
+        out[f"engine {label}"] = run["launches"]
+        del run
+    return out
 
-    # determinism and the CV's reach: one chunk-shaped call on a fresh cache,
-    # twice with the CV pack (equal logits), once without CV (different)
-    g = torch.Generator(device=dev).manual_seed(5)
-    toks = torch.randint(0, cfg.vocab, (ecfg.slots, ecfg.prefill_chunk),
-                         generator=g, device=dev)
-    nv = [ecfg.prefill_chunk] * ecfg.slots
 
-    def chunk_logits(p):
-        cache = api.init_slot_cache(ecfg.slots, ecfg.max_len, torch.bfloat16)
-        return api.decode_slots(p, toks, cache, nv)[0]
+def _slice_layers(tree, n: int):
+    """The first ``n`` layers of a stacked float block tree."""
+    if isinstance(tree, dict):
+        return {k: _slice_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
 
-    l1, l2, l3 = chunk_logits(packed), chunk_logits(packed), chunk_logits(packed_nocv)
-    torch.cuda.synchronize()
-    if l1.shape != (ecfg.slots, ecfg.prefill_chunk, cfg.vocab) \
-            or l1.dtype != torch.float32 or not bool(torch.isfinite(l1).all()):
-        fail(f"main: logits {l1.dtype} {tuple(l1.shape)} not finite f32")
-    if not torch.equal(l1, l2):
-        fail("main: two identical calls gave different logits")
-    if torch.equal(l1, l3):
-        fail("main: the no-CV pack gave the CV pack's logits")
-    print(f"main: deterministic; CV moves logits by max "
-          f"{float((l1 - l3).abs().max()):.4g}", flush=True)
 
-    # the kernel path against the plain path on the same inputs: the whole
-    # model again with the kernel wrappers swapped for their plain versions
-    # (every other operation is the same deterministic GPU code), so the
-    # logits of a chunk-shaped and a thin call must be equal
-    swaps = [(amk, "approx_matmul_cv_fused", amk.approx_matmul_cv_fused_plain)]
-    thin = toks[:, :1]
-    lk_thin = api.decode_slots(packed, thin, api.init_slot_cache(
-        ecfg.slots, ecfg.max_len, torch.bfloat16), [1] * ecfg.slots)[0]
-    with plain_swapped("main", swaps):
-        lp = chunk_logits(packed)
-        lp_thin = api.decode_slots(packed, thin, api.init_slot_cache(
-            ecfg.slots, ecfg.max_len, torch.bfloat16), [1] * ecfg.slots)[0]
-    torch.cuda.synchronize()
-    if not (torch.equal(l1, lp) and torch.equal(lk_thin, lp_thin)):
-        fail(f"main: kernel path differs from the plain path by "
-             f"{float((l1 - lp).abs().max())} (chunk), "
-             f"{float((lk_thin - lp_thin).abs().max())} (thin)")
-    print("main: full-depth logits through the kernels equal the plain "
-          "path's (chunk-shaped and thin calls)", flush=True)
+def run_rwkv_engine(torch, dev) -> dict:
+    """Phase 4c: full-width rwkv6-1.6b (24 layers) through the engine on
+    ``serve-default`` packs: the per-slot recurrent state, each chunk as
+    single-token steps (no scan), the approx kernel at decode rows only;
+    engine tokens equal the lock-step path's greedy tokens (its
+    ``decode_step`` over every prompt token, the recurrent form the engine
+    serves, on a batch of ``slots`` rows so that every product has the
+    engine's shape)."""
+    from repro_torch.configs import EngineConfig, get_config
+    from repro_torch.core.approx_linear import iter_tensors
+    from repro_torch.launch.serve import (ServeConfig, build_serving_params,
+                                          mixed_trace)
+    from repro_torch.models import build_model
 
-    breakdown = {kind: profile_call(torch, api, packed, ecfg, c)
-                 for kind, c in (("thin", 1), ("chunk", ecfg.prefill_chunk))}
-    check_one_launch("main: thin step", breakdown["thin"])
+    cfg = get_config("rwkv6-1.6b")
+    api = build_model(cfg, dev)
+    spec = pallas_spec()
+    params = api.init(0)
+    packed = build_serving_params(params, cfg, ServeConfig(spec=spec),
+                                  device=dev)
+    del params
+    torch.cuda.empty_cache()
+    check_packs("rwkv6", packed)
+    ecfg = EngineConfig(slots=4, max_len=256, prefill_chunk=32,
+                        cache_dtype="bfloat16")
+    trace = mixed_trace(cfg, 8, ecfg.max_len, ecfg.prefill_chunk, seed=0)
+    print(f"rwkv6: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab}; engine slots={ecfg.slots} "
+          f"max_len={ecfg.max_len} chunk={ecfg.prefill_chunk}, {len(trace)} "
+          "requests", flush=True)
+    warm_up(torch, api, packed, ecfg)
+    per_token = cfg.n_layers * 8 + 1  # 8 packed layers a block, the head
+    run = engine_run(torch, "rwkv6", cfg, api, packed, ecfg, trace,
+                     lambda c: c * per_token, spec.name)
 
-    main_line = json.dumps({
-        "requests_finished": snap["requests_finished"],
-        "generated_tokens": snap["generated_tokens"],
-        "prompt_tokens": snap["prompt_tokens"],
-        "elapsed_s": snap["elapsed_s"],
-        "gen_tok_per_s": snap["gen_tok_per_s"],
-        "total_tok_per_s": snap["total_tok_per_s"],
-        "ttft_p50_s": snap["ttft_p50_s"], "ttft_p95_s": snap["ttft_p95_s"],
-        "itl_p50_s": snap["itl_p50_s"], "itl_p95_s": snap["itl_p95_s"],
-        "peak_mem_gib": peak / 2**30, "pack_gib": pack_gib,
-        "k_major_gib": k_major_gib(packed),
-        "launches": launches, "step_breakdown": breakdown})
-    print("main: " + main_line, flush=True)
-    (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / "main_path.json").write_text(main_line + "\n")
-    return launches
+    def lock_step(prompt, gen, calls):
+        cache = api.init_cache(ecfg.slots, 0, torch.bfloat16)
+        tok = torch.zeros(ecfg.slots, 1, dtype=torch.long, device=dev)
+        for t in prompt:
+            tok[0, 0] = t
+            logits = api.decode_step(packed, tok, cache)[0]
+        out = [int(logits[0].argmax())]
+        for _ in range(gen - 1):
+            tok[0, 0] = out[-1]
+            out.append(int(api.decode_step(packed, tok, cache)[0][0].argmax()))
+        return out
+
+    check_sequential("rwkv6", run, trace, lock_step,
+                     "the lock-step path's greedy decode")
+    thin = profile_call(torch, "rwkv6", api, packed, ecfg, 1)
+    check_one_launch("rwkv6: thin step", thin)
+    write_line("rwkv6", "engine_rwkv6.json", {
+        **served_metrics(run["snap"]), "peak_mem_gib": run["peak"] / 2**30,
+        "pack_gib": storage_gib(iter_tensors(packed)),
+        "cache_gib": cache_gib(run["cache"]), "launches": run["launches"],
+        "step_breakdown": {"thin": thin}})
+    return run["launches"]
 
 
 def profile_fn(torch, label: str, call, host_profile: str) -> dict:
@@ -895,16 +1263,20 @@ def check_one_launch(label: str, prof: dict) -> None:
           "prep kernel)", flush=True)
 
 
-def profile_call(torch, api, params, ecfg, c: int) -> dict:
+def profile_call(torch, label: str, api, params, ecfg, c: int) -> dict:
     """One (slots, c) engine model step on a fresh cache."""
+    from repro_torch.launch.serve import _CACHE_DTYPES
+
     toks = torch.zeros(ecfg.slots, c, dtype=torch.long, device=api.device)
+    dt = _CACHE_DTYPES[ecfg.cache_dtype]
 
     def call():
-        cache = api.init_slot_cache(ecfg.slots, ecfg.max_len, torch.bfloat16)
+        cache = api.init_slot_cache(ecfg.slots, ecfg.max_len, dt)
         api.decode_slots(params, toks, cache, [c] * ecfg.slots)
 
-    return profile_fn(torch, f"main: profile (slots, {c}) step", call,
-                      f"host_profile_c{c}.txt")
+    name = label.replace(" ", "_")
+    return profile_fn(torch, f"{label}: profile (slots, {c}) step", call,
+                      f"host_profile_{name}_c{c}.txt")
 
 
 # ---------------------------------------------------------------------------
@@ -915,9 +1287,10 @@ BATCH, GEN = 4, 32
 #: arch: (prompt length, packed-layer wrapper calls per layer at prefill and
 #: at decode, packed head calls per step).  olmo-1b runs its fused q|k|v
 #: and gate|up groups at prefill rows and their members at decode rows
-#: (M = 4 <= DECODE_M_MAX) and has a tied float head; rwkv6 has no fusable
-#: group and a packed head.
-LEGACY = {"olmo-1b": (1024, 4, 7, 0), "rwkv6-1.6b": (512, 8, 8, 1)}
+#: (M = 4 <= DECODE_M_MAX) and has a tied float head, as has qwen3-4b;
+#: rwkv6 has no fusable group and a packed head.
+LEGACY = {"olmo-1b": (1024, 4, 7, 0), "rwkv6-1.6b": (512, 8, 8, 1),
+          "qwen3-4b": (1024, 4, 7, 0)}
 
 
 def wrappers() -> dict:
@@ -938,12 +1311,10 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.core.approx_linear import iter_tensors
-    from repro_torch.core.policy import ApproxPolicy
     from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import rwkv6_scan as rsk
     from repro_torch.launch import serve
     from repro_torch.models import build_model
-    from repro_torch.numerics import get_preset
 
     prompt_len, pre_calls, dec_calls, head_calls = LEGACY[arch]
     cfg = get_config(arch)
@@ -951,8 +1322,7 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
           f"d_ff={cfg.d_ff} vocab={cfg.vocab} rwkv={cfg.rwkv} "
           f"compute={cfg.compute_dtype}; B={BATCH} T={prompt_len} G={GEN}",
           flush=True)
-    spec = get_preset("serve-default", policy=ApproxPolicy(
-        "perforated", 2, use_cv=True, backend="pallas"))
+    spec = pallas_spec()
     spec_path = ROOT / "build" / "legacy_spec.json"
     spec_path.parent.mkdir(exist_ok=True)
     spec_path.write_text(spec.to_json())
@@ -961,7 +1331,7 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
         return argparse.Namespace(
             arch=arch, batch=BATCH, prompt_len=prompt_len, gen=gen,
             mode="perforated", m=2, no_cv=False, preset=None,
-            spec_json=str(spec_path), device="cuda")
+            spec_json=str(spec_path), device=dev.type)
 
     api = build_model(cfg, dev)
     params = api.init(0)
@@ -1038,6 +1408,8 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
               f"{float((diff / o_p.abs().clamp_min(1e-30)).median()):.3g}; "
               f"{flips} of {o_p.numel()} values differ once rounded to "
               "bfloat16", flush=True)
+    per_layer = teacher_forced(torch, f"legacy {arch}", rsk if cfg.rwkv
+                               else fak, last_logits)
     cache = api.prefill(packed, {"tokens": prompt}, prompt_len + GEN)[1]
     tok = torch.zeros(BATCH, 1, dtype=torch.long, device=dev)
     breakdown = {
@@ -1058,6 +1430,7 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
             "tok_per_s": res["tok_per_s"], "peak_mem_gib": peak / 2**30,
             "plain_gap": gap, "plain_argmax_agreement": agree,
             "scan_bf16_flips_layer0": flips,
+            "per_layer_max_abs_err": per_layer,
             "launches": launches, "step_breakdown": breakdown}
     print(f"legacy: {arch} prefill_ms {line['prefill_ms']:.2f}", flush=True)
     print(f"legacy: {arch} decode_ms_per_token "
@@ -1074,6 +1447,48 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
     return line
 
 
+def teacher_forced(torch, label: str, mod, run) -> list[float]:
+    """Each layer's attention (or WKV) in the kernel path's own prefill,
+    fed that layer's input as the kernel path made it, once through the
+    kernel and once through its plain version: the per-layer gap cannot
+    compound across layers.  Fails (``close``) if any layer's gap is
+    outside the kernel's per-call tolerance (flash: FLASH_RTOL, each row to
+    its own scale; scan: SCAN_RTOL on the output and the final state).
+    The model goes on with the kernel's output.  Returns each layer's max
+    abs error."""
+    name = "rwkv6_scan" if hasattr(mod, "rwkv6_scan") else "flash_attention"
+    kern, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+    gaps = []
+
+    def both(*a, **kw):
+        got, want = kern(*a, **kw), plain(*a, **kw)
+        if name == "rwkv6_scan":
+            gaps.append(max(close(torch, g, w, SCAN_RTOL)
+                            for g, w in zip(got, want)))
+        else:
+            gaps.append(close(torch, got, want,
+                              FLASH_RTOL[str(got.dtype).split(".")[-1]],
+                              per_row=True))
+        return got
+
+    both.launches = 0  # the kernel counts its launches under the module name
+    setattr(mod, name, both)
+    try:
+        run()
+    finally:
+        setattr(mod, name, kern)
+    torch.cuda.synchronize()
+    if not gaps:
+        fail(f"{label}: the prefill never called {name}")
+    worst = max(range(len(gaps)), key=gaps.__getitem__)
+    print(f"{label}: teacher-forced per-layer {name} against its plain "
+          f"version on the kernel path's own layer inputs, {len(gaps)} layers:"
+          f" every layer within the per-call tolerance; largest max abs err "
+          f"{gaps[worst]:.4g} (layer {worst}); by layer "
+          f"{[float(f'{g:.3g}') for g in gaps]}", flush=True)
+    return gaps
+
+
 def attn_scan_times(torch, dev, card: str) -> dict:
     """Phase 6, second half: flash attention at the olmo-1b prefill shape
     and the scan at the rwkv6-1.6b prefill shape (kernel, plain, library,
@@ -1085,27 +1500,46 @@ def attn_scan_times(torch, dev, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = {}
 
-    b, hq, hkv, t, _, d, *_ = FLASH_CASES[0]
     bf = torch.bfloat16
-    # 48 MB of q, k, v per call: three copies exceed the 50 MB L2
-    qkv = [tuple(torch.randn(b, h, t, d, generator=gen, device=dev).to(bf)
-                 for h in (hq, hkv, hkv)) for _ in range(3)]
-    flops = 4.0 * b * hq * d * t * (t + 1) / 2  # QK and PV, visible pairs
-    nbytes = 2.0 * (2 * b * hq * t * d + 2 * b * hkv * t * d)  # q, out, k, v
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    t_ops, t_bytes = flops / bf16_peak, nbytes / bw
-    rows["flash_attention"] = {
-        "shape": [b, hq, hkv, t, d], "dtype": "bfloat16", "causal": True,
-        "kernel_us": time_calls(torch, [lambda a=a: fak.flash_attention(*a)
-                                        for a in qkv]) * 1e6,
-        "plain_us": time_calls(torch, [lambda a=a: fak.flash_attention_plain(*a)
-                                       for a in qkv[:2]], reps=5) * 1e6,
-        "library_us": time_calls(torch, [lambda a=a: sdpa(*a, is_causal=True)
-                                         for a in qkv]) * 1e6,
-        "bound_us": max(t_ops, t_bytes) * 1e6,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    print("time " + json.dumps(rows["flash_attention"]), flush=True)
-    del qkv
+    for key, (b, hq, hkv, t, _, d, *_) in (("flash_attention", FLASH_CASES[0]),
+                                           ("flash_attention qwen3-4b",
+                                            QWEN_FLASH)):
+        # 48-80 MB of q, k, v per call: three copies exceed the 50 MB L2
+        qkv = [tuple(torch.randn(b, h, t, d, generator=gen, device=dev).to(bf)
+                     for h in (hq, hkv, hkv)) for _ in range(3)]
+        flops = 4.0 * b * hq * d * t * (t + 1) / 2  # QK and PV, visible pairs
+        # q and out, k and v
+        nbytes = 2.0 * (2 * b * hq * t * d + 2 * b * hkv * t * d)
+        # SDPA's own GQA (enable_gqa), or, in a PyTorch without it, KV heads
+        # repeated beforehand (the yardstick then reads the copies)
+        lib, gqa = qkv, {"enable_gqa": True}
+        if hq != hkv:
+            try:
+                sdpa(*qkv[0], is_causal=True, **gqa)
+            except TypeError:
+                reps, gqa = hq // hkv, {}
+                lib = [(q, k.repeat_interleave(reps, 1),
+                        v.repeat_interleave(reps, 1)) for q, k, v in qkv]
+        else:
+            gqa = {}
+        t_ops, t_bytes = flops / bf16_peak, nbytes / bw
+        rows[key] = {
+            "shape": [b, hq, hkv, t, d], "dtype": "bfloat16", "causal": True,
+            "kernel_us": time_calls(torch, [lambda a=a: fak.flash_attention(*a)
+                                            for a in qkv]) * 1e6,
+            "plain_us": time_calls(torch, [
+                lambda a=a: fak.flash_attention_plain(*a)
+                for a in qkv[:2]], reps=5) * 1e6,
+            "library_us": time_calls(torch, [
+                lambda a=a: sdpa(*a, is_causal=True, **gqa)
+                for a in lib]) * 1e6,
+            "library": ("scaled_dot_product_attention"
+                        + (" enable_gqa" if gqa else "")),
+            "bound_us": max(t_ops, t_bytes) * 1e6,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print("time " + json.dumps(rows[key]), flush=True)
+        del qkv, lib
 
     b, t, h, dk, dv, *_ = SCAN_CASES[0]
     ins = [scan_inputs(torch, b, t, h, dk, dv, bf, gen, dev) for _ in range(3)]
@@ -1140,8 +1574,8 @@ def attn_scan_times(torch, dev, card: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=16,
-                    help="olmo-1b depth for the engine path (widths are "
-                    "never cut; the lock-step paths run at full depth)")
+                    help="olmo-1b depth for its engine path (widths are "
+                    "never cut; the other paths run at full depth)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1182,8 +1616,20 @@ def main() -> int:
     # every path is driven with the launch counts zeroed just before it and
     # read just after it
     paths = {"engine olmo-1b": run_main_path(torch, dev, args.layers)}
+    torch.cuda.empty_cache()
+    paths.update(run_qwen3_engine(torch, dev))
+    torch.cuda.empty_cache()
+    paths["engine rwkv6-1.6b"] = run_rwkv_engine(torch, dev)
+    torch.cuda.empty_cache()
+    per_layer = {}
     for arch in LEGACY:
-        paths[f"legacy {arch}"] = run_legacy_path(torch, dev, arch)["launches"]
+        line = run_legacy_path(torch, dev, arch)
+        paths[f"legacy {arch}"] = line["launches"]
+        per_layer[arch] = max(line["per_layer_max_abs_err"])
+        torch.cuda.empty_cache()
+    print("lock-step prefills, teacher-forced per layer: every layer of "
+          "every prefill inside its kernel's per-call tolerance; largest max "
+          "abs err by arch " + json.dumps(per_layer), flush=True)
     launches = {n: sum(p[n] for p in paths.values()) for n in wrappers()}
     print("launches by path: " + json.dumps(paths), flush=True)
     rows = kernel_times(torch, dev, card)
@@ -1207,9 +1653,16 @@ def main() -> int:
               flush=True)
         print(f"{name} per layer, prefill step (4 launches, M=128): "
               + json.dumps(pre), flush=True)
+        print(f"{name} per layer, qwen3-4b decode step (7 launches, M=4): "
+              + json.dumps(step_entry(rows, name, QWEN_DECODE_KN, 4)),
+              flush=True)
+        print(f"{name} per layer, qwen3-4b engine chunk step (4 launches, "
+              "M=128): " + json.dumps(step_entry(rows, name, QWEN_KN, 128)),
+              flush=True)
         if name == "approx_matmul_cv_fused":
             for label, kn, mm in (("olmo-1b", PREFILL_KN, OLMO_PREFILL_M),
-                                  ("rwkv6-1.6b", RWKV_KN, RWKV_PREFILL_M)):
+                                  ("rwkv6-1.6b", RWKV_KN, RWKV_PREFILL_M),
+                                  ("qwen3-4b", QWEN_KN, QWEN_PREFILL_M)):
                 print(f"{name} per layer, {label} lock-step prefill "
                       f"({len(kn)} launches, M={mm}): "
                       + json.dumps(step_entry(rows, name, kn, mm)),
@@ -1218,8 +1671,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/approx_matmul.cu",
             "replaces": f"src/repro/kernels/approx_matmul.py:{src_line}",
-            # wrapper calls on the three paths (a fused call is one CUDA
-            # launch at decode rows, the prep and a matmul kernel above)
+            # wrapper calls on every path (a fused call is one CUDA launch
+            # at decode rows, the prep and a matmul kernel above)
             "launches": launches[name],
             "max_abs_err": errs[name],
             "ms": (dec["kernel_us"] + pre["kernel_us"]) / 1e3,

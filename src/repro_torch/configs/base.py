@@ -1,7 +1,8 @@
 """Architecture and engine configuration (port of ``repro.configs.base``).
 
-Only the fields the ported paths read are kept (dense GQA and RWKV6); the
-other architecture families land with the slices that serve them.
+Only the fields the ported paths read are kept (dense GQA with rmsnorm,
+qk-norm and QKV bias; RWKV6); the other architecture families land with
+the slices that serve them.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ class EngineConfig:
     max_len: int = 256
     prefill_chunk: int = 32
     max_queue: int = 256
-    cache_dtype: str = "bfloat16"  # "bfloat16" | "float32"
+    cache_dtype: str = "bfloat16"  # "bfloat16" | "float32" | "int8"
     interleave: bool = True  # alternate prefill/decode when both are pending
     #: decode rows ride chunk-shaped prefill calls with n_valid=1, so a
     #: running decode advances every iteration; off falls back to
@@ -45,9 +46,11 @@ class ArchConfig:
     head_dim: int = 0  # 0 -> d_model // n_heads
 
     attn: Literal["gqa", "none"] = "gqa"
-    norm: Literal["nonparametric_ln", "layernorm"] = "nonparametric_ln"
+    norm: Literal["rmsnorm", "layernorm", "nonparametric_ln"] = "rmsnorm"
+    qk_norm: bool = False
     rope_theta: float = 10000.0
     causal: bool = True
+    qkv_bias: bool = False
     # rwkv
     rwkv: bool = False
     rwkv_head_dim: int = 64
@@ -64,7 +67,8 @@ class ArchConfig:
 
         return AttnConfig(d_model=self.d_model, n_heads=self.n_heads,
                           kv_heads=self.kv_heads, head_dim=self.head_dim,
-                          causal=self.causal, rope_theta=self.rope_theta)
+                          causal=self.causal, qk_norm=self.qk_norm,
+                          rope_theta=self.rope_theta, qkv_bias=self.qkv_bias)
 
     def rwkv_config(self):
         from repro_torch.nn.rwkv import RWKVConfig

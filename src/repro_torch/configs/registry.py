@@ -3,10 +3,14 @@
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.deepseek_67b import CONFIG as _ds67
+from repro_torch.configs.granite_8b import CONFIG as _granite
 from repro_torch.configs.olmo_1b import CONFIG as _olmo
+from repro_torch.configs.qwen3_4b import CONFIG as _qwen3
 from repro_torch.configs.rwkv6_1p6b import CONFIG as _rwkv6
 
-ARCH_REGISTRY: dict[str, ArchConfig] = {c.name: c for c in (_olmo, _rwkv6)}
+ARCH_REGISTRY: dict[str, ArchConfig] = {
+    c.name: c for c in (_qwen3, _ds67, _olmo, _granite, _rwkv6)}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -14,3 +18,7 @@ def get_config(name: str) -> ArchConfig:
         return ARCH_REGISTRY[name[: -len("-reduced")]].reduced()
     return ARCH_REGISTRY[name]
 
+
+def list_archs() -> list[str]:
+    """Every registered arch id, each also servable with ``-reduced``."""
+    return sorted(ARCH_REGISTRY)

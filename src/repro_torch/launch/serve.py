@@ -12,7 +12,9 @@ hand-written CUDA kernel; the default CLI policy keeps the reference's
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --spec-json spec.json --requests 8 --slots 4 --max-len 256
 
-runs on the card (``--device cpu`` for the plain path on the CPU).
+runs on the card (``--device cpu`` for the plain path on the CPU), for
+every registered arch (``-reduced`` for the small CPU variant); the engine
+keeps its KV cache in bf16, f32 or int8 (``--cache-dtype``).
 ``--legacy`` runs the lock-step loop instead (one prefill of a (B, T)
 prompt, then G-1 greedy decode steps), for every ported arch:
 
@@ -35,6 +37,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.configs.registry import list_archs
 from repro_torch.configs.base import ArchConfig, EngineConfig
 from repro_torch.core.policy import ApproxPolicy
 from repro_torch.models import build_model
@@ -126,7 +129,8 @@ def mixed_trace(cfg: ArchConfig, n_requests: int, max_len: int,
     return trace
 
 
-_CACHE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_CACHE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                 "int8": torch.int8}
 
 
 def _cache_dt(scfg: ServeConfig) -> torch.dtype:
@@ -252,7 +256,9 @@ def run_engine(args) -> dict:
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="olmo-1b-reduced")
+    ap.add_argument("--arch", default="olmo-1b-reduced",
+                    choices=[a + sfx for a in list_archs()
+                             for sfx in ("", "-reduced")])
     ap.add_argument("--mode", default="perforated",
                     choices=["float", "exact", "perforated", "recursive",
                              "truncated"])
@@ -267,7 +273,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--chunk", type=int, default=32)
     ap.add_argument("--cache-dtype", default="bfloat16",
-                    choices=["bfloat16", "float32"])
+                    choices=sorted(_CACHE_DTYPES),
+                    help="engine KV cache storage (int8: fixed point, steps "
+                    "of 1/16)")
     ap.add_argument("--no-mixed", action="store_true",
                     help="alternate prefill and decode batches instead of "
                     "mixing decode rows into chunk-shaped calls")

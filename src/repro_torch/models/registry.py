@@ -1,6 +1,5 @@
 """Uniform model API (port of ``repro.models.registry``): the lock-step
-surface of every ported arch, and the slot-serving surface of the dense
-GQA arch."""
+and slot-serving surfaces of every ported arch."""
 
 from __future__ import annotations
 
@@ -29,7 +28,7 @@ class ModelApi:
     #: (batch, max_len, dtype) -> lock-step cache on ``device``
     init_cache: Callable
     #: (slots, max_len, dtype) -> pooled slot cache on ``device``; None for
-    #: an arch the continuous-batching engine does not serve yet
+    #: an arch without a slot surface (the engine refuses it)
     init_slot_cache: Callable | None = None
     #: (params, tokens, cache, n_valid) -> (logits, cache updated in place)
     decode_slots: Callable | None = None
@@ -50,6 +49,10 @@ def build_model(cfg: ArchConfig, device=None) -> ModelApi:
             decode_step=lambda p, t, c: m.decode_step(p, t, c, cfg),
             init_cache=lambda batch, max_len=0, dtype=torch.bfloat16:
                 m.init_cache(cfg, batch, max_len, dtype, dev),
+            init_slot_cache=lambda slots, max_len=0, dtype=torch.bfloat16:
+                m.init_slot_cache(cfg, slots, max_len, dtype, dev),
+            decode_slots=lambda p, t, c, n_valid: m.decode_slots(p, t, c, cfg,
+                                                                 n_valid),
         )
     from repro_torch.models import lm as m
 

@@ -1,16 +1,19 @@
 """RWKV6 (Finch) language model, the attention-free family (port of
-``repro.models.rwkv_lm``, lock-step surface).
+``repro.models.rwkv_lm``: lock-step and slot surfaces).
 
 Same public surface as :mod:`repro_torch.models.lm`: ``init_params``,
-``forward``, ``init_cache``, ``prefill``, ``decode_step``.  The decode
-"cache" is the constant-size recurrent state: per-layer shift vectors and
-WKV matrices.  :func:`decode_step` updates it IN PLACE and returns the same
-dict.  The layer ``lax.scan`` becomes a Python loop; the reference's
-sharding constraints and remat have no counterpart without a mesh.
+``forward``, ``init_cache``, ``prefill``, ``decode_step``,
+``init_slot_cache``, ``decode_slots``.  The decode "cache" is the
+constant-size recurrent state: per-layer shift vectors and WKV matrices.
+:func:`decode_step` and :func:`decode_slots` update it IN PLACE and return
+the same dict.  The layer ``lax.scan`` becomes a Python loop; the
+reference's sharding constraints and remat have no counterpart without a
+mesh.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -142,3 +145,55 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
     x = apply_norm("layernorm", params["final_norm"], x)
     cache["pos"] = int(cache["pos"]) + 1
     return _logits_head(params, x[:, 0]), cache
+
+
+def init_slot_cache(cfg: ArchConfig, slots: int, max_len: int = 0,
+                    dtype=torch.bfloat16, device=None) -> dict:
+    """Per-slot recurrent state (O(1) per slot) with per-slot cursors."""
+    cache = init_cache(cfg, slots, max_len, dtype, device)
+    del cache["pos"]
+    cache["lengths"] = torch.zeros(slots, dtype=torch.int32, device=device)
+    return cache
+
+
+def decode_slots(params: dict, tokens: torch.Tensor, cache: dict,
+                 cfg: ArchConfig, n_valid) -> tuple[torch.Tensor, dict]:
+    """Fixed-shape continuous-batching step for the recurrent arch.
+
+    tokens (slots, C); row b consumes its first ``n_valid[b]`` tokens, as C
+    single-token steps (``time_mix_step`` and ``channel_mix``, not the
+    scan) whose state writes are masked per row by ``i < n_valid[b]``:
+    rows past their valid length, and idle slots (n_valid 0), keep their
+    state bit-exact.  Returns (logits (slots, C, V) float32, cache UPDATED
+    IN PLACE with cursors advanced by ``n_valid``)."""
+    rcfg = cfg.rwkv_config()
+    dev = tokens.device
+    nv = torch.as_tensor(np.asarray(
+        n_valid.cpu() if torch.is_tensor(n_valid) else n_valid),
+        dtype=torch.int32, device=dev)
+    logits = []
+    for i in range(tokens.shape[1]):
+        keep = i < nv  # (B,)
+        x = embed(params["embed"], tokens[:, i:i + 1]).to(
+            _DTYPES[cfg.compute_dtype])
+        x = apply_norm("layernorm", params["ln0"], x)
+        for j in range(cfg.n_layers):
+            bp = layer_params(params["blocks"], j)
+            st = {k: cache[k][j] for k in ("shift_tm", "shift_cm", "wkv")}
+            h = apply_norm("layernorm", bp["ln1"], x)
+            tm_out, shift_tm, wkv = rwkv_lib.time_mix_step(
+                bp["tm"], h, rcfg, st["shift_tm"], st["wkv"])
+            x = x + tm_out
+            h = apply_norm("layernorm", bp["ln2"], x)
+            cm_out, shift_cm = rwkv_lib.channel_mix(bp["cm"], h,
+                                                    st["shift_cm"])
+            x = x + cm_out
+            for key, new in (("shift_tm", shift_tm), ("shift_cm", shift_cm),
+                             ("wkv", wkv)):
+                mask = keep.view((-1,) + (1,) * (new.ndim - 1))
+                st[key].copy_(torch.where(mask, new.to(st[key].dtype),
+                                          st[key]))
+        x = apply_norm("layernorm", params["final_norm"], x)
+        logits.append(_logits_head(params, x[:, 0]))
+    cache["lengths"] += nv
+    return torch.stack(logits, dim=1), cache

@@ -1,6 +1,7 @@
 """GQA attention (port of the GQA half of ``repro.nn.attention``): config,
-RoPE angles, the Q/K/V projection, the plain full-sequence attention
-``_sdpa``, the KV-cache storage casts and the one-token decode step.  The
+RoPE angles, the Q/K/V projection (optional QKV bias and per-head qk-norm),
+the plain full-sequence attention ``_sdpa``, the KV-cache storage casts
+(bf16, f32, or int8 fixed point) and the one-token decode step.  The
 slot attention lives in ``repro_torch.models.lm._gqa_slots``; the prefill
 attention on the card is the flash kernel
 (:mod:`repro_torch.kernels.flash_attention`).
@@ -16,7 +17,8 @@ import dataclasses
 import torch
 
 from repro_torch.core.approx_linear import dense, dense_group, init_dense
-from repro_torch.nn.layers import apply_rope, rope_angles
+from repro_torch.nn.layers import (apply_rope, init_rmsnorm, rmsnorm,
+                                   rope_angles)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,7 +28,9 @@ class AttnConfig:
     kv_heads: int
     head_dim: int
     causal: bool = True
+    qk_norm: bool = False
     rope_theta: float = 10000.0
+    qkv_bias: bool = False
 
     @property
     def q_dim(self) -> int:
@@ -38,10 +42,16 @@ class AttnConfig:
 
 
 def init_attention(cfg: AttnConfig, *, generator, device=None) -> dict:
-    shapes = (("q", cfg.d_model, cfg.q_dim), ("k", cfg.d_model, cfg.kv_dim),
-              ("v", cfg.d_model, cfg.kv_dim), ("o", cfg.q_dim, cfg.d_model))
-    return {name: init_dense(k, n, generator=generator, bias=False,
-                             device=device) for name, k, n in shapes}
+    shapes = (("q", cfg.d_model, cfg.q_dim, cfg.qkv_bias),
+              ("k", cfg.d_model, cfg.kv_dim, cfg.qkv_bias),
+              ("v", cfg.d_model, cfg.kv_dim, cfg.qkv_bias),
+              ("o", cfg.q_dim, cfg.d_model, False))
+    p = {name: init_dense(k, n, generator=generator, bias=bias, device=device)
+         for name, k, n, bias in shapes}
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(cfg.head_dim, device)
+        p["k_norm"] = init_rmsnorm(cfg.head_dim, device)
+    return p
 
 
 def _angles(cfg: AttnConfig, positions: torch.Tensor):
@@ -59,17 +69,30 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: AttnConfig, angles):
     q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
     k = k.reshape(b, t, cfg.kv_heads, cfg.head_dim)
     v = v.reshape(b, t, cfg.kv_heads, cfg.head_dim)
+    if cfg.qk_norm:  # per head, after the reshape and before RoPE
+        q = rmsnorm(p["q_norm"], q)
+        k = rmsnorm(p["k_norm"], k)
     if angles is not None:
         cos, sin = angles
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     return q, k, v
 
 
+#: fixed-point scale of int8 KV caches (values are O(1) after qk-norm and
+#: RoPE; steps of 1/16)
+KV_INT8_SCALE = 16.0
+
+
 def _to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if dtype == torch.int8:
+        return torch.clip(torch.round(x * KV_INT8_SCALE), -127,
+                          127).to(torch.int8)
     return x.to(dtype)
 
 
 def _from_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if x.dtype == torch.int8:
+        return x.to(dtype) * (1.0 / KV_INT8_SCALE)
     return x.to(dtype)
 
 

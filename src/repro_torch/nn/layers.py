@@ -13,6 +13,17 @@ import torch.nn.functional as F
 from repro_torch.core.approx_linear import dense, dense_group, init_dense
 
 
+def init_rmsnorm(d: int, device=None) -> dict:
+    return {"scale": torch.ones(d, device=device)}
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * p["scale"]).to(dt)
+
+
 def layernorm(p: dict | None, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Parametric LN, or non-parametric (olmo-style) when ``p`` is None."""
     dt = x.dtype
@@ -26,22 +37,26 @@ def layernorm(p: dict | None, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
 
 
 def init_norm(kind: str, d: int, device=None) -> dict:
-    """Norm parameters: scale and bias for the parametric LN, none for the
-    non-parametric one."""
+    """Norm parameters: a scale for rmsnorm, scale and bias for the
+    parametric LN, none for the non-parametric one."""
+    if kind == "rmsnorm":
+        return init_rmsnorm(d, device)
     if kind == "layernorm":
         return {"scale": torch.ones(d, device=device),
                 "bias": torch.zeros(d, device=device)}
     if kind == "nonparametric_ln":
         return {}
-    raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 def apply_norm(kind: str, p, x: torch.Tensor) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(p, x)
     if kind == "layernorm":
         return layernorm(p, x)
     if kind == "nonparametric_ln":
         return layernorm(None, x)
-    raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:

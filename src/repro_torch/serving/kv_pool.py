@@ -1,11 +1,13 @@
 """Pooled, slot-indexed KV-cache manager (port of
 ``repro.serving.kv_pool``).
 
-One preallocated cache holds ``(L, slots, heads, max_len, head_dim)`` K/V
-in the serving cache dtype with a per-slot write cursor
-(``cache["lengths"]``).  Slots are recycled by resetting the cursor: the
-attention mask hides stale entries and the next occupant overwrites them.
-The model step updates the cache in place.
+One preallocated cache holds the decode state of every slot with a
+per-slot write cursor (``cache["lengths"]``): attention archs get
+``(L, slots, heads, max_len, head_dim)`` K/V in the serving cache dtype,
+RWKV the per-slot recurrent state.  An attention slot is recycled by
+resetting its cursor (the attention mask hides stale entries and the next
+occupant overwrites them); recurrent state has no mask, so a recycled
+slot's state is zeroed.  The model step updates the cache in place.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import torch
 
 from repro_torch.models.registry import ModelApi
 
-_CACHE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_CACHE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                 "int8": torch.int8}
 
 
 class SlotPool:
@@ -30,16 +33,22 @@ class SlotPool:
         self.slots = slots
         self.max_len = max_len
         self.cache = api.init_slot_cache(slots, max_len, dtype)
+        self._recurrent = bool(api.cfg.rwkv)
         self._free: list[int] = list(range(slots - 1, -1, -1))  # slot 0 first
         self._owner: dict[int, int] = {}
 
     def acquire(self, rid: int) -> int | None:
-        """Claim a free slot for request ``rid`` (cursor reset to 0)."""
+        """Claim a free slot for request ``rid`` (cursor reset to 0; a
+        recurrent arch's state of the slot zeroed)."""
         if not self._free:
             return None
         slot = self._free.pop()
         self._owner[slot] = rid
         self.cache["lengths"][slot] = 0
+        if self._recurrent:  # state leaves are (L, slots, ...)
+            for key, leaf in self.cache.items():
+                if key != "lengths":
+                    leaf[:, slot] = 0
         return slot
 
     def acquire_for(self, req) -> int | None:

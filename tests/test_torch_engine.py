@@ -1,10 +1,13 @@
 """The port's continuous-batching engine: token identity with a sequential
 one-request decode in the port, and with the JAX engine on the same
 weights, trace and spec (``backend: "pallas"``; interpret mode on the JAX
-side, the kernels' plain versions on the port's)."""
+side, the kernels' plain versions on the port's), for olmo-1b-reduced with
+a float32 or int8 KV cache and for rwkv6-1.6b-reduced's recurrent slot
+state."""
 
 import json
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -20,7 +23,7 @@ from repro_torch.numerics import get_preset
 from repro_torch.serving import (AdmissionController, Request, RequestQueue,
                                  RequestState, ServingEngine, SlotScheduler)
 
-from _torch_port import jax_side, packed_pair, torch_side
+from _torch_port import RWKV_ARCH, jax_side, packed_pair, torch_side
 
 PALLAS = ("perforated", 2, True, "pallas")
 
@@ -148,3 +151,165 @@ def test_serve_cli_with_pallas_spec_json(tmp_path, capsys):
     assert f"numerics={spec.name}" in out
     snap = json.loads(out[out.index("{"):out.rindex("}") + 1])
     assert snap["requests_finished"] == 3 and snap["gen_tok_per_s"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the int8 KV cache
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_cache_casts_bit_equal_to_reference(dtype):
+    """``_to_cache``/``_from_cache`` against the reference's: values on the
+    1/16 grid and half-way between (round half to even), past the +-127
+    clip, and the round trip back."""
+    from repro.nn import attention as jattn
+    from repro_torch.nn import attention as tattn
+
+    rng = np.random.default_rng(4)
+    x = np.concatenate([rng.normal(0, 3, 500), np.arange(-40, 40) / 32.0,
+                        [7.9, 7.97, -7.97, 8.0, -8.0, 9.5, -100.0, 0.0]])
+    x = x.astype(np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    assert tattn.KV_INT8_SCALE == jattn.KV_INT8_SCALE
+    jq, tq = jattn._to_cache(jx, jnp.int8), tattn._to_cache(tx, torch.int8)
+    assert tq.dtype == torch.int8
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    assert tq.min() == -127 and tq.max() == 127
+    back_j = np.asarray(jattn._from_cache(jq, jx.dtype), np.float32)
+    back_t = tattn._from_cache(tq, tx.dtype)
+    assert back_t.dtype == tx.dtype
+    assert back_t.float().numpy().tobytes() == back_j.tobytes()
+    # a float cache is a plain cast both ways
+    assert torch.equal(tattn._to_cache(tx, torch.float32), tx.float())
+
+
+def test_int8_cache_engine_tokens_equal_jax_engine():
+    jparams, tparams = packed_pair(PALLAS)
+    jcfg, _, _ = jax_side()
+    cfg, api, _ = torch_side()
+    trace = _trace(cfg.vocab, 4, seed=6)
+    ek = dict(slots=3, max_len=64, prefill_chunk=8, cache_dtype="int8")
+    jeng = JaxEngine(jcfg, jparams, JaxEngineConfig(**ek))
+    teng = ServingEngine(cfg, tparams, EngineConfig(**ek), api=api)
+    assert teng.pool.cache["k"].dtype == torch.int8
+    jreqs = [jeng.submit(p, g) for p, g in trace]
+    treqs = [teng.submit(p, g) for p, g in trace]
+    jeng.run()
+    teng.run()
+    for j, t in zip(jreqs, treqs):
+        assert t.finished and j.finished
+        assert t.generated == j.generated, (t.rid, t.generated, j.generated)
+    # the cache holds the reference's int8 codes, not a cast of floats
+    np.testing.assert_array_equal(teng.pool.cache["k"].numpy(),
+                                  np.asarray(jeng.pool.cache["k"]))
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 through the engine
+# ---------------------------------------------------------------------------
+
+
+def _rwkv_sequential(api, params, prompt, gen):
+    """The recurrent form the engine serves, one request alone: every
+    prompt token through the lock-step ``decode_step``, then greedy
+    steps."""
+    cache = api.init_cache(1, 0, torch.float32)
+    for t in prompt:
+        logits, cache = api.decode_step(params, torch.tensor([[t]]), cache)
+    out = [int(logits[0].argmax())]
+    for _ in range(gen - 1):
+        logits, cache = api.decode_step(params, torch.tensor([[out[-1]]]),
+                                        cache)
+        out.append(int(logits[0].argmax()))
+    return out
+
+
+@pytest.mark.parametrize("policy", [None, PALLAS],
+                         ids=["float", "pallas-perf2"])
+def test_rwkv_engine_tokens_equal_jax_engine_and_sequential(policy):
+    jparams, tparams = packed_pair(policy, RWKV_ARCH)
+    jcfg, _, _ = jax_side(RWKV_ARCH)
+    cfg, api, _ = torch_side(RWKV_ARCH)
+    trace = _trace(cfg.vocab, 5, seed=7)
+    ek = dict(slots=2, max_len=64, prefill_chunk=16, cache_dtype="float32")
+    jeng = JaxEngine(jcfg, jparams, JaxEngineConfig(**ek))
+    teng = ServingEngine(cfg, tparams, EngineConfig(**ek), api=api)
+    jreqs = [jeng.submit(p, g) for p, g in trace]
+    treqs = [teng.submit(p, g) for p, g in trace]
+    assert len(jeng.run()) == len(teng.run()) == len(trace)
+    for j, t, (prompt, gen) in zip(jreqs, treqs, trace):
+        assert t.finished and len(t.generated) == gen
+        assert t.generated == j.generated, (t.rid, t.generated, j.generated)
+        assert t.generated == _rwkv_sequential(api, tparams, prompt, gen)
+    js, ts = jeng.metrics.snapshot(), teng.snapshot()
+    for key in ("prefill_steps", "mixed_steps", "decode_steps",
+                "generated_tokens", "prompt_tokens"):
+        assert ts[key] == js[key], key
+
+
+def test_rwkv_decode_slots_masks_state_per_row():
+    """Rows past their valid length keep their state bit-exact (a row with
+    n_valid 0 untouched, a row with 2 of 4 advanced by exactly 2 steps), and
+    logits match the reference's step."""
+    from repro.models import rwkv_lm as jrwkv
+
+    jparams, tparams = packed_pair(PALLAS, RWKV_ARCH)
+    jcfg, _, _ = jax_side(RWKV_ARCH)
+    cfg, api, _ = torch_side(RWKV_ARCH)
+    rng = np.random.default_rng(8)
+    cache = api.init_slot_cache(3, 0, torch.float32)
+    api.decode_slots(tparams, torch.from_numpy(rng.integers(
+        0, cfg.vocab, (3, 4))), cache, [4, 4, 4])
+    before = {k: v.clone() for k, v in cache.items()}
+    jcache = {k: jnp.asarray(v.numpy()) for k, v in before.items()}
+    toks = rng.integers(0, cfg.vocab, (3, 4))
+    nv = np.array([0, 2, 4], np.int32)
+    tl, _ = api.decode_slots(tparams, torch.from_numpy(toks), cache, nv)
+    jl, jc = jrwkv.decode_slots(jparams, jnp.asarray(toks, jnp.int32), jcache,
+                                jcfg, jnp.asarray(nv))
+    assert cache["lengths"].tolist() == [4, 6, 8]
+    for key in ("shift_tm", "shift_cm", "wkv"):
+        assert torch.equal(cache[key][:, 0], before[key][:, 0]), key
+        assert not torch.equal(cache[key][:, 1], before[key][:, 1]), key
+        np.testing.assert_allclose(cache[key].numpy(), np.asarray(jc[key]),
+                                   rtol=0, atol=1e-4, err_msg=key)
+    assert tl.shape == (3, 4, cfg.vocab) and tl.dtype == torch.float32
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=1e-4)
+    # row 1 after two steps equals a run of just those two tokens
+    two = {k: v.clone() for k, v in before.items()}
+    short = np.zeros((3, 2), np.int64)
+    short[1] = toks[1, :2]
+    api.decode_slots(tparams, torch.from_numpy(short), two, [0, 2, 0])
+    for key in ("shift_tm", "shift_cm", "wkv"):
+        assert torch.equal(cache[key][:, 1], two[key][:, 1]), key
+
+
+def test_slot_pool_zeroes_recurrent_state_on_acquire():
+    from repro_torch.serving.kv_pool import SlotPool
+
+    cfg, api, _ = torch_side(RWKV_ARCH)
+    pool = SlotPool(api, slots=2, max_len=32, cache_dtype="float32")
+    for key, leaf in pool.cache.items():
+        leaf.fill_(1)
+    pool.cache["lengths"].copy_(torch.tensor([4, 7]))
+    slot = pool.acquire(rid=0)
+    for key, leaf in pool.cache.items():
+        if key == "lengths":
+            assert leaf[slot] == 0 and leaf[1 - slot] == 7
+        else:  # (L, slots, ...)
+            assert not leaf[:, slot].any(), key
+            assert bool((leaf[:, 1 - slot] == 1).all()), key
+
+
+@pytest.mark.parametrize("arch,cache_dtype", [
+    ("qwen3-4b-reduced", "int8"), ("rwkv6-1.6b-reduced", "bfloat16"),
+    ("deepseek-67b-reduced", "bfloat16")])
+def test_serve_cli_engine_new_archs(arch, cache_dtype, capsys):
+    serve_main(["--device", "cpu", "--arch", arch, "--cache-dtype",
+                cache_dtype, "--requests", "3", "--slots", "2", "--max-len",
+                "64", "--chunk", "16"])
+    out = capsys.readouterr().out
+    assert "finished 3/3 requests" in out
+    assert f"arch={arch} " in out and f"kv={cache_dtype} " in out

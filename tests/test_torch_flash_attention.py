@@ -6,6 +6,8 @@ Tolerance: rtol = atol = 2e-5, the JAX kernel tests' own
 and only the order of the sums differs.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,9 +45,22 @@ CASES = [
 ]
 
 
+def _threads() -> str:
+    """The thread settings a float32 sum order can depend on: torch's
+    intra- and inter-op pools, and XLA's CPU pool (the CPU count unless
+    XLA_FLAGS sets it)."""
+    return (f"torch threads {torch.get_num_threads()} (inter-op "
+            f"{torch.get_num_interop_threads()}); XLA: {os.cpu_count()} CPUs, "
+            f"XLA_FLAGS={os.environ.get('XLA_FLAGS', '')!r}")
+
+
 @pytest.mark.parametrize("b,hq,hkv,tq,tk,d,causal,window,tile", CASES)
 def test_plain_vs_jax_kernel_and_oracles(b, hq, hkv, tq, tk, d, causal,
                                          window, tile):
+    """Three comparisons, each named in its failure message with the
+    thread settings: the port's plain flash against the JAX oracle, the
+    port's oracle against the JAX oracle, the port's plain flash against
+    the JAX kernel in interpret mode."""
     q, k, v = _qkv(tq * 7 + d, b, hq, hkv, tq, tk, d)
     got = to_np(fak.flash_attention(*map(torch.from_numpy, (q, k, v)),
                                     causal=causal, window=window))
@@ -53,16 +68,21 @@ def test_plain_vs_jax_kernel_and_oracles(b, hq, hkv, tq, tk, d, causal,
     want_r = np.asarray(jref.flash_attention_ref(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
         window=window))
-    np.testing.assert_allclose(got, want_r, **TOL)
+    np.testing.assert_allclose(
+        got, want_r, **TOL,
+        err_msg=f"port plain flash vs JAX oracle; {_threads()}")
     np.testing.assert_allclose(
         to_np(tref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
                                        causal=causal, window=window)),
-        want_r, **TOL)
+        want_r, **TOL, err_msg=f"port oracle vs JAX oracle; {_threads()}")
     if tile is not None:  # the JAX kernel needs tiles dividing Tq and Tk
         want_k = np.asarray(jax_flash(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
             window=window, bq=tile, bk=tile, interpret=True))
-        np.testing.assert_allclose(got, want_k, **TOL)
+        np.testing.assert_allclose(
+            got, want_k, **TOL,
+            err_msg=f"port plain flash vs JAX interpret-mode kernel; "
+            f"{_threads()}")
 
 
 def test_row_with_no_visible_key_gives_zero():

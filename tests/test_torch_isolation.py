@@ -53,7 +53,8 @@ def test_port_runs_with_jax_unimportable():
             params, torch.zeros(2, 4, dtype=torch.long), cache, [4, 2])
         assert logits.shape == (2, 4, cfg.vocab) and torch.isfinite(logits).all()
         assert cache["lengths"].tolist() == [4, 2]
-        for arch in ("olmo-1b-reduced", "rwkv6-1.6b-reduced"):
+        for arch in ("olmo-1b-reduced", "rwkv6-1.6b-reduced",
+                     "qwen3-4b-reduced", "deepseek-67b-reduced"):
             cfg = get_config(arch)
             api = build_model(cfg, "cpu")
             params = build_serving_params(api.init(0), cfg, ServeConfig(

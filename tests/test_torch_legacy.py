@@ -231,11 +231,32 @@ def test_run_legacy_prints_the_jax_sample(arch, name, tmp_path, capsys):
 
 
 def test_engine_refuses_an_arch_without_slot_cache():
+    import dataclasses
+
     from repro_torch.configs import EngineConfig
     from repro_torch.serving import ServingEngine
 
     tcfg, tapi, tparams = torch_side(RWKV_ARCH)
-    assert tapi.init_slot_cache is None and tapi.decode_slots is None
+    assert tapi.init_slot_cache is not None and tapi.decode_slots is not None
+    bare = dataclasses.replace(tapi, init_slot_cache=None, decode_slots=None)
     with pytest.raises(NotImplementedError, match="--legacy"):
         ServingEngine(tcfg, tparams, EngineConfig(slots=2, max_len=16),
-                      api=tapi)
+                      api=bare)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b-reduced", "granite-8b-reduced",
+                                  "deepseek-67b-reduced"])
+def test_run_legacy_new_dense_archs_print_the_jax_sample(arch, tmp_path,
+                                                         capsys):
+    """The lock-step CLI loop for the dense archs beyond olmo-1b, packed
+    under the same spec file in both packages."""
+    spec = jax_get_preset("serve-default", policy=JaxPolicy(
+        "perforated", 2, use_cv=True, backend="pallas"))
+    spec_json = tmp_path / "spec.json"
+    spec_json.write_text(spec.to_json())
+    jserve.run_legacy(_args(arch, spec_json))
+    want = _sample(capsys.readouterr().out)
+    _, _, tparams = torch_side(arch)
+    res = tserve.run_legacy(_args(arch, spec_json), params=tparams)
+    assert _sample(capsys.readouterr().out) == want
+    assert res["tokens"].shape == (2, 6)
