@@ -15,11 +15,15 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    head, fused-group members reading a row slice of their group's codes, a
    fused q|k|v pack with per-column biases on both tiles, ragged decode
    calls, inputs on quantization ties, plus exact-integer accumulator
-   checks (M=4, 128, 300), equal to the plain version on every matmul tile
-   of the source, and every decode call twice bit-equal; flash attention
-   at the olmo-1b and qwen3-4b (GQA 32/8) prefill shapes, the JAX kernel
-   tests' shapes in float32 and bfloat16 (GQA, window, non-causal, Tq < Tk
-   at D=64 and 128) and a ragged length, each row held to its own scale;
+   checks (M=4, 128, 300), qwen2-vl-2b's and hubert-xlarge's layers
+   (biases included) at M=4, 128 and 4096 and their decode members,
+   hubert's head (N=504) on both tiles, equal to the plain version on
+   every matmul tile of the source, and every decode call twice bit-equal;
+   flash attention at the olmo-1b, qwen3-4b (GQA 32/8) and qwen2-vl-2b
+   (GQA 12/2) prefill shapes and hubert-xlarge's encoder (D=80,
+   non-causal), the JAX kernel tests' shapes in float32 and bfloat16 (GQA,
+   window, non-causal, Tq < Tk at D=64, 80 and 128) and ragged lengths
+   (D=128 and 80), each row held to its own scale;
    the RWKV6 scan (out and final state, and two calls bit-equal) at the
    rwkv6-1.6b prefill shape, the JAX tests' shapes, ragged and partial
    chunks, one head, Dk != Dv and the extreme decays;
@@ -28,27 +32,37 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    full-width olmo-1b and qwen3-4b (36 layers) on `backend: "pallas"`
    packs with a bf16 KV cache, qwen3-4b again with the int8 KV cache and
    under the `int8` preset (plain exact-integer products, 8 layers),
-   full-width rwkv6-1.6b (24 layers, per-slot recurrent state).  Checks
+   full-width rwkv6-1.6b (24 layers, per-slot recurrent state) and
+   qwen2-vl-2b (28 layers, token prompts, M-RoPE ids equal).  Checks
    completion, the kernel launch count the schedule implies, that each
    request's tokens equal a sequential decode of it on the same packs
    (rwkv6: the lock-step recurrent decode), that the packs hold their
    codes only K-major (fused-group members as row slices of the group's),
    that a thin step's fused calls are one CUDA launch each, device
    placement, determinism, kernel path equal to plain path, and (olmo-1b)
-   that the control variate reaches the logits;
-5. lock-step paths (`launch.serve.run_legacy`): full-width olmo-1b and
-   qwen3-4b (B=4, T=1024) and rwkv6-1.6b (B=4, T=512), 32 tokens each,
+   that the control variate reaches the logits; then, on the qwen2-vl-2b
+   engine phase's packs, its multimodal prefill ((4, 1024, 1536)
+   embeddings with (3, 4, 1024) M-RoPE ids holding a 16 x 16 image block,
+   32 decode steps) with the lock-step checks below;
+5. lock-step paths (`launch.serve.run_legacy`): full-width olmo-1b,
+   qwen3-4b and qwen2-vl-2b (B=4, T=1024) and rwkv6-1.6b (B=4, T=512), 32
+   tokens each,
    `serve-default` with `backend: "pallas"`; checks finite logits,
    determinism, the launch counts the schedule implies, the packs and one
    launch a decode call as above, the logit gap to the same prefill with
    the flash and scan kernels swapped for their plain versions, and each
    layer's flash (scan) call against its plain version on the kernel
    path's own layer input (teacher-forced, so the gap cannot compound),
-   within the kernel's per-call tolerance;
+   within the kernel's per-call tolerance; then hubert-xlarge's
+   encoder (48 layers, `forward` over (4, 1024, 1280) frame embeddings:
+   non-causal flash at D=80, the N=504 head on the prefill tile), with the
+   same launch, determinism, plain-gap and teacher-forced checks;
 6. kernel times at the paths' shapes (kernel, plain, library, bound),
-   the approx-matmul also at the three lock-step prefills' shapes and at
-   qwen3-4b's and rwkv6-1.6b's decode shapes (rwkv6-1.6b's head too),
-   flash at both prefill shapes beside `scaled_dot_product_attention`.
+   the approx-matmul also at the prefills' and the encoder's shapes and
+   at the decode shapes of qwen3-4b, rwkv6-1.6b (head too) and
+   qwen2-vl-2b, and (kernel only: no phase drives them) at the shapes of
+   hubert-xlarge's `--legacy` decode step and head, flash at the four prefill and encoder
+   shapes beside `scaled_dot_product_attention`.
 
 Prints the card line and one `kernels` JSON line before the last line, and
 ends with `{"ok": true, "device": {...}}`.  Any failure exits non-zero.
@@ -110,6 +124,24 @@ QWEN_QKV = (4096, 1024, 1024)
 QWEN_KN = [(2560, 6144), (4096, 2560), (2560, 19456), (9728, 2560)]
 QWEN_DECODE_KN = [(2560, 4096), (2560, 1024), (2560, 1024), (4096, 2560),
                   (2560, 9728), (2560, 9728), (9728, 2560)]
+#: qwen2-vl-2b's packed layers: fused q|k|v with biases (q 1536, k 256, v
+#: 256 columns), o, fused gate|up, down; decode steps run the members
+QWEN2VL_QKV = (1536, 256, 256)
+QWEN2VL_KN = [(1536, 2048), (1536, 1536), (1536, 17920), (8960, 1536)]
+QWEN2VL_DECODE_KN = [(1536, 1536), (1536, 256), (1536, 256), (1536, 1536),
+                     (1536, 8960), (1536, 8960), (8960, 1536)]
+#: hubert-xlarge's packed layers: fused q|k|v (no biases), o, the gelu
+#: MLP's up and down (with biases) and the untied head (N = 504, off every
+#: column tile); decode-shaped calls run the members (q, k, v, o, up, down)
+#: in the `--legacy` decode step, which no phase here drives: those shapes
+#: are checked and timed as kernel cases only
+HUBERT_QKV = (1280, 1280, 1280)
+HUBERT_KN = [(1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280)]
+HUBERT_DECODE_KN = [(1280, 1280)] * 4 + [(1280, 5120), (5120, 1280)]
+HUBERT_HEAD_KN = (1280, 504)
+#: rows of the qwen2-vl-2b lock-step and embeds prefills and of the
+#: hubert-xlarge encoder forward: B=4 x T=1024
+QWEN2VL_PREFILL_M = HUBERT_M = 4096
 #: the widths of granite-8b and deepseek-67b (kernels only; the models are
 #: not built here): (K, member widths) of fused q|k|v, fused gate|up, down
 WIDE_KN = {"granite-8b": [(4096, (4096, 1024, 1024)), (4096, (14336, 14336)),
@@ -318,7 +350,12 @@ def check_kernels(torch, dev) -> dict:
     # tiles; the decode cases; qwen3-4b's packed layers at decode, engine
     # chunk and lock-step prefill rows (K = 2560, 4096, 9728: the split-K
     # cluster rule at 76 rounds of 128) and its decode members; granite-8b's
-    # and deepseek-67b's at decode and prefill rows, in bf16 as served
+    # and deepseek-67b's at decode and prefill rows, in bf16 as served; then
+    # (a sixth field: per-column biases) qwen2-vl-2b's and hubert-xlarge's
+    # packed layers at decode, engine-chunk and prefill rows (prefill rows in
+    # bf16, as served), hubert's head (N = 504) on both tiles, and the
+    # decode members of both, each with biases where a layer of that shape
+    # has them
     both = (torch.bfloat16, torch.float32)
 
     def widths(k, n):
@@ -338,12 +375,24 @@ def check_kernels(torch, dev) -> dict:
              + [(mm, k, ws, (torch.bfloat16,), False)
                 for kns in WIDE_KN.values() for k, ws in kns
                 for mm in (4, WIDE_PREFILL_M)])
+    cases = [case + (False,) for case in cases]
+    groups = {(1536, 2048): QWEN2VL_QKV, (1536, 17920): (8960, 8960),
+              (1280, 3840): HUBERT_QKV}
+    biased = {(1536, 2048), (1536, 1536), (1536, 256), (1280, 5120),
+              (5120, 1280)}
+    cases += [(mm, k, groups.get((k, n), (n,)),
+               both if mm <= 128 else (torch.bfloat16,), False,
+               (k, n) in biased)
+              for mm in (4, 128, QWEN2VL_PREFILL_M)
+              for k, n in QWEN2VL_KN + HUBERT_KN + [HUBERT_HEAD_KN]]
+    cases += [(4, k, (n,), both, False, (k, n) in biased)
+              for k, n in sorted(set(QWEN2VL_DECODE_KN + HUBERT_DECODE_KN))]
     n_cases = n_twice = 0
     for mode, m in MODES:
-        for mm, k, ws, dtypes, codes_in in cases:
+        for mm, k, ws, dtypes, codes_in, bias in cases:
             n = sum(ws)
             pack, a_qp, blocked = random_pack(torch, k, n, mode, m, gen, dev,
-                                              widths=list(ws))
+                                              widths=list(ws), bias=bias)
             for dt in dtypes:
                 x = (torch.randn(mm, k, generator=gen, device=dev) * 1.5).to(dt)
                 got = fused(x, blocked, mode, m, "path")
@@ -467,9 +516,13 @@ SCAN_RTOL = 1e-4
 #: (B, Hq, Hkv, Tq, Tk, D, causal, window, dtype): the olmo-1b and
 #: qwen3-4b (GQA group 4) prefill shapes, the JAX kernel tests' cases
 #: (tests/test_kernels.py) in float32 (CUDA-core route) and their GQA,
-#: window, non-causal and Tq < Tk cases in bfloat16 at D=64 and 128
-#: (tensor-core route), a ragged T
+#: window, non-causal and Tq < Tk cases in bfloat16 at D=64, 80 and 128
+#: (tensor-core route), a ragged T; qwen2-vl-2b's prefill (GQA group 6)
+#: and hubert-xlarge's encoder (D=80, non-causal) in both types, and a
+#: ragged T at D=80
 QWEN_FLASH = (4, 32, 8, 1024, 1024, 128, True, None, "bfloat16")
+QWEN2VL_FLASH = (4, 12, 2, 1024, 1024, 128, True, None, "bfloat16")
+HUBERT_FLASH = (4, 16, 16, 1024, 1024, 80, False, None, "bfloat16")
 FLASH_CASES = [
     (4, 16, 16, 1024, 1024, 128, True, None, "bfloat16"),
     QWEN_FLASH,
@@ -479,7 +532,11 @@ FLASH_CASES = [
     (2, 4, 2, 128, 128, 32, True, 64, "float32"),
     (1, 4, 2, 64, 256, 64, True, None, "float32"),
     (4, 16, 16, 1000, 1000, 128, True, None, "bfloat16"),
-] + [case for d in (64, 128) for case in (
+    QWEN2VL_FLASH, QWEN2VL_FLASH[:-1] + ("float32",),
+    HUBERT_FLASH, HUBERT_FLASH[:-1] + ("float32",),
+    (4, 16, 16, 1000, 1000, 80, False, None, "bfloat16"),
+    (4, 16, 16, 1000, 1000, 80, False, None, "float32"),
+] + [case for d in (64, 80, 128) for case in (
     (2, 8, 2, 128, 128, d, True, None, "bfloat16"),
     (2, 4, 2, 128, 128, d, True, 64, "bfloat16"),
     (2, 4, 4, 128, 128, d, False, None, "bfloat16"),
@@ -634,11 +691,16 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
     small = sorted({(4, k, n) for k, n in DECODE_KN + PATH_KN + RWKV_KN
-                    + [RWKV_HEAD_KN] + QWEN_DECODE_KN + QWEN_KN}
-                   | {(128, k, n) for k, n in PATH_KN + QWEN_KN})
+                    + [RWKV_HEAD_KN] + QWEN_DECODE_KN + QWEN_KN
+                    + QWEN2VL_DECODE_KN + HUBERT_DECODE_KN
+                    + [HUBERT_HEAD_KN]}
+                   | {(128, k, n) for k, n in PATH_KN + QWEN_KN + QWEN2VL_KN})
     prefill = sorted({(OLMO_PREFILL_M, k, n) for k, n in PREFILL_KN}
                      | {(RWKV_PREFILL_M, k, n) for k, n in RWKV_KN}
-                     | {(QWEN_PREFILL_M, k, n) for k, n in QWEN_KN})
+                     | {(QWEN_PREFILL_M, k, n) for k, n in QWEN_KN}
+                     | {(QWEN2VL_PREFILL_M, k, n) for k, n in QWEN2VL_KN}
+                     | {(HUBERT_M, k, n)
+                        for k, n in HUBERT_KN + [HUBERT_HEAD_KN]})
     plain_at = (OLMO_PREFILL_M, 2048, 2048)
     for mm, k, n in small + prefill:
         pack, a_qp, blocked = random_pack(torch, k, n, mode, m, gen, dev)
@@ -1120,6 +1182,24 @@ def _slice_layers(tree, n: int):
     return tree[:n]
 
 
+def build_packed(torch, dev, arch: str):
+    """(cfg, api, serve-default packs on the approx kernel) of one arch at
+    full width and depth, from the seeded init (freed once packed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeConfig, build_serving_params
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    api = build_model(cfg, dev)
+    params = api.init(0)
+    packed = build_serving_params(params, cfg, ServeConfig(spec=pallas_spec()),
+                                  device=dev)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return cfg, api, packed
+
+
 def run_rwkv_engine(torch, dev) -> dict:
     """Phase 4c: full-width rwkv6-1.6b (24 layers) through the engine on
     ``serve-default`` packs: the per-slot recurrent state, each chunk as
@@ -1128,20 +1208,12 @@ def run_rwkv_engine(torch, dev) -> dict:
     ``decode_step`` over every prompt token, the recurrent form the engine
     serves, on a batch of ``slots`` rows so that every product has the
     engine's shape)."""
-    from repro_torch.configs import EngineConfig, get_config
+    from repro_torch.configs import EngineConfig
     from repro_torch.core.approx_linear import iter_tensors
-    from repro_torch.launch.serve import (ServeConfig, build_serving_params,
-                                          mixed_trace)
-    from repro_torch.models import build_model
+    from repro_torch.launch.serve import mixed_trace
 
-    cfg = get_config("rwkv6-1.6b")
-    api = build_model(cfg, dev)
+    cfg, api, packed = build_packed(torch, dev, "rwkv6-1.6b")
     spec = pallas_spec()
-    params = api.init(0)
-    packed = build_serving_params(params, cfg, ServeConfig(spec=spec),
-                                  device=dev)
-    del params
-    torch.cuda.empty_cache()
     check_packs("rwkv6", packed)
     ecfg = EngineConfig(slots=4, max_len=256, prefill_chunk=32,
                         cache_dtype="bfloat16")
@@ -1290,7 +1362,7 @@ BATCH, GEN = 4, 32
 #: (M = 4 <= DECODE_M_MAX) and has a tied float head, as has qwen3-4b;
 #: rwkv6 has no fusable group and a packed head.
 LEGACY = {"olmo-1b": (1024, 4, 7, 0), "rwkv6-1.6b": (512, 8, 8, 1),
-          "qwen3-4b": (1024, 4, 7, 0)}
+          "qwen3-4b": (1024, 4, 7, 0), "qwen2-vl-2b": (1024, 4, 7, 0)}
 
 
 def wrappers() -> dict:
@@ -1302,6 +1374,61 @@ def wrappers() -> dict:
             "approx_matmul_cv": amk.approx_matmul_cv,
             "flash_attention": fak.flash_attention,
             "rwkv6_scan": rsk.rwkv6_scan}
+
+
+def counted_run(torch, label: str, run, expected: dict, what: str):
+    """Runs ``run`` (warmed up before) once, with every wrapper's count
+    zeroed just before and read just after; fails unless the counts equal
+    ``expected`` (a wrapper it does not name: 0).  Returns ``run``'s result,
+    the wall seconds, the counts and the peak bytes allocated."""
+    wr = wrappers()
+    for w in wr.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wr.items()}
+    want = {n: expected.get(n, 0) for n in wr}
+    print(f"{label}: wrapper launches {launches}, {what} implies {want}",
+          flush=True)
+    if launches != want:
+        fail(f"{label}: launches {launches} != {want}")
+    return out, wall, launches, torch.cuda.max_memory_allocated()
+
+
+def check_prefill(torch, label: str, logits, shape: tuple, mod, plain=None):
+    """The checks every prefill path shares, on ``logits()``: two calls give
+    bit-equal finite float32 logits of ``shape``; one call with ``mod``'s
+    kernel swapped for ``plain`` (its own plain version unless given) gives
+    the logit gap and the argmax agreement; then the teacher-forced
+    per-layer check.  Returns the fields of the path's JSON line and the
+    (last dim, causal flag) of the kernel's calls."""
+    name = "rwkv6_scan" if hasattr(mod, "rwkv6_scan") else "flash_attention"
+    l1, l2 = logits(), logits()
+    torch.cuda.synchronize()
+    if tuple(l1.shape) != shape or l1.dtype != torch.float32 \
+            or not bool(torch.isfinite(l1).all()):
+        fail(f"{label}: logits {l1.dtype} {tuple(l1.shape)} not finite f32 "
+             f"of shape {shape}")
+    if not torch.equal(l1, l2):
+        fail(f"{label}: two identical calls gave different logits")
+    del l2
+    with plain_swapped(label, [(mod, name,
+                                plain or getattr(mod, f"{name}_plain"))]):
+        lp = logits()
+    torch.cuda.synchronize()
+    gap = float((l1 - lp).abs().max())
+    agree = float((l1.argmax(-1) == lp.argmax(-1)).float().mean())
+    print(f"{label}: deterministic; logits with {name} swapped for its plain "
+          f"version: max gap {gap:.4g} (logit scale "
+          f"{float(l1.abs().max()):.4g}), argmax agreement {agree:.3f}",
+          flush=True)
+    del l1, lp
+    per_layer, calls = teacher_forced(torch, label, mod, logits)
+    return {"plain_gap": gap, "plain_argmax_agreement": agree,
+            "per_layer_max_abs_err": per_layer}, calls
 
 
 def run_legacy_path(torch, dev, arch: str) -> dict:
@@ -1318,6 +1445,7 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
 
     prompt_len, pre_calls, dec_calls, head_calls = LEGACY[arch]
     cfg = get_config(arch)
+    label = f"legacy {arch}"
     print(f"legacy: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
           f"d_ff={cfg.d_ff} vocab={cfg.vocab} rwkv={cfg.rwkv} "
           f"compute={cfg.compute_dtype}; B={BATCH} T={prompt_len} G={GEN}",
@@ -1337,33 +1465,20 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
     params = api.init(0)
     serve.run_legacy(args(2), params=params)  # warm-up, not counted
     torch.cuda.synchronize()
-    wr = wrappers()
-    for w in wr.values():
-        w.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    res = serve.run_legacy(args(GEN), params=params)
-    torch.cuda.synchronize()
-    launches = {n: w.launches for n, w in wr.items()}
-    peak = torch.cuda.max_memory_allocated()
-    packed = res["params"]
-    del params
-    check_packs(f"legacy {arch}", packed)
-
-    per_prefill = cfg.n_layers
     expected = {
         "approx_matmul_cv_fused": cfg.n_layers * (pre_calls + dec_calls * (
             GEN - 1)) + head_calls * GEN,
-        "approx_matmul_cv": 0,
-        "flash_attention": 0 if cfg.rwkv else per_prefill,
-        "rwkv6_scan": per_prefill if cfg.rwkv else 0}
-    print(f"legacy: {arch} wrapper launches {launches}, the schedule implies "
-          f"{expected} (one prefill, {GEN - 1} decode steps)", flush=True)
-    if launches != expected:
-        fail(f"legacy {arch}: launches {launches} != {expected}")
+        "rwkv6_scan" if cfg.rwkv else "flash_attention": cfg.n_layers}
+    res, _, launches, peak = counted_run(
+        torch, label, lambda: serve.run_legacy(args(GEN), params=params),
+        expected, f"the schedule (one prefill, {GEN - 1} decode steps)")
+    packed = res["params"]
+    del params
+    check_packs(label, packed)
     toks = res["tokens"]
     if toks.shape != (BATCH, GEN) or not bool(
             ((toks >= 0) & (toks < cfg.vocab)).all()):
-        fail(f"legacy {arch}: tokens {tuple(toks.shape)} out of range")
+        fail(f"{label}: tokens {tuple(toks.shape)} out of range")
 
     prompt = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab, (BATCH, prompt_len)), device=dev)
@@ -1371,13 +1486,6 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
     def last_logits():
         return api.prefill(packed, {"tokens": prompt}, prompt_len + GEN)[0]
 
-    l1, l2 = last_logits(), last_logits()
-    torch.cuda.synchronize()
-    if l1.shape != (BATCH, cfg.vocab) or l1.dtype != torch.float32 \
-            or not bool(torch.isfinite(l1).all()):
-        fail(f"legacy {arch}: logits {l1.dtype} {tuple(l1.shape)} not finite")
-    if not torch.equal(l1, l2):
-        fail(f"legacy {arch}: two identical prefills gave different logits")
     first = []  # the first layer's scan inputs in the plain run
 
     def scan_plain(*a, **kw):
@@ -1385,42 +1493,32 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
             first.append(a)
         return rsk.rwkv6_scan_plain(*a, **kw)
 
-    swap = ([(rsk, "rwkv6_scan", scan_plain)] if cfg.rwkv else
-            [(fak, "flash_attention", fak.flash_attention_plain)])
-    with plain_swapped(f"legacy {arch}", swap):
-        lp = last_logits()
-    torch.cuda.synchronize()
-    gap = float((l1 - lp).abs().max())
-    agree = float((l1.argmax(-1) == lp.argmax(-1)).float().mean())
-    print(f"legacy: {arch} deterministic; last-token prefill logits with "
-          f"{swap[0][1]} swapped for its plain version: max gap {gap:.4g} "
-          f"(logit scale {float(l1.abs().max()):.4g}), argmax agreement "
-          f"{agree:.2f}", flush=True)
+    checked, _ = check_prefill(torch, label, last_logits, (BATCH, cfg.vocab),
+                               rsk if cfg.rwkv else fak,
+                               scan_plain if cfg.rwkv else None)
     flips = None
     if first:  # where the gap starts: the model casts the WKV output to bf16
         o_k, o_p = rsk.rwkv6_scan(*first[0])[0], rsk.rwkv6_scan_plain(
             *first[0])[0]
         diff = (o_k - o_p).abs()
         flips = int((o_k.bfloat16() != o_p.bfloat16()).sum())
-        print(f"legacy: {arch} first layer's WKV output, kernel against plain "
-              f"on the same inputs: max abs diff {float(diff.max()):.3g}, "
+        print(f"{label}: first layer's WKV output, kernel against plain on "
+              f"the same inputs: max abs diff {float(diff.max()):.3g}, "
               f"median relative diff "
               f"{float((diff / o_p.abs().clamp_min(1e-30)).median()):.3g}; "
               f"{flips} of {o_p.numel()} values differ once rounded to "
               "bfloat16", flush=True)
-    per_layer = teacher_forced(torch, f"legacy {arch}", rsk if cfg.rwkv
-                               else fak, last_logits)
     cache = api.prefill(packed, {"tokens": prompt}, prompt_len + GEN)[1]
     tok = torch.zeros(BATCH, 1, dtype=torch.long, device=dev)
     breakdown = {
-        "prefill": profile_fn(torch, f"legacy: {arch} profile prefill",
+        "prefill": profile_fn(torch, f"{label}: profile prefill",
                               last_logits, f"host_profile_{arch}_prefill.txt"),
         # one decode step after the prompt; the ten profiled steps stay
         # inside the cache's GEN free positions
-        "decode": profile_fn(torch, f"legacy: {arch} profile decode step",
+        "decode": profile_fn(torch, f"{label}: profile decode step",
                              lambda: api.decode_step(packed, tok, cache),
                              f"host_profile_{arch}_decode.txt")}
-    check_one_launch(f"legacy: {arch} decode step", breakdown["decode"])
+    check_one_launch(f"{label}: decode step", breakdown["decode"])
     line = {"arch": arch, "layers": cfg.n_layers, "batch": BATCH,
             "prompt_len": prompt_len, "gen": GEN,
             "prefill_ms": res["prefill_s"] * 1e3,
@@ -1428,23 +1526,218 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
             "k_major_gib": k_major_gib(packed),
             "decode_ms_per_token": res["decode_s_per_step"] * 1e3,
             "tok_per_s": res["tok_per_s"], "peak_mem_gib": peak / 2**30,
-            "plain_gap": gap, "plain_argmax_agreement": agree,
-            "scan_bf16_flips_layer0": flips,
-            "per_layer_max_abs_err": per_layer,
+            **checked, "scan_bf16_flips_layer0": flips,
             "launches": launches, "step_breakdown": breakdown}
-    print(f"legacy: {arch} prefill_ms {line['prefill_ms']:.2f}", flush=True)
-    print(f"legacy: {arch} decode_ms_per_token "
+    print(f"{label}: prefill_ms {line['prefill_ms']:.2f}; decode_ms_per_token "
           f"{line['decode_ms_per_token']:.2f} (one token per sequence per "
-          f"step, {BATCH} sequences)", flush=True)
-    print(f"legacy: {arch} tok_per_s {line['tok_per_s']:.1f}", flush=True)
-    print(f"legacy: {arch} peak_mem_gib {line['peak_mem_gib']:.3f} (serving "
-          f"params {line['pack_gib']:.3f} GiB, K-major weight codes "
+          f"step, {BATCH} sequences); tok_per_s {line['tok_per_s']:.1f}; "
+          f"peak_mem_gib {line['peak_mem_gib']:.3f} (serving params "
+          f"{line['pack_gib']:.3f} GiB, K-major weight codes "
           f"{line['k_major_gib']:.3f} GiB of it)", flush=True)
-    print("legacy: " + json.dumps(line), flush=True)
-    (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / f"legacy_{arch}.json").write_text(
-        json.dumps(line) + "\n")
+    write_line(label, f"legacy_{arch}.json", line)
     return line
+
+
+def run_qwen2vl_engine(torch, dev) -> dict:
+    """Phase 4d: full-width qwen2-vl-2b (28 layers; M-RoPE with the three
+    ids equal, as token prompts give; QKV biases; GQA 12/2) through the
+    engine on ``serve-default`` packs with a bf16 KV cache, with the checks
+    of the olmo-1b phase.  The engine takes token prompts only, as the
+    reference's does.  Returns the launch counts and (cfg, api, packs) for
+    the embeds phase."""
+    from repro_torch.configs import EngineConfig
+    from repro_torch.core.approx_linear import iter_tensors
+    from repro_torch.launch.serve import mixed_trace
+
+    t0 = time.perf_counter()
+    cfg, api, packed = build_packed(torch, dev, "qwen2-vl-2b")
+    label = "qwen2-vl"
+    members = check_packs(label, packed)
+    pack_gib = storage_gib(iter_tensors(packed))
+    print(f"{label}: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads} kv={cfg.kv_heads} head_dim={cfg.head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab} rope={cfg.rope} "
+          f"sections={cfg.mrope_sections} theta={cfg.rope_theta:g} "
+          f"qkv_bias={cfg.qkv_bias} tied={cfg.tie_embeddings}; init + pack "
+          f"{time.perf_counter() - t0:.1f} s; serving params {pack_gib:.3f} "
+          f"GiB, K-major weight codes {k_major_gib(packed):.3f} GiB "
+          f"({members} fused-group members read row slices of their "
+          "group's)", flush=True)
+    ecfg = EngineConfig(slots=4, max_len=256, prefill_chunk=32,
+                        cache_dtype="bfloat16")
+    trace = mixed_trace(cfg, 8, ecfg.max_len, ecfg.prefill_chunk, seed=0)
+    warm_up(torch, api, packed, ecfg)
+    spec = pallas_spec()
+    run = engine_run(torch, label, cfg, api, packed, ecfg, trace,
+                     dense_calls(cfg, ecfg.slots), spec.name)
+    check_sequential(label, run, trace, lambda p, g, calls: replay_dense(
+        torch, api, packed, ecfg, p, calls))
+    g = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (ecfg.slots, ecfg.prefill_chunk),
+                         generator=g, device=dev)
+    kernel_vs_plain(torch, label, api, packed, ecfg, toks)
+    breakdown = {kind: profile_call(torch, label, api, packed, ecfg, c)
+                 for kind, c in (("thin", 1), ("chunk", ecfg.prefill_chunk))}
+    check_one_launch(f"{label}: thin step", breakdown["thin"])
+    write_line(label, "engine_qwen2-vl.json", {
+        **served_metrics(run["snap"]), "layers": cfg.n_layers,
+        "peak_mem_gib": run["peak"] / 2**30, "pack_gib": pack_gib,
+        "k_major_gib": k_major_gib(packed),
+        "cache_gib": cache_gib(run["cache"]), "launches": run["launches"],
+        "step_breakdown": breakdown})
+    return run["launches"], (cfg, api, packed)
+
+
+def mrope_ids(torch, b: int, t: int, dev, start: int = 64, side: int = 16):
+    """(3, B, T) M-RoPE ids of a prompt with one image: text ids 0..start-1
+    on all three axes, then a side x side block of patches whose temporal
+    id stays at ``start`` while the height and width ids walk its rows and
+    columns, then text again from ``start + side`` on all three axes (the
+    layout qwen2-vl gives an image inside text)."""
+    n = side * side
+    ids = torch.arange(t, device=dev).repeat(3, b, 1)
+    r = torch.arange(n, device=dev) // side
+    c = torch.arange(n, device=dev) % side
+    ids[0, :, start:start + n] = start
+    ids[1, :, start:start + n] = start + r
+    ids[2, :, start:start + n] = start + c
+    ids[:, :, start + n:] = start + side + torch.arange(t - start - n,
+                                                       device=dev)
+    return ids
+
+
+def run_vlm_embeds(torch, dev, built) -> dict:
+    """Phase 4e: qwen2-vl-2b's multimodal prefill at full width on the
+    engine phase's packs (``built``: cfg, api, packs): (4, 1024, 1536) bf16
+    embeddings (the stubbed vision frontend's output, made from the seed)
+    with (3, 4, 1024) M-RoPE ids holding a 16 x 16 image block, then GEN
+    greedy token decode steps whose positions continue from the cache's on
+    all three axes (the reference's rule).  Checks the launch counts (one
+    flash a layer; the approx kernel on every packed layer), finite
+    tokens and logits, that the whole run twice gives bit-equal tokens,
+    that the M-RoPE ids reach the logits, and ``check_prefill``."""
+    from repro_torch.core.approx_linear import iter_tensors
+    from repro_torch.kernels import flash_attention as fak
+
+    label = "vlm embeds"
+    cfg, api, packed = built
+    b, t = BATCH, LEGACY["qwen2-vl-2b"][0]
+    g = torch.Generator(device=dev).manual_seed(11)
+    emb = torch.randn(b, t, cfg.d_model, generator=g, device=dev).to(
+        torch.bfloat16)
+    ids = mrope_ids(torch, b, t, dev)
+    print(f"{label}: {cfg.name} layers={cfg.n_layers}; embeds "
+          f"{tuple(emb.shape)} bf16, M-RoPE ids {tuple(ids.shape)} with a "
+          f"16 x 16 image block; then {GEN} decode steps", flush=True)
+
+    def prefill(positions=ids):
+        return api.prefill(packed, {"embeds": emb, "positions": positions},
+                           t + GEN)
+
+    def generate():
+        logits, cache = prefill()
+        first = logits
+        tok = torch.argmax(logits, -1)[:, None]
+        out = [tok]
+        for _ in range(GEN):
+            logits, cache = api.decode_step(packed, tok, cache)
+            tok = torch.argmax(logits, -1)[:, None]
+            out.append(tok)
+        return first, logits, torch.cat(out, 1)
+
+    generate()  # warm-up, not counted
+    torch.cuda.synchronize()
+    (first, last, toks), wall, launches, peak = counted_run(
+        torch, label, generate, {
+            "approx_matmul_cv_fused": cfg.n_layers * (4 + 7 * GEN),
+            "flash_attention": cfg.n_layers},
+        f"the schedule (one prefill, {GEN} decode steps)")
+    if last.shape != (b, cfg.vocab) or not bool(torch.isfinite(last).all()):
+        fail(f"{label}: last decode step's logits {tuple(last.shape)} not "
+             "finite")
+    if toks.shape != (b, GEN + 1) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        fail(f"{label}: tokens {tuple(toks.shape)} out of range")
+    if not torch.equal(toks, generate()[2]):
+        fail(f"{label}: two identical runs gave different tokens")
+    text = prefill(None)[0]  # the ids 0..T-1 on all three axes
+    mrope_moves = float((text - first).abs().max())
+    if mrope_moves == 0.0:
+        fail(f"{label}: the M-RoPE ids did not reach the logits")
+    print(f"{label}: {toks.numel()} tokens equal in two runs; the ids 0..T-1 "
+          f"on every axis move the prefill logits by {mrope_moves:.4g}",
+          flush=True)
+    checked, _ = check_prefill(torch, label, lambda: prefill()[0],
+                               (b, cfg.vocab), fak)
+    breakdown = {"prefill": profile_fn(
+        torch, f"{label}: profile prefill", lambda: prefill()[0],
+        "host_profile_qwen2-vl_embeds_prefill.txt")}
+    write_line(label, "vlm_embeds.json", {
+        "arch": cfg.name, "layers": cfg.n_layers, "batch": b,
+        "prompt_len": t, "gen": GEN, "wall_s": wall,
+        "pack_gib": storage_gib(iter_tensors(packed)),
+        "peak_mem_gib": peak / 2**30, "mrope_logit_move": mrope_moves,
+        **checked, "launches": launches, "step_breakdown": breakdown})
+    return {"launches": launches, **checked}
+
+
+def run_hubert_encoder(torch, dev) -> dict:
+    """Phase 5b: hubert-xlarge's encoder at full width and depth (48
+    layers): ``forward`` over (4, 1024, 1280) bf16 frame embeddings (the
+    stubbed waveform frontend's output for about 20 s of audio at HuBERT's
+    50 Hz frame rate), on ``serve-default`` packs.  Checks one
+    non-causal flash launch at D=80 a layer, the packed layers and the
+    head (N=504, on the prefill tile) on the approx kernel, finite and
+    deterministic logits, the logit gap to the plain flash and the
+    teacher-forced per-layer flash check."""
+    from repro_torch.core.approx_linear import iter_tensors
+    from repro_torch.kernels import approx_matmul as amk
+    from repro_torch.kernels import flash_attention as fak
+
+    label = "hubert"
+    t0 = time.perf_counter()
+    cfg, api, packed = build_packed(torch, dev, "hubert-xlarge")
+    check_packs(label, packed)
+    pack_gib = storage_gib(iter_tensors(packed))
+    b, t = BATCH, HUBERT_M // BATCH
+    g = torch.Generator(device=dev).manual_seed(13)
+    emb = torch.randn(b, t, cfg.d_model, generator=g, device=dev).to(
+        torch.bfloat16)
+    head_tile = amk.tile(b * t, *HUBERT_HEAD_KN, "perforated", 2)
+    print(f"{label}: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads} kv={cfg.kv_heads} head_dim={cfg.head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab} norm={cfg.norm} mlp={cfg.mlp} "
+          f"rope={cfg.rope} causal={cfg.causal}; init + pack "
+          f"{time.perf_counter() - t0:.1f} s, serving params {pack_gib:.3f} "
+          f"GiB; frames {tuple(emb.shape)} bf16; head {HUBERT_HEAD_KN} on "
+          f"the {head_tile} tile", flush=True)
+    if head_tile == "split_k":
+        fail(f"{label}: the head's prefill rows took the split-K kernel")
+
+    def forward():
+        return api.forward(packed, {"embeds": emb})
+
+    forward()  # warm-up, not counted
+    torch.cuda.synchronize()
+    _, wall, launches, peak = counted_run(
+        torch, label, forward, {
+            "approx_matmul_cv_fused": cfg.n_layers * 4 + 1,
+            "flash_attention": cfg.n_layers}, "one forward")
+    checked, calls = check_prefill(torch, label, forward,
+                                   (b, t, cfg.vocab), fak)
+    print(f"{label}: flash calls (head dim, causal) {sorted(calls)}",
+          flush=True)
+    if calls != {(cfg.head_dim, False)}:
+        fail(f"{label}: flash calls {sorted(calls)}, want non-causal at "
+             f"D={cfg.head_dim}")
+    breakdown = {"forward": profile_fn(torch, f"{label}: profile forward",
+                                       forward, "host_profile_hubert.txt")}
+    write_line(label, "encoder_hubert.json", {
+        "arch": cfg.name, "layers": cfg.n_layers, "batch": b, "frames": t,
+        "forward_ms": wall * 1e3, "pack_gib": pack_gib,
+        "k_major_gib": k_major_gib(packed), "peak_mem_gib": peak / 2**30,
+        **checked, "launches": launches, "step_breakdown": breakdown})
+    return {"launches": launches, **checked}
 
 
 def teacher_forced(torch, label: str, mod, run) -> list[float]:
@@ -1455,12 +1748,13 @@ def teacher_forced(torch, label: str, mod, run) -> list[float]:
     outside the kernel's per-call tolerance (flash: FLASH_RTOL, each row to
     its own scale; scan: SCAN_RTOL on the output and the final state).
     The model goes on with the kernel's output.  Returns each layer's max
-    abs error."""
+    abs error and the (last dim, causal flag) of the calls."""
     name = "rwkv6_scan" if hasattr(mod, "rwkv6_scan") else "flash_attention"
     kern, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
-    gaps = []
+    gaps, calls = [], set()
 
     def both(*a, **kw):
+        calls.add((a[0].shape[-1], kw.get("causal")))
         got, want = kern(*a, **kw), plain(*a, **kw)
         if name == "rwkv6_scan":
             gaps.append(max(close(torch, g, w, SCAN_RTOL)
@@ -1486,12 +1780,13 @@ def teacher_forced(torch, label: str, mod, run) -> list[float]:
           f" every layer within the per-call tolerance; largest max abs err "
           f"{gaps[worst]:.4g} (layer {worst}); by layer "
           f"{[float(f'{g:.3g}') for g in gaps]}", flush=True)
-    return gaps
+    return gaps, calls
 
 
 def attn_scan_times(torch, dev, card: str) -> dict:
-    """Phase 6, second half: flash attention at the olmo-1b prefill shape
-    and the scan at the rwkv6-1.6b prefill shape (kernel, plain, library,
+    """Phase 6, second half: flash attention at the prefill shapes of
+    olmo-1b, qwen3-4b and qwen2-vl-2b and of hubert-xlarge's encoder, and
+    the scan at the rwkv6-1.6b prefill shape (kernel, plain, library,
     bound)."""
     from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import rwkv6_scan as rsk
@@ -1502,13 +1797,17 @@ def attn_scan_times(torch, dev, card: str) -> dict:
 
     bf = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for key, (b, hq, hkv, t, _, d, *_) in (("flash_attention", FLASH_CASES[0]),
-                                           ("flash_attention qwen3-4b",
-                                            QWEN_FLASH)):
-        # 48-80 MB of q, k, v per call: three copies exceed the 50 MB L2
+    for key, (b, hq, hkv, t, _, d, causal, *_) in (
+            ("flash_attention", FLASH_CASES[0]),
+            ("flash_attention qwen3-4b", QWEN_FLASH),
+            ("flash_attention qwen2-vl-2b", QWEN2VL_FLASH),
+            ("flash_attention hubert-xlarge", HUBERT_FLASH)):
+        # 28-80 MB of q, k, v per call: three copies exceed the 50 MB L2
         qkv = [tuple(torch.randn(b, h, t, d, generator=gen, device=dev).to(bf)
                      for h in (hq, hkv, hkv)) for _ in range(3)]
-        flops = 4.0 * b * hq * d * t * (t + 1) / 2  # QK and PV, visible pairs
+        # QK and PV over the visible (query, key) pairs
+        pairs = t * (t + 1) / 2 if causal else t * t
+        flops = 4.0 * b * hq * d * pairs
         # q and out, k and v
         nbytes = 2.0 * (2 * b * hq * t * d + 2 * b * hkv * t * d)
         # SDPA's own GQA (enable_gqa), or, in a PyTorch without it, KV heads
@@ -1516,7 +1815,7 @@ def attn_scan_times(torch, dev, card: str) -> dict:
         lib, gqa = qkv, {"enable_gqa": True}
         if hq != hkv:
             try:
-                sdpa(*qkv[0], is_causal=True, **gqa)
+                sdpa(*qkv[0], is_causal=causal, **gqa)
             except TypeError:
                 reps, gqa = hq // hkv, {}
                 lib = [(q, k.repeat_interleave(reps, 1),
@@ -1525,14 +1824,15 @@ def attn_scan_times(torch, dev, card: str) -> dict:
             gqa = {}
         t_ops, t_bytes = flops / bf16_peak, nbytes / bw
         rows[key] = {
-            "shape": [b, hq, hkv, t, d], "dtype": "bfloat16", "causal": True,
-            "kernel_us": time_calls(torch, [lambda a=a: fak.flash_attention(*a)
-                                            for a in qkv]) * 1e6,
+            "shape": [b, hq, hkv, t, d], "dtype": "bfloat16", "causal": causal,
+            "kernel_us": time_calls(torch, [
+                lambda a=a: fak.flash_attention(*a, causal=causal)
+                for a in qkv]) * 1e6,
             "plain_us": time_calls(torch, [
-                lambda a=a: fak.flash_attention_plain(*a)
+                lambda a=a: fak.flash_attention_plain(*a, causal=causal)
                 for a in qkv[:2]], reps=5) * 1e6,
             "library_us": time_calls(torch, [
-                lambda a=a: sdpa(*a, is_causal=True, **gqa)
+                lambda a=a: sdpa(*a, is_causal=causal, **gqa)
                 for a in lib]) * 1e6,
             "library": ("scaled_dot_product_attention"
                         + (" enable_gqa" if gqa else "")),
@@ -1621,15 +1921,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["engine rwkv6-1.6b"] = run_rwkv_engine(torch, dev)
     torch.cuda.empty_cache()
-    per_layer = {}
+    paths["engine qwen2-vl-2b"], built = run_qwen2vl_engine(torch, dev)
+    res = run_vlm_embeds(torch, dev, built)  # on the engine phase's packs
+    del built
+    paths["embeds qwen2-vl-2b"] = res["launches"]
+    per_layer = {"embeds qwen2-vl-2b": max(res["per_layer_max_abs_err"])}
+    torch.cuda.empty_cache()
     for arch in LEGACY:
         line = run_legacy_path(torch, dev, arch)
         paths[f"legacy {arch}"] = line["launches"]
         per_layer[arch] = max(line["per_layer_max_abs_err"])
         torch.cuda.empty_cache()
-    print("lock-step prefills, teacher-forced per layer: every layer of "
-          "every prefill inside its kernel's per-call tolerance; largest max "
-          "abs err by arch " + json.dumps(per_layer), flush=True)
+    res = run_hubert_encoder(torch, dev)
+    paths["encoder hubert-xlarge"] = res["launches"]
+    per_layer["encoder hubert-xlarge"] = max(res["per_layer_max_abs_err"])
+    torch.cuda.empty_cache()
+    print("prefills and the encoder, teacher-forced per layer: every layer "
+          "of every prefill inside its kernel's per-call tolerance; largest "
+          "max abs err by path " + json.dumps(per_layer), flush=True)
     launches = {n: sum(p[n] for p in paths.values()) for n in wrappers()}
     print("launches by path: " + json.dumps(paths), flush=True)
     rows = kernel_times(torch, dev, card)
@@ -1659,11 +1968,29 @@ def main() -> int:
         print(f"{name} per layer, qwen3-4b engine chunk step (4 launches, "
               "M=128): " + json.dumps(step_entry(rows, name, QWEN_KN, 128)),
               flush=True)
+        for label, kn, mm in (
+                ("qwen2-vl-2b decode step (7 launches, M=4)",
+                 QWEN2VL_DECODE_KN, 4),
+                ("qwen2-vl-2b engine chunk step (4 launches, M=128)",
+                 QWEN2VL_KN, 128),
+                ("hubert-xlarge --legacy decode step shapes, kernel only "
+                 "(no phase drives them; 6 launches, M=4)",
+                 HUBERT_DECODE_KN, 4),
+                ("hubert-xlarge head at --legacy decode rows, kernel only "
+                 "(no phase drives it; 1 launch, M=4)",
+                 [HUBERT_HEAD_KN], 4)):
+            print(f"{name} per layer, {label}: "
+                  + json.dumps(step_entry(rows, name, kn, mm)), flush=True)
         if name == "approx_matmul_cv_fused":
-            for label, kn, mm in (("olmo-1b", PREFILL_KN, OLMO_PREFILL_M),
-                                  ("rwkv6-1.6b", RWKV_KN, RWKV_PREFILL_M),
-                                  ("qwen3-4b", QWEN_KN, QWEN_PREFILL_M)):
-                print(f"{name} per layer, {label} lock-step prefill "
+            for label, kn, mm in (
+                    ("olmo-1b", PREFILL_KN, OLMO_PREFILL_M),
+                    ("rwkv6-1.6b", RWKV_KN, RWKV_PREFILL_M),
+                    ("qwen3-4b", QWEN_KN, QWEN_PREFILL_M),
+                    ("qwen2-vl-2b", QWEN2VL_KN, QWEN2VL_PREFILL_M),
+                    ("hubert-xlarge encoder", HUBERT_KN, HUBERT_M),
+                    ("hubert-xlarge encoder head", [HUBERT_HEAD_KN],
+                     HUBERT_M)):
+                print(f"{name} per layer, {label} prefill "
                       f"({len(kn)} launches, M={mm}): "
                       + json.dumps(step_entry(rows, name, kn, mm)),
                       flush=True)

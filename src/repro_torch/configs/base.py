@@ -1,8 +1,12 @@
 """Architecture and engine configuration (port of ``repro.configs.base``).
 
-Only the fields the ported paths read are kept (dense GQA with rmsnorm,
-qk-norm and QKV bias; RWKV6); the other architecture families land with
-the slices that serve them.
+Only the fields the ported paths read are kept (dense GQA with rmsnorm or
+layernorm, qk-norm, QKV bias, RoPE / M-RoPE / no positions, causal or
+bidirectional attention, swiglu or gelu MLPs; RWKV6); the other
+architecture families land with the slices that serve them.  The
+reference's ``mlp_bias`` and ``input_mode`` are not kept: its gelu MLP
+always has biases and its models take embeddings whenever the batch holds
+them, so neither field changes what a ported path does.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ class EngineConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: Literal["dense", "ssm"]
+    family: Literal["dense", "vlm", "audio", "ssm"]
     n_layers: int
     d_model: int
     n_heads: int
@@ -48,9 +52,12 @@ class ArchConfig:
     attn: Literal["gqa", "none"] = "gqa"
     norm: Literal["rmsnorm", "layernorm", "nonparametric_ln"] = "rmsnorm"
     qk_norm: bool = False
+    rope: Literal["rope", "mrope", "none"] = "rope"
     rope_theta: float = 10000.0
+    mrope_sections: tuple[int, int, int] = (16, 24, 24)
     causal: bool = True
     qkv_bias: bool = False
+    mlp: Literal["swiglu", "gelu"] = "swiglu"
     # rwkv
     rwkv: bool = False
     rwkv_head_dim: int = 64
@@ -68,13 +75,19 @@ class ArchConfig:
         return AttnConfig(d_model=self.d_model, n_heads=self.n_heads,
                           kv_heads=self.kv_heads, head_dim=self.head_dim,
                           causal=self.causal, qk_norm=self.qk_norm,
-                          rope_theta=self.rope_theta, qkv_bias=self.qkv_bias)
+                          rope=self.rope, rope_theta=self.rope_theta,
+                          mrope_sections=self.mrope_sections,
+                          qkv_bias=self.qkv_bias)
 
     def rwkv_config(self):
         from repro_torch.nn.rwkv import RWKVConfig
 
         return RWKVConfig(d_model=self.d_model, d_ff=self.d_ff,
                           head_dim=self.rwkv_head_dim)
+
+    @property
+    def has_decode(self) -> bool:
+        return self.causal  # encoder-only archs have no decode step
 
     def reduced(self) -> "ArchConfig":
         """CPU smoke-test variant: same structure, tiny dims (the same
@@ -90,5 +103,7 @@ class ArchConfig:
             d_ff=128,
             vocab=256,
             rwkv_head_dim=16,
+            mrope_sections=((2, 3, 3) if self.rope == "mrope"
+                            else self.mrope_sections),
             compute_dtype="float32",
         )

@@ -5,12 +5,15 @@ from __future__ import annotations
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.deepseek_67b import CONFIG as _ds67
 from repro_torch.configs.granite_8b import CONFIG as _granite
+from repro_torch.configs.hubert_xlarge import CONFIG as _hubert
 from repro_torch.configs.olmo_1b import CONFIG as _olmo
+from repro_torch.configs.qwen2_vl_2b import CONFIG as _qwen2vl
 from repro_torch.configs.qwen3_4b import CONFIG as _qwen3
 from repro_torch.configs.rwkv6_1p6b import CONFIG as _rwkv6
 
 ARCH_REGISTRY: dict[str, ArchConfig] = {
-    c.name: c for c in (_qwen3, _ds67, _olmo, _granite, _rwkv6)}
+    c.name: c for c in (_qwen3, _ds67, _olmo, _granite, _qwen2vl, _hubert,
+                        _rwkv6)}
 
 
 def get_config(name: str) -> ArchConfig:

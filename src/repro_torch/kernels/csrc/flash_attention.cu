@@ -25,10 +25,11 @@
 // FlashAttention-2 pattern.  Four warps own 16 query rows each; Q's
 // fragments stay in registers for the whole key loop; K and V tiles are
 // double-buffered in shared memory by cp.async (the next tile loads while
-// this one is multiplied), rows of 16-byte chunks XOR-swizzled so that
-// ldmatrix (K, for S = Q.K^T) and ldmatrix.trans (V, for O += P.V) read
-// conflict-free.  Q is staged in the second buffer's K slot before the
-// loop, so a block holds 64 KB (D = 128) and three fit on an SM.  S is
+// this one is multiplied), rows of 16-byte chunks XOR-swizzled (D = 80:
+// rows padded to an odd stride of 11 chunks instead) so that ldmatrix (K,
+// for S = Q.K^T) and ldmatrix.trans (V, for O += P.V) read conflict-free.
+// Q is staged in the second buffer's K slot before the loop, so a block
+// holds 64 KB (D = 128) and three fit on an SM.  S is
 // scaled in float32 by scale*log2(e) and exponentiated with exp2f; P is
 // rounded to bf16 as the A operand of P.V straight from the S accumulator
 // registers (no trip through shared memory); the output is staged through
@@ -70,12 +71,16 @@ __device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
 }
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
 
-// accumulator column c (of D/16) of thread tx
+// accumulator column c (of NC = D/16) of thread tx.  NC >= 4: groups of
+// four columns at 64-column strides (float4 reads of V), then, where 4 does
+// not divide NC (D = 80), the NC % 4 columns left, tx's own past the last
+// group: D = 80 maps c < 4 to tx*4 + c (0..63) and c = 4 to 64 + tx.
 template <int D>
 __device__ __forceinline__ int acc_col(int tx, int c) {
-  constexpr int NC = D / 16;
+  constexpr int NC = D / 16, NF = NC / 4 * 4, NR = NC % 4;
   if constexpr (NC >= 4) {
-    return (c / 4) * 64 + tx * 4 + (c % 4);
+    if (c < NF) return (c / 4) * 64 + tx * 4 + (c % 4);
+    return NF * 16 + tx * NR + (c - NF);
   } else {
     return tx * NC + c;
   }
@@ -245,6 +250,8 @@ __global__ void __launch_bounds__(NT) fa_kernel(
             vv[g * 4] = t.x; vv[g * 4 + 1] = t.y;
             vv[g * 4 + 2] = t.z; vv[g * 4 + 3] = t.w;
           }
+#pragma unroll
+          for (int c = NC / 4 * 4; c < NC; ++c) vv[c] = vr[acc_col<D>(tx, c)];
         } else {
 #pragma unroll
           for (int c = 0; c < NC; ++c) vv[c] = vr[tx * NC + c];
@@ -299,19 +306,36 @@ constexpr int BQ = 64;   // query rows per block: four warps of 16
 constexpr int BKV = 64;  // keys per tile
 constexpr int NT = 128;  // threads per block
 
-// 16-byte chunk index of (row r, chunk c) in a tile of D-element rows: the
-// chunk is XOR-swizzled with the row so that the 8 rows one ldmatrix reads
-// hit distinct banks
+// 16-byte chunks a tile row takes in shared memory: the D / 8 of a row,
+// or, where that is neither below 8 nor a multiple of 8 (D = 80: 10), one
+// more, so that the stride is odd (11)
+template <int D>
+__host__ __device__ constexpr int row_chunks() {
+  constexpr int CH = D / 8;
+  return (CH < 8 || CH % 8 == 0) ? CH : (CH | 1);
+}
+
+// 16-byte chunk index of (row r, chunk c) in a tile of D-element rows, such
+// that the 8 rows one ldmatrix reads at one c hit distinct banks: rows of a
+// power-of-two number of chunks XOR-swizzle the chunk with the row; an odd
+// row stride (D = 80) needs no swizzle, since r * stride mod 8 already
+// differs for 8 consecutive rows.  (XOR-swizzling D = 80's 10 chunks would
+// send c = 8, 9 to 8..15, into the next row.)
 template <int D>
 __device__ __forceinline__ int chunk(int r, int c) {
-  constexpr int CH = D / 8;
-  constexpr int MASK = CH < 8 ? CH - 1 : 7;
-  return r * CH + (c ^ (r & MASK));
+  constexpr int CH = D / 8, RS = row_chunks<D>();
+  if constexpr (RS != CH) {
+    return r * RS + c;
+  } else {
+    constexpr int MASK = CH < 8 ? CH - 1 : 7;
+    return r * CH + (c ^ (r & MASK));
+  }
 }
 
 template <int D>
 constexpr int smem_bytes() {
-  return 4 * BKV * D * 2;  // two (K, V) buffers; Q passes through the second
+  // two (K, V) buffers; Q passes through the second
+  return 4 * BKV * row_chunks<D>() * 16;
 }
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
@@ -381,10 +405,11 @@ __global__ void __launch_bounds__(NT, 3) fa_tc_kernel(
     long long kst, long long vsb, long long vsh, long long vst, long long osb,
     long long osh, long long ost) {
   constexpr int CH = D / 8, KS = D / 16, NB = BKV / 8, DB = D / 8;
+  constexpr int TILE = BKV * row_chunks<D>();  // chunks of one K or V tile
   static_assert(BQ == BKV, "Q is staged in a K slot");
   extern __shared__ __align__(128) uint4 KVs[];  // buffer b: K at 2b, V at
                                                  // 2b + 1
-  uint4* Qs = KVs + 2 * BKV * CH;  // Q arrives in buffer 1's K slot
+  uint4* Qs = KVs + 2 * TILE;  // Q arrives in buffer 1's K slot
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -406,9 +431,9 @@ __global__ void __launch_bounds__(NT, 3) fa_tc_kernel(
 
   auto load_kv = [&](int it) {
     const int k0 = kbeg + it * BKV;
-    uint4* buf = KVs + (it & 1) * 2 * BKV * CH;
+    uint4* buf = KVs + (it & 1) * 2 * TILE;
     load_tile<D, BKV>(buf, kb, kst, k0, tk, tid);
-    load_tile<D, BKV>(buf + BKV * CH, vb, vst, k0, tk, tid);
+    load_tile<D, BKV>(buf + TILE, vb, vst, k0, tk, tid);
   };
 
   load_tile<D, BQ>(Qs, qb, qst, q0, tq, tid);
@@ -443,8 +468,8 @@ __global__ void __launch_bounds__(NT, 3) fa_tc_kernel(
       cp_wait<0>();
     }
     __syncthreads();
-    const uint4* Ks = KVs + (it & 1) * 2 * BKV * CH;
-    const uint4* Vs = Ks + BKV * CH;
+    const uint4* Ks = KVs + (it & 1) * 2 * TILE;
+    const uint4* Vs = Ks + TILE;
 
     // S = Q . K^T for this warp's 16 rows and the tile's 64 keys
     float s[NB][4];
@@ -597,6 +622,11 @@ int launch_d(int bf16, int d, const void* q, const void* k, const void* v,
       return bf16 ? tc::launch<64>(q, k, v, o, b, hq, hkv, tq, tk, causal,
                                    window, scale, st, stream)
                   : launch<float, 64>(q, k, v, o, b, hq, hkv, tq, tk, causal,
+                                      window, scale, st, stream);
+    case 80:
+      return bf16 ? tc::launch<80>(q, k, v, o, b, hq, hkv, tq, tk, causal,
+                                   window, scale, st, stream)
+                  : launch<float, 80>(q, k, v, o, b, hq, hkv, tq, tk, causal,
                                       window, scale, st, stream);
     case 128:
       return bf16 ? tc::launch<128>(q, k, v, o, b, hq, hkv, tq, tk, causal,

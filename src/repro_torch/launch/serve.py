@@ -14,9 +14,10 @@ hand-written CUDA kernel; the default CLI policy keeps the reference's
 
 runs on the card (``--device cpu`` for the plain path on the CPU), for
 every registered arch (``-reduced`` for the small CPU variant); the engine
-keeps its KV cache in bf16, f32 or int8 (``--cache-dtype``).
-``--legacy`` runs the lock-step loop instead (one prefill of a (B, T)
-prompt, then G-1 greedy decode steps), for every ported arch:
+keeps its KV cache in bf16, f32 or int8 (``--cache-dtype``) and refuses an
+encoder-only arch (hubert-xlarge), as the reference's does.  ``--legacy``
+runs the lock-step loop instead (one prefill of a (B, T) token prompt,
+then G-1 greedy decode steps), for every ported arch:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --legacy \
         --arch rwkv6-1.6b --spec-json spec.json --batch 4 --prompt-len 512

@@ -1,6 +1,15 @@
-"""Dense GQA transformer LM (port of the dense GQA + swiglu part of
-``repro.models.lm``): the full-sequence forward, the lock-step
-prefill/decode surface and the continuous-batching slot surface.
+"""Dense GQA transformer LM (port of the dense GQA part of
+``repro.models.lm``: swiglu or gelu MLPs, RoPE / M-RoPE / no positions,
+causal or bidirectional attention, token or embedding inputs): the
+full-sequence forward, the lock-step prefill/decode surface and the
+continuous-batching slot surface.
+
+``forward`` and ``prefill`` take ``batch["embeds"]`` (B, T, d_model) in
+place of ``batch["tokens"]`` when it is present (the stubbed vision and
+audio frontends), and ``batch["positions"]``, (B, T) or M-RoPE's
+(3, B, T), in place of 0..T-1.  Decode steps read token ids through the
+table, their positions continuing from the cache's (broadcast to the
+three M-RoPE axes), as the reference's do.
 
 Parameters are a nested dict keyed like the reference's tree: ``embed``,
 ``blocks`` (every leaf stacked with a leading layer axis, as the
@@ -31,8 +40,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.approx_linear import QuantizedDense, dense, layer_params
 from repro_torch.kernels import flash_attention as fak
 from repro_torch.nn import attention as attn_lib
-from repro_torch.nn.layers import (apply_norm, embed, init_norm, init_swiglu,
-                                   swiglu)
+from repro_torch.nn.layers import (apply_norm, embed, gelu_mlp, init_gelu_mlp,
+                                   init_norm, init_swiglu, swiglu)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -54,7 +63,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
             "mlp_norm": init_norm(cfg.norm, d, device),
             "attn": attn_lib.init_attention(cfg.attn_config(), generator=gen,
                                             device=device),
-            "mlp": init_swiglu(d, cfg.d_ff, generator=gen, device=device),
+            "mlp": (init_gelu_mlp if cfg.mlp == "gelu" else init_swiglu)(
+                d, cfg.d_ff, generator=gen, device=device),
         })
 
     def stack(nodes):
@@ -100,23 +110,37 @@ def _gqa_full(bp: dict, h: torch.Tensor, cfg: ArchConfig, positions,
     return out, entry
 
 
+def _mlp(bp: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    return (gelu_mlp if cfg.mlp == "gelu" else swiglu)(bp, h)
+
+
 def _block_forward(bp: dict, x: torch.Tensor, cfg: ArchConfig, positions,
                    want_cache: bool = False):
     h = apply_norm(cfg.norm, bp.get("attn_norm"), x)
     a, entry = _gqa_full(bp["attn"], h, cfg, positions, want_cache)
     x = (x + a).to(x.dtype)
     h = apply_norm(cfg.norm, bp.get("mlp_norm"), x)
-    return (x + swiglu(bp["mlp"], h)).to(x.dtype), entry
+    return (x + _mlp(bp["mlp"], h, cfg)).to(x.dtype), entry
 
 
-def _positions(b: int, t: int, device) -> torch.Tensor:
-    return torch.arange(t, device=device).expand(b, t)
+def _positions(positions, b: int, t: int, device) -> torch.Tensor:
+    """The caller's (B, T) or (3, B, T) position ids, else 0..T-1."""
+    if positions is None:
+        return torch.arange(t, device=device).expand(b, t)
+    return torch.as_tensor(positions, device=device)
 
 
-def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _embed_input(params: dict, batch: dict) -> torch.Tensor:
+    if "embeds" in batch:
+        return batch["embeds"]
+    return embed(params["embed"], batch["tokens"])
+
+
+def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig,
+             positions=None) -> torch.Tensor:
     """Embedded input -> final-norm output (the forward path)."""
     x = x.to(_dtype(cfg.compute_dtype))
-    positions = _positions(x.shape[0], x.shape[1], x.device)
+    positions = _positions(positions, x.shape[0], x.shape[1], x.device)
     for i in range(cfg.n_layers):
         x, _ = _block_forward(layer_params(params["blocks"], i), x, cfg,
                               positions)
@@ -125,7 +149,8 @@ def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 def forward(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     """Full-sequence logits (B, T, V) float32."""
-    x = backbone(params, embed(params["embed"], batch["tokens"]), cfg)
+    x = backbone(params, _embed_input(params, batch), cfg,
+                 batch.get("positions"))
     return _logits_head(params, x)
 
 
@@ -141,12 +166,11 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int,
             cache_dtype=torch.bfloat16) -> tuple[torch.Tensor, dict]:
     """Single-pass prompt processing: last-token logits (B, V) float32 and
     the filled cache (each layer's K/V written into it as it is made)."""
-    tokens = batch["tokens"]
-    b, t = tokens.shape
+    x = _embed_input(params, batch).to(_dtype(cfg.compute_dtype))
+    b, t = x.shape[:2]
     if t > max_len:
         raise ValueError(f"prompt of {t} tokens exceeds max_len {max_len}")
-    x = embed(params["embed"], tokens).to(_dtype(cfg.compute_dtype))
-    positions = _positions(b, t, x.device)
+    positions = _positions(batch.get("positions"), b, t, x.device)
     cache = init_cache(cfg, b, max_len, cache_dtype, x.device)
     for i in range(cfg.n_layers):
         x, entry = _block_forward(layer_params(params["blocks"], i), x, cfg,
@@ -167,7 +191,7 @@ def _block_decode(bp: dict, x: torch.Tensor, lc: dict,
                                           cfg.attn_config())
     x = (x + a).to(x.dtype)
     h = apply_norm(cfg.norm, bp.get("mlp_norm"), x)
-    return (x + swiglu(bp["mlp"], h)).to(x.dtype)
+    return (x + _mlp(bp["mlp"], h, cfg)).to(x.dtype)
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
@@ -241,7 +265,7 @@ def _block_decode_slots(bp: dict, x: torch.Tensor, lc: dict, idx, angles,
     a = _gqa_slots(bp["attn"], h, lc, idx, angles, mask, cfg)
     x = (x + a).to(x.dtype)
     h = apply_norm(cfg.norm, bp.get("mlp_norm"), x)
-    return (x + swiglu(bp["mlp"], h)).to(x.dtype)
+    return (x + _mlp(bp["mlp"], h, cfg)).to(x.dtype)
 
 
 def decode_slots(params: dict, tokens: torch.Tensor, cache: dict,

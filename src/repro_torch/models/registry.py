@@ -17,9 +17,10 @@ class ModelApi:
     cfg: ArchConfig
     device: torch.device
     init: Callable  # (seed) -> float params on ``device``
-    #: (params, {"tokens": (B, T)}) -> logits (B, T, V) float32
+    #: (params, {"tokens": (B, T)} or {"embeds": (B, T, D)}, optionally
+    #: with "positions") -> logits (B, T, V) float32
     forward: Callable
-    #: (params, {"tokens": (B, T)}, max_len, cache_dtype) -> (logits (B, V),
+    #: (params, the same batch, max_len, cache_dtype) -> (logits (B, V),
     #: cache)
     prefill: Callable
     #: (params, tokens (B, 1), cache) -> (logits (B, V), cache updated in
@@ -32,6 +33,12 @@ class ModelApi:
     init_slot_cache: Callable | None = None
     #: (params, tokens, cache, n_valid) -> (logits, cache updated in place)
     decode_slots: Callable | None = None
+
+    @property
+    def supports_slots(self) -> bool:
+        """True when the arch can serve through the slot engine: an
+        encoder-only arch (no decode step) cannot."""
+        return self.cfg.has_decode
 
 
 def build_model(cfg: ArchConfig, device=None) -> ModelApi:

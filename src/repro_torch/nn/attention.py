@@ -1,6 +1,7 @@
 """GQA attention (port of the GQA half of ``repro.nn.attention``): config,
-RoPE angles, the Q/K/V projection (optional QKV bias and per-head qk-norm),
-the plain full-sequence attention ``_sdpa``, the KV-cache storage casts
+RoPE / M-RoPE angles (or none), the Q/K/V projection (optional QKV bias
+and per-head qk-norm), the plain full-sequence attention ``_sdpa``
+(causal or bidirectional), the KV-cache storage casts
 (bf16, f32, or int8 fixed point) and the one-token decode step.  The
 slot attention lives in ``repro_torch.models.lm._gqa_slots``; the prefill
 attention on the card is the flash kernel
@@ -13,12 +14,13 @@ GQA cache: ``{"k": (B, Hkv, S, hd), "v": (B, Hkv, S, hd), "pos": int}``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Literal
 
 import torch
 
 from repro_torch.core.approx_linear import dense, dense_group, init_dense
-from repro_torch.nn.layers import (apply_rope, init_rmsnorm, rmsnorm,
-                                   rope_angles)
+from repro_torch.nn.layers import (apply_rope, init_rmsnorm, mrope_angles,
+                                   rmsnorm, rope_angles)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,7 +31,9 @@ class AttnConfig:
     head_dim: int
     causal: bool = True
     qk_norm: bool = False
+    rope: Literal["rope", "mrope", "none"] = "rope"
     rope_theta: float = 10000.0
+    mrope_sections: tuple[int, int, int] = (16, 24, 24)
     qkv_bias: bool = False
 
     @property
@@ -55,7 +59,15 @@ def init_attention(cfg: AttnConfig, *, generator, device=None) -> dict:
 
 
 def _angles(cfg: AttnConfig, positions: torch.Tensor):
-    """positions (B, T) int -> RoPE (cos, sin)."""
+    """positions (B, T) int, or (3, B, T) for M-RoPE -> (cos, sin), or None
+    without positional rotation."""
+    if cfg.rope == "none":
+        return None
+    if cfg.rope == "mrope":
+        if positions.dim() == 2:  # text only: the same ids on every axis
+            positions = positions[None].expand(3, *positions.shape)
+        return mrope_angles(positions, cfg.head_dim, cfg.mrope_sections,
+                            cfg.rope_theta)
     return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
 

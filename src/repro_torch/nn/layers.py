@@ -1,4 +1,5 @@
-"""Common layers: norms, embeddings, swiglu MLP, rotary embeddings.
+"""Common layers: norms, embeddings, swiglu and gelu MLPs, rotary
+embeddings (RoPE, and qwen2-vl's M-RoPE).
 
 Port of ``repro.nn.layers`` (the parts the dense GQA and RWKV6 paths run).  Linear
 leaves are ``{"w": (k, n)[, "b": (n,)]}`` or packed modules, consumed by
@@ -79,6 +80,18 @@ def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     return dense(p["down"], F.silu(g) * u)
 
 
+def init_gelu_mlp(d: int, ff: int, *, generator, device=None) -> dict:
+    return {name: init_dense(k, n, generator=generator, bias=True,
+                             device=device)
+            for name, (k, n) in (("up", (d, ff)), ("down", (ff, d)))}
+
+
+def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh form, so this is too (the exact
+    erf form is a different function)."""
+    return dense(p["down"], F.gelu(dense(p["up"], x), approximate="tanh"))
+
+
 def rope_freqs(head_dim: int, theta: float = 10000.0,
                device=None) -> torch.Tensor:
     """Inverse frequencies, shape (head_dim // 2,)."""
@@ -103,3 +116,23 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     cos, sin = cos[..., None, :], sin[..., None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def mrope_angles(positions_3d: torch.Tensor, head_dim: int,
+                 sections: tuple[int, int, int], theta: float = 10000.0):
+    """qwen2-vl M-RoPE: the head_dim // 2 frequency slots are split into
+    (temporal, height, width) sections, each driven by its own position id
+    of ``positions_3d`` (3, B, T).  Returns cos/sin (B, T, head_dim // 2),
+    the sections concatenated in [t | h | w] order; with three equal ids it
+    is plain RoPE."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not cover "
+                         f"head_dim {head_dim} // 2")
+    freqs = rope_freqs(head_dim, theta, positions_3d.device)
+    parts_cos, parts_sin, lo = [], [], 0
+    for i, n in enumerate(sections):
+        ang = positions_3d[i][..., None].to(torch.float32) * freqs[lo:lo + n]
+        parts_cos.append(torch.cos(ang))
+        parts_sin.append(torch.sin(ang))
+        lo += n
+    return torch.cat(parts_cos, dim=-1), torch.cat(parts_sin, dim=-1)

@@ -25,6 +25,10 @@ class SlotPool:
 
     def __init__(self, api: ModelApi, slots: int, max_len: int,
                  cache_dtype: str = "bfloat16") -> None:
+        if not api.supports_slots:
+            raise NotImplementedError(
+                f"{api.cfg.name}: architecture not servable through the slot "
+                "engine yet (ring-buffer / SSM slot state are ROADMAP items)")
         try:
             dtype = _CACHE_DTYPES[cache_dtype]
         except KeyError:

@@ -1,8 +1,9 @@
 """The dense archs beyond olmo-1b in the port against the JAX package:
 qwen3-4b (rmsnorm, per-head qk-norm, GQA 32/8, RoPE theta 1e6), granite-8b
-(theta 1e7), deepseek-67b (untied head), and qwen3-4b with QKV biases and
-with q_dim != d_model, all ``-reduced``, on weights initialised once in
-JAX and carried across by repro_torch.bridge.  The norm scales and biases
+(theta 1e7), deepseek-67b (untied head), qwen3-4b with QKV biases and
+with q_dim != d_model, and qwen2-vl-2b's token paths (M-RoPE with the
+three ids equal, QKV biases, GQA 12/2), all ``-reduced``, on weights
+initialised once in JAX and carried across by repro_torch.bridge.  The norm scales and biases
 are ones and zeros at init; the tests give them seeded values on both
 sides, so that every leaf is seen to be carried and applied.
 
@@ -14,7 +15,6 @@ byte-equal.
 """
 
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -22,36 +22,29 @@ import numpy as np
 import pytest
 import torch
 
-from repro.checkpoint.manager import _flatten
 from repro.configs import get_config as jax_get_config
 from repro.configs.base import EngineConfig as JaxEngineConfig
 from repro.core.approx_linear import packed_layer_paths as jax_layer_paths
 from repro.core.policy import ApproxPolicy as JaxPolicy
-from repro.launch.serve import ServeConfig as JaxServeConfig
-from repro.launch.serve import build_serving_params as jax_build_serving_params
-from repro.models import build_model as jax_build_model
 from repro.nn import layers as jlayers
 from repro.numerics import get_preset as jax_get_preset
 from repro.serving import ServingEngine as JaxEngine
-from repro_torch.bridge import from_jax_params
 from repro_torch.configs import EngineConfig, get_config
-from repro_torch.core.approx_linear import (LayerStack, QuantizedDense,
-                                            QuantizedDenseGroup,
-                                            packed_layer_paths)
+from repro_torch.core.approx_linear import QuantizedDense, packed_layer_paths
 from repro_torch.core.policy import ApproxPolicy
-from repro_torch.launch.serve import ServeConfig, build_serving_params
-from repro_torch.models import build_model
 from repro_torch.nn import layers as tlayers
 from repro_torch.numerics import get_preset
 from repro_torch.serving import ServingEngine
 
-from _torch_port import to_np
+from _torch_port import (assert_packs_byte_equal, seeded_packed, seeded_sides,
+                         to_np)
 
 #: arch id, "+qkv_bias" for the variant with Q/K/V biases, "+wide_heads"
 #: for heads of 32 (q_dim 128 against d_model 64, as qwen3-4b's 4096
 #: against 2560; the reduced configs otherwise have q_dim == d_model)
 VARIANTS = ["qwen3-4b-reduced", "granite-8b-reduced", "deepseek-67b-reduced",
-            "qwen3-4b-reduced+qkv_bias", "qwen3-4b-reduced+wide_heads"]
+            "qwen3-4b-reduced+qkv_bias", "qwen3-4b-reduced+wide_heads",
+            "qwen2-vl-2b-reduced"]
 EXTRAS = {"": {}, "qkv_bias": {"qkv_bias": True},
           "wide_heads": {"head_dim": 32}}
 PALLAS = ("perforated", 2, True, "pallas")
@@ -64,38 +57,17 @@ def _cfgs(variant):
             dataclasses.replace(get_config(arch), **EXTRAS[extra]))
 
 
-@functools.lru_cache(maxsize=None)
 def _sides(variant):
     """(jax cfg, jax api, jax params, port cfg, port api, port params)."""
     jcfg, tcfg = _cfgs(variant)
-    japi = jax_build_model(jcfg)
-    items, treedef = _flatten(japi.init(jax.random.PRNGKey(0)))
-    rng = np.random.default_rng(7)
-    flat = {}
-    for key, arr in items:
-        if key.endswith("/scale"):
-            arr = (1 + 0.2 * rng.standard_normal(arr.shape)).astype(arr.dtype)
-        elif key.endswith("/b"):
-            arr = (0.1 * rng.standard_normal(arr.shape)).astype(arr.dtype)
-        flat[key] = arr
-    jparams = jax.tree_util.tree_unflatten(
-        treedef, [jnp.asarray(flat[k]) for k, _ in items])
-    return (jcfg, japi, jparams, tcfg, build_model(tcfg, "cpu"),
-            from_jax_params(flat, tcfg))
+    japi, jparams, tapi, tparams = seeded_sides(jcfg, tcfg)
+    return jcfg, japi, jparams, tcfg, tapi, tparams
 
 
-@functools.lru_cache(maxsize=None)
 def _packed(variant):
     """serve-default packs (perforated m=2 + CV, ``backend: "pallas"``) of
     the same weights in both packages."""
-    jcfg, _, jparams, tcfg, _, tparams = _sides(variant)
-    mode, m, use_cv, backend = PALLAS
-    jp = jax_build_serving_params(jparams, jcfg, JaxServeConfig(
-        policy=JaxPolicy(mode, m, use_cv=use_cv, backend=backend)))
-    tp = build_serving_params(tparams, tcfg, ServeConfig(
-        policy=ApproxPolicy(mode, m, use_cv=use_cv, backend=backend)),
-        device="cpu")
-    return jp, tp
+    return seeded_packed(*_cfgs(variant), PALLAS)
 
 
 def _params(variant, name):
@@ -153,31 +125,6 @@ def test_prefill_decode_greedy_tokens_vs_jax(variant):
         torch.cat(tout, 1).tolist()
 
 
-def _packs(tree, path=()):
-    """(path, packed module) of every pack in a port parameter tree; layer
-    stacks give one entry per layer."""
-    if isinstance(tree, LayerStack):
-        for i in range(len(tree)):
-            yield from _packs(tree[i], path + (i,))
-    elif isinstance(tree, (QuantizedDense, QuantizedDenseGroup)):
-        yield path, tree
-    elif isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _packs(v, path + (k,))
-
-
-def _jax_node(tree, path):
-    """The reference's pack at a port path; an integer indexes the layer
-    axis of its stacked leaves."""
-    layer = None
-    for key in path:
-        if isinstance(key, int):
-            layer = key
-        else:
-            tree = tree[key]
-    return tree, layer
-
-
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_serving_packs_byte_equal_to_jax(variant):
     """Every pack of the serve-default tree (fused q|k|v and gate|up groups
@@ -187,28 +134,7 @@ def test_serving_packs_byte_equal_to_jax(variant):
     jcfg, _, jparams, tcfg, _, tparams = _sides(variant)
     jp, tp = _packed(variant)
     assert packed_layer_paths(tp) == jax_layer_paths(jp)
-    seen = set()
-    for path, mod in _packs(tp):
-        jmod, layer = _jax_node(jp, path)
-        pairs = [(jmod, mod)]
-        if isinstance(mod, QuantizedDenseGroup):
-            pairs += list(zip(jmod.members, mod.members))
-            seen.add([k for k in path if isinstance(k, str)][-1])
-        for jm, tm in pairs:
-            for f in ("w_q", "w_scale", "w_zp", "sum_qw", "c", "c0", "bias"):
-                want, got = getattr(jm.pack, f), getattr(tm.pack, f)
-                assert (want is None) == (got is None), (path, f)
-                if want is None:
-                    continue
-                want = np.asarray(want)
-                want = want if layer is None else want[layer]
-                assert want.tobytes() == to_np(got).tobytes(), (path, f)
-            for f in ("w_qb", "epilogue", "meta"):
-                want = np.asarray(getattr(jm.blocked, f))
-                want = want if layer is None else want[layer]
-                assert want.tobytes() == to_np(getattr(tm.blocked, f)
-                                               ).tobytes(), (path, f)
-    assert {"qkv", "gateup"} <= seen
+    assert {"qkv", "gateup"} <= assert_packs_byte_equal(jp, tp)
     if tcfg.qkv_bias:
         qkv = tp["blocks"]["attn"]["qkv"][0]
         assert qkv.pack.bias is not None and float(

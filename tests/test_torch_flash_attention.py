@@ -33,7 +33,9 @@ def _qkv(seed, b, hq, hkv, tq, tk, d):
 
 
 #: (b, hq, hkv, tq, tk, d, causal, window, jax tile): the JAX kernel tests'
-#: cases (tests/test_kernels.py), then ragged lengths no tile divides
+#: cases (tests/test_kernels.py), then ragged lengths no tile divides, then
+#: hubert-xlarge's head dim 80 (non-causal as its encoder, and causal) and
+#: qwen2-vl-2b's GQA group of 6 (12 query heads over 2)
 CASES = [
     (2, 4, 4, 128, 128, 32, True, None, 64),
     (2, 8, 2, 128, 128, 32, True, None, 64),
@@ -42,6 +44,10 @@ CASES = [
     (1, 4, 2, 64, 256, 64, True, None, 64),   # Tq < Tk, rows end-aligned
     (2, 4, 2, 100, 100, 32, True, None, 100),  # ragged T
     (1, 2, 1, 37, 90, 16, True, 20, None),     # ragged Tq < Tk with window
+    (2, 4, 4, 128, 128, 80, False, None, 64),
+    (2, 4, 2, 128, 128, 80, True, None, 64),
+    (1, 4, 4, 100, 100, 80, False, None, 100),  # ragged T at D = 80
+    (1, 12, 2, 128, 128, 32, True, None, 64),
 ]
 
 
@@ -200,8 +206,8 @@ def _tensor_core_route(q, k, v, *, causal, window, bkv=64):
 
 
 #: the bfloat16 cases chip_smoke.py runs on the card (GQA, window,
-#: non-causal, Tq < Tk) at D = 64 and 128, cut to one batch row
-BF16_CASES = [case for d in (64, 128) for case in (
+#: non-causal, Tq < Tk) at D = 64, 80 and 128, cut to one batch row
+BF16_CASES = [case for d in (64, 80, 128) for case in (
     (1, 8, 2, 128, 128, d, True, None),
     (1, 4, 2, 128, 128, d, True, 64),
     (1, 4, 4, 128, 128, d, False, None),

@@ -209,11 +209,14 @@ def _sample(out: str) -> str:
 
 
 @pytest.mark.parametrize("name", list(POLICIES))
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["qwen2-vl-2b-reduced",
+                                          "hubert-xlarge-reduced"])
 def test_run_legacy_prints_the_jax_sample(arch, name, tmp_path, capsys):
     """The same CLI flags give the same printed sample tokens; the port
     serves the JAX init carried across (the JAX CLI initialises with
-    PRNGKey(0), as the shared set-up does)."""
+    PRNGKey(0), as the shared set-up does).  The loop prefills a token
+    prompt (qwen2-vl-2b: M-RoPE with the three ids equal; hubert-xlarge:
+    bidirectional) and decodes greedily."""
     spec_json = None
     if name == "packed":
         spec = jax_get_preset("serve-default", policy=JaxPolicy(
