@@ -19,6 +19,8 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    (biases included) at M=4, 128 and 4096 and their decode members,
    hubert's head (N=504) on both tiles, equal to the plain version on
    every matmul tile of the source, and every decode call twice bit-equal;
+   the CNN suite's conv and head shapes (K = 16 ... 1152, N = 4 ... 128)
+   in float32 at M = 4, 250, 16,000 and 256,000, every mode, CV on and off;
    flash attention at the olmo-1b, qwen3-4b (GQA 32/8) and qwen2-vl-2b
    (GQA 12/2) prefill shapes and hubert-xlarge's encoder (D=80,
    non-causal), the JAX kernel tests' shapes in float32 and bfloat16 (GQA,
@@ -57,7 +59,17 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    encoder (48 layers, `forward` over (4, 1024, 1280) frame embeddings:
    non-causal flash at D=80, the N=504 head on the prefill tile), with the
    same launch, determinism, plain-gap and teacher-forced checks;
-6. kernel times at the paths' shapes (kernel, plain, library, bound),
+6. the paper's CNN path: the six CNN_SUITE nets at full width (CIFAR
+   geometry, seeded float weights), calibrated on 256 procedural train
+   images and packed (`backend: "pallas"`) at every paper-grid point with
+   the CV on and off, evaluated on 1,000 test images in batches of 250:
+   the launch counts the layer lists imply, the relative logit error and
+   top-1 agreement against the float model with and without the CV, the
+   modelled power saving, the `int8` preset's error, kernel-path logits
+   bit-equal to the plain version's at one point per mode, one point per
+   mode at 100 classes, a profiled B=250 forward and the time of each
+   net's largest approx call;
+7. kernel times at the paths' shapes (kernel, plain, library, bound),
    the approx-matmul also at the prefills' and the encoder's shapes and
    at the decode shapes of qwen3-4b, rwkv6-1.6b (head too) and
    qwen2-vl-2b, and (kernel only: no phase drives them) at the shapes of
@@ -154,6 +166,20 @@ WIDE_KN = {"granite-8b": [(4096, (4096, 1024, 1024)), (4096, (14336, 14336)),
 DECODE_CASES = [(1, 2048, 2048), (8, 2048, 2048), (1, 8192, 2048),
                 (8, 8192, 2048), (8, 2048, 8192), (4, 2048, 7168),
                 (4, 7168, 2048), (4,) + RWKV_HEAD_KN, (3, 1000, 1000)]
+#: the CNN phase (the paper's six CNNs, CIFAR geometry): the reference
+#: accuracy benchmark's calibration images, test images and eval batch
+#: (benchmarks/tables2_4_accuracy.py), and the row counts at which every
+#: conv and head shape is held against its plain version: split-K rows,
+#: the heads at the eval batch, 8 x 8 and 32 x 32 maps at B = 250
+CNN_CALIB, CNN_TEST, CNN_BATCH = 256, 1000, 250
+CONV_M = (4, 250, 16_000, 256_000)
+#: approx calls a forward of each suite net makes (its convs and fcs)
+CNN_LAYERS = {"vgg13": 8, "vgg16": 11, "resnet44": 16, "resnet56": 22,
+              "googlenet": 20, "shufflenet": 12}
+#: one paper-grid point per mode (perforated m=2, recursive m=3, truncated
+#: m=6; indices into paper_grid_specs): the 100-class sweep and the
+#: kernel-vs-plain logits
+CNN_POINTS = (1, 4, 7)
 
 
 def fail(msg: str) -> None:
@@ -208,13 +234,17 @@ def storage_gib(tensors) -> float:
 
 
 def modules(tree):
-    """Every module of a parameter tree (dicts of modules and tensors)."""
+    """Every module of a parameter tree (dicts and lists of modules and
+    tensors)."""
     import torch.nn as nn
 
     if isinstance(tree, nn.Module):
         yield from tree.modules()
     elif isinstance(tree, dict):
         for v in tree.values():
+            yield from modules(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from modules(v)
 
 
@@ -324,15 +354,15 @@ def check_kernels(torch, dev) -> dict:
         errs[name] = max(errs[name], err)
         tiles[name].add(amk.tile(mm, k, n, mode, m))
 
-    def fused(x, blocked, mode, m, label):
+    def fused(x, blocked, mode, m, label, use_cv=True):
         """The fused kernel against its plain version; decode rows twice."""
         k, n = blocked.k, blocked.n
         args = (x, blocked.w_qbt, blocked.epilogue, blocked.meta)
-        got = amk.approx_matmul_cv_fused(*args, k=k, n=n, mode=mode, m=m)
-        again = (amk.approx_matmul_cv_fused(*args, k=k, n=n, mode=mode, m=m)
+        kw = dict(k=k, n=n, mode=mode, m=m, use_cv=use_cv)
+        got = amk.approx_matmul_cv_fused(*args, **kw)
+        again = (amk.approx_matmul_cv_fused(*args, **kw)
                  if x.shape[0] <= amk.DECODE_M_MAX else got)
-        want = amk.approx_matmul_cv_fused_plain(*args, k=k, n=n, mode=mode,
-                                                m=m)
+        want = amk.approx_matmul_cv_fused_plain(*args, **kw)
         torch.cuda.synchronize()
         if got.dtype != x.dtype or got.shape != (x.shape[0], n):
             fail(f"fused kernel output {got.dtype} {tuple(got.shape)}")
@@ -493,6 +523,27 @@ def check_kernels(torch, dev) -> dict:
             fused(xx, blocked, "perforated", 2, "ties")
             n_cases += 1
             n_twice += mm <= amk.DECODE_M_MAX
+    # the CNN suite's convs (im2col) and heads, float32 in and out as the
+    # CNN phase runs them, every mode with the CV on and off, at every row
+    # count of CONV_M: fan-ins below one 128-byte K tile and off multiples
+    # of 8 (27, 100), widths below one column tile (4 ... 128)
+    conv_kn = cnn_kn(torch, dev)
+    n_conv = 0
+    for mode, m in MODES:
+        cvs = (True, False) if mode != "exact" else (True,)
+        for k, n in conv_kn:
+            _, _, blocked = random_pack(torch, k, n, mode, m, gen, dev)
+            for mm in CONV_M:
+                x = torch.randn(mm, k, generator=gen, device=dev) * 1.5
+                for use_cv in cvs:
+                    fused(x, blocked, mode, m, "conv", use_cv)
+                    n_conv += 1
+                    n_twice += mm <= amk.DECODE_M_MAX
+                del x
+            del blocked
+    n_cases += n_conv
+    print(f"kernels: {n_conv} conv-shape cases (float32, (K, N) "
+          f"{conv_kn}, M {CONV_M}) equal their plain versions", flush=True)
     for name, seen in tiles.items():
         if set(amk.TILES) - seen:
             fail(f"{name}: tiles {sorted(set(amk.TILES) - seen)} were never "
@@ -674,7 +725,7 @@ def time_calls(torch, fns, reps: int = 21) -> float:
 
 
 def kernel_times(torch, dev, card: str) -> list[dict]:
-    """Phase 6: per-shape times of both kernels, their plain versions, the
+    """Phase 7: per-shape times of both kernels, their plain versions, the
     library matmuls the approximate layer stands beside, and the bound
     (perforated m=2 + CV, bf16 activations, as served): decode rows (olmo-1b,
     qwen3-4b and rwkv6-1.6b, head included) and engine chunk rows (olmo-1b,
@@ -1740,6 +1791,282 @@ def run_hubert_encoder(torch, dev) -> dict:
     return {"launches": launches, **checked}
 
 
+# ---------------------------------------------------------------------------
+# the paper's CNN path
+# ---------------------------------------------------------------------------
+
+
+def cnn_net(torch, dev, name: str, classes: int = 10):
+    """(cfg, seeded float params on the card, their float plan) of one
+    CNN_SUITE net at full width (torch.Generator seed 0)."""
+    from repro_torch.configs.cnn_suite import get_cnn
+    from repro_torch.nn.cnn import init_cnn
+    from repro_torch.numerics import uniform_spec
+
+    cfg = get_cnn(name, classes)
+    params = init_cnn(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+    return cfg, params, uniform_spec(None).resolve(params)
+
+
+def cnn_kn(torch, dev) -> list[tuple[int, int]]:
+    """Every (K, N) of the CNN suite's convs and fcs, at 10 and 100
+    classes."""
+    from repro_torch.configs.cnn_suite import CNN_SUITE
+
+    return sorted({e.w_shape for name in CNN_SUITE for classes in (10, 100)
+                   for e in cnn_net(torch, dev, name, classes)[2].entries})
+
+
+@contextlib.contextmanager
+def recorded_calls(calls: list):
+    """Appends (M, K, N) of every approx-matmul kernel call inside the block
+    to ``calls``.  The kernel still runs; its launches are counted on the
+    recorder (the wrapper counts under its module name), so no counted run
+    may hold this block."""
+    from repro_torch.kernels import approx_matmul as amk
+
+    kern = amk.approx_matmul_cv_fused
+
+    def rec(x, *a, **kw):
+        calls.append((x.shape[0], kw["k"], kw["n"]))
+        return kern(x, *a, **kw)
+
+    rec.launches = 0
+    amk.approx_matmul_cv_fused = rec
+    try:
+        yield
+    finally:
+        amk.approx_matmul_cv_fused = kern
+
+
+def conv_time(torch, dev, card: str, mm: int, k: int, n: int) -> dict:
+    """One conv-shaped approx call, float32 in and out (perforated m=2 +
+    CV): kernel (prep + tile), plain version, float32 ``torch.matmul``
+    (TF32 off) at the same (M, K, N), and the bound.  The activations
+    (M x K float32, hundreds of MB at B = 250) exceed the 50 MB L2, so one
+    operand copy serves every replay, as the path reads them."""
+    from repro_torch.kernels import approx_matmul as amk
+
+    bw, int8_peak, _, _ = peaks(card)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    _, _, b = random_pack(torch, k, n, "perforated", 2, gen, dev)
+    x = torch.randn(mm, k, generator=gen, device=dev)
+    w = torch.randn(k, n, generator=gen, device=dev)
+    args = (x, b.w_qbt, b.epilogue, b.meta)
+    kw = dict(k=k, n=n, mode="perforated", m=2)
+    nbytes = (x.numel() * 4 + b.w_qbt.numel() + b.epilogue.numel() * 4
+              + b.meta.numel() * 4 + mm * n * 4)
+    t_bytes, t_ops = nbytes / bw, 2.0 * mm * k * n / int8_peak
+    return {
+        "M": mm, "K": k, "N": n,
+        "kernel_us": time_calls(torch, [
+            lambda: amk.approx_matmul_cv_fused(*args, **kw)] * 3) * 1e6,
+        "plain_us": time_calls(torch, [
+            lambda: amk.approx_matmul_cv_fused_plain(*args, **kw)],
+            reps=3) * 1e6,
+        "library_us": time_calls(torch, [lambda: torch.matmul(x, w)] * 3)
+        * 1e6,
+        "library": "float32 torch.matmul, TF32 off",
+        "bound_us": max(t_bytes, t_ops) * 1e6,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def run_cnn_net(torch, dev, card: str, name: str, data: dict) -> dict:
+    """Phase 6, one net: calibration on CNN_CALIB train images, one pack
+    per 10-class paper-grid point with the CV on and off, each evaluated on
+    the CNN_TEST test images in batches of CNN_BATCH (launches counted); the
+    relative logit error and top-1 agreement against the float model, the
+    modelled power saving, the ``int8`` preset's error; kernel-path logits
+    bit-equal to the plain version's at one point per mode, CV on and off;
+    one point per mode at 100 classes; a profiled B = CNN_BATCH forward and
+    the timing of its largest approx call."""
+    from repro_torch.core.approx_linear import (iter_tensors,
+                                                packed_layer_paths)
+    from repro_torch.core.cost_model import power_saving
+    from repro_torch.kernels import approx_matmul as amk
+    from repro_torch.nn.cnn import cnn_apply
+    from repro_torch.numerics import (apply_numerics, get_preset,
+                                      paper_grid_specs)
+    from repro_torch.quant.observers import CalibrationRecorder
+
+    label = f"cnn {name}"
+    grid = {cv: paper_grid_specs(use_cv=cv, backend="pallas")
+            for cv in (True, False)}
+    out = {"launches": {}, "c10": [], "c100": []}
+
+    def add(launches):
+        for key, v in launches.items():
+            out["launches"][key] = out["launches"].get(key, 0) + v
+
+    def calibrated(classes):
+        cfg, params, plan = cnn_net(torch, dev, name, classes)
+        paths = sorted(e.path for e in plan.entries)
+        if len(paths) != CNN_LAYERS[name]:
+            fail(f"{label}: {len(paths)} layers, want {CNN_LAYERS[name]}")
+        calib, test = data[classes]
+        with CalibrationRecorder() as rec:
+            cnn_apply(params, calib, cfg)
+        ranges = rec.ranges()
+        if sorted(ranges) != paths:
+            fail(f"{label}: calibration paths {sorted(ranges)[:4]} are not "
+                 f"the layer paths {paths[:4]}")
+
+        def logits(p, x=test):
+            return torch.cat([cnn_apply(p, x[i:i + CNN_BATCH], cfg)
+                              for i in range(0, x.shape[0], CNN_BATCH)])
+
+        def pack(spec):
+            packed = apply_numerics(params, spec.resolve(params),
+                                    act_ranges=ranges)
+            if packed_layer_paths(packed) != paths:
+                fail(f"{label}: {spec.name} packed "
+                     f"{len(packed_layer_paths(packed))} of {len(paths)} "
+                     "layers")
+            check_packs(label, packed)
+            return packed
+
+        y_float = logits(params)
+        if not bool(torch.isfinite(y_float).all()):
+            fail(f"{label}: float logits not finite")
+        return cfg, paths, test, logits, pack, y_float
+
+    def sweep(classes, points, pack, logits, paths, y_float):
+        packs = {(i, cv): pack(grid[cv][i]) for i in points
+                 for cv in (True, False)}
+        logits(packs[(points[0], True)])  # warm-up, not counted
+        torch.cuda.synchronize()
+        n_fwd = len(packs) * (CNN_TEST // CNN_BATCH)
+        ys, wall, launches, _ = counted_run(
+            torch, f"{label} c{classes}",
+            lambda: {key: logits(p) for key, p in packs.items()},
+            {"approx_matmul_cv_fused": n_fwd * len(paths)},
+            f"{len(packs)} packs x {CNN_TEST // CNN_BATCH} batches x "
+            f"{len(paths)} layers")
+        add(launches)
+        yn = y_float.norm()
+        top = y_float.argmax(-1)
+        rows = []
+        for i in points:
+            pol = grid[True][i].default
+            row = {"mode": pol.mode, "m": pol.m,
+                   "power_saving_pct": power_saving(pol.mode, pol.m, 64)}
+            for cv, tag in ((True, "cv"), (False, "no_cv")):
+                y = ys[(i, cv)]
+                if not bool(torch.isfinite(y).all()):
+                    fail(f"{label}: {grid[cv][i].name} logits not finite")
+                row[f"rel_err_{tag}"] = float((y - y_float).norm() / yn)
+                row[f"top1_agree_{tag}"] = float(
+                    (y.argmax(-1) == top).float().mean())
+            row["err_ratio_no_cv_over_cv"] = (row["rel_err_no_cv"]
+                                              / row["rel_err_cv"])
+            rows.append(row)
+            print(f"{label} c{classes} {pol.mode}(m={pol.m}): rel logit err "
+                  f"cv {row['rel_err_cv']:.5f} no-cv {row['rel_err_no_cv']:.5f}"
+                  f" (ratio {row['err_ratio_no_cv_over_cv']:.3f}); top-1 "
+                  f"agreement cv {row['top1_agree_cv']:.3f} no-cv "
+                  f"{row['top1_agree_no_cv']:.3f}; modelled power saving "
+                  f"{row['power_saving_pct']:.2f}% (N=64)", flush=True)
+        return packs, ys, wall, rows
+
+    t0 = time.perf_counter()
+    cfg, paths, test, logits, pack, y_float = calibrated(10)
+    packs, ys, wall, out["c10"] = sweep(10, list(range(len(grid[True]))),
+                                        pack, logits, paths, y_float)
+    x0 = test[:CNN_BATCH]
+    # the exact baseline: the int8 preset (plain exact-integer products)
+    pack8 = pack(get_preset("int8"))
+    y8, *_ = counted_run(torch, f"{label} int8", lambda: logits(pack8), {},
+                         "the int8 preset (no kernel)")
+    del pack8
+    out["int8_rel_err"] = float((y8 - y_float).norm() / y_float.norm())
+    out["int8_top1_agree"] = float(
+        (y8.argmax(-1) == y_float.argmax(-1)).float().mean())
+    # determinism, and the kernel path against the plain version on the card
+    key = (CNN_POINTS[0], True)
+    if not torch.equal(cnn_apply(packs[key], x0, cfg), ys[key][:CNN_BATCH]):
+        fail(f"{label}: two identical forwards gave different logits")
+    for i in CNN_POINTS:
+        for cv in (True, False):
+            with plain_swapped(label, [(amk, "approx_matmul_cv_fused",
+                                        amk.approx_matmul_cv_fused_plain)]):
+                yp = cnn_apply(packs[(i, cv)], x0, cfg)
+            if not torch.equal(yp, ys[(i, cv)][:CNN_BATCH]):
+                fail(f"{label}: {grid[cv][i].name} kernel-path logits differ "
+                     "from the plain version's: max "
+                     f"{float((yp - ys[(i, cv)][:CNN_BATCH]).abs().max())}")
+    print(f"{label}: int8 preset rel logit err {out['int8_rel_err']:.5f}, "
+          f"top-1 agreement {out['int8_top1_agree']:.3f}; kernel-path "
+          f"logits bit-equal to the plain version's at {len(CNN_POINTS)} "
+          f"points x CV on/off (B={CNN_BATCH}); two forwards bit-equal",
+          flush=True)
+
+    # the profiled forward and its largest approx call
+    fwd = packs[key]
+    calls: list = []
+    with recorded_calls(calls):
+        cnn_apply(fwd, x0, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cnn_apply(fwd, x0, cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_fn(torch, f"{label}: profile B={CNN_BATCH} forward",
+                      lambda: cnn_apply(fwd, x0, cfg),
+                      f"host_profile_cnn_{name}.txt")
+    if prof["fused_calls"] != 3 * len(paths):
+        fail(f"{label}: the profiled forwards made {prof['fused_calls']} "
+             f"approx calls, want {3 * len(paths)}")
+    big = max(calls, key=lambda c: c[0] * c[1] * c[2])
+    row = {"net": name, **conv_time(torch, dev, card, *big),
+           "calls_per_forward": calls.count(big)}
+    print("time " + json.dumps(row), flush=True)
+
+    # one point per mode at 100 classes
+    del packs, ys
+    _, paths100, _, logits100, pack100, yf100 = calibrated(100)
+    _, _, _, out["c100"] = sweep(100, list(CNN_POINTS), pack100, logits100,
+                                 paths100, yf100)
+    write_line(label, f"cnn_{name}.json", {
+        "net": name, "family": cfg.family, "width": cfg.width,
+        "depth": cfg.depth, "layers": len(paths), "batch": CNN_BATCH,
+        "sweep_s": wall, "phase_s": time.perf_counter() - t0,
+        "pack_gib": storage_gib(iter_tensors(fwd)),
+        "peak_mem_gib": peak / 2**30, "forward": prof, "largest_call": row,
+        "calls": sorted(set(calls)), **out})
+    out["largest_call"] = row
+    return out
+
+
+def run_cnn_suite(torch, dev, card: str) -> dict:
+    """Phase 6: the paper's six CNNs (CNN_SUITE) at full width, seeded
+    float weights, on ``backend: "pallas"`` packs of every paper-grid point.
+    Returns each net's result (``run_cnn_net``)."""
+    from repro_torch.configs.cnn_suite import CNN_SUITE
+    from repro_torch.data.vision import VisionConfig, make_vision_dataset
+
+    t0 = time.perf_counter()
+    data = {}
+    for classes in (10, 100):
+        vcfg = VisionConfig(num_classes=classes)
+        data[classes] = tuple(
+            torch.from_numpy(make_vision_dataset(vcfg, split, n)[0]).to(dev)
+            for split, n in (("train", CNN_CALIB), ("test", CNN_TEST)))
+    print(f"cnn: procedural data {time.perf_counter() - t0:.1f} s: "
+          f"{CNN_CALIB} calibration and {CNN_TEST} test images (32 x 32 x 3) "
+          "at 10 and 100 classes", flush=True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the depthwise convs
+    try:
+        res = {}
+        for name in CNN_SUITE:
+            res[name] = run_cnn_net(torch, dev, card, name, data)
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return res
+
+
 def teacher_forced(torch, label: str, mod, run) -> list[float]:
     """Each layer's attention (or WKV) in the kernel path's own prefill,
     fed that layer's input as the kernel path made it, once through the
@@ -1784,7 +2111,7 @@ def teacher_forced(torch, label: str, mod, run) -> list[float]:
 
 
 def attn_scan_times(torch, dev, card: str) -> dict:
-    """Phase 6, second half: flash attention at the prefill shapes of
+    """Phase 7, second half: flash attention at the prefill shapes of
     olmo-1b, qwen3-4b and qwen2-vl-2b and of hubert-xlarge's encoder, and
     the scan at the rwkv6-1.6b prefill shape (kernel, plain, library,
     bound)."""
@@ -1936,6 +2263,14 @@ def main() -> int:
     paths["encoder hubert-xlarge"] = res["launches"]
     per_layer["encoder hubert-xlarge"] = max(res["per_layer_max_abs_err"])
     torch.cuda.empty_cache()
+    cnn = run_cnn_suite(torch, dev, card)
+    for name, res in cnn.items():
+        paths[f"cnn {name}"] = res["launches"]
+    ratios = {f"{r['mode']}(m={r['m']})": [
+        round(cnn[name]["c10"][i]["err_ratio_no_cv_over_cv"], 3)
+        for name in cnn] for i, r in enumerate(next(iter(cnn.values()))["c10"])}
+    print(f"cnn: relative logit error without the CV over with it, 10 "
+          f"classes, nets {list(cnn)}: " + json.dumps(ratios), flush=True)
     print("prefills and the encoder, teacher-forced per layer: every layer "
           "of every prefill inside its kernel's per-call tolerance; largest "
           "max abs err by path " + json.dumps(per_layer), flush=True)
@@ -1945,7 +2280,9 @@ def main() -> int:
     new_rows = attn_scan_times(torch, dev, card)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "kernel_times.json").write_text(
-        json.dumps({"card": card, "rows": rows, "attention_scan": new_rows},
+        json.dumps({"card": card, "rows": rows, "attention_scan": new_rows,
+                    "cnn_largest_calls": [r["largest_call"]
+                                          for r in cnn.values()]},
                    indent=1))
     entries = []
     for name, src_line in (("approx_matmul_cv_fused", 332),

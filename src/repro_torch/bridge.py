@@ -2,10 +2,11 @@
 port's layout.
 
 The input is the flat ``{"/"-joined path: ndarray}`` mapping that
-``repro.checkpoint.manager._flatten`` produces; the scan-stacked
-``blocks/*`` leaves keep their leading layer axis, which is also the port's
-layout.  Only numpy crosses the boundary, so this module imports nothing
-of JAX.
+``repro.checkpoint.manager._flatten`` produces.  A segment that indexes a
+list in the reference's tree (a CNN's ``stages/0/1/conv/w``) is an integer,
+and those nodes become lists again; the LLMs' scan-stacked ``blocks/*``
+leaves keep their leading layer axis, which is also the port's layout.
+Only numpy crosses the boundary, so this module imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -25,9 +26,19 @@ def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
-def from_jax_params(flat: dict[str, np.ndarray], cfg: ArchConfig,
-                    device="cpu") -> dict:
-    """Flat reference parameters -> the port's nested parameter dict."""
+def _listify(node):
+    """Nodes whose keys are exactly 0..n-1 -> lists, depth first."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and sorted(node) == sorted(str(i) for i in range(len(node))):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
+def _nest(flat: dict[str, np.ndarray], device="cpu") -> dict:
+    """Flat reference parameters -> the port's nested tree: dicts, and
+    lists where the reference's tree held lists."""
     out: dict = {}
     for key, arr in flat.items():
         *parents, leaf = key.split("/")
@@ -35,6 +46,13 @@ def from_jax_params(flat: dict[str, np.ndarray], cfg: ArchConfig,
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = _to_tensor(arr, device)
+    return _listify(out)
+
+
+def from_jax_params(flat: dict[str, np.ndarray], cfg: ArchConfig,
+                    device="cpu") -> dict:
+    """Flat reference parameters of an LLM -> the port's nested dict."""
+    out = _nest(flat, device)
     if cfg.norm == "nonparametric_ln":  # parameter-free norms: no leaves
         blocks = out.get("blocks", {})
         for key in ("attn_norm", "mlp_norm"):
@@ -46,3 +64,10 @@ def from_jax_params(flat: dict[str, np.ndarray], cfg: ArchConfig,
         raise ValueError(f"block leaves without a leading {cfg.n_layers}-layer "
                          f"axis: {bad[:3]}")
     return out
+
+
+def from_jax_cnn_params(flat: dict[str, np.ndarray], device="cpu") -> dict:
+    """Flat reference parameters of a CNN (``repro.nn.cnn.init_cnn``) -> the
+    port's tree: ``stages``/``blocks`` as lists, conv leaves in the same
+    (k*k*cin, cout) layout, the depthwise ``dw/kernel`` as it is."""
+    return _nest(flat, device)

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.policy import ApproxPolicy, PolicyFn
+from repro_torch.quant import observers
 from repro_torch.quant.quantize import (BlockedPack, PackedLinear, QuantParams,
                                         build_blocked_layout,
                                         calibrate_minmax, concat_packs,
@@ -142,10 +143,20 @@ def _packed_forward(p: _Packed, x: torch.Tensor) -> torch.Tensor:
                             use_cv=pol.use_cv).to(x.dtype)
 
 
-def dense(p: Any, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W (+ b), under whatever numerics ``p`` encodes."""
+def dense(p: Any, x: torch.Tensor, name: str | None = None) -> torch.Tensor:
+    """y = x @ W (+ b), under whatever numerics ``p`` encodes.
+
+    ``name`` (optional) scopes calibration recording: on the float path,
+    with a :class:`~repro_torch.quant.observers.CalibrationRecorder`
+    active, the input's range is recorded under the current scope plus
+    ``name``, the parameter path that :func:`pack_params` looks up."""
     if isinstance(p, QuantizedDense):
         return _packed_forward(p, x)
+    if name is not None:
+        with observers.scope(name):
+            observers.record(x)
+    else:
+        observers.record(x)
     w = p["w"]
     dt = torch.promote_types(x.dtype, w.dtype)
     y = torch.matmul(x.to(dt), w.to(dt))
@@ -328,6 +339,9 @@ def pack_params(params: Any, policy_fn: PolicyFn,
                 elif k not in consumed:
                     out[k] = walk(v, path + (str(k),))
             return out
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, path + (str(i),))
+                              for i, v in enumerate(node))
         return node
 
     return walk(params, ())
@@ -348,13 +362,16 @@ def packed_layer_paths(params: Any) -> list[str]:
         elif isinstance(node, dict):
             for k, v in node.items():
                 walk(v, path + (str(k),))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + (str(i),))
 
     walk(params, ())
     return sorted(out)
 
 
 def iter_tensors(tree: Any):
-    """Every tensor of a parameter or cache tree (dicts, modules)."""
+    """Every tensor of a parameter or cache tree (dicts, lists, modules)."""
     if isinstance(tree, torch.Tensor):
         yield tree
     elif isinstance(tree, nn.Module):
@@ -362,4 +379,7 @@ def iter_tensors(tree: Any):
         yield from tree.parameters()
     elif isinstance(tree, dict):
         for v in tree.values():
+            yield from iter_tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from iter_tensors(v)

@@ -148,6 +148,9 @@ def apply_numerics(params: Any, plan: PackPlan,
             elif isinstance(node, dict):
                 for k, v in node.items():
                     walk(v, path + (str(k),))
+            elif isinstance(node, (list, tuple)):
+                for i, v in enumerate(node):
+                    walk(v, path + (str(i),))
 
         walk(params, ())
         if have != set(want):

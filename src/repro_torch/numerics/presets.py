@@ -3,11 +3,17 @@
   * ``serve-default`` — the serving keep-float rule-set plus one uniform
     policy (perforated m=2 + CV by default) everywhere else;
   * ``int8`` — the same rule-set, exact int8 everywhere else.
+
+``paper_grid_specs()`` expands the paper's Tables 2-4 grid into one uniform
+spec per (multiplier, m) point, the form a sweep iterates.
 """
 
 from __future__ import annotations
 
-from repro_torch.core.policy import INT8_EXACT, ApproxPolicy
+import dataclasses
+
+from repro_torch.core.policy import (INT8_EXACT, ApproxPolicy, Backend,
+                                     paper_policies)
 from repro_torch.numerics.spec import FLOAT, NumericsSpec, Rule
 
 #: The serving keep-float rule-set (segment-anchored globs).
@@ -53,3 +59,12 @@ def uniform_spec(policy: ApproxPolicy | None, rules: tuple[Rule, ...] = (),
     label = "float" if policy is None else policy.label()
     return NumericsSpec(name=name or f"uniform[{label}]", rules=rules,
                         default=policy)
+
+
+def paper_grid_specs(use_cv: bool = True, backend: Backend = "jnp",
+                     rules: tuple[Rule, ...] = ()) -> list[NumericsSpec]:
+    """The Tables 2-4 sweep: one uniform spec per (multiplier, m) grid
+    point, in the paper's presentation order."""
+    return [dataclasses.replace(uniform_spec(p, rules=rules),
+                                name=f"paper-grid/{p.label()}")
+            for p in paper_policies(use_cv=use_cv, backend=backend)]

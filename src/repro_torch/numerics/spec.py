@@ -154,6 +154,9 @@ class NumericsSpec:
             elif isinstance(node, dict):
                 for k, v in node.items():
                     walk(v, path + (str(k),))
+            elif isinstance(node, (list, tuple)):
+                for i, v in enumerate(node):
+                    walk(v, path + (str(i),))
 
         walk(params, ())
         return PackPlan(spec_name=self.name, entries=tuple(entries))

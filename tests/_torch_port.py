@@ -106,15 +106,20 @@ def _packs(tree, path=()):
     elif isinstance(tree, dict):
         for k, v in tree.items():
             yield from _packs(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):  # list nodes: str(index) segments
+        for i, v in enumerate(tree):
+            yield from _packs(v, path + (str(i),))
 
 
 def _jax_node(tree, path):
     """The reference's pack at a port path; an integer indexes the layer
-    axis of its stacked leaves."""
+    axis of its stacked leaves, a str segment a dict key or list index."""
     layer = None
     for key in path:
         if isinstance(key, int):
             layer = key
+        elif isinstance(tree, (list, tuple)):
+            tree = tree[int(key)]
         else:
             tree = tree[key]
     return tree, layer
@@ -122,7 +127,7 @@ def _jax_node(tree, path):
 
 def assert_packs_byte_equal(jax_tree, port_tree) -> set[str]:
     """Every pack of the port tree (fused groups with their members, layer
-    by layer) byte-equal to the reference's at the same path: the pack's
+    by layer, list nodes index by index) byte-equal to the reference's at the same path: the pack's
     codes, quant params, CV constants and bias, and the blocked layout.
     Returns the keys of the fused groups seen ("qkv", "gateup")."""
     seen = set()

@@ -64,6 +64,23 @@ def test_port_runs_with_jax_unimportable():
             logits, cache = api.prefill(params, {"tokens": toks}, 8)
             logits, cache = api.decode_step(params, toks[:, :1], cache)
             assert logits.shape == (2, cfg.vocab) and cache["pos"] == 6
+        from repro_torch.configs.cnn_suite import get_cnn
+        from repro_torch.core.cost_model import power_saving
+        from repro_torch.data.vision import VisionConfig, make_vision_dataset
+        from repro_torch.nn.cnn import cnn_apply, init_cnn
+        from repro_torch.numerics import apply_numerics, paper_grid_specs
+        from repro_torch.quant.observers import CalibrationRecorder
+        cfg = get_cnn("shufflenet")
+        params = init_cnn(cfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+        x = torch.from_numpy(make_vision_dataset(VisionConfig(), "train", 2)[0])
+        with CalibrationRecorder() as rec:
+            cnn_apply(params, x, cfg)
+        spec = paper_grid_specs(backend="pallas")[1]
+        packed = apply_numerics(params, spec.resolve(params),
+                                act_ranges=rec.ranges())
+        assert cnn_apply(packed, x, cfg).shape == (2, 10)
+        assert power_saving("perforated", 2, 64) > 0
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
@@ -91,3 +108,8 @@ def test_entry_points_default_to_cuda():
         ServingEngine(cfg, params, EngineConfig(slots=2, max_len=16))
     with pytest.raises(RuntimeError, match="CUDA"):
         build_serving_params(params, cfg, ServeConfig())
+    from repro_torch.configs.cnn_suite import get_cnn
+    from repro_torch.nn.cnn import init_cnn
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cnn(get_cnn("vgg13"), generator=torch.Generator())
