@@ -32,7 +32,18 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
 4. engine paths, each served by the port's continuous-batching engine (8
    requests of `mixed_trace(seed=0)`, slots 4, max_len 256, chunk 32):
    full-width olmo-1b and qwen3-4b (36 layers) on `backend: "pallas"`
-   packs with a bf16 KV cache, qwen3-4b again with the int8 KV cache and
+   packs with a bf16 KV cache, each again on the paged KV layout (blocks
+   of 16, prefix cache on) after a warmed shared-prefix pair and a
+   full-prompt repeat (tokens equal the contiguous run's and a sequential
+   decode's, prefix hits, a copy on write, the NULL block zero, KV bytes
+   in use at peak against the contiguous cache's); olmo-1b with request
+   deadlines (3 expire in the queue, 1 mid-prompt); olmo-1b under the
+   `int8` preset and then with self-verifying speculative decode (the
+   `int8` pack verifies, the `serve-default` kernel pack drafts, k=4) on
+   the contiguous and paged layouts and with a no-CV draft (tokens equal
+   the `int8` engine's, kernel launches only in draft calls, the
+   acceptance rate with and without the CV, one round profiled against an
+   `int8` thin step); qwen3-4b again with the int8 KV cache and
    under the `int8` preset (plain exact-integer products, 8 layers),
    full-width rwkv6-1.6b (24 layers, per-slot recurrent state) and
    qwen2-vl-2b (28 layers, token prompts, M-RoPE ids equal).  Checks
@@ -68,7 +79,11 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    modelled power saving, the `int8` preset's error, kernel-path logits
    bit-equal to the plain version's at one point per mode, one point per
    mode at 100 classes, a profiled B=250 forward and the time of each
-   net's largest approx call;
+   net's largest approx call; and one point per mode of the reference's
+   default `backend: "jnp"` grid, CV on: folded float32 operands against
+   `fold=False` (the exact-integer product) and the kernel sweep, the fold
+   bytes against the plan's, a grouped-CV (4 groups) pack's error beside
+   single-CV's, and a profiled B=250 forward, folded and `fold=False`;
 7. kernel times at the paths' shapes (kernel, plain, library, bound),
    the approx-matmul also at the prefills' and the encoder's shapes and
    at the decode shapes of qwen3-4b, rwkv6-1.6b (head too) and
@@ -866,27 +881,38 @@ def dense_calls(cfg, slots: int):
 
 
 def engine_run(torch, label: str, cfg, api, params, ecfg, trace, per_call,
-               numerics: str) -> dict:
+               numerics: str, before=None, draft=None, per_draft=None,
+               draft_numerics: str | None = None, deadline=None,
+               on_step=None, expire=()) -> dict:
     """Serves ``trace`` through the port's engine, the wrapper launch
-    counts set to 0 just before and read just after.  Fails unless every
-    request finished with its token count and in-vocabulary ids, the fused
-    approx wrapper launched ``per_call(C)`` times in each (slots, C) step
-    (no other wrapper at all), and every parameter and cache tensor is on
-    the card.  Returns the requests, launches, metrics snapshot, peak
-    bytes, the pooled cache and each request's (C, n_valid) per step."""
+    counts set to 0 just before and read just after (``before(eng)`` runs
+    inside that window, ahead of the trace).  Request i is submitted with
+    ``deadline_ms=deadline(i)``, and ``on_step(reqs)`` runs after every
+    engine step.  Fails unless the requests of ``expire`` finished on their
+    deadline and every other one with its token count, all ids in the
+    vocabulary, the fused approx
+    wrapper launched ``per_call(C)`` times in each (slots, C) step of
+    ``params`` and ``per_draft(C)`` in each step of ``draft`` (speculative
+    decode; no other wrapper at all), and every parameter and cache tensor
+    is on the card.  Returns the engine, the requests, launches, metrics
+    snapshot, peak bytes, the cache and each request's (C, n_valid) per
+    step of ``params``."""
     from repro_torch.core.approx_linear import iter_tensors
     from repro_torch.serving import ServingEngine
 
-    eng = ServingEngine(cfg, params, ecfg, api=api, numerics=numerics)
+    eng = ServingEngine(cfg, params, ecfg, api=api, numerics=numerics,
+                        draft_params=draft, draft_numerics=draft_numerics)
     steps, sched = [], {}
     dispatch = eng._dispatch
 
-    def logged(p, batch):
+    def logged(p, batch, *rest):
         c = batch.tokens.shape[1]
-        steps.append(c)
-        for r in batch.rows:
-            sched.setdefault(r.rid, []).append((c, int(batch.n_valid[r.slot])))
-        return dispatch(p, batch)
+        steps.append((c, p is params))
+        if p is params:
+            for r in batch.rows:
+                sched.setdefault(r.rid, []).append(
+                    (c, int(batch.n_valid[r.slot])))
+        return dispatch(p, batch, *rest)
 
     eng._dispatch = logged
     torch.cuda.synchronize()
@@ -894,35 +920,52 @@ def engine_run(torch, label: str, cfg, api, params, ecfg, trace, per_call,
     wr = wrappers()
     for w in wr.values():
         w.launches = 0
-    reqs = [eng.submit(p, g) for p, g in trace]
-    finished = eng.run()
+    pre = before(eng) if before is not None else None
+    reqs = [eng.submit(p, g, deadline_ms=deadline(i) if deadline else None)
+            for i, (p, g) in enumerate(trace)]
+    finished = []
+    while not eng.idle:
+        finished += eng.step()
+        if on_step is not None:
+            on_step(reqs)
     torch.cuda.synchronize()
     launches = {n: w.launches for n, w in wr.items()}
     snap = eng.snapshot()
     peak = torch.cuda.max_memory_allocated()
-    if len(finished) != len(trace) or not all(
-            r.finished and len(r.generated) == g
-            for r, (_, g) in zip(reqs, trace)):
-        fail(f"{label}: finished {len(finished)}/{len(trace)} requests")
+    reasons = [r.finish_reason for r in reqs]
+    want = ["deadline" if i in expire else "length" for i in range(len(trace))]
+    if len(finished) != len(trace) or reasons != want or not all(
+            r.finished and (i in expire or len(r.generated) == g)
+            for i, (r, (_, g)) in enumerate(zip(reqs, trace))) or \
+            snap["requests_deadline_expired"] != len(expire):
+        fail(f"{label}: finished {len(finished)}/{len(trace)} requests, "
+             f"reasons {reasons} (want {want}), "
+             f"{snap['requests_deadline_expired']} expired")
     if any(not 0 <= t < cfg.vocab for r in reqs for t in r.generated):
         fail(f"{label}: token id out of the vocabulary")
     expected = {n: 0 for n in wr}
-    expected["approx_matmul_cv_fused"] = sum(per_call(c) for c in steps)
+    expected["approx_matmul_cv_fused"] = sum(
+        per_call(c) if main else per_draft(c) for c, main in steps)
     print(f"{label}: steps prefill={snap['prefill_steps']} mixed="
-          f"{snap['mixed_steps']} decode={snap['decode_steps']}; wrapper "
-          f"launches {launches}, the schedule implies {expected} (a fused "
-          "call is one CUDA launch at decode rows, prep and matmul above)",
-          flush=True)
+          f"{snap['mixed_steps']} decode={snap['decode_steps']} spec="
+          f"{snap['spec_rounds']} (draft calls {snap['draft_calls']}); "
+          f"wrapper launches {launches}, the schedule implies {expected} (a "
+          "fused call is one CUDA launch at decode rows, prep and matmul "
+          "above)", flush=True)
     if launches != expected:
         fail(f"{label}: launches {launches} != {expected}")
+    if eng.compile_count() != 2:
+        fail(f"{label}: {eng.compile_count()} (parameters, shape) pairs "
+             "dispatched, want 2")
     off = [t.device for t in iter_tensors(params) if t.device.type != "cuda"]
     off += [t.device for t in iter_tensors(eng.pool.cache)
             if t.device.type != "cuda"]
     if off:
         fail(f"{label}: {len(off)} parameter/cache tensors off the card: "
              f"{off[:3]}")
-    return {"reqs": reqs, "launches": launches, "snap": snap, "peak": peak,
-            "cache": eng.pool.cache, "sched": sched}
+    return {"engine": eng, "reqs": reqs, "launches": launches, "snap": snap,
+            "peak": peak, "cache": eng.pool.cache, "sched": sched,
+            "before": pre}
 
 
 def replay_dense(torch, api, params, ecfg, prompt, calls) -> list[int]:
@@ -1012,7 +1055,11 @@ def kernel_vs_plain(torch, label, api, packed, ecfg, toks) -> torch.Tensor:
 
 
 def run_main_path(torch, dev, n_layers: int) -> dict:
-    """Phase 4: full-width olmo-1b through the port's engine."""
+    """Phase 4: full-width olmo-1b through the port's engine.  Returns the
+    launches and what the later olmo-1b phases share: the config, the API,
+    the trace, the engine config, the run and the packs (``serve-default``
+    with and without the CV on the approx kernel, and the ``int8``
+    preset's, all from one seeded init)."""
     import dataclasses
 
     from repro_torch.configs import EngineConfig, get_config
@@ -1020,6 +1067,7 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
     from repro_torch.launch.serve import (ServeConfig, build_serving_params,
                                           mixed_trace)
     from repro_torch.models import build_model
+    from repro_torch.numerics import get_preset
 
     cfg = get_config("olmo-1b")
     if n_layers != cfg.n_layers:
@@ -1038,11 +1086,14 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
     packed_nocv = build_serving_params(params, cfg,
                                        ServeConfig(spec=pallas_spec(False)),
                                        device=dev)
+    verify = build_serving_params(params, cfg,
+                                  ServeConfig(spec=get_preset("int8")),
+                                  device=dev)
     del params
     torch.cuda.synchronize()
     pack_gib = storage_gib(iter_tensors(packed))
     members = check_packs("main", packed)
-    print(f"main: init + pack {time.perf_counter() - t0:.1f} s; "
+    print(f"main: init + three packs {time.perf_counter() - t0:.1f} s; "
           f"serving params {pack_gib:.3f} GiB, of which K-major weight codes "
           f"{k_major_gib(packed):.3f} GiB (no row-major copy; {members} "
           "fused-group members read row slices of their group's)", flush=True)
@@ -1069,7 +1120,6 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
         fail("main: the no-CV pack gave the CV pack's logits")
     print(f"main: CV moves logits by max {float((l1 - l3).abs().max()):.4g}",
           flush=True)
-    del packed_nocv
 
     breakdown = {kind: profile_call(torch, "main", api, packed, ecfg, c)
                  for kind, c in (("thin", 1), ("chunk", ecfg.prefill_chunk))}
@@ -1078,8 +1128,316 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
     write_line("main", "main_path.json", {
         **served_metrics(snap), "peak_mem_gib": run["peak"] / 2**30,
         "pack_gib": pack_gib, "k_major_gib": k_major_gib(packed),
+        "cache_gib": cache_gib(run["cache"]),
         "launches": run["launches"], "step_breakdown": breakdown})
+    del run["engine"]
+    return {"launches": run["launches"], "cfg": cfg, "api": api,
+            "trace": trace, "ecfg": ecfg, "run": run, "packed": packed,
+            "packed_nocv": packed_nocv, "verify": verify,
+            "numerics": spec.name}
+
+
+#: tokens a KV block of the paged phases, and the speculative draft depth
+PAGED_BLOCK, SPEC_K = 16, 4
+
+
+def run_paged(torch, label: str, cfg, api, packed, ecfg, trace, cont,
+              numerics: str) -> dict:
+    """The paged layout (blocks of PAGED_BLOCK, prefix cache on, the
+    contiguous layout's capacity) on a contiguous phase's packs: first the
+    reference's shared-prefix pair (a warm request, then the same prompt
+    plus 4 tokens, which attaches to every cached block), then the full
+    prompt again (attached one token short, so its re-prefill copies the
+    shared last block on write), then the phase's trace.  Fails unless
+    every trace request's tokens equal the contiguous run's, the pair's
+    second request hits the whole prefix and the repeat all but one token,
+    at least one copy on write happened, each of the three requests equals
+    a sequential decode of it (alone on the contiguous layout, its cached
+    prefix computed in the warm request's chunks, then its own calls), and
+    the NULL block is still zero.  Prints the KV bytes in use at peak
+    against the contiguous cache's."""
+    import dataclasses
+
+    import numpy as np
+
+    pecfg = dataclasses.replace(ecfg, kv_layout="paged",
+                                kv_block_size=PAGED_BLOCK)
+    rng = np.random.default_rng(17)
+    shared = rng.integers(0, cfg.vocab, min(4 * ecfg.prefill_chunk,
+                                            ecfg.max_len // 2)).tolist()
+    suffix = rng.integers(0, cfg.vocab, 4).tolist()
+
+    def pair(eng):
+        out = []
+        for prompt, gen in ((shared, 2), (shared + suffix, 4), (shared, 4)):
+            out.append(eng.submit(prompt, gen))
+            eng.run()
+        return out
+
+    run = engine_run(torch, label, cfg, api, packed, pecfg, trace,
+                     dense_calls(cfg, ecfg.slots), numerics, before=pair)
+    eng, (warm, hit, again) = run["engine"], run["before"]
+    for r, c in zip(run["reqs"], cont["reqs"]):
+        if r.generated != c.generated:
+            fail(f"{label}: request {r.rid} paged tokens {r.generated} != "
+                 f"the contiguous run's {c.generated}")
+    snap = run["snap"]
+    if (hit.prefix_hit_tokens != len(shared)
+            or again.prefix_hit_tokens != len(shared) - 1
+            or snap["prefix_hits"] != 2 or snap["cow_copies"] < 1):
+        fail(f"{label}: prefix hits {hit.prefix_hit_tokens}, "
+             f"{again.prefix_hit_tokens} of {len(shared)} shared tokens, "
+             f"{snap['prefix_hits']} hits, {snap['cow_copies']} copies on "
+             "write")
+    warm_calls = run["sched"][warm.rid]
+
+    def prefix_calls(h):
+        calls = []
+        for c, n in warm_calls:
+            if h <= 0:
+                break
+            calls.append((c, min(n, h)))
+            h -= n
+        return calls
+
+    for r in (warm, hit, again):
+        want = replay_dense(torch, api, packed, ecfg, r.prompt,
+                            prefix_calls(r.prefix_hit_tokens)
+                            + run["sched"][r.rid])
+        if r.generated != want:
+            fail(f"{label}: shared-prefix request {r.rid} (hit "
+                 f"{r.prefix_hit_tokens}) tokens {r.generated} != a "
+                 f"sequential decode's {want}")
+    pool = eng.pool
+    if any(bool(pool.cache[k][:, 0].any()) for k in ("k", "v")):
+        fail(f"{label}: the NULL block was written")
+    peak_gib = snap["peak_blocks_in_use"] * pool.per_block_bytes() / 2**30
+    cont_gib = cache_gib(cont["cache"])
+    # one thin step on each layout, fresh caches, every slot at the same
+    # cursor (the paged one through full block tables)
+    toks = torch.zeros(ecfg.slots, 1, dtype=torch.long, device=api.device)
+    tables = np.arange(1, 1 + ecfg.slots * pool.blocks_per_slot).reshape(
+        ecfg.slots, pool.blocks_per_slot)
+    nv = [1] * ecfg.slots
+
+    def paged_step():
+        cache = api.init_paged_cache(pool.allocator.num_blocks, PAGED_BLOCK,
+                                     ecfg.slots, pool.cache["k"].dtype)
+        cache["lengths"].fill_(ecfg.prefill_chunk)
+        api.decode_slots(packed, toks, cache, nv, block_tables=tables,
+                         kv_len=ecfg.max_len)
+
+    def cont_step():
+        cache = api.init_slot_cache(ecfg.slots, ecfg.max_len,
+                                    pool.cache["k"].dtype)
+        cache["lengths"].fill_(ecfg.prefill_chunk)
+        api.decode_slots(packed, toks, cache, nv)
+
+    name = label.replace(" ", "_")
+    steps = {"paged": profile_fn(torch, f"{label}: profile paged thin step",
+                                 paged_step, f"host_profile_{name}.txt"),
+             "contiguous": profile_fn(
+                 torch, f"{label}: profile contiguous thin step", cont_step,
+                 f"host_profile_{name}_contiguous.txt")}
+    check_one_launch(f"{label}: paged thin step", steps["paged"])
+    line = {**served_metrics(snap), "block_size": PAGED_BLOCK,
+            "prefix_hits": snap["prefix_hits"],
+            "prefix_hit_tokens": snap["prefix_hit_tokens"],
+            "cow_copies": snap["cow_copies"],
+            "peak_blocks_in_use": snap["peak_blocks_in_use"],
+            "blocks_total": snap["blocks_total"],
+            "kv_gib_peak_in_use": peak_gib, "kv_gib_pool": cache_gib(
+                pool.cache), "kv_gib_contiguous": cont_gib,
+            "mean_block_utilization": snap["mean_block_utilization"],
+            "mean_block_fragmentation": snap["mean_block_fragmentation"],
+            "peak_mem_gib": run["peak"] / 2**30, "launches": run["launches"],
+            "thin_step": steps}
+    print(f"{label}: trace tokens equal the contiguous run's; pair hit "
+          f"{hit.prefix_hit_tokens}/{len(shared)} shared tokens, repeat "
+          f"{again.prefix_hit_tokens} with {snap['cow_copies']} copy on "
+          f"write, both equal a sequential decode; NULL block zero; KV in use "
+          f"at peak {peak_gib:.4f} GiB ({snap['peak_blocks_in_use']} of "
+          f"{snap['blocks_total']} blocks) against the contiguous cache's "
+          f"{cont_gib:.4f} GiB", flush=True)
+    write_line(label, f"{label.replace(' ', '_')}.json", line)
     return run["launches"]
+
+
+def run_deadlines(torch, built: dict) -> dict:
+    """Request deadlines on the olmo-1b packs, through ``engine_run``: the
+    trace with a 0 ms budget on its last three requests (they expire in the
+    queue, before any admission) and on request 2 (a long document) once
+    its first prompt chunk has run (it stops at its next chunk): 4 requests
+    expire, and each of the others equals a sequential decode of it at this
+    run's call shapes.  (Against the main run's tokens, whose calls had
+    other shapes, the agreement is printed: the bf16 operations around the
+    kernels pick their algorithm by shape.)"""
+    cfg, api, packed, ecfg = (built[k] for k in ("cfg", "api", "packed",
+                                                 "ecfg"))
+    trace, main_reqs = built["trace"], built["run"]["reqs"]
+    queue_expire, mid = (5, 6, 7), 2
+
+    def expire_mid(reqs):
+        r = reqs[mid]
+        if r.prefilled and r.deadline_ms is None and not r.finished:
+            r.deadline_ms = 0.0
+
+    run = engine_run(torch, "deadlines", cfg, api, packed, ecfg, trace,
+                     dense_calls(cfg, ecfg.slots), built["numerics"],
+                     deadline=lambda i: 0.0 if i in queue_expire else None,
+                     on_step=expire_mid, expire=queue_expire + (mid,))
+    reqs = run["reqs"]
+    if any(reqs[i].generated or reqs[i].slot is not None
+           for i in queue_expire) or \
+            not 0 < reqs[mid].prefilled < reqs[mid].prompt_len:
+        fail(f"deadlines: queued requests admitted or request {mid} not "
+             f"stopped mid-prompt ({reqs[mid].prefilled} of "
+             f"{reqs[mid].prompt_len} prompt tokens)")
+    survivors = [i for i in range(len(trace))
+                 if i not in queue_expire + (mid,)]
+    check_sequential("deadlines", {"reqs": [reqs[i] for i in survivors],
+                                   "sched": run["sched"]},
+                     [trace[i] for i in survivors],
+                     lambda prompt, gen, calls: replay_dense(
+                         torch, api, packed, ecfg, prompt, calls),
+                     "a sequential decode at this run's call shapes")
+    same = sum(a == b for i in survivors
+               for a, b in zip(reqs[i].generated, main_reqs[i].generated))
+    total = sum(len(main_reqs[i].generated) for i in survivors)
+    print(f"deadlines: 3 requests expired in the queue (never admitted), "
+          f"request {mid} after {reqs[mid].prefilled} of "
+          f"{reqs[mid].prompt_len} prompt tokens; requests_deadline_expired "
+          f"{run['snap']['requests_deadline_expired']}; {same}/{total} of "
+          f"the other requests' tokens equal the main run's", flush=True)
+    return run["launches"]
+
+
+def run_speculative(torch, built: dict) -> dict:
+    """Self-verifying speculative decode at full olmo-1b width: the
+    ``int8`` preset verifies (the plain float64 integer product), the
+    ``serve-default`` pack on the approx kernel drafts, k = SPEC_K.  First
+    the non-speculative engine under ``int8`` on the main trace, whose
+    tokens must equal a sequential decode at its call shapes; then the
+    speculative engine on the contiguous layout, whose tokens must equal a
+    sequential exact-int8 decode at the verify call's (slots, chunk)
+    shape, then on the paged layout and with the no-CV draft, whose tokens
+    must equal the first speculative run's (the kernel launched only in
+    draft calls, ``dense_calls`` of a thin step each; the acceptance rate
+    with and without the CV).  Every speculative run's tokens must also
+    equal the non-speculative run's, whose decode rows ran thin calls: on
+    this path the shapes do not move a token (on the ``serve-default``
+    packs they can, see ``run_deadlines``).  Profiles one speculative round (SPEC_K thin draft
+    calls, one chunk-shaped verify call: every fused call one CUDA launch)
+    against a non-speculative ``int8`` thin step.  Returns the launches
+    of each run."""
+    import dataclasses
+
+    from repro_torch.core.approx_linear import iter_tensors
+
+    cfg, api, ecfg, trace = (built[k] for k in ("cfg", "api", "ecfg",
+                                                "trace"))
+    verify = built["verify"]
+    warm_up(torch, api, verify, ecfg)
+    base = engine_run(torch, "int8 olmo-1b", cfg, api, verify, ecfg, trace,
+                      lambda c: 0, "int8")
+    check_sequential("int8 olmo-1b", base, trace,
+                     lambda p, g, calls: replay_dense(torch, api, verify,
+                                                      ecfg, p, calls))
+    out = {"engine int8 olmo-1b": base["launches"]}
+    lines = {}
+    per_draft = dense_calls(cfg, ecfg.slots)
+    first = None
+    for label, layout, draft in (
+            ("spec olmo-1b", "contiguous", built["packed"]),
+            ("spec olmo-1b paged", "paged", built["packed"]),
+            ("spec olmo-1b no-cv", "contiguous", built["packed_nocv"])):
+        secfg = dataclasses.replace(ecfg, kv_layout=layout,
+                                    kv_block_size=PAGED_BLOCK,
+                                    speculative_k=SPEC_K)
+        run = engine_run(torch, label, cfg, api, verify, secfg, trace,
+                         lambda c: 0, "int8", draft=draft,
+                         per_draft=per_draft, draft_numerics="serve-default")
+        if first is None:
+            # the exact model's greedy decode at the verify call's shape:
+            # each request alone, its prompt in the engine's chunks, then
+            # one token a (slots, chunk) call
+            first = run
+            for r, (prompt, gen) in zip(run["reqs"], trace):
+                calls, fed = [], 0
+                for c, n in run["sched"][r.rid]:
+                    if fed >= len(prompt):
+                        break
+                    calls.append((c, n))
+                    fed += n
+                calls += [(ecfg.prefill_chunk, 1)] * (gen - 1)
+                want = replay_dense(torch, api, verify, ecfg, prompt, calls)
+                if r.generated != want:
+                    fail(f"{label}: request {r.rid} speculative tokens "
+                         f"{r.generated} != a sequential exact-int8 decode's "
+                         f"{want} at the verify call's shape")
+        else:
+            for r, f in zip(run["reqs"], first["reqs"]):
+                if r.generated != f.generated:
+                    fail(f"{label}: request {r.rid} tokens {r.generated} != "
+                         f"the contiguous speculative run's {f.generated}")
+        same = sum(a == b for r, b_ in zip(run["reqs"], base["reqs"])
+                   for a, b in zip(r.generated, b_.generated))
+        n_tok = sum(len(b.generated) for b in base["reqs"])
+        if same != n_tok:
+            fail(f"{label}: {same}/{n_tok} tokens equal the non-speculative "
+                 "int8 engine's")
+        snap = run["snap"]
+        if not snap["drafted_tokens"] or snap["acceptance_rate"] is None:
+            fail(f"{label}: nothing drafted")
+        lines[label] = {**served_metrics(snap), "k": SPEC_K,
+                        "layout": layout,
+                        "drafted_tokens": snap["drafted_tokens"],
+                        "accepted_draft_tokens": snap["accepted_draft_tokens"],
+                        "acceptance_rate": snap["acceptance_rate"],
+                        "spec_rounds": snap["spec_rounds"],
+                        "draft_calls": snap["draft_calls"],
+                        "tokens_equal_int8_engine": f"{same}/{n_tok}",
+                        "launches": run["launches"],
+                        "peak_mem_gib": run["peak"] / 2**30}
+        print(f"{label}: tokens equal a sequential exact-int8 decode at the "
+              f"verify shape (and across the speculative runs), and the "
+              f"non-speculative int8 engine's ({same}/{n_tok}, its decode "
+              f"rows on thin calls); "
+              f"acceptance {snap['accepted_draft_tokens']}/"
+              f"{snap['drafted_tokens']} = {snap['acceptance_rate']:.4f} over "
+              f"{snap['spec_rounds']} rounds ({snap['draft_calls']} draft "
+              f"calls); gen tok/s {snap['gen_tok_per_s']:.1f} against the "
+              f"int8 engine's {base['snap']['gen_tok_per_s']:.1f}", flush=True)
+        out[f"engine {label}"] = run["launches"]
+
+    # one round against one non-speculative int8 thin step, fresh caches
+    toks1 = torch.zeros(ecfg.slots, 1, dtype=torch.long, device=api.device)
+    toksc = torch.zeros(ecfg.slots, ecfg.prefill_chunk, dtype=torch.long,
+                        device=api.device)
+    base_len = ecfg.prefill_chunk
+
+    def spec_round():
+        cache = api.init_slot_cache(ecfg.slots, ecfg.max_len, torch.bfloat16)
+        cache["lengths"].fill_(base_len)
+        for _ in range(SPEC_K):
+            api.decode_slots(built["packed"], toks1, cache, [1] * ecfg.slots)
+        cache["lengths"].fill_(base_len)
+        api.decode_slots(verify, toksc, cache, [SPEC_K + 1] * ecfg.slots)
+
+    rnd = profile_fn(torch, "spec olmo-1b: profile one round", spec_round,
+                     "host_profile_spec_round.txt")
+    check_one_launch("spec olmo-1b: one round's draft calls", rnd)
+    thin = profile_call(torch, "int8 olmo-1b", api, verify, ecfg, 1)
+    chunk = profile_call(torch, "int8 olmo-1b", api, verify, ecfg,
+                         ecfg.prefill_chunk)
+    write_line("spec", "speculative_olmo-1b.json", {
+        "runs": lines, "int8_engine": {
+            **served_metrics(base["snap"]),
+            "peak_mem_gib": base["peak"] / 2**30,
+            "verify_pack_gib": storage_gib(iter_tensors(verify))},
+        "round_profile": rnd, "int8_thin_step": thin,
+        "int8_chunk_step": chunk})
+    return out
 
 
 def served_metrics(snap: dict) -> dict:
@@ -1197,6 +1555,9 @@ def run_qwen3_engine(torch, dev) -> dict:
             line["k_major_gib"] = k_major_gib(packed)
             kernel_vs_plain(torch, label, run_api, params, ecfg, toks)
             bf16_run = (run, line)
+            out["paged qwen3-4b"] = run_paged(
+                torch, "paged qwen3-4b", run_cfg, run_api, params, ecfg,
+                trace, run, numerics)
         elif label == "qwen3 int8-cache":
             # a different numeric from the bf16 cache: report, not assert
             a = [r.generated for r in bf16_run[0]["reqs"]]
@@ -1302,6 +1663,10 @@ def run_rwkv_engine(torch, dev) -> dict:
     return run["launches"]
 
 
+#: idle seconds on each side of a profiled window
+PROFILE_GAP_S = 0.05
+
+
 def profile_fn(torch, label: str, call, host_profile: str) -> dict:
     """Wall time of ``call`` (host clock around a synchronised call, median
     of 5) against its device time (the sum of the CUDA kernels' times from
@@ -1335,19 +1700,37 @@ def profile_fn(torch, label: str, call, host_profile: str) -> dict:
     (ROOT / "chiprun_out" / host_profile).write_text(buf.getvalue())
     from repro_torch.kernels import approx_matmul as amk
 
-    calls0 = amk.approx_matmul_cv_fused.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # one warm-up step that the profiler traces and discards, then the
+    # three recorded calls between two idle gaps: the window is cut by
+    # timestamps, and a kernel at its edge must not fall outside it (the
+    # device's and the host's clocks are aligned only approximately; runs
+    # without the gaps lost 3 to 10 of a window's first split-K records)
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())
+                 ) as prof:
+        call()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(PROFILE_GAP_S)
+        calls0 = amk.approx_matmul_cv_fused.launches
         for _ in range(3):
             call()
         torch.cuda.synchronize()
-    fused_calls = amk.approx_matmul_cv_fused.launches - calls0
+        fused_calls = amk.approx_matmul_cv_fused.launches - calls0
+        time.sleep(PROFILE_GAP_S)
+        prof.step()
 
     def dev_us(evt):
         return getattr(evt, "self_device_time_total",
                        getattr(evt, "self_cuda_time_total", 0.0))
 
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    # the schedule's "ProfilerStep#" range also appears on the device as
+    # an annotation spanning the step: it is not a kernel
+    kernels = [e for e in traced[0]
+               if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+               and not e.key.startswith("ProfilerStep")]
     device_s = sum(dev_us(e) for e in kernels) / 3 / 1e6
     wall_s = statistics.median(walls)
     # kernels by name, instantiations of one template summed (their names
@@ -1929,7 +2312,7 @@ def run_cnn_net(torch, dev, card: str, name: str, data: dict) -> dict:
         y_float = logits(params)
         if not bool(torch.isfinite(y_float).all()):
             fail(f"{label}: float logits not finite")
-        return cfg, paths, test, logits, pack, y_float
+        return cfg, paths, test, logits, pack, y_float, params, ranges
 
     def sweep(classes, points, pack, logits, paths, y_float):
         packs = {(i, cv): pack(grid[cv][i]) for i in points
@@ -1970,11 +2353,12 @@ def run_cnn_net(torch, dev, card: str, name: str, data: dict) -> dict:
         return packs, ys, wall, rows
 
     t0 = time.perf_counter()
-    cfg, paths, test, logits, pack, y_float = calibrated(10)
+    cfg, paths, test, logits, pack, y_float, params, ranges = calibrated(10)
     packs, ys, wall, out["c10"] = sweep(10, list(range(len(grid[True]))),
                                         pack, logits, paths, y_float)
     x0 = test[:CNN_BATCH]
-    # the exact baseline: the int8 preset (plain exact-integer products)
+    # the exact baseline: the int8 preset (no kernel: folded float32 GEMMs
+    # at fan-ins up to 258, the plain exact-integer product above)
     pack8 = pack(get_preset("int8"))
     y8, *_ = counted_run(torch, f"{label} int8", lambda: logits(pack8), {},
                          "the int8 preset (no kernel)")
@@ -2001,6 +2385,9 @@ def run_cnn_net(torch, dev, card: str, name: str, data: dict) -> dict:
           f"points x CV on/off (B={CNN_BATCH}); two forwards bit-equal",
           flush=True)
 
+    out["folds"] = cnn_fold_points(torch, label, cfg, params, ranges, logits,
+                                   y_float, out["c10"], x0)
+
     # the profiled forward and its largest approx call
     fwd = packs[key]
     calls: list = []
@@ -2024,7 +2411,7 @@ def run_cnn_net(torch, dev, card: str, name: str, data: dict) -> dict:
 
     # one point per mode at 100 classes
     del packs, ys
-    _, paths100, _, logits100, pack100, yf100 = calibrated(100)
+    _, paths100, _, logits100, pack100, yf100, *_ = calibrated(100)
     _, _, _, out["c100"] = sweep(100, list(CNN_POINTS), pack100, logits100,
                                  paths100, yf100)
     write_line(label, f"cnn_{name}.json", {
@@ -2036,6 +2423,111 @@ def run_cnn_net(torch, dev, card: str, name: str, data: dict) -> dict:
         "calls": sorted(set(calls)), **out})
     out["largest_call"] = row
     return out
+
+
+#: the fold phase's tolerances, per net and grid point (CV on): the folded
+#: logits' distance to the exact-integer path's (``fold=False``) at most
+#: FOLD_GAP_MAX of that path's own distance to the float model (the
+#: quantization error), and the folded sweep's relative logit error within
+#: FOLD_ERR_RTOL of the kernel sweep's at the same point.  Per layer the
+#: fold agrees with the integer path to float32 rounding; an activation
+#: code that rounds the other way is then carried through every later
+#: layer, and a CPU rehearsal at full width (100 images) measured gaps of
+#: 0.03-0.32 of the quantization error (largest at recursive m=3, whose
+#: error is smallest) and errors within 0.8% of the kernel sweep's
+FOLD_GAP_MAX, FOLD_ERR_RTOL = 0.5, 0.05
+
+
+def cnn_fold_points(torch, label: str, cfg, params, ranges, logits, y_float,
+                    rows: list, x0) -> list:
+    """Phase 6, folds and grouped CV: one point per mode of
+    ``paper_grid_specs(backend="jnp")`` (the reference's default), CV on,
+    packed three ways from the phase's calibration: with the folded
+    float32 operands (every layer of fan-in up to 258), with ``fold=False``
+    (the plain exact-integer product), and with grouped CV (4 groups where
+    the fan-in divides, single-C elsewhere).  Fails unless the folds are
+    where ``build_fold`` puts them, their bytes and each pack's bytes equal
+    the plan's, no kernel launches, and the folded logits are within the
+    FOLD_* tolerances.  Prints each pack's relative logit error beside the
+    kernel sweep's, and profiles a B = CNN_BATCH forward of the folded and
+    of the ``fold=False`` packs (first point only)."""
+    import dataclasses
+
+    from repro_torch.core.approx_linear import QuantizedDense, pack_params
+    from repro_torch.core.multipliers import _F32_EXACT_K
+    from repro_torch.nn.cnn import cnn_apply
+    from repro_torch.numerics import apply_numerics, paper_grid_specs
+    from repro_torch.numerics.plan import _fold_bytes
+
+    grid = paper_grid_specs(use_cv=True)  # backend "jnp"
+    yn = y_float.norm()
+    res = []
+    for i in CNN_POINTS:
+        spec = grid[i]
+        pol = spec.default
+        plan = spec.resolve(params)
+        fan_in = {e.path: e.w_shape[-2] for e in plan.entries}
+        folded = apply_numerics(params, plan, act_ranges=ranges)
+        exact = apply_numerics(params, plan, act_ranges=ranges, fold=False)
+        grouped = pack_params(params, lambda path: dataclasses.replace(
+            pol, groups=4 if fan_in["/".join(path)] % 4 == 0 else 1),
+            act_ranges=ranges)
+        mods = [m for m in modules(folded) if isinstance(m, QuantizedDense)]
+        if any((m.fold is not None) != (m.w_q.shape[0] <= _F32_EXACT_K)
+               for m in mods):
+            fail(f"{label}: {spec.name} folds missing or misplaced")
+        fold_b = sum(m.fold[key].numel() * 4 for m in mods if m.fold
+                     for key in ("A", "B", "delta") if key in m.fold)
+        plan_fold_b = sum(_fold_bytes(e.w_shape[-2], e.w_shape[-1], e.policy)
+                          for e in plan.packed)
+        pack_b = sum(b.numel() * b.element_size() for m in mods
+                     for b in m.buffers() if b is not None and b.ndim)
+        if fold_b != plan_fold_b or pack_b != sum(e.packed_bytes
+                                                  for e in plan.packed):
+            fail(f"{label}: {spec.name} fold bytes {fold_b} (plan "
+                 f"{plan_fold_b}), pack bytes {pack_b} (plan "
+                 f"{sum(e.packed_bytes for e in plan.packed)})")
+        n_grouped = sum(m.c.ndim == 2 for m in modules(grouped)
+                        if isinstance(m, QuantizedDense))
+        (y_f, y_e, y_g), *_ = counted_run(
+            torch, f"{label} folds {pol.mode}(m={pol.m})",
+            lambda: (logits(folded), logits(exact), logits(grouped)), {},
+            "folded, exact-integer and grouped-CV packs (no kernel)")
+        err = {tag: float((y - y_float).norm() / yn)
+               for tag, y in (("fold", y_f), ("exact", y_e), ("grouped", y_g))}
+        gap = float((y_f - y_e).norm() / (y_e - y_float).norm())
+        err_kernel = rows[i]["rel_err_cv"]
+        row = {"mode": pol.mode, "m": pol.m, "rel_err_fold": err["fold"],
+               "rel_err_exact_integer": err["exact"],
+               "rel_err_kernel": err_kernel,
+               "rel_err_grouped4": err["grouped"],
+               "grouped_layers": n_grouped, "layers": len(mods),
+               "fold_gap_over_quant_err": gap,
+               "top1_fold_vs_exact": float(
+                   (y_f.argmax(-1) == y_e.argmax(-1)).float().mean()),
+               "fold_bytes": fold_b, "pack_bytes": pack_b}
+        print(f"{label} folds {pol.mode}(m={pol.m}): rel logit err folded "
+              f"{err['fold']:.5f}, exact-integer {err['exact']:.5f}, kernel "
+              f"sweep {err_kernel:.5f}, grouped CV (g=4 on {n_grouped} of "
+              f"{len(mods)} layers) {err['grouped']:.5f}; folded-vs-integer "
+              f"gap {gap:.3g} of the quantization error; fold bytes "
+              f"{fold_b:,} = the plan's", flush=True)
+        if gap > FOLD_GAP_MAX or abs(err["fold"] - err_kernel) \
+                > FOLD_ERR_RTOL * err_kernel:
+            fail(f"{label}: {spec.name} folded logits outside the "
+                 f"tolerance: gap {gap:.3g} (max {FOLD_GAP_MAX}), error "
+                 f"{err['fold']:.5f} against the kernel sweep's "
+                 f"{err_kernel:.5f} (rtol {FOLD_ERR_RTOL})")
+        if not res:
+            for key, tree, what in (("forward", folded, "folded"),
+                                    ("forward_exact_integer", exact,
+                                     "fold=False")):
+                row[key] = profile_fn(
+                    torch, f"{label}: profile {what} B={CNN_BATCH} forward",
+                    lambda tree=tree: cnn_apply(tree, x0, cfg),
+                    f"host_profile_{label.replace(' ', '_')}_{key}.txt")
+        res.append(row)
+    return res
 
 
 def run_cnn_suite(torch, dev, card: str) -> dict:
@@ -2242,7 +2734,14 @@ def main() -> int:
     errs.update(check_attention_and_scan(torch, dev))
     # every path is driven with the launch counts zeroed just before it and
     # read just after it
-    paths = {"engine olmo-1b": run_main_path(torch, dev, args.layers)}
+    built = run_main_path(torch, dev, args.layers)
+    paths = {"engine olmo-1b": built["launches"]}
+    paths["paged olmo-1b"] = run_paged(
+        torch, "paged olmo-1b", built["cfg"], built["api"], built["packed"],
+        built["ecfg"], built["trace"], built["run"], built["numerics"])
+    paths["deadlines olmo-1b"] = run_deadlines(torch, built)
+    paths.update(run_speculative(torch, built))
+    del built
     torch.cuda.empty_cache()
     paths.update(run_qwen3_engine(torch, dev))
     torch.cuda.empty_cache()

@@ -19,3 +19,13 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def seeded_generator(device, seed: int) -> torch.Generator | None:
+    """A generator on ``device`` seeded with ``seed``; None on the
+    ``meta`` device, whose tensors have shapes and no values (the ``plan``
+    subcommand builds its parameter tree there)."""
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type == "meta":
+        return None
+    return torch.Generator(device=dev).manual_seed(seed)

@@ -35,6 +35,20 @@ class EngineConfig:
     #: running decode advances every iteration; off falls back to
     #: whole-batch alternation (``interleave``)
     mixed_batches: bool = True
+    #: "contiguous": a max_len KV stripe a slot; "paged": slots map
+    #: positions onto refcounted blocks of a shared pool
+    #: (``repro_torch.serving.paged``), with copy-on-write prefix reuse
+    kv_layout: str = "contiguous"
+    kv_block_size: int = 16  # tokens a KV block (paged layout)
+    #: usable blocks in the pool; 0 = the contiguous layout's capacity
+    #: (slots * ceil(max_len / kv_block_size))
+    kv_blocks: int = 0
+    #: content-hash cache of full prompt blocks (paged layout)
+    prefix_cache: bool = True
+    #: self-verifying speculative decode (``repro_torch.serving.
+    #: speculative``): up to k greedy drafts a slot through the draft
+    #: parameters, verified in one chunk-shaped exact call; 0 disables
+    speculative_k: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

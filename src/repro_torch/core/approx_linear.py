@@ -6,7 +6,8 @@ linear layer:
   * float dict ``{"w": (k, n), "b": (n,)?}`` (or a (layers, k, n) stack);
   * :class:`QuantizedDense` — an ``nn.Module`` whose buffers are the
     offline pack (uint8 codes, quant params, CV constants) and, for
-    ``backend: "pallas"`` packs, the blocked kernel layout.
+    ``backend: "pallas"`` packs, the blocked kernel layout, or, for other
+    single-CV packs at fan-ins up to 258, the folded float32 operands.
 
 ``dense(p, x)`` dispatches on the representation, so model code is the
 same for float, exact-int8 and approximate+CV numerics.  A packed
@@ -25,20 +26,22 @@ from torch import nn
 from repro_torch.core.policy import ApproxPolicy, PolicyFn
 from repro_torch.quant import observers
 from repro_torch.quant.quantize import (BlockedPack, PackedLinear, QuantParams,
-                                        build_blocked_layout,
+                                        build_blocked_layout, build_fold,
                                         calibrate_minmax, concat_packs,
-                                        pack_linear, quantized_linear,
-                                        serving_blocks)
+                                        folded_linear, pack_linear,
+                                        quantized_linear, serving_blocks)
 
 _PACK_FIELDS = ("w_q", "w_scale", "w_zp", "sum_qw", "c", "c0", "bias")
 _BLOCKED_FIELDS = ("w_qbt", "epilogue", "meta")
 
 
 class _Packed(nn.Module):
-    """Buffers of one pack (+ activation quant params, + blocked layout)."""
+    """Buffers of one pack (+ activation quant params, + blocked layout or
+    folded operands, held as ``fold_<key>`` buffers)."""
 
     def __init__(self, pack: PackedLinear, a_qp: QuantParams,
-                 policy: ApproxPolicy, blocked: BlockedPack | None):
+                 policy: ApproxPolicy, blocked: BlockedPack | None,
+                 fold: dict | None = None):
         super().__init__()
         self.policy = policy
         for f in _PACK_FIELDS:
@@ -50,6 +53,9 @@ class _Packed(nn.Module):
             self.register_buffer(f, getattr(blocked, f) if blocked else None)
         if blocked is not None:
             self._blocked_dims = (blocked.k, blocked.n, blocked.bk, blocked.bn)
+        self._fold_keys = tuple(fold) if fold is not None else ()
+        for key in self._fold_keys:
+            self.register_buffer(f"fold_{key}", fold[key])
 
     @property
     def pack(self) -> PackedLinear:
@@ -65,6 +71,13 @@ class _Packed(nn.Module):
             return None
         k, n, bk, bn = self._blocked_dims
         return BlockedPack(self.w_qbt, self.epilogue, self.meta, k, n, bk, bn)
+
+    @property
+    def fold(self) -> dict | None:
+        """The folded serving operands (``build_fold``), or None."""
+        if not self._fold_keys:
+            return None
+        return {key: getattr(self, f"fold_{key}") for key in self._fold_keys}
 
 
 class QuantizedDense(_Packed):
@@ -86,8 +99,9 @@ class QuantizedDenseGroup(_Packed):
     group's, so the weights are on the card once."""
 
     def __init__(self, pack, a_qp, policy, blocked, names: tuple[str, ...],
-                 splits: tuple[int, ...], members: list[QuantizedDense]):
-        super().__init__(pack, a_qp, policy, blocked)
+                 splits: tuple[int, ...], members: list[QuantizedDense],
+                 fold: dict | None = None):
+        super().__init__(pack, a_qp, policy, blocked, fold)
         self.names, self.splits = names, splits
         self.members = nn.ModuleList(members)
 
@@ -128,7 +142,10 @@ def layer_params(tree: Any, i: int) -> Any:
 
 
 def _packed_forward(p: _Packed, x: torch.Tensor) -> torch.Tensor:
-    """Forward dispatch for one packed leaf (or fused group's wide call)."""
+    """Forward dispatch for one packed leaf (or fused group's wide call),
+    the reference's order: a pallas-backend single-CV approximate pack runs
+    the kernel; any other pack its folded operands when it carries them,
+    else the exact-integer path (grouped CV included)."""
     pol = p.policy
     if pol.backend == "pallas" and pol.is_approx and pol.groups == 1:
         from repro_torch.kernels import ops as kops
@@ -139,8 +156,12 @@ def _packed_forward(p: _Packed, x: torch.Tensor) -> torch.Tensor:
         if blocked is not None:
             return kops.quantized_dense_fused_op(
                 x, blocked, mode=pol.mode, m=pol.m, use_cv=pol.use_cv)
+    fold = p.fold
+    if fold is not None:
+        return folded_linear(x, fold, pol.mode, pol.m,
+                             pol.use_cv).to(x.dtype)
     return quantized_linear(x, p.pack, p.a_qp, pol.mode, pol.m,
-                            use_cv=pol.use_cv).to(x.dtype)
+                            use_cv=pol.use_cv, groups=pol.groups).to(x.dtype)
 
 
 def dense(p: Any, x: torch.Tensor, name: str | None = None) -> torch.Tensor:
@@ -218,6 +239,15 @@ def _maybe_blocked(pack: PackedLinear, a_qp: QuantParams,
     return build_blocked_layout(pack, a_qp, bn, bk)
 
 
+def _maybe_fold(pack: PackedLinear, a_qp: QuantParams,
+                policy: ApproxPolicy) -> dict | None:
+    """Folded float32 serving operands for packs that do not run the
+    kernel (``build_fold``: single-CV, fan-in up to 258)."""
+    if policy.backend == "pallas" and policy.is_approx and policy.groups == 1:
+        return None
+    return build_fold(pack, a_qp, policy.mode, policy.m, policy.use_cv)
+
+
 def _per_layer(p: dict):
     """[(w, b)] per layer for a 2D leaf or a (layers, k, n) stack."""
     w, b = p["w"], p.get("b")
@@ -226,22 +256,26 @@ def _per_layer(p: dict):
     return [(w[i], None if b is None else b[i]) for i in range(w.shape[0])]
 
 
-def _pack_one(w, b, policy, a_qp) -> QuantizedDense:
+def _pack_one(w, b, policy, a_qp, fold: bool) -> QuantizedDense:
     pack = pack_linear(w, b, policy.mode, policy.m, policy.groups)
-    return QuantizedDense(pack, a_qp, policy, _maybe_blocked(pack, a_qp, policy))
+    return QuantizedDense(pack, a_qp, policy, _maybe_blocked(pack, a_qp, policy),
+                          _maybe_fold(pack, a_qp, policy) if fold else None)
 
 
 def pack_dense(p: dict, policy: ApproxPolicy,
-               act_range: tuple[float, float]) -> nn.Module:
+               act_range: tuple[float, float], fold: bool = True) -> nn.Module:
     """Pack one float linear layer (2D, or a (layers, k, n) stack whose
-    slices get their own quant/CV constants) for the approximate array."""
+    slices get their own quant/CV constants) for the approximate array;
+    ``fold`` adds the folded operands where :func:`build_fold` builds
+    them."""
     a_qp = calibrate_minmax(act_range[0], act_range[1], device=p["w"].device)
-    layers = [_pack_one(w, b, policy, a_qp) for w, b in _per_layer(p)]
+    layers = [_pack_one(w, b, policy, a_qp, fold) for w, b in _per_layer(p)]
     return layers[0] if p["w"].ndim == 2 else LayerStack(layers)
 
 
 def pack_dense_group(members: list[tuple[str, dict]], policy: ApproxPolicy,
-                     act_range: tuple[float, float]) -> nn.Module:
+                     act_range: tuple[float, float],
+                     fold: bool = True) -> nn.Module:
     """Pack sibling linears that consume the SAME activations into one
     fan-out-fused wide-N pack, keeping the member packs for decode shapes."""
     names = tuple(name for name, _ in members)
@@ -252,12 +286,12 @@ def pack_dense_group(members: list[tuple[str, dict]], policy: ApproxPolicy,
     per_member = [_per_layer(leaf) for leaf in leaves]
     groups = []
     for li in range(len(per_member[0])):
-        mods = [_pack_one(w, b, policy, a_qp)
+        mods = [_pack_one(w, b, policy, a_qp, fold)
                 for w, b in (pm[li] for pm in per_member)]
         pack = concat_packs([mod.pack for mod in mods])
         group = QuantizedDenseGroup(
             pack, a_qp, policy, _maybe_blocked(pack, a_qp, policy), names,
-            splits, mods)
+            splits, mods, _maybe_fold(pack, a_qp, policy) if fold else None)
         if group.w_qbt is not None:
             # a member's columns are a contiguous range of the group's, so
             # its K-major codes are those rows of the group's (same ldt)
@@ -303,11 +337,15 @@ def _fusable(node: dict, names, companion, path, policy_fn, act_ranges,
 def pack_params(params: Any, policy_fn: PolicyFn,
                 act_ranges: dict[str, tuple[float, float]] | None = None,
                 default_range: tuple[float, float] = (-8.0, 8.0),
-                fuse: bool = True) -> Any:
+                fuse: bool = True, fold: bool = True) -> Any:
     """Walk a parameter tree, replacing float linear leaves with packed
     modules (``policy_fn(path)`` None keeps a leaf float).  With ``fuse``,
     sibling sets of :data:`FUSABLE_GROUPS` sharing a policy and activation
-    range become one :class:`QuantizedDenseGroup` at key "qkv"/"gateup"."""
+    range become one :class:`QuantizedDenseGroup` at key "qkv"/"gateup".
+    With ``fold`` (the default, as the reference's), packs that do not run
+    the kernel carry the folded float32 operands where ``build_fold``
+    builds them; ``fold=False`` keeps every such pack on the exact-integer
+    path."""
 
     def walk(node: Any, path: tuple[str, ...]) -> Any:
         if is_linear_params(node):
@@ -315,7 +353,7 @@ def pack_params(params: Any, policy_fn: PolicyFn,
             if policy is None:
                 return node
             rng = (act_ranges or {}).get("/".join(path), default_range)
-            return pack_dense(node, policy, rng)
+            return pack_dense(node, policy, rng, fold=fold)
         if isinstance(node, dict):
             groups: dict[str, tuple[str, Any]] = {}
             consumed: set[str] = set()
@@ -329,7 +367,8 @@ def pack_params(params: Any, policy_fn: PolicyFn,
                         continue
                     policy, rng = hit
                     groups[names[0]] = (gkey, pack_dense_group(
-                        [(n, node[n]) for n in names], policy, rng))
+                        [(n, node[n]) for n in names], policy, rng,
+                        fold=fold))
                     consumed.update(names)
             out: dict[str, Any] = {}
             for k, v in node.items():

@@ -9,7 +9,8 @@ Port of ``repro.core.control_variate``:
   recursive :  x_j = A_j mod 2^m,     C = E_j[W_j mod 2^m],   C0 = 0
 
 C and C0 are per-output-channel constants from the weight codes; the
-runtime statistic is the per-row sum_j x_j.  Grouped CV lands later.
+runtime statistic is the per-row sum_j x_j.  Grouped CV (beyond the
+paper) keeps one C per contiguous slice of the fan-in axis.
 """
 
 from __future__ import annotations
@@ -86,7 +87,34 @@ def cv_constants(w_codes, mode: Mode, m: int, reduce_axis: int = 0) -> CVConstan
     raise ValueError(f"unknown mode: {mode}")
 
 
+def cv_constants_grouped(w_codes, mode: Mode, m: int, groups: int,
+                         reduce_axis: int = 0) -> CVConstants:
+    """Grouped CV (beyond the paper): per-group C over ``groups``
+    contiguous slices of the fan-in axis, c of shape (groups, n_out); c0
+    over the full axis, as in the single-C form."""
+    w = am._as_i32(w_codes).movedim(reduce_axis, 0)
+    k = w.shape[0]
+    if k % groups != 0:
+        raise ValueError(f"fan-in {k} not divisible by groups {groups}")
+    wg = w.reshape(groups, k // groups, *w.shape[1:])
+    per_group = cv_constants(wg, mode, m, reduce_axis=1)
+    full = cv_constants(w, mode, m, reduce_axis=0)
+    return CVConstants(c=per_group.c, c0=full.c0)
+
+
 def cv_term(a_codes, const: CVConstants, mode: Mode, m: int) -> torch.Tensor:
     """V = C * sum_j x_j + C0 for a batch of activation rows -> float32."""
     sx = sum_x(a_codes, mode, m, dim=-1).to(torch.float32)
     return sx[..., None] * const.c + const.c0
+
+
+def cv_term_grouped(a_codes, const: CVConstants, mode: Mode, m: int,
+                    groups: int) -> torch.Tensor:
+    """Grouped V = sum_g C_g * sum_{j in g} x_j + C0 -> float32 (a
+    rank-``groups`` float32 contraction, like the reference's
+    ``dot_general``: equal to it to float32 rounding)."""
+    a = am._as_i32(a_codes)
+    k = a.shape[-1]
+    ag = a.reshape(*a.shape[:-1], groups, k // groups)
+    sx = sum_x(ag, mode, m, dim=-1).to(torch.float32)  # (..., groups)
+    return torch.matmul(sx, const.c) + const.c0

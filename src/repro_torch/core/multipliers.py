@@ -102,6 +102,11 @@ def am(w, a, mode: Mode, m: int) -> torch.Tensor:
 
 # -- matmul-algebra forms ----------------------------------------------------
 
+#: Largest contraction depth at which uint8-code products summed in float32
+#: stay exact (every partial sum of k products below 2^24): the fan-in
+#: limit of the folded serving operands (``quant.quantize.build_fold``).
+_F32_EXACT_K = (1 << 24) // (255 * 255)  # 258
+
 
 def _int_matmul(a, w) -> torch.Tensor:
     """Exact integer matmul (..., k) @ (k, n) -> int32.

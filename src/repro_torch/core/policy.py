@@ -26,7 +26,7 @@ class ApproxPolicy:
     mode: Mode = "exact"  # multiplier family ("exact" = plain int8)
     m: int = 0  # approximation knob (paper Sec. 2)
     use_cv: bool = True  # add the control variate V (the paper's technique)
-    groups: int = 1  # >1 = grouped CV (beyond paper; not ported yet)
+    groups: int = 1  # >1 = grouped CV (beyond paper; plain path only)
     backend: Backend = "jnp"
 
     def __post_init__(self):

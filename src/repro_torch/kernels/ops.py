@@ -65,7 +65,11 @@ def quantized_dense_pallas(x: torch.Tensor, qd) -> torch.Tensor:
 
     pol = qd.policy
     if pol.groups != 1:
-        raise NotImplementedError("grouped CV has no kernel")
+        # the dispatch (core.approx_linear._packed_forward) sends grouped
+        # packs to the plain grouped path, as the reference's does: the
+        # kernel's epilogue holds one C a column
+        raise ValueError("grouped-CV packs run the plain grouped path, "
+                         "not the kernel")
     blocked = qd.blocked  # a property that builds the layout's dataclass
     if blocked is not None:
         return quantized_dense_fused_op(x, blocked, mode=pol.mode, m=pol.m,

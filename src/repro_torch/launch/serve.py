@@ -21,6 +21,19 @@ then G-1 greedy decode steps), for every ported arch:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --legacy \
         --arch rwkv6-1.6b --spec-json spec.json --batch 4 --prompt-len 512
+
+The engine takes the paged KV layout (``--kv-layout paged``, with
+``--block-size``, ``--kv-blocks``, ``--no-prefix-cache`` and the warmed
+``--shared-prefix-pair``), self-verifying speculative decode
+(``--speculative-k K``: the numerics flags, or ``--draft-spec``, then
+describe the draft; the verifier is the ``int8`` preset) and request
+deadlines (``--deadline-ms``, with ``--submit-retries`` for queue-full
+rejections).  The ``plan`` subcommand prints the per-layer assignment
+table (``--json``: the PackPlan) from shapes alone, on the ``meta``
+device:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve plan \
+        --arch deepseek-67b --preset serve-default
 """
 
 from __future__ import annotations
@@ -109,6 +122,40 @@ def _spec_from_args(args) -> NumericsSpec | None:
     policy = ApproxPolicy(args.mode, 0 if args.mode == "exact" else args.m,
                           use_cv=not args.no_cv)
     return get_preset("serve-default", policy=policy)
+
+
+def _draft_spec_from_args(args) -> NumericsSpec:
+    """The draft spec under speculation: ``--draft-spec`` (a preset name or
+    a spec-JSON file), else what the numerics flags resolve to; the
+    verifier is always the ``int8`` preset."""
+    from repro_torch.numerics import PRESETS
+
+    ds = getattr(args, "draft_spec", None)
+    if ds:
+        if ds in PRESETS:
+            return get_preset(ds)
+        with open(ds) as f:
+            return NumericsSpec.from_json(f.read())
+    spec = _spec_from_args(args)
+    if spec is None:
+        raise SystemExit(
+            "--speculative-k needs an approximate draft spec: float "
+            "drafting buys nothing (pass --draft-spec, or --mode/--m)")
+    return spec
+
+
+def _prepare_speculative_params(params: Any, cfg: ArchConfig, args,
+                               device=None):
+    """The same float init packed twice: the ``int8`` preset verifies (and
+    prefills), the draft spec proposes.  Returns ``(verify, verify label,
+    draft, draft label)``."""
+    verify_spec = get_preset("int8")
+    draft_spec = _draft_spec_from_args(args)
+    verify = build_serving_params(params, cfg, ServeConfig(spec=verify_spec),
+                                  device=device)
+    draft = build_serving_params(params, cfg, ServeConfig(spec=draft_spec),
+                                 device=device)
+    return verify, verify_spec.name, draft, draft_spec.name
 
 
 def mixed_trace(cfg: ArchConfig, n_requests: int, max_len: int,
@@ -225,28 +272,86 @@ def run_engine(args) -> dict:
     cfg = get_config(args.arch)
     api = build_model(cfg, args.device)
     params = api.init(0)
-    spec = _spec_from_args(args)
-    label = "float"
-    if spec is not None:
-        params = build_serving_params(params, cfg, ServeConfig(spec=spec),
-                                      device=api.device)
-        label = spec.name
+    spec_k = args.speculative_k
+    draft = draft_label = None
+    if spec_k:
+        params, label, draft, draft_label = _prepare_speculative_params(
+            params, cfg, args, device=api.device)
+    else:
+        spec = _spec_from_args(args)
+        label = "float"
+        if spec is not None:
+            params = build_serving_params(params, cfg, ServeConfig(spec=spec),
+                                          device=api.device)
+            label = spec.name
     ecfg = EngineConfig(slots=args.slots, max_len=args.max_len,
                         prefill_chunk=args.chunk, cache_dtype=args.cache_dtype,
-                        mixed_batches=not args.no_mixed)
-    eng = ServingEngine(cfg, params, ecfg, api=api, numerics=label)
+                        mixed_batches=not args.no_mixed,
+                        kv_layout=args.kv_layout,
+                        kv_block_size=args.block_size,
+                        kv_blocks=args.kv_blocks,
+                        prefix_cache=not args.no_prefix_cache,
+                        speculative_k=spec_k)
+    eng = ServingEngine(cfg, params, ecfg, api=api, numerics=label,
+                        draft_params=draft, draft_numerics=draft_label)
     print(f"arch={cfg.name} numerics={label} slots={ecfg.slots} "
           f"max_len={ecfg.max_len} chunk={ecfg.prefill_chunk} "
           f"kv={ecfg.cache_dtype} mixed={ecfg.mixed_batches} "
-          f"device={api.device}")
+          f"layout={ecfg.kv_layout}"
+          + (f" block_size={ecfg.kv_block_size} "
+             f"prefix_cache={ecfg.prefix_cache}"
+             if ecfg.kv_layout == "paged" else "")
+          + (f" speculative_k={spec_k} draft={draft_label}" if spec_k else "")
+          + f" device={api.device}")
     trace = mixed_trace(cfg, args.requests, ecfg.max_len, ecfg.prefill_chunk)
+    if args.shared_prefix_pair:
+        # a warmed shared-prefix pair: the second request must attach to
+        # the first one's cached blocks
+        rng = np.random.default_rng(17)
+        shared = rng.integers(
+            0, cfg.vocab,
+            min(4 * ecfg.prefill_chunk, ecfg.max_len // 2)).tolist()
+        warm = eng.submit(shared, 2)
+        eng.run()
+        hit = eng.submit(shared + rng.integers(0, cfg.vocab, 4).tolist(), 4)
+        eng.run()
+        print(f"  shared-prefix pair: warm gen={len(warm.generated)} "
+              f"hit prefix_hit_tokens={hit.prefix_hit_tokens}")
+        if ecfg.kv_layout == "paged" and ecfg.prefix_cache:
+            # sharing is full-block granular and capped one token early
+            shareable = min(len(shared) // ecfg.kv_block_size
+                            * ecfg.kv_block_size, len(shared) - 1)
+            assert hit.prefix_hit_tokens >= shareable, (
+                hit.prefix_hit_tokens, shareable)
+    deadline = args.deadline_ms or None
     for prompt, gen in trace:
-        r = eng.submit(prompt, gen)
+        r = eng.submit(prompt, gen, deadline_ms=deadline)
+        # bounded retry with exponential backoff for queue-full rejections
+        # only (a full queue drains; every other reason is permanent)
+        attempt = 0
+        while (r.state.value == "rejected"
+               and (r.reject_reason or "").startswith("queue full")
+               and attempt < args.submit_retries):
+            for _ in range(2 ** attempt):  # backoff unit: one engine step
+                eng.step()
+            attempt += 1
+            eng.metrics.requests_retried += 1
+            r = eng.submit(prompt, gen, deadline_ms=deadline)
         if r.state.value == "rejected":
-            print(f"  request {r.rid} rejected: {r.reject_reason}")
+            print(f"  request {r.rid} rejected: {r.reject_reason}"
+                  + (f" (after {attempt} retries)" if attempt else ""))
     finished = eng.run()
     snap = eng.snapshot()
-    print(f"finished {len(finished)}/{len(trace)} requests")
+    print(f"finished {len(finished)}/{len(trace)} requests, "
+          f"{eng.compile_count()} compiled shapes")
+    if args.assert_acceptance:
+        acc = snap.get("acceptance_rate")
+        assert acc is not None and acc > 0, (
+            f"speculative smoke expected acceptance > 0, got {acc!r} "
+            f"(drafted={snap.get('drafted_tokens')})")
+        print(f"  speculative: acceptance_rate={acc} "
+              f"drafted={snap['drafted_tokens']} "
+              f"accepted={snap['accepted_draft_tokens']}")
     print(json.dumps(snap, indent=2))
     for r in finished[:4]:
         print(f"  req {r.rid}: prompt {r.prompt_len:4d} -> gen "
@@ -255,8 +360,41 @@ def run_engine(args) -> dict:
     return snap
 
 
-def main(argv: list[str] | None = None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def run_plan(args) -> PackPlan:
+    """The ``plan`` subcommand: resolve and print the per-layer assignment
+    table without packing.  The parameters are built on the ``meta``
+    device (shapes only, the counterpart of ``jax.eval_shape``), so even
+    deepseek-67b allocates nothing."""
+    if getattr(args, "diff_checkpoint", None):
+        raise SystemExit(
+            "--diff-checkpoint needs checkpoints, which the port does not "
+            "read yet (ROADMAP queue 1, item 15)")
+    cfg = get_config(args.arch)
+
+    def key_order(node):
+        # the reference's eval_shape returns a pytree, whose dicts come
+        # back in key order; the table lists layers in that order
+        if isinstance(node, dict):
+            return {k: key_order(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(key_order(v) for v in node)
+        return node
+
+    params = key_order(build_model(cfg, "meta").init(0))
+    spec = _spec_from_args(args)
+    if spec is None:
+        raise SystemExit("nothing to plan for float serving (pick --preset, "
+                         "--spec-json, or --mode/--m)")
+    plan = spec.resolve(params)
+    if args.json:
+        print(plan.to_json(indent=2))
+    else:
+        print(f"arch={cfg.name} spec={spec.name}")
+        print(plan.table())
+    return plan
+
+
+def _add_numerics_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--arch", default="olmo-1b-reduced",
                     choices=[a + sfx for a in list_archs()
                              for sfx in ("", "-reduced")])
@@ -269,6 +407,23 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--spec-json", default=None, metavar="FILE",
                     help="serve under a NumericsSpec JSON file (the same "
                     "payload the reference package reads)")
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "plan":
+        ap = argparse.ArgumentParser(prog="repro_torch.launch.serve plan")
+        _add_numerics_flags(ap)
+        ap.add_argument("--json", action="store_true",
+                        help="emit the PackPlan as JSON instead of a table")
+        ap.add_argument("--diff-checkpoint", default=None, metavar="PATH",
+                        help="compare with a checkpoint's persisted spec "
+                        "(refused: the port reads no checkpoints yet)")
+        run_plan(ap.parse_args(argv[1:]))
+        return 0
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    _add_numerics_flags(ap)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
@@ -280,6 +435,39 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--no-mixed", action="store_true",
                     help="alternate prefill and decode batches instead of "
                     "mixing decode rows into chunk-shaped calls")
+    ap.add_argument("--kv-layout", default="contiguous",
+                    choices=["contiguous", "paged"],
+                    help="KV memory model: a max_len stripe a slot, or "
+                    "blocks of a shared pool with prefix reuse")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="tokens a KV block (paged layout)")
+    ap.add_argument("--kv-blocks", type=int, default=0,
+                    help="usable blocks in the pool (0 = the contiguous "
+                    "layout's capacity)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable the content-hash shared-prefix cache")
+    ap.add_argument("--shared-prefix-pair", action="store_true",
+                    help="serve a warmed shared-prefix request pair first "
+                    "and assert the prefix hit (paged layout)")
+    ap.add_argument("--speculative-k", type=int, default=0, metavar="K",
+                    help="self-verifying speculative decode: draft up to K "
+                    "greedy tokens a slot through the approximate "
+                    "parameters and verify them in one exact-int8 chunk "
+                    "call (0 disables); the numerics flags then describe "
+                    "the DRAFT spec")
+    ap.add_argument("--draft-spec", default=None, metavar="NAME_OR_FILE",
+                    help="draft NumericsSpec: a preset name or a spec-JSON "
+                    "file (default: what --mode/--m/--preset resolve to)")
+    ap.add_argument("--assert-acceptance", action="store_true",
+                    help="fail unless the verifier accepted at least one "
+                    "draft token")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request latency budget in ms from submission "
+                    "(0 = none); expired queued requests are purged, "
+                    "running ones stop with finish_reason 'deadline'")
+    ap.add_argument("--submit-retries", type=int, default=3, metavar="N",
+                    help="retry budget for queue-full submissions "
+                    "(exponential backoff in engine steps: 1, 2, 4 ...)")
     ap.add_argument("--device", default="cuda",
                     help="device to serve on (cuda by default; cpu runs the "
                     "plain PyTorch path)")

@@ -29,6 +29,14 @@ The pooled slot cache is ``{"k", "v": (L, slots, Hkv, S, hd),
 (the K/V writes and the cursor advance) and returns the same dict; the
 reference returns a new pytree, which at olmo-1b width would copy the whole
 cache every step.
+
+The paged layout (:func:`init_paged_slot_cache`, driven by
+``repro_torch.serving.paged``) indexes K/V by physical block instead:
+``(L, num_blocks, Hkv, block_size, hd)``, with per-slot block tables
+passed to :func:`decode_slots`.  A step writes only its valid entries, in
+place, at their (block, offset) and gathers each slot's blocks into a
+contiguous view of the contiguous layout's key length for attention, so
+the attention arithmetic has the contiguous layout's shapes.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import seeded_generator
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.approx_linear import QuantizedDense, dense, layer_params
 from repro_torch.kernels import flash_attention as fak
@@ -53,7 +62,7 @@ def _dtype(name: str) -> torch.dtype:
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     """Seeded float32 init (the reference's distributions: normal*0.02
     embedding, trunc-normal/sqrt(fan-in) linears), built on ``device``."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = seeded_generator(device, seed)
     d = cfg.d_model
     table = torch.randn(cfg.vocab, d, generator=gen, device=device) * 0.02
     layers = []
@@ -216,6 +225,19 @@ def init_slot_cache(cfg: ArchConfig, slots: int, max_len: int,
             "lengths": torch.zeros(slots, dtype=torch.int32, device=device)}
 
 
+def init_paged_slot_cache(cfg: ArchConfig, num_blocks: int, block_size: int,
+                          slots: int, dtype=torch.bfloat16,
+                          device=None) -> dict:
+    """Block-pool decode cache: K/V indexed by PHYSICAL block id on axis
+    1, ``(L, num_blocks, Hkv, block_size, hd)``, and the per-slot write
+    cursors.  Block 0 is the NULL block padding table entries point at: it
+    is never allocated or written, so it stays all zeros.  (The K/V leaves
+    are a slot cache of ``num_blocks`` rows of ``block_size`` positions.)"""
+    cache = init_slot_cache(cfg, num_blocks, block_size, dtype, device)
+    cache["lengths"] = torch.zeros(slots, dtype=torch.int32, device=device)
+    return cache
+
+
 def rollback_slots(cache: dict, new_lengths) -> dict:
     """Retreat per-slot write cursors (in place).  A cursor move is a
     complete rollback: positions >= lengths[b] are masked and overwritten
@@ -235,41 +257,72 @@ def _slot_update(cache_arr: torch.Tensor, update: torch.Tensor, idx) -> None:
     cache_arr[rows, :, cols] = update[rows, :, src]
 
 
+def _paged_update(pool: torch.Tensor, update: torch.Tensor, idx) -> None:
+    """The paged layout's write, in place: ``idx`` = (row, block id,
+    offset in the block, update column) of every valid entry.  pool (NB,
+    H, bs, d), update (B, H, C, d)."""
+    rows, blocks, offs, src = idx
+    pool[blocks, :, offs] = update[rows, :, src]
+
+
+def _paged_gather(pool: torch.Tensor, tables: torch.Tensor,
+                  kv_len: int) -> torch.Tensor:
+    """Each slot's logically contiguous K/V from its blocks: pool (NB, H,
+    bs, d), tables (slots, nb) -> (slots, H, kv_len, d), the contiguous
+    layout's key length (the excess of the last block is cut off)."""
+    g = pool[tables]  # (slots, nb, H, bs, d)
+    g = g.permute(0, 2, 1, 3, 4).reshape(
+        g.shape[0], g.shape[2], g.shape[1] * g.shape[3], g.shape[4])
+    return g[:, :, :kv_len]
+
+
+def _write_read(arr: torch.Tensor, upd: torch.Tensor, idx, paged):
+    """Writes one layer's new K (or V) entries into its cache leaf and
+    returns the (B, Hkv, S, hd) keys (values) attention reads: the leaf
+    itself (contiguous) or the gathered view (``paged`` = (tables,
+    kv_len))."""
+    upd = attn_lib._to_cache(upd, arr.dtype)
+    if paged is None:
+        _slot_update(arr, upd, idx)
+        return arr
+    _paged_update(arr, upd, idx)
+    return _paged_gather(arr, *paged)
+
+
 def _gqa_slots(bp: dict, h: torch.Tensor, lc: dict, idx, angles, mask,
-               cfg: ArchConfig) -> torch.Tensor:
-    """Multi-token slot attention.  h (B, C, D); lc k/v (B, Hkv, S, hd)
-    views of the pooled cache (written in place); ``angles`` the RoPE
-    tables and ``mask`` (B, C, S) the visible keys, both shared by every
-    layer of the step."""
+               cfg: ArchConfig, paged=None) -> torch.Tensor:
+    """Multi-token slot attention.  h (B, C, D); lc k/v this layer's cache
+    leaves (written in place): (B, Hkv, S, hd), or block pools with
+    ``paged``; ``angles`` the RoPE tables and ``mask`` (B, C, S) the
+    visible keys, both shared by every layer of the step."""
     acfg = cfg.attn_config()
     b, c, _ = h.shape
     q, k, v = attn_lib._project_qkv(bp, h, acfg, angles)
-    _slot_update(lc["k"], attn_lib._to_cache(k.transpose(1, 2),
-                                             lc["k"].dtype), idx)
-    _slot_update(lc["v"], attn_lib._to_cache(v.transpose(1, 2),
-                                             lc["v"].dtype), idx)
+    k_c = _write_read(lc["k"], k.transpose(1, 2), idx, paged)
+    v_c = _write_read(lc["v"], v.transpose(1, 2), idx, paged)
     hq, hkv, d = acfg.n_heads, acfg.kv_heads, acfg.head_dim
     qg = q.reshape(b, c, hkv, hq // hkv, d)
     logits = torch.einsum("bqhgd,bhkd->bhgqk", qg,
-                          attn_lib._from_cache(lc["k"], q.dtype)) * (d ** -0.5)
+                          attn_lib._from_cache(k_c, q.dtype)) * (d ** -0.5)
     logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
     probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
     ctx = torch.einsum("bhgqk,bhkd->bqhgd", probs,
-                       attn_lib._from_cache(lc["v"], q.dtype))
+                       attn_lib._from_cache(v_c, q.dtype))
     return dense(bp["o"], ctx.reshape(b, c, acfg.q_dim))
 
 
 def _block_decode_slots(bp: dict, x: torch.Tensor, lc: dict, idx, angles,
-                        mask, cfg: ArchConfig) -> torch.Tensor:
+                        mask, cfg: ArchConfig, paged=None) -> torch.Tensor:
     h = apply_norm(cfg.norm, bp.get("attn_norm"), x)
-    a = _gqa_slots(bp["attn"], h, lc, idx, angles, mask, cfg)
+    a = _gqa_slots(bp["attn"], h, lc, idx, angles, mask, cfg, paged)
     x = (x + a).to(x.dtype)
     h = apply_norm(cfg.norm, bp.get("mlp_norm"), x)
     return (x + _mlp(bp["mlp"], h, cfg)).to(x.dtype)
 
 
 def decode_slots(params: dict, tokens: torch.Tensor, cache: dict,
-                 cfg: ArchConfig, n_valid) -> tuple[torch.Tensor, dict]:
+                 cfg: ArchConfig, n_valid, block_tables=None,
+                 kv_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """Fixed-shape continuous-batching step.
 
     tokens (slots, C) int — row b's first ``n_valid[b]`` entries are real
@@ -277,6 +330,14 @@ def decode_slots(params: dict, tokens: torch.Tensor, cache: dict,
     (logits (slots, C, V) float32, cache), the cache UPDATED IN PLACE with
     per-row cursors advanced by ``n_valid``.  Row b's next token is read at
     column ``n_valid[b] - 1``.
+
+    ``block_tables`` (slots, nb) int selects the paged layout: row b's
+    logical block i lives in physical block ``block_tables[b, i]`` of the
+    block-pool cache (:func:`init_paged_slot_cache`), and attention reads
+    ``kv_len`` keys a slot (default nb * block_size; the serving pool
+    passes its ``max_len``, the contiguous layout's key length).  Valid
+    entries are written at their (block, offset) only; a write into the
+    NULL block 0 or past ``kv_len`` raises.
     """
     b, c = tokens.shape
     dev = tokens.device
@@ -286,10 +347,29 @@ def decode_slots(params: dict, tokens: torch.Tensor, cache: dict,
     pos = lengths[:, None] + np.arange(c)[None, :]
     rows, src = np.nonzero(np.arange(c)[None, :] < nv[:, None])
     cols = pos[rows, src]
-    s = cache["k"].shape[3]
+    paged = None
+    if block_tables is None:
+        s = cache["k"].shape[3]
+        dst = (cols,)
+    else:
+        bt = np.asarray(block_tables.cpu() if torch.is_tensor(block_tables)
+                        else block_tables, dtype=np.int64)
+        bs = cache["k"].shape[3]
+        s = kv_len if kv_len is not None else bt.shape[1] * bs
+        if s > bt.shape[1] * bs:
+            raise ValueError(f"kv_len {s} exceeds the block tables' "
+                             f"{bt.shape[1]} x {bs} positions")
     if cols.size and cols.max() >= s:
         raise ValueError(f"slot write past the cache capacity {s}")
-    idx = tuple(torch.as_tensor(a, device=dev) for a in (rows, cols, src))
+    if block_tables is not None:
+        blocks = bt[rows, cols // bs]
+        if (blocks == 0).any():
+            raise ValueError("slot write into the NULL block: a valid "
+                             "position without an allocated block")
+        dst = (blocks, cols % bs)
+        paged = (torch.as_tensor(bt, device=dev), s)
+    idx = tuple(torch.as_tensor(a, device=dev)
+                for a in (rows, *dst, src))
     positions = torch.as_tensor(pos, device=dev)
     angles = attn_lib._angles(cfg.attn_config(), positions)
     # causal + filled-cache combined: key j visible to query i iff j <= pos_i
@@ -299,7 +379,7 @@ def decode_slots(params: dict, tokens: torch.Tensor, cache: dict,
     for i in range(cfg.n_layers):
         lc = {"k": cache["k"][i], "v": cache["v"][i]}
         x = _block_decode_slots(layer_params(params["blocks"], i), x, lc, idx,
-                                angles, mask, cfg)
+                                angles, mask, cfg, paged)
     cache["lengths"] += torch.as_tensor(nv, dtype=torch.int32, device=dev)
     x = apply_norm(cfg.norm, params.get("final_norm"), x)
     return _logits_head(params, x), cache

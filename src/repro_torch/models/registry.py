@@ -31,14 +31,26 @@ class ModelApi:
     #: (slots, max_len, dtype) -> pooled slot cache on ``device``; None for
     #: an arch without a slot surface (the engine refuses it)
     init_slot_cache: Callable | None = None
-    #: (params, tokens, cache, n_valid) -> (logits, cache updated in place)
+    #: (params, tokens, cache, n_valid, block_tables=None, kv_len=None) ->
+    #: (logits, cache updated in place); block_tables selects the paged
+    #: layout (``repro_torch.serving.paged``)
     decode_slots: Callable | None = None
+    #: (num_blocks, block_size, slots, dtype) -> block-pool cache on
+    #: ``device``; None for an arch without a KV sequence to page
+    init_paged_cache: Callable | None = None
 
     @property
     def supports_slots(self) -> bool:
         """True when the arch can serve through the slot engine: an
         encoder-only arch (no decode step) cannot."""
         return self.cfg.has_decode
+
+    @property
+    def supports_paged(self) -> bool:
+        """True when the arch can serve through the paged KV layout:
+        recurrent archs (RWKV) hold per-slot state, not a KV sequence, so
+        there is nothing to page."""
+        return self.init_paged_cache is not None and self.supports_slots
 
 
 def build_model(cfg: ArchConfig, device=None) -> ModelApi:
@@ -74,6 +86,9 @@ def build_model(cfg: ArchConfig, device=None) -> ModelApi:
             m.init_cache(cfg, batch, max_len, dtype, dev),
         init_slot_cache=lambda slots, max_len, dtype=torch.bfloat16:
             m.init_slot_cache(cfg, slots, max_len, dtype, dev),
-        decode_slots=lambda p, t, c, n_valid: m.decode_slots(p, t, c, cfg,
-                                                             n_valid),
+        decode_slots=lambda p, t, c, n_valid, block_tables=None, kv_len=None:
+            m.decode_slots(p, t, c, cfg, n_valid, block_tables, kv_len),
+        init_paged_cache=lambda num_blocks, block_size, slots,
+            dtype=torch.bfloat16: m.init_paged_slot_cache(
+                cfg, num_blocks, block_size, slots, dtype, dev),
     )

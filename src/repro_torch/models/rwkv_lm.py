@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import seeded_generator
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.approx_linear import QuantizedDense, dense, layer_params
 from repro_torch.nn import rwkv as rwkv_lib
@@ -27,7 +28,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     """Seeded float32 init with the reference's distributions, built on
     ``device``."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = seeded_generator(device, seed)
     d = cfg.d_model
     rcfg = cfg.rwkv_config()
     layers = [{"ln1": init_norm("layernorm", d, device),

@@ -1,8 +1,9 @@
 """PackPlan: the concrete result of resolving a NumericsSpec (port of
-``repro.numerics.plan``, without the cost-model column).
+``repro.numerics.plan``).
 
 A plan is the per-layer assignment table — path, policy (or float), the
-rule that decided it, weight shape and packed serving bytes.
+rule that decided it, weight shape, packed serving bytes and the modelled
+power saving of the assigned MAC array (``core.cost_model``).
 ``apply_numerics`` executes it through
 :func:`~repro_torch.core.approx_linear.pack_params`.
 """
@@ -27,6 +28,7 @@ class PlanEntry:
     w_shape: tuple[int, ...]
     has_bias: bool
     packed_bytes: int
+    power_saving_pct: float
 
     @property
     def label(self) -> str:
@@ -36,7 +38,8 @@ class PlanEntry:
         return {"path": self.path,
                 "policy": None if self.policy is None else self.policy.to_dict(),
                 "rule": self.rule, "w_shape": list(self.w_shape),
-                "has_bias": self.has_bias, "packed_bytes": self.packed_bytes}
+                "has_bias": self.has_bias, "packed_bytes": self.packed_bytes,
+                "power_saving_pct": self.power_saving_pct}
 
     @classmethod
     def from_dict(cls, d: dict) -> "PlanEntry":
@@ -45,20 +48,25 @@ class PlanEntry:
                    policy=None if pol is None else ApproxPolicy.from_dict(pol),
                    rule=d["rule"], w_shape=tuple(int(x) for x in d["w_shape"]),
                    has_bias=bool(d["has_bias"]),
-                   packed_bytes=int(d["packed_bytes"]))
+                   packed_bytes=int(d["packed_bytes"]),
+                   power_saving_pct=float(d["power_saving_pct"]))
 
 
 def _packed_bytes(w_shape: tuple[int, ...], policy: ApproxPolicy | None,
                   has_bias: bool) -> int:
     """Serving bytes of one layer: float layers at f32; packed layers as
-    uint8 codes + int32 column sums + f32 CV constants (+ bias), plus the
-    blocked kernel layout of pallas-backend approximate layers."""
+    uint8 codes + int32 column sums + f32 CV constants (``groups`` rows of
+    C) (+ bias), plus what the serving path reads on top: the blocked
+    kernel layout of pallas-backend single-CV approximate layers, else the
+    folded operands (:func:`_fold_bytes`)."""
     n_elem = math.prod(w_shape)
     if policy is None:
         return 4 * n_elem + (4 * w_shape[-1] if has_bias else 0)
     *lead, k, n = w_shape
     stacks = math.prod(lead) if lead else 1
-    per_stack = 4 * n * 3 + (4 * n if has_bias else 0)  # sum_qw + c + c0
+    per_stack = 4 * n * (1 + 1 + policy.groups)  # sum_qw + c0 + c
+    if has_bias:
+        per_stack += 4 * n
     total = n_elem + stacks * per_stack
     if policy.backend == "pallas" and policy.is_approx and policy.groups == 1:
         from repro_torch.quant.quantize import (EPI_ROWS, META_LEN,
@@ -67,16 +75,40 @@ def _packed_bytes(w_shape: tuple[int, ...], policy: ApproxPolicy | None,
         bn, bk = serving_blocks(k, n)
         kb, nb = -(-k // bk) * bk, -(-n // bn) * bn
         total += stacks * (kb * nb + 4 * (EPI_ROWS * nb + META_LEN))
+    else:
+        total += stacks * _fold_bytes(k, n, policy)
     return total
 
 
+def _fold_bytes(k: int, n: int, policy: ApproxPolicy) -> int:
+    """Bytes of the folded float32 operands (``build_fold``'s eligibility
+    and shapes: A (k, n), the mode's B slice, delta (n,))."""
+    from repro_torch.core.multipliers import _F32_EXACT_K
+
+    if policy.groups != 1 or k > _F32_EXACT_K:
+        return 0
+    b_rows = 0
+    if policy.is_approx:
+        if policy.mode in ("perforated", "recursive"):
+            b_rows = k
+        elif policy.mode == "truncated":
+            b_rows = policy.m * k + (k if policy.use_cv else 0)
+    return 4 * ((k + b_rows) * n + n)
+
+
 def plan_entry(path: str, node: dict, policy: ApproxPolicy | None,
-               rule: str) -> PlanEntry:
+               rule: str, n_array: int = 64) -> PlanEntry:
+    """One entry from a linear leaf (real tensors or ``meta`` ones)."""
+    from repro_torch.core.cost_model import power_saving
+
     w_shape = tuple(int(s) for s in node["w"].shape)
     has_bias = node.get("b") is not None
+    saving = (power_saving(policy.mode, policy.m, n_array)
+              if policy is not None and policy.is_approx else 0.0)
     return PlanEntry(path=path, policy=policy, rule=rule, w_shape=w_shape,
                      has_bias=has_bias,
-                     packed_bytes=_packed_bytes(w_shape, policy, has_bias))
+                     packed_bytes=_packed_bytes(w_shape, policy, has_bias),
+                     power_saving_pct=round(saving, 2))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,13 +145,19 @@ class PackPlan:
     def to_json(self, indent: int | None = None) -> str:
         return json.dumps(self.to_dict(), indent=indent)
 
+    @classmethod
+    def from_json(cls, s: str) -> "PackPlan":
+        return cls.from_dict(json.loads(s))
+
     def table(self) -> str:
-        """Human-readable assignment table."""
-        rows = [("layer", "numerics", "rule", "w shape", "bytes")]
+        """Human-readable assignment table (the ``plan`` CLI output)."""
+        rows = [("layer", "numerics", "rule", "w shape", "bytes", "power-%")]
         for e in self.entries:
             rows.append((e.path, e.label, e.rule,
                          "x".join(str(s) for s in e.w_shape),
-                         f"{e.packed_bytes:,}"))
+                         f"{e.packed_bytes:,}",
+                         f"-{e.power_saving_pct:.1f}" if e.power_saving_pct
+                         else "0.0"))
         widths = [max(len(r[i]) for r in rows) for i in range(len(rows[0]))]
         lines = ["  ".join(c.ljust(w) for c, w in zip(r, widths)).rstrip()
                  for r in rows]
@@ -133,9 +171,12 @@ class PackPlan:
 def apply_numerics(params: Any, plan: PackPlan,
                    act_ranges: dict | None = None,
                    default_range: tuple[float, float] = (-8.0, 8.0),
-                   strict: bool = True, fuse: bool = True) -> Any:
+                   strict: bool = True, fuse: bool = True,
+                   fold: bool = True) -> Any:
     """Execute a plan: float params -> packed params.  With ``strict`` the
-    plan must cover exactly the packable layers of ``params``."""
+    plan must cover exactly the packable layers of ``params``; ``fuse`` and
+    ``fold`` pass through to ``pack_params`` (``fold=False`` keeps every
+    pack off the folded operands, on the exact-integer path)."""
     from repro_torch.core.approx_linear import is_linear_params, pack_params
 
     want = {e.path: e.policy for e in plan.entries}
@@ -160,4 +201,4 @@ def apply_numerics(params: Any, plan: PackPlan,
                 f"unplanned layers {sorted(have - set(want))[:5]}")
     return pack_params(params, lambda p: want.get("/".join(p)),
                        act_ranges=act_ranges, default_range=default_range,
-                       fuse=fuse)
+                       fuse=fuse, fold=fold)

@@ -5,8 +5,10 @@ y = A @ W + b with activation codes qa (za, sa) and weight codes qw (zw, sw):
 
     y = sa*sw * [ sum_k AM(qw, qa) + V - zw*sum_k qa - za*sum_k qw + k*za*zw ] + b
 
-The folded float serving operands (``build_fold``/``folded_linear``) are
-not ported yet; jnp-backend packs run :func:`quantized_linear`.
+Single-CV jnp-backend packs at fan-ins up to 258 also carry the folded
+float32 serving operands (:func:`build_fold`, run by
+:func:`folded_linear`); grouped-CV packs and deeper fan-ins run the exact
+integer path, :func:`quantized_linear`.
 """
 
 from __future__ import annotations
@@ -71,7 +73,8 @@ class PackedLinear:
 
     w_q (k, n) uint8; w_scale/w_zp per-tensor scalars or (n,) per-column
     vectors (fan-out-fused packs); sum_qw (n,) int32 column sums; c, c0
-    (n,) float32 CV constants; bias (n,) float32 or None.
+    (n,) float32 CV constants (grouped CV: c (groups, n)); bias (n,)
+    float32 or None.
     """
 
     w_q: torch.Tensor
@@ -85,13 +88,15 @@ class PackedLinear:
 
 def pack_linear(w: torch.Tensor, bias: torch.Tensor | None, mode: am.Mode,
                 m: int, groups: int = 1) -> PackedLinear:
-    """Quantize float weights (k, n) and precompute CV constants offline."""
-    if groups != 1:
-        raise NotImplementedError("grouped CV is not ported yet")
+    """Quantize float weights (k, n) and precompute CV constants offline
+    (``groups`` > 1: grouped CV, c of shape (groups, n))."""
     qp = calibrate_tensor(w)
     w_q = quantize(w, qp)
     w_i = w_q.to(torch.int32)
-    const = cv.cv_constants(w_i, mode, m, reduce_axis=0)
+    if groups == 1:
+        const = cv.cv_constants(w_i, mode, m, reduce_axis=0)
+    else:
+        const = cv.cv_constants_grouped(w_i, mode, m, groups, reduce_axis=0)
     return PackedLinear(
         w_q=w_q, w_scale=qp.scale, w_zp=qp.zero_point,
         sum_qw=w_i.sum(dim=0, dtype=torch.int64).to(torch.int32),
@@ -116,7 +121,7 @@ def concat_packs(packs: list[PackedLinear]) -> PackedLinear:
         w_scale=torch.cat([per_col(p, p.w_scale, torch.float32) for p in packs]),
         w_zp=torch.cat([per_col(p, p.w_zp, torch.int32) for p in packs]),
         sum_qw=torch.cat([p.sum_qw for p in packs]),
-        c=torch.cat([p.c for p in packs]),
+        c=torch.cat([p.c for p in packs], dim=-1),  # grouped: (groups, n)
         c0=torch.cat([p.c0 for p in packs]),
         bias=torch.cat([p.bias for p in packs]) if all(has_bias) else None)
 
@@ -220,15 +225,134 @@ def build_blocked_layout(pack: PackedLinear, a_qp: QuantParams,
                        k=k, n=n, bk=bk, bn=bn)
 
 
+def _f32_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """True float32 GEMM, the counterpart of the reference's
+    ``Precision.HIGHEST`` dot: on the card TF32 would round the operands
+    to 10 mantissa bits and move the folded outputs far past float ulps,
+    so a TF32 setting is refused rather than used."""
+    if a.is_cuda and (torch.backends.cuda.matmul.allow_tf32
+                      or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "folded serving GEMMs need true float32 products: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False (float32 matmul "
+            "precision 'highest')")
+    return torch.matmul(a, w)
+
+
+def build_fold(pack: PackedLinear, a_qp: QuantParams, mode: am.Mode, m: int,
+               use_cv: bool) -> dict | None:
+    """Fold the whole serving epilogue into dense float32 matrices, offline.
+
+    The quantized-linear identity is linear in the activation codes and
+    their mode transform, so a layer collapses to
+
+        y = codes @ A  (+ op2 @ B)  + delta
+
+    A carries alpha*W plus the sum_qa coefficient in every column; B the
+    mode's subtractive slice (perforated: W, recursive: W mod 2^m,
+    truncated: the weight planes) scaled by -alpha, with the CV constant
+    C*alpha folded into the same operand; delta every
+    activation-independent term (C0, zero-point terms, bias).  Built only
+    for single-CV packs at fan-ins up to 258, as the reference builds it;
+    returns None otherwise.  The same float32 operations in the same
+    order as the reference's, so both packages store the same bytes."""
+    k, n = pack.w_q.shape[-2:]
+    if pack.c.ndim != pack.sum_qw.ndim:  # grouped CV: no fold
+        return None
+    if k > am._F32_EXACT_K:
+        return None
+    dev = pack.w_q.device
+    w_f = pack.w_q.to(torch.float32)
+    sum_qw = pack.sum_qw.to(torch.float32)
+
+    def col(v):
+        """Per-tensor or per-column values aligned to (n,)."""
+        v = torch.as_tensor(v, device=dev).to(torch.float32)
+        return v if v.ndim == sum_qw.ndim else v[..., None]
+
+    za = col(a_qp.zero_point)
+    zw = col(pack.w_zp)
+    alpha = col(a_qp.scale) * col(pack.w_scale)
+    beta = -(zw * alpha)  # sum_qa coefficient
+    delta = (k * za) * zw - za * sum_qw
+    has_cv = use_cv and mode != "exact" and m > 0
+    if has_cv:
+        delta = delta + pack.c0
+    delta = delta * alpha
+    if pack.bias is not None:
+        delta = delta + pack.bias
+
+    def row(v):  # (n,) -> (1, n), broadcast over the k axis
+        return v[..., None, :] if v.ndim == sum_qw.ndim else v[..., None]
+
+    fold = {"sa": a_qp.scale.to(torch.float32),
+            "za": a_qp.zero_point.to(torch.float32),
+            "A": w_f * row(alpha) + row(beta), "delta": delta}
+    if mode == "exact" or m == 0:
+        return fold
+    cv_row = row(pack.c * alpha) if has_cv else None
+    if mode in ("perforated", "recursive"):
+        w_slice = w_f if mode == "perforated" else am.low_bits(
+            pack.w_q, m).to(torch.float32)
+        b_mat = -w_slice * row(alpha)
+        if has_cv:
+            b_mat = b_mat + cv_row
+        fold["B"] = b_mat
+        return fold
+    # truncated: op2 = [bit planes (m*k) | nonzero-low indicator (k, CV only)]
+    planes = torch.cat([am.low_bits(pack.w_q, m - i) for i in range(m)],
+                       dim=-2).to(torch.float32)
+    b_mat = -planes * row(alpha)
+    if has_cv:
+        b_mat = torch.cat([b_mat, cv_row.expand(w_f.shape)], dim=-2)
+    fold["B"] = b_mat
+    return fold
+
+
+def folded_linear(a: torch.Tensor, fold: dict, mode: am.Mode, m: int,
+                  use_cv: bool) -> torch.Tensor:
+    """Serving path of folded packs: float in -> float32 out.  One
+    elementwise pass (quantize and the mode transform, all float32:
+    ``codes mod 2^m`` of small integer floats is exact), one or two float32
+    GEMMs, one constant add; equal to :func:`quantized_linear` to float
+    ulps."""
+    codes = torch.clamp(torch.round(a.to(torch.float32) / fold["sa"])
+                        + fold["za"], QMIN, QMAX)
+    y = _f32_dot(codes, fold["A"])
+    if "B" in fold:
+        scale = float(1 << m)
+        lo = codes - scale * torch.floor(codes / scale)  # codes mod 2^m
+        if mode in ("perforated", "recursive"):
+            op2 = lo
+        else:  # truncated bit planes (bit i scaled by 2^i), peeled bottom-up
+            planes = []
+            rest = codes
+            for i in range(m):
+                p2 = float(1 << (i + 1))
+                b = rest - p2 * torch.floor(rest / p2)
+                planes.append(b)
+                rest = rest - b
+            if use_cv:
+                planes.append((lo != 0).to(torch.float32))
+            op2 = torch.cat(planes, dim=-1)
+        y = y + _f32_dot(op2, fold["B"])
+    return y + fold["delta"]
+
+
 def quantized_linear(a: torch.Tensor, pack: PackedLinear, a_qp: QuantParams,
-                     mode: am.Mode, m: int, use_cv: bool = True) -> torch.Tensor:
+                     mode: am.Mode, m: int, use_cv: bool = True,
+                     groups: int = 1) -> torch.Tensor:
     """Approximate quantized linear, float in -> float32 out: the exact
-    integer reference path of jnp-backend packs."""
+    integer reference path (and the grouped-CV path)."""
     k = a.shape[-1]
     a_i = quantize_i32(a, a_qp)
     acc = am.approx_matmul(a_i, pack.w_q, mode, m).to(torch.float32)
     if use_cv and mode != "exact" and m > 0:
-        acc = acc + cv.cv_term(a_i, cv.CVConstants(pack.c, pack.c0), mode, m)
+        const = cv.CVConstants(pack.c, pack.c0)
+        if groups == 1:
+            acc = acc + cv.cv_term(a_i, const, mode, m)
+        else:
+            acc = acc + cv.cv_term_grouped(a_i, const, mode, m, groups)
     sum_qa = a_i.sum(dim=-1, dtype=torch.int64).to(torch.float32)
     zw = pack.w_zp.to(torch.float32)
     za = a_qp.zero_point.to(torch.float32)

@@ -12,6 +12,7 @@ slot's state is zeroed.  The model step updates the cache in place.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.models.registry import ModelApi
@@ -61,6 +62,17 @@ class SlotPool:
     def release(self, slot: int) -> None:
         del self._owner[slot]
         self._free.append(slot)
+
+    def lengths(self) -> np.ndarray:
+        """The per-slot write cursors, on the host."""
+        return self.cache["lengths"].cpu().numpy().astype(np.int64)
+
+    def set_lengths(self, new_lengths) -> None:
+        """Move the write cursors (speculative rollback: a pure cursor
+        move over the position-indexed cache)."""
+        from repro_torch.models.lm import rollback_slots
+
+        rollback_slots(self.cache, new_lengths)
 
     @property
     def n_free(self) -> int:

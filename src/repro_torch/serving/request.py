@@ -1,10 +1,14 @@
 """Request lifecycle for the continuous-batching engine (port of
-``repro.serving.request``; deadlines and paged-KV admission come later).
+``repro.serving.request``).
 
 A :class:`Request` moves QUEUED -> PREFILL -> DECODE -> FINISHED, or is
-REJECTED at admission.  :class:`RequestQueue` orders admission by
+REJECTED at admission.  A request with a deadline that passes while it is
+queued is purged before admission, and one that passes while it runs stops
+at its next prefill chunk or emission (``finish_reason`` "deadline", the
+partial output kept).  :class:`RequestQueue` orders admission by
 (priority, arrival).  :class:`AdmissionController` bounds queue depth and
-rejects jobs that can never fit a slot.
+rejects jobs that can never fit a slot (or, under the paged KV layout, the
+whole block pool).
 """
 
 from __future__ import annotations
@@ -34,12 +38,20 @@ class Request:
     max_new_tokens: int
     priority: int = 0  # lower = more urgent; FIFO within a class
     eos_id: int | None = None
+    #: latency budget in ms from submission; None = no deadline
+    deadline_ms: float | None = None
     #: streaming hook, called as on_token(request, token) per token
     on_token: Callable | None = None
 
     state: RequestState = RequestState.QUEUED
     reject_reason: str | None = None
-    #: "length" | "eos", recorded when the stop condition fires
+    #: prompt tokens whose prefill was skipped by attaching to cached
+    #: prefix blocks at admission (paged layout); the cursor starts here
+    prefix_hit_tokens: int = 0
+    #: the prompt's block-hash chain, memoized by the paged pool (a
+    #: capacity-stalled admission retries every step)
+    block_hashes: list | None = dataclasses.field(default=None, repr=False)
+    #: "length" | "eos" | "deadline", recorded when the stop condition fires
     finish_reason: str | None = None
     slot: int | None = None
     prefilled: int = 0  # prompt tokens already processed
@@ -57,6 +69,12 @@ class Request:
     @property
     def finished(self) -> bool:
         return self.state == RequestState.FINISHED
+
+    @property
+    def deadline_expired(self) -> bool:
+        return (self.deadline_ms is not None
+                and (time.perf_counter() - self.t_submit) * 1e3
+                > self.deadline_ms)
 
     @property
     def ttft(self) -> float | None:
@@ -111,6 +129,17 @@ class RequestQueue:
         heapq.heapify(self._heap)
         return req
 
+    def purge(self, pred) -> list[Request]:
+        """Remove and return every queued request satisfying ``pred``
+        (evaluated once per request), keeping the others' order."""
+        flagged = [bool(pred(e[2])) for e in self._heap]
+        if not any(flagged):
+            return []
+        gone = [e[2] for e, f in zip(self._heap, flagged) if f]
+        self._heap = [e for e, f in zip(self._heap, flagged) if not f]
+        heapq.heapify(self._heap)
+        return gone
+
     def __len__(self) -> int:
         return len(self._heap)
 
@@ -118,12 +147,18 @@ class RequestQueue:
 class AdmissionController:
     """Bounds queue depth and rejects jobs that cannot fit a slot: a prompt
     rounded up to whole prefill chunks, and prompt + generation, must fit
-    the per-slot capacity ``max_len``."""
+    the per-slot capacity ``max_len``; under the paged layout
+    (``kv_block_size``/``kv_blocks`` set) the job's block need must fit
+    the whole pool, or it would stall the queue's head forever."""
 
-    def __init__(self, max_queue: int, max_len: int, prefill_chunk: int) -> None:
+    def __init__(self, max_queue: int, max_len: int, prefill_chunk: int,
+                 kv_block_size: int | None = None,
+                 kv_blocks: int | None = None) -> None:
         self.max_queue = max_queue
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
+        self.kv_block_size = kv_block_size
+        self.kv_blocks = kv_blocks
 
     def check(self, queue: RequestQueue, req: Request) -> tuple[bool, str | None]:
         if req.prompt_len == 0:
@@ -143,6 +178,12 @@ class AdmissionController:
             return False, (f"prompt+generation {req.prompt_len}+"
                            f"{req.max_new_tokens} exceeds slot capacity "
                            f"{self.max_len}")
+        if self.kv_blocks is not None:
+            bs = self.kv_block_size
+            need = (req.prompt_len + req.max_new_tokens + bs - 1) // bs
+            if need > self.kv_blocks:
+                return False, (f"needs {need} KV blocks; the pool holds "
+                               f"{self.kv_blocks}")
         return True, None
 
     def admit(self, queue: RequestQueue,

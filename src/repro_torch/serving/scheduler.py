@@ -10,11 +10,14 @@ Every engine iteration is one of two shapes:
     whenever no prefill work pends (the kernels' thin-M tiles).
 
 Rows of idle slots carry ``n_valid = 0`` and do not move their cursor.
+Under speculative decode a round is thin draft calls (``draft_batch``)
+and one chunk-shaped verify call (``verify_batch``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 
@@ -25,11 +28,15 @@ from repro_torch.serving.request import Request, RequestQueue, RequestState
 class ScheduledBatch:
     """One fixed-shape engine iteration."""
 
-    kind: str  # "prefill" | "decode" | "mixed" (chunk-shaped, both kinds)
+    #: "prefill" | "decode" | "mixed" (chunk-shaped, both row kinds) |
+    #: "draft" (thin speculative draft call) | "spec" (chunk-shaped verify)
+    kind: str
     tokens: np.ndarray  # (slots, C) int32
     n_valid: np.ndarray  # (slots,) int32
     rows: list[Request]  # participating requests (their .slot indexes rows)
-    row_kinds: list[str]  # per entry of rows: "prefill" | "decode"
+    #: per entry of rows: "prefill" | "decode" | "draft" | "verify" (a
+    #: decoding request's [last token, drafts...] row, n_valid = k_eff + 1)
+    row_kinds: list[str]
 
 
 class SlotScheduler:
@@ -41,22 +48,58 @@ class SlotScheduler:
         self.mixed = mixed
         self._prefill_turn = True  # alternation state when both kinds pend
 
-    def admit(self, queue: RequestQueue, pool,
-              active: dict[int, Request]) -> list[Request]:
-        """Move queued requests into free slots (priority, then FIFO)."""
+    def purge_expired(self, queue: RequestQueue,
+                      metrics=None) -> list[Request]:
+        """Finish every queued request whose deadline passed, before it
+        takes a slot (``finish_reason`` "deadline")."""
+        expired = queue.purge(lambda r: r.deadline_expired)
+        for r in expired:
+            r.state = RequestState.FINISHED
+            r.finish_reason = "deadline"
+            r.t_finish = time.perf_counter()
+            if metrics is not None:
+                metrics.requests_deadline_expired += 1
+        return expired
+
+    def admit(self, queue: RequestQueue, pool, active: dict[int, Request],
+              metrics=None) -> list[Request]:
+        """Move queued requests into free slots (priority, then FIFO).  The
+        head is placed before it is popped: when the pool lacks a slot or
+        (paged) blocks it keeps its place and the iteration counts as a
+        ``no_capacity_stalls`` sample.  A prefix-cache hit enters prefill
+        with ``prefix_hit_tokens`` of its prompt done."""
         admitted = []
-        while len(queue) and pool.n_free:
+        stalled = False
+        while len(queue):
+            if not pool.n_free:
+                stalled = True
+                break
             req = queue.peek()
             slot = pool.acquire_for(req)
             if slot is None:
+                stalled = True
                 break
             queue.pop()
             req.slot = slot
-            req.prefilled = 0
+            req.prefilled = req.prefix_hit_tokens
             req.state = RequestState.PREFILL
             active[slot] = req
             admitted.append(req)
+        if stalled and metrics is not None:
+            metrics.no_capacity_stalls += 1
         return admitted
+
+    def backlog(self, queue: RequestQueue,
+                active: dict[int, Request]) -> dict:
+        """Pending work by phase: queued, prefilling, decoding, and their
+        sum."""
+        prefilling = sum(r.state == RequestState.PREFILL
+                         for r in active.values())
+        decoding = sum(r.state == RequestState.DECODE
+                       for r in active.values())
+        return {"queued": len(queue), "prefilling": prefilling,
+                "decoding": decoding,
+                "pending": len(queue) + prefilling + decoding}
 
     def next_batch(self, active: dict[int, Request]) -> ScheduledBatch | None:
         prefilling = [r for r in active.values()
@@ -101,3 +144,46 @@ class SlotScheduler:
             n_valid[r.slot] = 1
         return ScheduledBatch("decode", tokens, n_valid, decoding,
                               ["decode"] * len(decoding))
+
+    # -- speculative rounds (repro_torch.serving.speculative) -------------
+
+    def draft_batch(self, rnd, i: int) -> ScheduledBatch:
+        """Thin ``(slots, 1)`` draft call ``i`` of a speculative round: the
+        spec rows still inside their ``k_eff``; every other row pads."""
+        from repro_torch.serving.speculative import draft_inputs
+
+        tokens, n_valid = draft_inputs(rnd, self.slots, i)
+        rows = [row.req for row in rnd.spec_rows if i < row.k_eff]
+        return ScheduledBatch("draft", tokens, n_valid, rows,
+                              ["draft"] * len(rows))
+
+    def verify_batch(self, rnd) -> ScheduledBatch:
+        """The round's one chunk-shaped exact call: prompt chunks
+        ("prefill"), ``[last token, d_1..d_k]`` rows with ``n_valid =
+        k_eff + 1`` ("verify") and budget-exhausted decoders as ``n_valid =
+        1`` rows ("decode"), so the exact parameters never run the thin
+        shape."""
+        ch = self.prefill_chunk
+        tokens = np.zeros((self.slots, ch), np.int32)
+        n_valid = np.zeros((self.slots,), np.int32)
+        rows: list[Request] = []
+        kinds: list[str] = []
+        for r in rnd.prefilling:
+            n = min(ch, r.prompt_len - r.prefilled)
+            tokens[r.slot, :n] = r.prompt[r.prefilled: r.prefilled + n]
+            n_valid[r.slot] = n
+            rows.append(r)
+            kinds.append("prefill")
+        for row in rnd.spec_rows:
+            r = row.req
+            seq = [r.generated[-1]] + row.drafts
+            tokens[r.slot, :len(seq)] = seq
+            n_valid[r.slot] = len(seq)
+            rows.append(r)
+            kinds.append("verify")
+        for r in rnd.plain:
+            tokens[r.slot, 0] = r.generated[-1]
+            n_valid[r.slot] = 1
+            rows.append(r)
+            kinds.append("decode")
+        return ScheduledBatch("spec", tokens, n_valid, rows, kinds)

@@ -313,3 +313,149 @@ def test_serve_cli_engine_new_archs(arch, cache_dtype, capsys):
     out = capsys.readouterr().out
     assert "finished 3/3 requests" in out
     assert f"arch={arch} " in out and f"kv={cache_dtype} " in out
+
+
+# ---------------------------------------------------------------------------
+# request deadlines and the engine surface (load, reset_metrics,
+# compile_count), the plan subcommand
+# ---------------------------------------------------------------------------
+
+
+def _lockstep(jeng, teng, jreqs, treqs, hooks):
+    """Step both engines together until idle; ``hooks[i]`` runs on the
+    (jax, port) request pairs after step i."""
+    i = 0
+    jfin, tfin = [], []
+    while not (jeng.idle and teng.idle):
+        jfin += jeng.step()
+        tfin += teng.step()
+        if i in hooks:
+            hooks[i](jreqs, treqs)
+        i += 1
+    return jfin, tfin
+
+
+def test_deadlines_expire_in_the_queue_and_mid_run_like_jax():
+    """A request whose deadline passes while queued is purged before it
+    takes a slot; one whose deadline passes mid-prompt stops at its next
+    chunk, and one mid-decode at its next token (partial output kept):
+    finish reasons, tokens and counts equal the JAX engine's.  Running
+    requests get their budget cut to 0 ms between two steps, so the run
+    is deterministic."""
+    jparams, tparams = packed_pair(PALLAS)
+    jcfg, _, _ = jax_side()
+    cfg, api, _ = torch_side()
+    rng = np.random.default_rng(12)
+    plan = [(3, 8, 1e9), (33, 5, 1e9), (5, 4, 0.0), (9, 3, None),
+            (4, 6, None)]
+    trace = [(rng.integers(0, cfg.vocab, p).tolist(), g, d)
+             for p, g, d in plan]
+    ek = dict(slots=2, max_len=64, prefill_chunk=16)
+    jeng = JaxEngine(jcfg, jparams, JaxEngineConfig(**ek))
+    teng = ServingEngine(cfg, tparams, EngineConfig(**ek), api=api)
+    jreqs = [jeng.submit(p, g, deadline_ms=d) for p, g, d in trace]
+    treqs = [teng.submit(p, g, deadline_ms=d) for p, g, d in trace]
+
+    def expire(i):
+        def hook(js, ts):
+            js[i].deadline_ms = ts[i].deadline_ms = 0.0
+        return hook
+
+    # after step 0: request 1 is mid-prompt (16 of 33); after step 2,
+    # request 0 is decoding
+    jfin, tfin = _lockstep(jeng, teng, jreqs, treqs,
+                           {0: expire(1), 2: expire(0)})
+    assert len(tfin) == len(jfin) == len(trace)
+    for j, t in zip(jreqs, treqs):
+        assert t.finish_reason == j.finish_reason, t.rid
+        assert t.generated == j.generated, t.rid
+        assert t.prefilled == j.prefilled, t.rid
+    reasons = [t.finish_reason for t in treqs]
+    assert reasons == ["deadline", "deadline", "deadline", "length", "length"]
+    assert treqs[2].slot is None and not treqs[2].generated  # never served
+    assert treqs[1].prefilled == 32 and not treqs[1].generated
+    assert 0 < len(treqs[0].generated) < 8
+    js, ts = jeng.metrics.snapshot(), teng.snapshot()
+    assert ts["requests_deadline_expired"] == \
+        js["requests_deadline_expired"] == 3
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_engine_load_reset_metrics_and_compile_count(layout):
+    jparams, tparams = packed_pair(PALLAS)
+    jcfg, _, _ = jax_side()
+    cfg, api, _ = torch_side()
+    trace = _trace(cfg.vocab, 5, seed=9)
+    ek = dict(slots=2, max_len=64, prefill_chunk=16, kv_layout=layout,
+              kv_block_size=8)
+    jeng = JaxEngine(jcfg, jparams, JaxEngineConfig(**ek), numerics="sd")
+    teng = ServingEngine(cfg, tparams, EngineConfig(**ek), api=api,
+                         numerics="sd")
+    for p, g in trace:
+        jeng.submit(p, g)
+        teng.submit(p, g)
+    for _ in range(3):
+        jeng.step()
+        teng.step()
+        jl, tl = jeng.load(), teng.load()
+        jl.pop("ttft_mean_s")
+        assert set(tl) == set(jl) | {"ttft_mean_s"}
+        assert {k: tl[k] for k in jl} == jl
+    jeng.run()
+    teng.run()
+    assert teng.compile_count() == jeng.compile_count() == 2
+    assert teng.load()["pending"] == 0 and teng.load()["ttft_mean_s"] > 0
+    assert teng.snapshot()["generated_tokens"] > 0
+    teng.reset_metrics()
+    snap = teng.snapshot()
+    assert snap["numerics"] == "sd" and snap["kv_layout"] == layout
+    assert snap["generated_tokens"] == 0 and snap["requests_finished"] == 0
+    if layout == "paged":
+        assert snap["cow_copies"] is None  # no step in the new window yet
+        r = teng.submit(trace[0][0], 2)
+        teng.run()
+        snap = teng.snapshot()
+        assert snap["cow_copies"] == 0 and r.finished
+        assert snap["peak_blocks_in_use"] <= teng.pool.blocks_total
+
+
+@pytest.mark.parametrize("flags", [[], ["--json"], ["--preset", "int8"],
+                                   ["--mode", "truncated", "--m", "6",
+                                    "--no-cv", "--json"]],
+                         ids=["table", "json", "int8", "trunc-json"])
+@pytest.mark.parametrize("arch", ["olmo-1b-reduced", "qwen3-4b"])
+def test_plan_subcommand_prints_the_jax_cli_output(arch, flags, capsys):
+    """``plan`` resolves over parameters on the meta device (qwen3-4b at
+    full width allocates nothing) and prints the reference CLI's table or
+    JSON, byte for byte."""
+    from repro.launch.serve import main as jax_serve_main
+
+    serve_main(["plan", "--arch", arch] + flags)
+    got = capsys.readouterr().out
+    jax_serve_main(["plan", "--arch", arch] + flags)
+    want = capsys.readouterr().out
+    assert got == want
+    if "--json" in flags:
+        assert json.loads(got)["entries"]
+    else:
+        assert "power-%" in got and "bytes total" in got
+
+
+def test_plan_refuses_diff_checkpoint_and_float(tmp_path):
+    with pytest.raises(SystemExit, match="checkpoints"):
+        serve_main(["plan", "--diff-checkpoint", str(tmp_path / "ckpt")])
+    with pytest.raises(SystemExit, match="nothing to plan"):
+        serve_main(["plan", "--mode", "float"])
+
+
+def test_serve_cli_deadline_and_submit_retries_flags(capsys):
+    """``--deadline-ms`` below any step's time: every request expires in
+    the queue, none is served."""
+    serve_main(["--device", "cpu", "--requests", "3", "--slots", "2",
+                "--max-len", "64", "--chunk", "16", "--deadline-ms", "1e-6",
+                "--submit-retries", "0"])
+    out = capsys.readouterr().out
+    snap = json.loads(out[out.index("{"):out.rindex("}") + 1])
+    assert snap["requests_deadline_expired"] == 3
+    assert snap["generated_tokens"] == 0
+    assert "[deadline]" in out

@@ -81,6 +81,34 @@ def test_port_runs_with_jax_unimportable():
                                 act_ranges=rec.ranges())
         assert cnn_apply(packed, x, cfg).shape == (2, 10)
         assert power_saving("perforated", 2, 64) > 0
+        # folds, grouped CV, the paged layout, speculative decode, plan
+        from repro_torch.configs import EngineConfig
+        from repro_torch.launch.serve import run_plan
+        from repro_torch.numerics import get_preset
+        from repro_torch.serving import ServingEngine
+        from repro_torch.serving.paged import PagedKVPool
+        from repro_torch.serving.speculative import plan_round
+        cfg = get_config("olmo-1b-reduced")
+        api = build_model(cfg, "cpu")
+        raw = api.init(0)
+        verify = build_serving_params(raw, cfg, ServeConfig(
+            spec=get_preset("int8")), device="cpu")
+        draft = build_serving_params(raw, cfg, ServeConfig(
+            policy=ApproxPolicy("perforated", 2, groups=4)), device="cpu")
+        eng = ServingEngine(cfg, verify, EngineConfig(
+            slots=2, max_len=32, prefill_chunk=8, kv_layout="paged",
+            kv_block_size=4, speculative_k=2), api=api, draft_params=draft)
+        assert isinstance(eng.pool, PagedKVPool)
+        reqs = [eng.submit([1, 2, 3, 4, 5], 6), eng.submit([7, 8], 4)]
+        assert len(eng.run()) == 2 and eng.compile_count() == 2
+        assert eng.snapshot()["drafted_tokens"] > 0 and plan_round({}, 2, 8) is None
+        class Args:
+            arch, mode, m, no_cv, preset, spec_json = (
+                "deepseek-67b", "perforated", 2, False, None, None)
+            json, diff_checkpoint = True, None
+        import contextlib, io
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert len(run_plan(Args()).entries) == 8
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

@@ -191,11 +191,10 @@ def test_rwkv_packs_byte_equal_and_plan():
         jplan, tplan = jspec.resolve(jparams), tspec.resolve(tparams)
         assert [(e.path, e.label, e.rule, e.w_shape) for e in jplan.entries] \
             == [(e.path, e.label, e.rule, e.w_shape) for e in tplan.entries]
-    # packed bytes: the canonical pack + blocked layout (the reference adds
-    # folded operands to jnp-backend packs, which the port does not build)
-    assert [e.packed_bytes for e in pallas.resolve(jparams).entries] == [
-        e.packed_bytes for e in NumericsSpec.from_json(
-            pallas.to_json()).resolve(tparams).entries]
+        # packed bytes: the canonical pack plus the blocked layout
+        # (pallas-backend packs) or the folded operands (the others)
+        assert [e.packed_bytes for e in jplan.entries] == [
+            e.packed_bytes for e in tplan.entries]
 
 
 def _args(arch, spec_json=None):
