@@ -57,6 +57,24 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    engine phase's packs, its multimodal prefill ((4, 1024, 1536)
    embeddings with (3, 4, 1024) M-RoPE ids holding a 16 x 16 image block,
    32 decode steps) with the lock-step checks below;
+4b. the robustness layer, on the olmo-1b packs after the speculative runs:
+   the error probe every 4 steps on the main trace for the kernel pack
+   with and without the CV and for the `int8` pack (the probed run's tokens
+   and final KV cache equal the unprobed main run's, the probes' kernel
+   launches, the no-CV layer error variances above the CV's, `int8` at
+   float-ulp level, one thin and one chunk probe profiled with the live
+   cache byte-equal after them); `nan@3` with detection on the `int8`
+   pack, contiguous and paged (tokens equal the clean `int8` run's,
+   injected = detected = replays, one injector log), `spike@5` on the
+   kernel pack replayed on the `int8` pack, one replay profiled; the
+   accuracy-SLO governor over serve-default -> int8 -> float (its SLO 4x
+   the measured CV logits variance, dense noise on steps 0-24 of a
+   16-request trace: an escalation inside the noise and a relax after it,
+   each rung packed once and timed, the engine's numerics following every
+   decision, the power attribution); and `auto(...)`: the `paper-grid`
+   preset lowered on resnet44 at full width from 256 calibration images
+   (its policies, forwards and seconds, mean modeled saving, and relative
+   logit error on 1,000 test images beside serve-default's);
 5. lock-step paths (`launch.serve.run_legacy`): full-width olmo-1b,
    qwen3-4b and qwen2-vl-2b (B=4, T=1024) and rwkv6-1.6b (B=4, T=512), 32
    tokens each,
@@ -883,7 +901,8 @@ def dense_calls(cfg, slots: int):
 def engine_run(torch, label: str, cfg, api, params, ecfg, trace, per_call,
                numerics: str, before=None, draft=None, per_draft=None,
                draft_numerics: str | None = None, deadline=None,
-               on_step=None, expire=()) -> dict:
+               on_step=None, expire=(), engine_kw=None, per_probe=None,
+               compiles: int | None = 2) -> dict:
     """Serves ``trace`` through the port's engine, the wrapper launch
     counts set to 0 just before and read just after (``before(eng)`` runs
     inside that window, ahead of the trace).  Request i is submitted with
@@ -892,22 +911,28 @@ def engine_run(torch, label: str, cfg, api, params, ecfg, trace, per_call,
     deadline and every other one with its token count, all ids in the
     vocabulary, the fused approx
     wrapper launched ``per_call(C)`` times in each (slots, C) step of
-    ``params`` and ``per_draft(C)`` in each step of ``draft`` (speculative
-    decode; no other wrapper at all), and every parameter and cache tensor
-    is on the card.  Returns the engine, the requests, launches, metrics
-    snapshot, peak bytes, the cache and each request's (C, n_valid) per
-    step of ``params``."""
+    ``params``, ``per_draft(C)`` in each step of ``draft`` (speculative
+    decode), ``per_probe(C)`` in each error probe of a (slots, C) step of
+    ``params`` and never in a step or probe of another pack (a governor's
+    ``int8`` and float rungs, a quarantine's exact pack; no other wrapper
+    at all), ``compile_count()`` is ``compiles`` (None: not checked), and
+    every parameter and cache tensor is on the card.  ``engine_kw`` goes
+    to the engine (governor, injector ...).  Returns the engine, the
+    requests, launches, metrics snapshot, peak bytes, the cache, each
+    request's (C, n_valid) per step of ``params`` and the probes' (C,
+    parameters)."""
     from repro_torch.core.approx_linear import iter_tensors
     from repro_torch.serving import ServingEngine
 
     eng = ServingEngine(cfg, params, ecfg, api=api, numerics=numerics,
-                        draft_params=draft, draft_numerics=draft_numerics)
-    steps, sched = [], {}
+                        draft_params=draft, draft_numerics=draft_numerics,
+                        **(engine_kw or {}))
+    steps, probes, sched = [], [], {}
     dispatch = eng._dispatch
 
     def logged(p, batch, *rest):
         c = batch.tokens.shape[1]
-        steps.append((c, p is params))
+        steps.append((c, p))
         if p is params:
             for r in batch.rows:
                 sched.setdefault(r.rid, []).append(
@@ -915,6 +940,14 @@ def engine_run(torch, label: str, cfg, api, params, ecfg, trace, per_call,
         return dispatch(p, batch, *rest)
 
     eng._dispatch = logged
+    if eng._probe is not None:
+        probe_run = eng._probe.run
+
+        def probe_logged(p, tokens, *rest, **kw):
+            probes.append((tokens.shape[1], p))
+            return probe_run(p, tokens, *rest, **kw)
+
+        eng._probe.run = probe_logged
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wr = wrappers()
@@ -945,7 +978,10 @@ def engine_run(torch, label: str, cfg, api, params, ecfg, trace, per_call,
         fail(f"{label}: token id out of the vocabulary")
     expected = {n: 0 for n in wr}
     expected["approx_matmul_cv_fused"] = sum(
-        per_call(c) if main else per_draft(c) for c, main in steps)
+        per_call(c) if p is params else
+        per_draft(c) if draft is not None and p is draft else 0
+        for c, p in steps) + sum(per_probe(c) for c, p in probes
+                                 if per_probe is not None and p is params)
     print(f"{label}: steps prefill={snap['prefill_steps']} mixed="
           f"{snap['mixed_steps']} decode={snap['decode_steps']} spec="
           f"{snap['spec_rounds']} (draft calls {snap['draft_calls']}); "
@@ -954,9 +990,9 @@ def engine_run(torch, label: str, cfg, api, params, ecfg, trace, per_call,
           "above)", flush=True)
     if launches != expected:
         fail(f"{label}: launches {launches} != {expected}")
-    if eng.compile_count() != 2:
+    if compiles is not None and eng.compile_count() != compiles:
         fail(f"{label}: {eng.compile_count()} (parameters, shape) pairs "
-             "dispatched, want 2")
+             f"dispatched, want {compiles}")
     off = [t.device for t in iter_tensors(params) if t.device.type != "cuda"]
     off += [t.device for t in iter_tensors(eng.pool.cache)
             if t.device.type != "cuda"]
@@ -965,7 +1001,7 @@ def engine_run(torch, label: str, cfg, api, params, ecfg, trace, per_call,
              f"{off[:3]}")
     return {"engine": eng, "reqs": reqs, "launches": launches, "snap": snap,
             "peak": peak, "cache": eng.pool.cache, "sched": sched,
-            "before": pre}
+            "before": pre, "probes": probes}
 
 
 def replay_dense(torch, api, params, ecfg, prompt, calls) -> list[int]:
@@ -1057,9 +1093,10 @@ def kernel_vs_plain(torch, label, api, packed, ecfg, toks) -> torch.Tensor:
 def run_main_path(torch, dev, n_layers: int) -> dict:
     """Phase 4: full-width olmo-1b through the port's engine.  Returns the
     launches and what the later olmo-1b phases share: the config, the API,
-    the trace, the engine config, the run and the packs (``serve-default``
-    with and without the CV on the approx kernel, and the ``int8``
-    preset's, all from one seeded init)."""
+    the trace, the engine config, the run, the float parameters (the
+    governor's float rung) and the packs (``serve-default`` with and
+    without the CV on the approx kernel, and the ``int8`` preset's, all
+    from one seeded init)."""
     import dataclasses
 
     from repro_torch.configs import EngineConfig, get_config
@@ -1089,7 +1126,6 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
     verify = build_serving_params(params, cfg,
                                   ServeConfig(spec=get_preset("int8")),
                                   device=dev)
-    del params
     torch.cuda.synchronize()
     pack_gib = storage_gib(iter_tensors(packed))
     members = check_packs("main", packed)
@@ -1134,7 +1170,7 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
     return {"launches": run["launches"], "cfg": cfg, "api": api,
             "trace": trace, "ecfg": ecfg, "run": run, "packed": packed,
             "packed_nocv": packed_nocv, "verify": verify,
-            "numerics": spec.name}
+            "numerics": spec.name, "float": params}
 
 
 #: tokens a KV block of the paged phases, and the speculative draft depth
@@ -1343,6 +1379,7 @@ def run_speculative(torch, built: dict) -> dict:
     check_sequential("int8 olmo-1b", base, trace,
                      lambda p, g, calls: replay_dense(torch, api, verify,
                                                       ecfg, p, calls))
+    built["int8_tokens"] = [r.generated for r in base["reqs"]]
     out = {"engine int8 olmo-1b": base["launches"]}
     lines = {}
     per_draft = dense_calls(cfg, ecfg.slots)
@@ -1438,6 +1475,423 @@ def run_speculative(torch, built: dict) -> dict:
         "round_profile": rnd, "int8_thin_step": thin,
         "int8_chunk_step": chunk})
     return out
+
+
+#: the robustness phases (olmo-1b packs of the main path): probes every
+#: PROBE_EVERY steps; the governor's config (windows of GOV_WINDOW probes,
+#: GOV_RELAX clean windows to relax, probes every GOV_PROBE_EVERY steps),
+#: its SLO GOV_SLO_FACTOR times the measured CV logits variance, and the
+#: dense noise (sigma GOV_NOISE on every packed layer's probe output, steps
+#: [0, GOV_NOISE_STOP)).  Sigma 10 randomises the residual stream, which
+#: saturates the logits' error variance at about twice their own variance,
+#: well above the SLO; the exact rungs' probes read (near) 0
+PROBE_EVERY = 4
+GOV_WINDOW, GOV_RELAX, GOV_PROBE_EVERY = 2, 2, 2
+GOV_SLO_FACTOR, GOV_NOISE, GOV_NOISE_STOP = 4.0, 10.0, 24
+#: requests of the governor's trace (``mixed_trace(seed=0)``): its two
+#: escalations and two relaxes take about 40 steps
+GOV_REQUESTS = 16
+#: the int8 probe's bound, against the CV pack's mean layer variance: an
+#: int8 layer at fan-in > 258 runs the exact reference itself, so its only
+#: delta is the bf16 rounding of the served output (logits: exactly 0)
+INT8_LAYER_RATIO = 1e-2
+#: the ``auto`` phase: one CNN of the suite at full width, its budget
+AUTO_NET, AUTO_BUDGET = "resnet44", 0.05
+
+
+def probe_summary(snap: dict) -> dict:
+    p = snap["error_probe"]
+    return {"runs": p["runs"], "layer_keys": len(p["layers"]),
+            "logits_err_mean": p["logits_err_mean"],
+            "logits_err_var": p["logits_err_var"],
+            "mean_layer_err_var": p["mean_layer_err_var"],
+            "max_layer_err_var": p["max_layer_err_var"]}
+
+
+def run_probe_phase(torch, built: dict) -> tuple[dict, dict]:
+    """The error probe (every PROBE_EVERY steps) on the main trace, three
+    times: the kernel pack with the CV, without it, and the ``int8`` pack.
+    Checks: the CV run's tokens and final KV cache equal the unprobed main
+    run's; the probes' kernel launches (``dense_calls`` of a one-row step
+    each, through ``engine_run``); the no-CV layer error variances above
+    the CV ones (the CV's residual, per layer); ``int8`` at float-ulp
+    level.  Then one thin and one chunk-shaped probe profiled by hand (the
+    live cache byte-equal after it; the thin probe's 112 approximate dense
+    calls one split-K launch each).  Returns the launches by run and the
+    summaries."""
+    import dataclasses
+
+    from repro_torch.quant.error_probe import ErrorProbe
+
+    cfg, api, ecfg, trace = (built[k] for k in ("cfg", "api", "ecfg",
+                                                "trace"))
+    pecfg = dataclasses.replace(ecfg, error_probe_every=PROBE_EVERY)
+    per_call, per_probe = dense_calls(cfg, ecfg.slots), dense_calls(cfg, 1)
+    out, summ = {}, {}
+    for label, key, kernel in (("probe olmo-1b", "packed", True),
+                               ("probe olmo-1b no-cv", "packed_nocv", True),
+                               ("probe olmo-1b int8", "verify", False)):
+        run = engine_run(torch, label, cfg, api, built[key], pecfg, trace,
+                         per_call if kernel else lambda c: 0,
+                         built["numerics"] if kernel else "int8",
+                         per_probe=per_probe if kernel else None)
+        out[f"engine {label}"] = run["launches"]
+        summ[label] = probe_summary(run["snap"])
+        shapes = sorted({c for c, _ in run["probes"]})
+        print(f"{label}: {json.dumps(summ[label])}; probed step shapes C="
+              f"{shapes}", flush=True)
+        if key == "packed":
+            main = built["run"]
+            if [r.generated for r in run["reqs"]] != \
+                    [r.generated for r in main["reqs"]]:
+                fail(f"{label}: tokens differ from the unprobed main run's")
+            for k, v in main["cache"].items():
+                if not torch.equal(run["cache"][k], v):
+                    fail(f"{label}: final KV cache leaf {k} differs from the "
+                         "unprobed main run's")
+            print(f"{label}: tokens and the final KV cache equal the "
+                  "unprobed main run's", flush=True)
+            cv_layers = run["snap"]["error_probe"]["layers"]
+        elif key == "packed_nocv":
+            nocv_layers = run["snap"]["error_probe"]["layers"]
+        del run
+    cv, nocv, i8 = (summ[k] for k in ("probe olmo-1b", "probe olmo-1b no-cv",
+                                      "probe olmo-1b int8"))
+    above = sum(nocv_layers[k]["err_var"] > cv_layers[k]["err_var"]
+                for k in cv_layers)
+    if not (nocv["mean_layer_err_var"] > cv["mean_layer_err_var"]
+            and nocv["max_layer_err_var"] > cv["max_layer_err_var"]):
+        fail(f"probe: no-CV layer variances (mean {nocv['mean_layer_err_var']}"
+             f", max {nocv['max_layer_err_var']}) not above the CV's "
+             f"({cv['mean_layer_err_var']}, {cv['max_layer_err_var']})")
+    if i8["logits_err_var"] != 0.0 or i8["mean_layer_err_var"] >= \
+            INT8_LAYER_RATIO * cv["mean_layer_err_var"]:
+        fail(f"probe int8: logits variance {i8['logits_err_var']} (want 0) "
+             f"or mean layer variance {i8['mean_layer_err_var']} not under "
+             f"{INT8_LAYER_RATIO} x the CV's {cv['mean_layer_err_var']}")
+    print(f"probe: layer error variance without the CV over with it: mean "
+          f"{nocv['mean_layer_err_var'] / cv['mean_layer_err_var']:.1f}x, "
+          f"max {nocv['max_layer_err_var'] / cv['max_layer_err_var']:.1f}x, "
+          f"{above}/{len(cv_layers)} layer keys above; logits {nocv['logits_err_var']:.4g} "
+          f"without, {cv['logits_err_var']:.4g} with; int8 logits variance 0, "
+          f"mean layer {i8['mean_layer_err_var']:.3g} (< {INT8_LAYER_RATIO} "
+          "x the CV's)", flush=True)
+
+    # one probe by hand at each shape: row 0 of a (slots, C) step whose
+    # pre-step cursor is a quarter of max_len, on a random live cache
+    probe = ErrorProbe(api)
+    prof = {}
+    base = ecfg.max_len // 4
+    for kind, c in (("thin", 1), ("chunk", ecfg.prefill_chunk)):
+        cache = api.init_slot_cache(ecfg.slots, ecfg.max_len, torch.bfloat16)
+        cache["k"].normal_()
+        cache["v"].normal_()
+        cache["lengths"].fill_(base + c)
+        toks = torch.zeros(ecfg.slots, c, dtype=torch.long).numpy()
+        nv = [c] + [0] * (ecfg.slots - 1)
+        lengths = [base] * ecfg.slots
+        before = {k: v.clone() for k, v in cache.items()}
+
+        def call():
+            probe.run(built["packed"], toks, nv, cache, lengths)
+
+        prof[kind] = profile_fn(torch, f"probe olmo-1b: one {kind} probe",
+                                call, f"host_profile_probe_{kind}.txt")
+        for k, v in before.items():
+            if not torch.equal(cache[k], v):
+                fail(f"probe olmo-1b: a {kind} probe wrote the live cache "
+                     f"leaf {k}")
+        if prof[kind]["fused_calls"] != 3 * per_probe(c):
+            fail(f"probe olmo-1b: a {kind} probe made "
+                 f"{prof[kind]['fused_calls'] / 3} approx calls, want "
+                 f"{per_probe(c)}")
+        del cache, before
+    check_one_launch("probe olmo-1b: thin probes", prof["thin"])
+    # what serving pays for the probe's plumbing on the host: one
+    # thread-local lookup a dense call and one layer scope a layer
+    from repro_torch.quant import error_probe, observers
+
+    calls = per_call(1)
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        for _ in range(calls):
+            error_probe.active()
+        for i in range(cfg.n_layers):
+            with observers.scope("blocks", i):
+                pass
+    prof["hooks_us_per_thin_step"] = (time.perf_counter() - t0) / 1000 * 1e6
+    print(f"probe olmo-1b: the hooks' lookups ({calls}) and layer scopes "
+          f"({cfg.n_layers}) of a thin step: "
+          f"{prof['hooks_us_per_thin_step']:.2f} us of host time", flush=True)
+    print(f"probe olmo-1b: the live cache byte-equal after a thin and a "
+          f"chunk probe; a thin probe {prof['thin']['wall_ms']:.2f} ms wall, "
+          f"{prof['thin']['device_ms']:.3f} ms device; a chunk probe "
+          f"{prof['chunk']['wall_ms']:.2f} / {prof['chunk']['device_ms']:.3f}"
+          " ms", flush=True)
+    write_line("probe", "probe_olmo-1b.json", {
+        "every": PROBE_EVERY, "runs": summ,
+        "layers_nocv_above_cv": f"{above}/{len(cv_layers)}",
+        "profile": prof})
+    return out, summ
+
+
+def run_faults(torch, built: dict) -> dict:
+    """Fault injection and quarantine replay.  ``nan@3`` with detection on
+    the ``int8`` pack, contiguous and paged: tokens equal the clean
+    ``int8`` engine's, injected = detected = replays = the injector's log,
+    the same log on both layouts.  ``spike@5`` on the kernel pack, replays
+    on the ``int8`` pack: every token in the vocabulary, detected >=
+    injected.  One replay (an ``int8`` (slots, 1) call with one valid row)
+    profiled.  Returns the launches by run."""
+    import dataclasses
+
+    from repro_torch.quant.faults import FaultInjector, FaultSpec
+
+    cfg, api, ecfg, trace = (built[k] for k in ("cfg", "api", "ecfg",
+                                                "trace"))
+    out, logs = {}, {}
+    for layout in ("contiguous", "paged"):
+        label = f"faults olmo-1b nan@3 {layout}"
+        fecfg = dataclasses.replace(ecfg, kv_layout=layout,
+                                    kv_block_size=PAGED_BLOCK,
+                                    detect_faults=True)
+        inj = FaultInjector(FaultSpec.parse("nan@3"))
+        run = engine_run(torch, label, cfg, api, built["verify"], fecfg,
+                         trace, lambda c: 0, "int8",
+                         engine_kw={"fault_injector": inj})
+        m = run["snap"]
+        toks = [r.generated for r in run["reqs"]]
+        if toks != built["int8_tokens"]:
+            fail(f"{label}: tokens differ from the clean int8 engine's")
+        if not (m["faults_injected"] == m["faults_detected"]
+                == m["quarantine_replays"] == len(inj.log) > 0):
+            fail(f"{label}: injected {m['faults_injected']}, detected "
+                 f"{m['faults_detected']}, replays "
+                 f"{m['quarantine_replays']}, log {len(inj.log)}")
+        logs[layout] = inj.log
+        out[f"engine {label}"] = run["launches"]
+        print(f"{label}: injected = detected = replays = "
+              f"{m['faults_injected']}; tokens equal the clean int8 "
+              f"engine's; quarantine log {run['engine'].quarantine_log[:3]}"
+              " ...", flush=True)
+        del run
+    if logs["contiguous"] != logs["paged"]:
+        fail("faults: the injector's log differs between the layouts")
+    label = "faults olmo-1b spike@5"
+    inj = FaultInjector(FaultSpec.parse("spike@5"))
+    run = engine_run(torch, label, cfg, api, built["packed"], ecfg, trace,
+                     dense_calls(cfg, ecfg.slots), built["numerics"],
+                     engine_kw={"fault_injector": inj,
+                                "exact_params": built["verify"]},
+                     compiles=None)
+    m = run["snap"]
+    if not m["faults_detected"] >= m["faults_injected"] > 0:
+        fail(f"{label}: detected {m['faults_detected']} < injected "
+             f"{m['faults_injected']}")
+    out[f"engine {label}"] = run["launches"]
+    print(f"{label}: injected {m['faults_injected']}, detected "
+          f"{m['faults_detected']}, replays {m['quarantine_replays']} on the "
+          f"int8 pack; every token in the vocabulary; "
+          f"{run['engine'].compile_count()} (parameters, shape) pairs",
+          flush=True)
+    del run
+    toks = torch.zeros(ecfg.slots, 1, dtype=torch.long, device=api.device)
+
+    def replay():
+        cache = api.init_slot_cache(ecfg.slots, ecfg.max_len, torch.bfloat16)
+        cache["lengths"].fill_(ecfg.max_len // 4)
+        api.decode_slots(built["verify"], toks, cache,
+                         [1] + [0] * (ecfg.slots - 1))
+
+    prof = profile_fn(torch, "faults olmo-1b: one replay (int8, slots x 1)",
+                      replay, "host_profile_replay.txt")
+    write_line("faults", "faults_olmo-1b.json", {
+        "log_contiguous": [list(e) for e in logs["contiguous"]],
+        "replay_profile": prof})
+    return out
+
+
+def run_governor(torch, built: dict, cv_logits_var: float) -> dict:
+    """The accuracy-SLO governor over the ladder serve-default (the kernel
+    pack) -> int8 -> float, resolved on the float parameters; its SLO
+    GOV_SLO_FACTOR x this run's CV logits variance; dense noise on steps
+    [0, GOV_NOISE_STOP).  Checks an escalation inside the noise window and
+    a relax after it, ``pack_fn`` called once per rung reached (each
+    rung's build timed), the engine's numerics following every decision
+    and the launches (the kernel only on the serve-default rung).  Prints
+    the decisions in the serve CLI's format and the power attribution.
+    Returns the launches."""
+    import dataclasses
+
+    from repro_torch.core.approx_linear import iter_tensors
+    from repro_torch.launch.serve import (ServeConfig, build_serving_params,
+                                          mixed_trace)
+    from repro_torch.numerics import resolve_ladder
+    from repro_torch.quant.faults import FaultInjector, FaultSpec
+    from repro_torch.serving import GovernorConfig, NumericsGovernor
+
+    cfg, api, ecfg = (built[k] for k in ("cfg", "api", "ecfg"))
+    ladder = resolve_ladder([pallas_spec(), "int8", "float"], built["float"])
+    slo = GOV_SLO_FACTOR * cv_logits_var
+    gov = NumericsGovernor(ladder, GovernorConfig(
+        slo_err_var=slo, window_probes=GOV_WINDOW,
+        clean_windows_to_relax=GOV_RELAX))
+    rungs = {}
+
+    def pack_fn(spec):
+        t0 = time.perf_counter()
+        p = built["float"] if spec is None else build_serving_params(
+            built["float"], cfg, ServeConfig(spec=spec), device=api.device)
+        torch.cuda.synchronize()
+        name = "float" if spec is None else spec.name
+        if name in rungs:
+            fail(f"governor: pack_fn called twice for rung {name}")
+        rungs[name] = {"build_s": time.perf_counter() - t0,
+                       "gib": storage_gib(iter_tensors(p))}
+        return p
+
+    switches = []
+
+    def watch(eng):
+        apply = eng._apply_decision
+
+        def logged(decision):
+            apply(decision)
+            if decision is not None:
+                if eng.numerics != decision.rung_to.name:
+                    fail(f"governor: numerics {eng.numerics} after a move "
+                         f"to {decision.rung_to.name}")
+                switches.append((eng._steps, decision.to_dict()))
+
+        eng._apply_decision = logged
+
+    inj = FaultInjector(FaultSpec(kind="dense-noise", every=1, start=0,
+                                  stop=GOV_NOISE_STOP, scale=GOV_NOISE))
+    trace = mixed_trace(cfg, GOV_REQUESTS, ecfg.max_len, ecfg.prefill_chunk,
+                        seed=0)
+    gecfg = dataclasses.replace(ecfg, error_probe_every=GOV_PROBE_EVERY)
+    label = "governor olmo-1b"
+    run = engine_run(torch, label, cfg, api, built["packed"], gecfg, trace,
+                     dense_calls(cfg, ecfg.slots), ladder[0].name,
+                     before=watch, per_probe=dense_calls(cfg, 1),
+                     compiles=None,
+                     engine_kw={"governor": gov, "pack_fn": pack_fn,
+                                "fault_injector": inj,
+                                "exact_params": built["verify"]})
+    eng = run["engine"]
+    print(f"{label}: ladder " + " -> ".join(
+        f"{r.name} ({r.power_saving_pct}%)" for r in ladder)
+        + f"; slo_err_var {slo:.6g} = {GOV_SLO_FACTOR} x the CV logits "
+        f"variance; dense-noise@1@0-{GOV_NOISE_STOP} sigma {GOV_NOISE}; "
+        f"{eng._steps} steps, {run['snap']['error_probe']['runs']} probes",
+        flush=True)
+    print(f"  governor: rung={eng.numerics} "
+          f"switches={eng.metrics.governor_switches} "
+          f"(escalate {eng.metrics.governor_escalations} / "
+          f"relax {eng.metrics.governor_relaxes})", flush=True)
+    for step, dd in switches:
+        print(f"    window {dd['window']}: {dd['action']} "
+              f"{dd['from']} -> {dd['to']} [{dd['reason']}] "
+              f"err_var={dd['err_var']} "
+              f"power_delta={dd['power_delta_pct']}% (step {step})",
+              flush=True)
+    if not any(d["action"] == "escalate" and step <= GOV_NOISE_STOP
+               for step, d in switches) or \
+            not any(d["action"] == "relax" and step > GOV_NOISE_STOP
+                    for step, d in switches):
+        fail(f"{label}: want an escalation inside steps [0, "
+             f"{GOV_NOISE_STOP}] and a relax after them: {switches}")
+    reached = {d["to"] for _, d in switches} - {ladder[0].name}
+    if set(rungs) != reached or eng.numerics != gov.rung.name or \
+            [d for _, d in switches] != [d.to_dict() for d in gov.decisions]:
+        fail(f"{label}: rungs built {sorted(rungs)}, reached "
+             f"{sorted(reached)}, numerics {eng.numerics}")
+    if eng.compile_count() > 2 * len(ladder):
+        fail(f"{label}: {eng.compile_count()} (parameters, shape) pairs")
+    power = run["snap"]["power_attribution"]
+    tiers = {k: v["power_saving_pct"] for k, v in power["per_tier"].items()}
+    print(f"{label}: rung packs built once each {json.dumps(rungs)}; tokens "
+          f"by numerics {json.dumps(power['tokens_by_numerics'])}; modeled "
+          f"power saving by tier {json.dumps(tiers)}, overall "
+          f"{power['modeled_power_saving_pct']}%; faults injected "
+          f"{run['snap']['faults_injected']}", flush=True)
+    write_line("governor", "governor_olmo-1b.json", {
+        "slo_err_var": slo, "noise": GOV_NOISE, "steps": eng._steps,
+        "decisions": [{"step": s, **d} for s, d in switches],
+        "rung_packs": rungs, "tokens_by_numerics": power["tokens_by_numerics"],
+        "power_saving_by_tier": tiers,
+        "modeled_power_saving_pct": power["modeled_power_saving_pct"],
+        **served_metrics(run["snap"])})
+    return {f"engine {label}": run["launches"]}
+
+
+def run_auto(torch, dev) -> None:
+    """``auto(...)`` at full width: the ``paper-grid`` preset (budget
+    AUTO_BUDGET) resolved on AUTO_NET with the CNN phase's 256 calibration
+    images as ``calib_inputs`` and ``cnn_apply`` as ``apply_fn``, its
+    calibrated ranges; prints each layer's policy, the forwards and
+    seconds, the plan's mean modeled power saving and the lowered pack's
+    relative logit error on the 1,000 test images beside serve-default's
+    uniform perforated m=2 (both ``backend: "jnp"``: no kernel)."""
+    from repro_torch.data.vision import VisionConfig, make_vision_dataset
+    from repro_torch.nn.cnn import cnn_apply
+    from repro_torch.numerics import apply_numerics, get_preset
+    from repro_torch.quant.observers import CalibrationRecorder
+
+    cfg, params, _ = cnn_net(torch, dev, AUTO_NET)
+    calib, test = (torch.from_numpy(make_vision_dataset(
+        VisionConfig(), split, n)[0]).to(dev)
+        for split, n in (("train", CNN_CALIB), ("test", CNN_TEST)))
+    with CalibrationRecorder() as rec:
+        cnn_apply(params, calib, cfg)
+    ranges = rec.ranges()
+    forwards = [0]
+
+    def apply_fn(p, x):
+        forwards[0] += 1
+        return cnn_apply(p, x, cfg)
+
+    spec = get_preset("paper-grid", budget=AUTO_BUDGET)
+    t0 = time.perf_counter()
+    plan = spec.resolve(params, apply_fn=apply_fn, calib_inputs=calib,
+                        act_ranges=ranges)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    packed = plan.packed
+    if len(packed) != CNN_LAYERS[AUTO_NET] or any(
+            e.policy is None or "auto" not in e.rule for e in packed):
+        fail(f"auto: {len(packed)} layers lowered, want "
+             f"{CNN_LAYERS[AUTO_NET]} concrete policies")
+    saving = sum(e.power_saving_pct for e in packed) / len(packed)
+
+    def logits(p):
+        y = torch.cat([cnn_apply(p, test[i:i + CNN_BATCH], cfg)
+                       for i in range(0, CNN_TEST, CNN_BATCH)])
+        if not bool(torch.isfinite(y).all()):
+            fail("auto: logits not finite")
+        return y
+
+    y_float = logits(params)
+    y_auto = logits(apply_numerics(params, plan, act_ranges=ranges))
+    sd = get_preset("serve-default")
+    y_sd = logits(apply_numerics(params, sd.resolve(params),
+                                 act_ranges=ranges))
+    errs = {name: float((y - y_float).norm() / y_float.norm())
+            for name, y in (("auto", y_auto), ("serve-default", y_sd))}
+    policies = {e.path: e.policy.label() for e in packed}
+    for path, label in policies.items():
+        print(f"auto {AUTO_NET}: {path}: {label}", flush=True)
+    print(f"auto {AUTO_NET}: {spec.name} lowered {len(packed)} layers in "
+          f"{forwards[0]} forwards (B={CNN_CALIB}), {secs:.1f} s; mean "
+          f"modeled power saving {saving:.2f}% (serve-default "
+          f"{sd.resolve(params).packed[0].power_saving_pct}%); relative "
+          f"logit error on {CNN_TEST} test images {errs['auto']:.5f}, "
+          f"serve-default perforated(m=2)+cv {errs['serve-default']:.5f}",
+          flush=True)
+    write_line("auto", f"auto_{AUTO_NET}.json", {
+        "net": AUTO_NET, "budget": AUTO_BUDGET, "forwards": forwards[0],
+        "seconds": secs, "policies": policies,
+        "mean_power_saving_pct": saving, "rel_err": errs})
 
 
 def served_metrics(snap: dict) -> dict:
@@ -2741,7 +3195,20 @@ def main() -> int:
         built["ecfg"], built["trace"], built["run"], built["numerics"])
     paths["deadlines olmo-1b"] = run_deadlines(torch, built)
     paths.update(run_speculative(torch, built))
+    phase_s, t0 = {}, time.perf_counter()
+    launches, probe_summ = run_probe_phase(torch, built)
+    paths.update(launches)
+    phase_s["probe"], t0 = time.perf_counter() - t0, time.perf_counter()
+    paths.update(run_faults(torch, built))
+    phase_s["faults"], t0 = time.perf_counter() - t0, time.perf_counter()
+    paths.update(run_governor(torch, built, probe_summ["probe olmo-1b"][
+        "logits_err_var"]))
+    phase_s["governor"], t0 = time.perf_counter() - t0, time.perf_counter()
     del built
+    torch.cuda.empty_cache()
+    run_auto(torch, dev)
+    phase_s["auto"] = time.perf_counter() - t0
+    print("robustness phases, seconds: " + json.dumps(phase_s), flush=True)
     torch.cuda.empty_cache()
     paths.update(run_qwen3_engine(torch, dev))
     torch.cuda.empty_cache()

@@ -49,6 +49,17 @@ class EngineConfig:
     #: speculative``): up to k greedy drafts a slot through the draft
     #: parameters, verified in one chunk-shaped exact call; 0 disables
     speculative_k: int = 0
+    #: approximation-error probe (``repro_torch.quant.error_probe``):
+    #: every N engine steps re-run one scheduled row through the
+    #: approximate and the exact-int8 path on a private copy of its KV and
+    #: record per-layer and logits error moments; 0 disables (two extra
+    #: single-row forwards a probe)
+    error_probe_every: int = 0
+    #: NaN/divergence detection on every step's consumed logits columns:
+    #: a flagged row is quarantined (KV cursor rolled back, the step
+    #: replayed on the exact pack) before any token is emitted
+    #: (``repro_torch.quant.faults``); implied by a fault injector
+    detect_faults: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

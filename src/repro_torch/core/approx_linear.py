@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.policy import ApproxPolicy, PolicyFn
-from repro_torch.quant import observers
+from repro_torch.quant import error_probe, faults, observers
 from repro_torch.quant.quantize import (BlockedPack, PackedLinear, QuantParams,
                                         build_blocked_layout, build_fold,
                                         calibrate_minmax, concat_packs,
@@ -164,15 +164,40 @@ def _packed_forward(p: _Packed, x: torch.Tensor) -> torch.Tensor:
                             use_cv=pol.use_cv, groups=pol.groups).to(x.dtype)
 
 
+def _probed_forward(p: _Packed, x: torch.Tensor, name: str) -> torch.Tensor:
+    """:func:`_packed_forward` under the error probe's hooks.  With no
+    :class:`~repro_torch.quant.error_probe.ProbeRecorder` active (always,
+    outside a probe) this is one thread-local lookup.  Mode "exact"
+    returns the exact-int8 reference on the same codes; mode "observe"
+    lets an armed fault injector corrupt the approximate output (a
+    degraded MAC array shows in the probe's variance), then records the
+    delta from that reference under the layer path."""
+    probe = error_probe.active()
+    if probe is None:
+        return _packed_forward(p, x)
+    if probe.mode == "exact":
+        return error_probe.exact_dense(p, x).to(x.dtype)
+    y = _packed_forward(p, x)
+    path = observers.current_path()
+    flt = faults.active()
+    if flt is not None:
+        y = flt.corrupt_dense(path, name, y)
+    probe.observe(path, name, y.to(torch.float64)
+                  - error_probe.exact_dense(p, x).to(torch.float64))
+    return y
+
+
 def dense(p: Any, x: torch.Tensor, name: str | None = None) -> torch.Tensor:
     """y = x @ W (+ b), under whatever numerics ``p`` encodes.
 
-    ``name`` (optional) scopes calibration recording: on the float path,
-    with a :class:`~repro_torch.quant.observers.CalibrationRecorder`
-    active, the input's range is recorded under the current scope plus
-    ``name``, the parameter path that :func:`pack_params` looks up."""
+    ``name`` (optional) names the layer under the current
+    :func:`~repro_torch.quant.observers.scope`: on the float path, with a
+    :class:`~repro_torch.quant.observers.CalibrationRecorder` active, the
+    input's range is recorded under that path (the one :func:`pack_params`
+    looks up), and the error probe's hooks see a packed layer under it
+    (:func:`_probed_forward`)."""
     if isinstance(p, QuantizedDense):
-        return _packed_forward(p, x)
+        return _probed_forward(p, x, name or "dense")
     if name is not None:
         with observers.scope(name):
             observers.record(x)
@@ -200,12 +225,14 @@ def _fuse_m_min() -> int:
 
 def dense_group(g: QuantizedDenseGroup, x: torch.Tensor) -> dict[str, torch.Tensor]:
     """Run a fused fan-out group: one wide-N call, outputs split per member
-    (or, at decode shapes, the members one by one)."""
+    (or, at decode shapes, the members one by one, each under its own
+    name).  The error probe's hooks see the group under the joined member
+    names (``q|k|v``)."""
     rows = math.prod(x.shape[:-1]) if x.ndim > 1 else 1
     if len(g.members) and rows < _fuse_m_min():
-        return {name: dense(member, x)
+        return {name: dense(member, x, name=name)
                 for name, member in zip(g.names, g.members)}
-    y = _packed_forward(g, x)
+    y = _probed_forward(g, x, "|".join(g.names))
     return dict(zip(g.names, torch.split(y, list(g.splits), dim=-1)))
 
 

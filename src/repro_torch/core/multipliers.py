@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import Literal
 
+import numpy as np
 import torch
 
 Mode = Literal["perforated", "truncated", "recursive", "exact"]
@@ -145,4 +146,51 @@ def approx_matmul(a, w, mode: Mode, m: int) -> torch.Tensor:
         planes_a = torch.cat([bit(a, i) << i for i in range(m)], dim=-1)
         planes_w = torch.cat([low_bits(w, m - i) for i in range(m)], dim=0)
         return _int_matmul(a, w) - _int_matmul(planes_a, planes_w)
+    raise ValueError(f"unknown mode: {mode}")
+
+
+# -- analytic error moments (Table 1 math) -----------------------------------
+
+
+def _uniform_code_moments(nbits: int = NBITS) -> tuple[float, float]:
+    """Mean and second moment of U{0, ..., 2^nbits - 1}."""
+    n = float(2**nbits)
+    mean = (n - 1) / 2.0
+    second = (n - 1) * (2 * n - 1) / 6.0
+    return mean, second
+
+
+def _mod_moments_uniform(nbits: int, m: int) -> tuple[float, float]:
+    """Mean/second moment of (X mod 2^m) for X ~ U{0..2^nbits-1}, m<=nbits."""
+    return _uniform_code_moments(m)
+
+
+def analytic_error_moments_uniform(mode: Mode, m: int) -> tuple[float, float]:
+    """(mu, sigma) of the multiplier error for i.i.d. U{0..255} operands:
+    the closed forms of Eqs. 3/6/8 (numpy, as the reference computes
+    them); the numbers the paper's Table 1 measures empirically."""
+    if mode == "exact" or m == 0:
+        return 0.0, 0.0
+    ew, ew2 = _uniform_code_moments(NBITS)
+    if mode == "perforated":
+        ep, ep2 = _mod_moments_uniform(NBITS, m)
+        mu = ew * ep
+        var = ew2 * ep2 - mu * mu
+        return mu, float(np.sqrt(var))
+    if mode == "recursive":
+        el, el2 = _mod_moments_uniform(NBITS, m)
+        mu = el * el
+        var = el2 * el2 - mu * mu
+        return mu, float(np.sqrt(var))
+    if mode == "truncated":
+        # eps = sum_i (W mod 2^{m-i}) a_i 2^i with a_i ~ Bernoulli(1/2)
+        # independent for uniform A; the terms share W, so exhaust W
+        w = np.arange(256)
+        terms = [((w % (1 << (m - i))) * (1 << i)).astype(np.float64)
+                 for i in range(m)]
+        mu_w = sum(0.5 * t for t in terms)  # E[eps | W]
+        var_w = sum(0.25 * t * t for t in terms)  # Var[eps | W]
+        mu = float(mu_w.mean())
+        var = float(var_w.mean() + mu_w.var())
+        return mu, float(np.sqrt(var))
     raise ValueError(f"unknown mode: {mode}")

@@ -70,3 +70,93 @@ def paper_policies(use_cv: bool = True,
 
 #: path (tuple of str keys) -> policy, or None to keep the layer float
 PolicyFn = Callable[[tuple[str, ...]], ApproxPolicy | None]
+
+
+def uniform_policy(policy: ApproxPolicy | None,
+                   skip: tuple[str, ...] = ()) -> PolicyFn:
+    """One policy for every linear layer, except paths containing any of
+    the ``skip`` substrings."""
+
+    def fn(path: tuple[str, ...]) -> ApproxPolicy | None:
+        joined = "/".join(path)
+        if any(s in joined for s in skip):
+            return None
+        return policy
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Automatic per-layer policy search (beyond paper; ALWANN-flavoured)
+# ---------------------------------------------------------------------------
+
+
+def order_most_aggressive(candidates: list[ApproxPolicy]) -> list[ApproxPolicy]:
+    """Candidates sorted most-aggressive-first by the analytic error sigma
+    (a stable sort: ties keep their given order)."""
+    from repro_torch.core.multipliers import analytic_error_moments_uniform
+
+    return sorted(
+        candidates,
+        key=lambda p: analytic_error_moments_uniform(p.mode, p.m)[1],
+        reverse=True)
+
+
+def greedy_assign(apply_fn, params, calib_inputs,
+                  items: list[tuple[str, list[ApproxPolicy], float]],
+                  act_ranges: dict | None = None) -> dict[str, ApproxPolicy]:
+    """The greedy ALWANN-style per-layer assignment core (shared by
+    :func:`auto_policy` and the ``auto(...)`` rule lowering in
+    :mod:`repro_torch.numerics`).
+
+    ``items`` is ``[(path, candidates, budget_rel_err)]``, candidates
+    ordered most-aggressive-first (:func:`order_most_aggressive`).  Per
+    layer, independently, the first candidate whose model-output relative
+    error on the calibration inputs fits the budget wins; a layer too
+    sensitive for every candidate falls back to exact int8."""
+    from repro_torch.core.approx_linear import pack_params
+
+    ref = apply_fn(params, calib_inputs)
+    ref_scale = float(ref.abs().mean()) + 1e-12
+    out: dict[str, ApproxPolicy] = {}
+    for path, candidates, budget in items:
+        chosen = INT8_EXACT
+        for cand in candidates:
+            one = pack_params(
+                params,
+                lambda p, path=path, cand=cand:
+                    cand if "/".join(p) == path else None,
+                act_ranges=act_ranges)
+            err = float((apply_fn(one, calib_inputs) - ref).abs().mean())
+            if err / ref_scale <= budget:
+                chosen = cand
+                break
+        out[path] = chosen
+    return out
+
+
+def auto_policy(apply_fn, params, calib_inputs, *,
+                candidates: list[ApproxPolicy] | None = None,
+                budget_rel_err: float = 0.05, skip: tuple[str, ...] = (),
+                act_ranges: dict | None = None):
+    """Greedy per-layer approximation assignment over every packable
+    linear layer (paths containing a ``skip`` substring stay float).
+    Returns (policy_fn, rows ``[{"layer", "policy"}]``)."""
+    from repro_torch.core.approx_linear import pack_params, packed_layer_paths
+
+    candidates = order_most_aggressive(candidates
+                                       or paper_policies(use_cv=True))
+    probe = pack_params(params, uniform_policy(INT8_EXACT, skip=skip),
+                        act_ranges=act_ranges)
+    paths = packed_layer_paths(probe)
+    policy_map = greedy_assign(
+        apply_fn, params, calib_inputs,
+        [(path, candidates, budget_rel_err) for path in paths],
+        act_ranges=act_ranges)
+    rows = [{"layer": path, "policy": policy_map[path].label()}
+            for path in paths]
+
+    def fn(p: tuple[str, ...]):
+        return policy_map.get("/".join(p))
+
+    return fn, rows

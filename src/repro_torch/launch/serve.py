@@ -28,7 +28,15 @@ The engine takes the paged KV layout (``--kv-layout paged``, with
 (``--speculative-k K``: the numerics flags, or ``--draft-spec``, then
 describe the draft; the verifier is the ``int8`` preset) and request
 deadlines (``--deadline-ms``, with ``--submit-retries`` for queue-full
-rejections).  The ``plan`` subcommand prints the per-layer assignment
+rejections) and the robustness layer: ``--error-probe-every N``
+(approximate-vs-exact error moments of one served row every N steps),
+``--governor --slo-err-var VAR`` (the accuracy-SLO ladder spec -> int8 ->
+float, with ``--governor-window``, ``--governor-relax-after`` and
+``--layer-slo PATTERN=VAR``), ``--inject-faults KIND@EVERY[@START-STOP]
+[@LAYERS]`` with ``--fault-seed``, and ``--detect-faults`` (quarantine
+replay of corrupted rows on the exact pack).  ``--metrics-window`` and
+``--assert-layer-breach`` need the windowed metrics, which the port does
+not have yet, and are refused.  The ``plan`` subcommand prints the per-layer assignment
 table (``--json``: the PackPlan) from shapes alone, on the ``meta``
 device:
 
@@ -264,16 +272,121 @@ def run_legacy(args, params: Any = None) -> dict:
             "numerics": label}
 
 
+def _parse_layer_slos(items: list[str] | None) -> dict[str, float]:
+    """``--layer-slo PATTERN=VAR`` (repeatable) -> {pattern: ceiling}."""
+    out: dict[str, float] = {}
+    for item in items or []:
+        pattern, sep, var = item.partition("=")
+        if not sep or not pattern:
+            raise SystemExit(f"--layer-slo {item!r}: expected PATTERN=VAR "
+                             "(e.g. 'blocks/0/*=1e-4')")
+        try:
+            out[pattern] = float(var)
+        except ValueError:
+            raise SystemExit(
+                f"--layer-slo {item!r}: VAR must be a float") from None
+    return out
+
+
+def _robustness(args, cfg: ArchConfig, params_float, spec, label: str,
+                device) -> tuple:
+    """The governor (ladder spec -> int8 -> float over the float init, a
+    ``pack_fn`` building each rung's pack), the fault injector and the
+    exact pack quarantine replays run on, from the robustness flags.
+    Returns ``(governor, pack_fn, injector, exact_params, probe_every)``."""
+    governor = pack_fn = injector = exact_params = None
+    probe_every = args.error_probe_every
+    if args.governor:
+        if spec is None:
+            raise SystemExit(
+                "--governor needs an approximate serving spec (float serving "
+                "has nothing to degrade; speculative serving is exact "
+                "already) — pass --mode/--m, --preset, or --spec-json")
+        if args.slo_err_var is None:
+            raise SystemExit("--governor needs --slo-err-var: the logits "
+                             "error-variance ceiling the ladder enforces")
+        from repro_torch.numerics import resolve_ladder
+        from repro_torch.serving import GovernorConfig, NumericsGovernor
+
+        rungs: list = [spec]
+        if spec.name != "int8":
+            rungs.append("int8")
+        rungs.append("float")
+        governor = NumericsGovernor(
+            resolve_ladder(rungs, params_float), GovernorConfig(
+                slo_err_var=args.slo_err_var,
+                window_probes=args.governor_window,
+                clean_windows_to_relax=args.governor_relax_after,
+                layer_slo=_parse_layer_slos(args.layer_slo)))
+
+        def pack_fn(s, _p=params_float):
+            if s is None:
+                return _p  # the "float" rung serves the raw init
+            return build_serving_params(_p, cfg, ServeConfig(spec=s),
+                                        device=device)
+
+        if probe_every <= 0:
+            probe_every = 4  # the governor consumes the probe; arm it
+            print(f"governor: defaulting --error-probe-every to {probe_every}")
+    if args.inject_faults:
+        from repro_torch.quant.faults import FaultInjector, FaultSpec
+
+        injector = FaultInjector(
+            FaultSpec.parse(args.inject_faults, seed=args.fault_seed))
+        if injector.spec.surface == "step" and label != "int8":
+            # quarantine replays must run an exact pack; int8 IS exact
+            exact_params = build_serving_params(
+                params_float, cfg, ServeConfig(spec=get_preset("int8")),
+                device=device)
+    return governor, pack_fn, injector, exact_params, probe_every
+
+
+def _report_robustness(eng, cfg: ArchConfig, finished, injector,
+                       governor) -> None:
+    """The fault and governor report lines (the reference CLI's format),
+    with the no-corrupted-emission asserts of a step-surface campaign."""
+    m = eng.metrics
+    if injector is not None:
+        print(f"  faults: injected={m.faults_injected} "
+              f"detected={m.faults_detected} quarantines={m.quarantines} "
+              f"replays={m.quarantine_replays}")
+        if injector.spec.surface == "step":
+            # every injected row was caught, rolled back and replayed on
+            # the exact pack before emission
+            assert m.faults_detected >= m.faults_injected, (
+                m.faults_detected, m.faults_injected)
+            assert m.quarantine_replays == m.faults_detected
+            assert all(0 <= t < cfg.vocab for r in finished
+                       for t in r.generated), "corrupted token emitted"
+    if governor is not None:
+        print(f"  governor: rung={eng.numerics} "
+              f"switches={m.governor_switches} "
+              f"(escalate {m.governor_escalations} / "
+              f"relax {m.governor_relaxes})")
+        for d in governor.decisions:
+            dd = d.to_dict()
+            print(f"    window {dd['window']}: {dd['action']} "
+                  f"{dd['from']} -> {dd['to']} [{dd['reason']}] "
+                  f"err_var={dd['err_var']} "
+                  f"power_delta={dd['power_delta_pct']}%"
+                  + (f" layer={dd['layer']}" if dd.get("layer") else ""))
+
+
 def run_engine(args) -> dict:
     """Serve ``mixed_trace`` through the engine; returns the metrics
     snapshot."""
     from repro_torch.serving import ServingEngine
 
+    if args.metrics_window > 0 or args.assert_layer_breach is not None:
+        raise SystemExit(
+            "--metrics-window and --assert-layer-breach need the windowed "
+            "metrics time series, which the port does not have yet "
+            "(ROADMAP queue 1, item 10)")
     cfg = get_config(args.arch)
     api = build_model(cfg, args.device)
-    params = api.init(0)
+    params_float = params = api.init(0)
     spec_k = args.speculative_k
-    draft = draft_label = None
+    draft = draft_label = spec = None
     if spec_k:
         params, label, draft, draft_label = _prepare_speculative_params(
             params, cfg, args, device=api.device)
@@ -284,6 +397,8 @@ def run_engine(args) -> dict:
             params = build_serving_params(params, cfg, ServeConfig(spec=spec),
                                           device=api.device)
             label = spec.name
+    governor, pack_fn, injector, exact_params, probe_every = _robustness(
+        args, cfg, params_float, spec, label, api.device)
     ecfg = EngineConfig(slots=args.slots, max_len=args.max_len,
                         prefill_chunk=args.chunk, cache_dtype=args.cache_dtype,
                         mixed_batches=not args.no_mixed,
@@ -291,9 +406,12 @@ def run_engine(args) -> dict:
                         kv_block_size=args.block_size,
                         kv_blocks=args.kv_blocks,
                         prefix_cache=not args.no_prefix_cache,
-                        speculative_k=spec_k)
+                        speculative_k=spec_k, error_probe_every=probe_every,
+                        detect_faults=args.detect_faults)
     eng = ServingEngine(cfg, params, ecfg, api=api, numerics=label,
-                        draft_params=draft, draft_numerics=draft_label)
+                        draft_params=draft, draft_numerics=draft_label,
+                        governor=governor, pack_fn=pack_fn,
+                        fault_injector=injector, exact_params=exact_params)
     print(f"arch={cfg.name} numerics={label} slots={ecfg.slots} "
           f"max_len={ecfg.max_len} chunk={ecfg.prefill_chunk} "
           f"kv={ecfg.cache_dtype} mixed={ecfg.mixed_batches} "
@@ -302,6 +420,10 @@ def run_engine(args) -> dict:
              f"prefix_cache={ecfg.prefix_cache}"
              if ecfg.kv_layout == "paged" else "")
           + (f" speculative_k={spec_k} draft={draft_label}" if spec_k else "")
+          + (f" governor=[{' -> '.join(r.name for r in governor.ladder)}] "
+             f"slo_err_var={args.slo_err_var}" if governor else "")
+          + (f" inject={injector.spec.kind}@{injector.spec.every} "
+             f"seed={injector.spec.seed}" if injector else "")
           + f" device={api.device}")
     trace = mixed_trace(cfg, args.requests, ecfg.max_len, ecfg.prefill_chunk)
     if args.shared_prefix_pair:
@@ -352,6 +474,7 @@ def run_engine(args) -> dict:
         print(f"  speculative: acceptance_rate={acc} "
               f"drafted={snap['drafted_tokens']} "
               f"accepted={snap['accepted_draft_tokens']}")
+    _report_robustness(eng, cfg, finished, injector, governor)
     print(json.dumps(snap, indent=2))
     for r in finished[:4]:
         print(f"  req {r.rid}: prompt {r.prompt_len:4d} -> gen "
@@ -468,6 +591,51 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--submit-retries", type=int, default=3, metavar="N",
                     help="retry budget for queue-full submissions "
                     "(exponential backoff in engine steps: 1, 2, 4 ...)")
+    ap.add_argument("--error-probe-every", type=int, default=0, metavar="N",
+                    help="every N engine steps re-run one scheduled batch "
+                    "row through the exact-int8 path and record "
+                    "approx-vs-exact error moments (0 disables)")
+    ap.add_argument("--governor", action="store_true",
+                    help="attach the accuracy-SLO numerics governor: the "
+                    "error probe's running variance estimate walks the "
+                    "degradation ladder (CLI spec -> int8 -> float), "
+                    "hot-swapping the live pack on breach and relaxing "
+                    "back after clean windows")
+    ap.add_argument("--slo-err-var", type=float, default=None, metavar="VAR",
+                    help="accuracy SLO: max acceptable running logits "
+                    "error variance (approx vs exact; required with "
+                    "--governor)")
+    ap.add_argument("--governor-window", type=int, default=4,
+                    metavar="PROBES",
+                    help="probe reports per governor window")
+    ap.add_argument("--governor-relax-after", type=int, default=3,
+                    metavar="WINDOWS",
+                    help="consecutive clean windows before relaxing one "
+                    "rung back down")
+    ap.add_argument("--layer-slo", action="append", metavar="PATTERN=VAR",
+                    help="per-layer accuracy SLO for the governor: fnmatch "
+                    "layer-path pattern -> max probe err-var (e.g. "
+                    "'blocks/0/*=1e-4'); first match wins; repeatable")
+    ap.add_argument("--inject-faults", default=None, metavar="SPEC",
+                    help="deterministic fault injection, "
+                    "KIND@EVERY[@START-STOP][@LAYERS] with KIND in "
+                    "nan|inf|spike|dense-noise (e.g. 'nan@8', "
+                    "'dense-noise@2@10-50'); step-surface kinds corrupt "
+                    "served logits and must be fully quarantined "
+                    "(asserted), dense-noise corrupts the probe's "
+                    "observation and drives the governor")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="fault injector RNG seed")
+    ap.add_argument("--detect-faults", action="store_true",
+                    help="NaN/divergence detection + quarantine replay even "
+                    "without an injector")
+    ap.add_argument("--metrics-window", type=float, default=0.0,
+                    metavar="SECONDS",
+                    help="windowed metrics (refused: not ported yet)")
+    ap.add_argument("--assert-layer-breach", nargs="?", const="*",
+                    default=None, metavar="PATTERN",
+                    help="assert a layer-SLO breach in the windowed metrics "
+                    "(refused: not ported yet)")
     ap.add_argument("--device", default="cuda",
                     help="device to serve on (cuda by default; cpu runs the "
                     "plain PyTorch path)")

@@ -51,6 +51,7 @@ from repro_torch.kernels import flash_attention as fak
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn.layers import (apply_norm, embed, gelu_mlp, init_gelu_mlp,
                                    init_norm, init_swiglu, swiglu)
+from repro_torch.quant import observers
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -93,7 +94,7 @@ def _logits_head(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Unembedding (tied table or linear leaf, float or packed) -> f32."""
     head = params.get("lm_head", params["embed"])
     if isinstance(head, QuantizedDense):
-        return dense(head, x).to(torch.float32)
+        return dense(head, x, name="lm_head").to(torch.float32)
     w = head["table"].T if "table" in head else head["w"]
     return torch.matmul(x, w.to(x.dtype)).to(torch.float32)
 
@@ -112,7 +113,7 @@ def _gqa_full(bp: dict, h: torch.Tensor, cfg: ArchConfig, positions,
                                   causal=acfg.causal).transpose(1, 2)
     else:
         ctx = attn_lib._sdpa(q, k, v, causal=acfg.causal)
-    out = dense(bp["o"], ctx.reshape(b, t, acfg.q_dim))
+    out = dense(bp["o"], ctx.reshape(b, t, acfg.q_dim), name="o")
     entry = None
     if want_cache:
         entry = {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}
@@ -308,7 +309,7 @@ def _gqa_slots(bp: dict, h: torch.Tensor, lc: dict, idx, angles, mask,
     probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
     ctx = torch.einsum("bhgqk,bhkd->bqhgd", probs,
                        attn_lib._from_cache(v_c, q.dtype))
-    return dense(bp["o"], ctx.reshape(b, c, acfg.q_dim))
+    return dense(bp["o"], ctx.reshape(b, c, acfg.q_dim), name="o")
 
 
 def _block_decode_slots(bp: dict, x: torch.Tensor, lc: dict, idx, angles,
@@ -378,8 +379,9 @@ def decode_slots(params: dict, tokens: torch.Tensor, cache: dict,
     x = embed(params["embed"], tokens).to(_dtype(cfg.compute_dtype))
     for i in range(cfg.n_layers):
         lc = {"k": cache["k"][i], "v": cache["v"][i]}
-        x = _block_decode_slots(layer_params(params["blocks"], i), x, lc, idx,
-                                angles, mask, cfg, paged)
+        with observers.scope("blocks", i):
+            x = _block_decode_slots(layer_params(params["blocks"], i), x, lc,
+                                    idx, angles, mask, cfg, paged)
     cache["lengths"] += torch.as_tensor(nv, dtype=torch.int32, device=dev)
     x = apply_norm(cfg.norm, params.get("final_norm"), x)
     return _logits_head(params, x), cache

@@ -77,7 +77,9 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: AttnConfig, angles):
         qkv = dense_group(p["qkv"], x)
         q, k, v = qkv["q"], qkv["k"], qkv["v"]
     else:
-        q, k, v = dense(p["q"], x), dense(p["k"], x), dense(p["v"], x)
+        q = dense(p["q"], x, name="q")
+        k = dense(p["k"], x, name="k")
+        v = dense(p["v"], x, name="v")
     q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
     k = k.reshape(b, t, cfg.kv_heads, cfg.head_dim)
     v = v.reshape(b, t, cfg.kv_heads, cfg.head_dim)
@@ -160,5 +162,5 @@ def attention_decode_step(p: dict, x: torch.Tensor, cache: dict,
     probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
     ctx = torch.einsum("bhgqk,bhkd->bqhgd", probs,
                        _from_cache(cache["v"], q.dtype))
-    y = dense(p["o"], ctx.reshape(b, 1, cfg.q_dim))
+    y = dense(p["o"], ctx.reshape(b, 1, cfg.q_dim), name="o")
     return y, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

@@ -76,8 +76,9 @@ def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
         gu = dense_group(p["gateup"], x)
         g, u = gu["gate"], gu["up"]
     else:
-        g, u = dense(p["gate"], x), dense(p["up"], x)
-    return dense(p["down"], F.silu(g) * u)
+        g = dense(p["gate"], x, name="gate")
+        u = dense(p["up"], x, name="up")
+    return dense(p["down"], F.silu(g) * u, name="down")
 
 
 def init_gelu_mlp(d: int, ff: int, *, generator, device=None) -> dict:
@@ -89,7 +90,8 @@ def init_gelu_mlp(d: int, ff: int, *, generator, device=None) -> dict:
 def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default is the tanh form, so this is too (the exact
     erf form is a different function)."""
-    return dense(p["down"], F.gelu(dense(p["up"], x), approximate="tanh"))
+    return dense(p["down"], F.gelu(dense(p["up"], x, name="up"),
+                                   approximate="tanh"), name="down")
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0,

@@ -2,7 +2,10 @@
 
   * ``serve-default`` — the serving keep-float rule-set plus one uniform
     policy (perforated m=2 + CV by default) everywhere else;
-  * ``int8`` — the same rule-set, exact int8 everywhere else.
+  * ``int8`` — the same rule-set, exact int8 everywhere else;
+  * ``paper-grid`` — the same rule-set, ``auto(budget)`` everywhere else:
+    the greedy per-layer search over the paper's grid (resolving it needs
+    calibration inputs).
 
 ``paper_grid_specs()`` expands the paper's Tables 2-4 grid into one uniform
 spec per (multiplier, m) point, the form a sweep iterates.
@@ -14,7 +17,7 @@ import dataclasses
 
 from repro_torch.core.policy import (INT8_EXACT, ApproxPolicy, Backend,
                                      paper_policies)
-from repro_torch.numerics.spec import FLOAT, NumericsSpec, Rule
+from repro_torch.numerics.spec import FLOAT, Auto, NumericsSpec, Rule
 
 #: The serving keep-float rule-set (segment-anchored globs).
 SERVE_FLOAT_RULES: tuple[Rule, ...] = (
@@ -40,11 +43,19 @@ def int8() -> NumericsSpec:
                         default=INT8_EXACT)
 
 
-PRESETS = {"serve-default": serve_default, "int8": int8}
+def paper_grid(budget: float = 0.05) -> NumericsSpec:
+    return NumericsSpec(name=f"paper-grid[auto<={budget}]",
+                        rules=SERVE_FLOAT_RULES,
+                        default=Auto(budget_rel_err=budget))
+
+
+PRESETS = {"serve-default": serve_default, "int8": int8,
+           "paper-grid": paper_grid}
 
 
 def get_preset(name: str, **kwargs) -> NumericsSpec:
-    """Build a named preset spec (``policy=`` for serve-default)."""
+    """Build a named preset spec (``policy=`` for serve-default,
+    ``budget=`` for paper-grid)."""
     try:
         builder = PRESETS[name]
     except KeyError:

@@ -17,9 +17,26 @@ approximate+CV packs.  Generation is greedy (argmax).  With
 packed under an approximate spec) the engine runs self-verifying
 speculative decode (``repro_torch.serving.speculative``): the draft
 parameters propose on the thin step, one chunk-shaped call of the exact
-parameters verifies, and only verifier tokens are emitted.  The error
-probe, the governor, quarantine, shadow serving, the fleet and power
-attribution are later slices.
+parameters verifies, and only verifier tokens are emitted.
+
+The robustness layer rides the same loop:
+
+  * the error probe (``EngineConfig.error_probe_every``,
+    :mod:`repro_torch.quant.error_probe`) re-runs one served row every N
+    steps, approximate and exact-int8, on a private copy of its KV;
+  * the governor (``governor=``, :mod:`repro_torch.serving.governor`)
+    turns the probe's reports into an accuracy SLO and hot-swaps the live
+    pack along its ladder, building each rung's pack once through
+    ``pack_fn``;
+  * fault detection (``EngineConfig.detect_faults``, or a
+    ``fault_injector``, :mod:`repro_torch.quant.faults`) checks every
+    step's consumed logits and replays a corrupted row on the exact pack
+    (``exact_params``) before it emits;
+  * every served token is priced with the cost model's modeled power
+    saving of the pack that served it (``power_profile_from_params``).
+
+Shadow serving, the fleet, request-span tracing and the windowed metrics
+are later slices.
 """
 
 from __future__ import annotations
@@ -33,6 +50,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, EngineConfig
 from repro_torch.models.registry import ModelApi, build_model
+from repro_torch.quant import faults
+from repro_torch.quant.error_probe import ErrorProbe
 from repro_torch.serving import speculative
 from repro_torch.serving.kv_pool import SlotPool
 from repro_torch.serving.metrics import EngineMetrics
@@ -41,15 +60,66 @@ from repro_torch.serving.request import (AdmissionController, Request,
 from repro_torch.serving.scheduler import ScheduledBatch, SlotScheduler
 
 
+def power_profile_from_params(params, n_array: int = 64) -> dict:
+    """Per-layer modeled MAC cost/saving profile of a (packed) parameter
+    tree: ``{path: {mac_per_token, saving_pct}}``.
+
+    ``mac_per_token`` is the layer's MAC count a served token (its weight
+    shape's product, every layer of a stack counted); ``saving_pct`` the
+    cost model's modeled array-power saving for its policy (0 for exact
+    and float layers).  Only linear layers are profiled: they are where
+    the approximate multipliers live.  This is the PackPlan x cost-model
+    join on the LIVE pack, so a governor hot-swap re-derives it from what
+    actually serves."""
+    from repro_torch.core.approx_linear import (LayerStack, QuantizedDense,
+                                                is_linear_params)
+    from repro_torch.core.cost_model import power_saving
+
+    prof: dict[str, dict] = {}
+
+    def add(path, shape, policy):
+        saving = (power_saving(policy.mode, policy.m, n_array)
+                  if policy is not None and policy.is_approx else 0.0)
+        prof[path] = {"mac_per_token": float(np.prod(shape)),
+                      "saving_pct": round(float(saving), 3)}
+
+    def walk(node, path):
+        if isinstance(node, LayerStack):
+            # the reference's stacked pack: (layers, k, n) codes
+            add(path, (len(node),) + tuple(node[0].w_q.shape), node[0].policy)
+        elif isinstance(node, QuantizedDense):
+            add(path, node.w_q.shape, node.policy)
+        elif isinstance(node, dict):
+            if is_linear_params(node):
+                add(path, node["w"].shape, None)
+                return
+            for k, v in node.items():
+                walk(v, f"{path}/{k}" if path else str(k))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}" if path else str(i))
+
+    walk(params, "")
+    return prof
+
+
 class ServingEngine:
     def __init__(self, cfg: ArchConfig, params, ecfg: EngineConfig = EngineConfig(),
                  api: ModelApi | None = None, numerics: str | None = None,
                  device=None, draft_params=None,
-                 draft_numerics: str | None = None) -> None:
+                 draft_numerics: str | None = None, governor=None,
+                 pack_fn: Callable | None = None, fault_injector=None,
+                 exact_params=None) -> None:
         """``device`` defaults to ``cuda`` and raises without a card; pass
         ``device="cpu"`` (or an ``api`` built for it) to serve on the CPU.
         ``params`` serve (and, under speculation, verify); ``draft_params``
-        draft when ``ecfg.speculative_k > 0``."""
+        draft when ``ecfg.speculative_k > 0``.  ``governor`` (a
+        :class:`~repro_torch.serving.governor.NumericsGovernor`) walks its
+        ladder on the probe's reports, ``pack_fn(spec_or_None)`` building
+        each rung's pack on first use (None: float); ``fault_injector``
+        corrupts deterministically for testing; ``exact_params`` is the
+        pack quarantine replays run on (default: the live pack, right when
+        that is exact, e.g. ``int8``)."""
         self.cfg = cfg
         self.ecfg = ecfg
         self.params = params
@@ -99,6 +169,55 @@ class ServingEngine:
         self.scheduler = SlotScheduler(ecfg.slots, ecfg.prefill_chunk,
                                        ecfg.interleave, ecfg.mixed_batches)
         self.metrics = self._new_metrics()
+        # -- robustness layer ------------------------------------------------
+        self._probe = None
+        self._steps = 0
+        if ecfg.error_probe_every > 0:
+            self._probe = ErrorProbe(self.api, paged=self._paged,
+                                     kv_len=ecfg.max_len,
+                                     block_size=ecfg.kv_block_size)
+        self.governor = governor
+        self._pack_fn = pack_fn
+        self._injector = fault_injector
+        self._exact_params = exact_params
+        self._detect = fault_injector is not None or ecfg.detect_faults
+        self._rung_packs: dict = {}
+        #: quarantine replays: {rid, slot, step, token}
+        self.quarantine_log: list[dict] = []
+        if governor is not None:
+            if pack_fn is None:
+                raise ValueError(
+                    "a governor needs pack_fn: called with a rung's "
+                    "NumericsSpec (or None for float) to build the pack it "
+                    "hot-swaps in — see repro_torch.launch.serve for the "
+                    "build_serving_params closure")
+            if ecfg.error_probe_every <= 0:
+                raise ValueError(
+                    "the governor consumes the error probe; set "
+                    "EngineConfig.error_probe_every > 0")
+            if self._spec_k:
+                raise ValueError(
+                    "governor + speculative decode is unsupported: "
+                    "speculation already pins every emitted token to the "
+                    "exact pack, so there is no approximate emission for "
+                    "an SLO to govern")
+            # the live params ARE the starting rung's pack
+            self._rung_packs[governor.rung.name] = params
+        if fault_injector is not None and self._spec_k:
+            raise ValueError(
+                "fault injection targets the plain serving path; the "
+                "speculative path's emissions are exact-verified already")
+        if self._detect and cfg.rwkv:
+            # the quarantine rollback is a cursor move; the recurrent
+            # state has already consumed the corrupted step's tokens, and
+            # the reference's replay onto it diverges from a clean run
+            raise NotImplementedError(
+                f"{cfg.name}: fault detection and quarantine replay need a "
+                "position-indexed KV cache to roll a corrupted step back "
+                "(recurrent RWKV state has already advanced past the step, "
+                "so a replay onto it is not the clean step)")
+        self._power_profiles: dict = {}
+        self._register_power_profile()
         self.active: dict[int, Request] = {}
         self._rid = itertools.count()
         #: (parameter tree, token shape) pairs dispatched: the counterpart
@@ -170,6 +289,7 @@ class ServingEngine:
             return expired
         # arm the throughput clock before the first served dispatch
         self.metrics.start_clock()
+        probe_due = self._probe_due()
         tables = None
         if self._paged:
             # copy-on-write barrier: every block this batch writes is
@@ -178,15 +298,167 @@ class ServingEngine:
                 self.pool.ensure_writable(slot, int(nv))
             self.pool.flush_copies()
             tables = self.pool.block_tables_array()
+        # the probe re-runs a row from its pre-step cursor (the cache is
+        # written in place, so the cursor is what must be kept)
+        pre_lengths = self.pool.lengths() if probe_due else None
         logits = self._dispatch(self.params, batch, tables)
         if self._paged:
             self.pool.advance(batch.n_valid)
-        finished, emitted, prompt_toks = self._postprocess(batch, logits)
+        # fault injection (step surface): corrupt a copy of chosen rows'
+        # logits; the detector below must catch every one before emission
+        if (self._injector is not None
+                and self._injector.spec.surface == "step"
+                and self._injector.fires(self._steps)):
+            live = [r.slot for r in batch.rows if batch.n_valid[r.slot] > 0]
+            bad_rows = self._injector.plan_rows(self._steps, live)
+            if bad_rows:
+                logits = self._injector.corrupt_logits(self._steps, logits,
+                                                       bad_rows)
+                self.metrics.faults_injected += len(bad_rows)
+        pp_batch, q_finished, q_emitted, q_prompt = (
+            self._quarantine(batch, logits, tables) if self._detect
+            else (batch, [], 0, 0))
+        finished, emitted, prompt_toks = self._postprocess(pp_batch, logits)
+        finished += q_finished
+        emitted += q_emitted
+        prompt_toks += q_prompt
         self.metrics.record_step(
             batch.kind, self.pool.occupancy, len(self.queue),
             prompt_tokens=prompt_toks, generated_tokens=emitted,
             block_stats=self._windowed_block_stats() if self._paged else None)
+        self._steps += 1
+        if probe_due:
+            self._run_probe(batch, pre_lengths, tables)
         return expired + finished
+
+    # -- fault detection & quarantine (repro_torch.quant.faults) -------------
+
+    def _quarantine(self, batch: ScheduledBatch, logits: torch.Tensor,
+                    tables) -> tuple[ScheduledBatch, list[Request], int, int]:
+        """Detect corrupted rows in this step's logits and quarantine them.
+
+        Each live row's consumed column (``n_valid - 1``) is checked on
+        the device for non-finite or divergent values
+        (:func:`repro_torch.quant.faults.suspect_rows`; only the mask
+        comes to the host).  A flagged row's cursor rolls back to its
+        pre-step value (a pure cursor move, the speculative rollback) and
+        the row REPLAYS on the exact pack without the injector, so its
+        corrupted logits are discarded before any token is emitted.
+        Returns the batch without the flagged rows and the replay's
+        ``(finished, emitted, prompt_tokens)``."""
+        nv = np.asarray(batch.n_valid)
+        live = [(r, k) for r, k in zip(batch.rows, batch.row_kinds)
+                if nv[r.slot] > 0]
+        if not live:
+            return batch, [], 0, 0
+        slots = torch.as_tensor([r.slot for r, _ in live],
+                                device=logits.device)
+        cols = torch.as_tensor(np.maximum(nv - 1, 0),
+                               device=logits.device)[slots]
+        mask = faults.suspect_rows(logits[slots, cols])
+        if not mask.any():
+            return batch, [], 0, 0
+        bad = [live[i] for i in np.nonzero(mask)[0]]
+        bad_slots = {r.slot for r, _ in bad}
+        self.metrics.faults_detected += len(bad)
+        if self.governor is not None:
+            # a detected fault is an unbounded-variance observation: the
+            # governor escalates at once, no window arithmetic
+            self._apply_decision(self.governor.note_fault())
+        # the flagged slots' cursors back to their pre-step values
+        cur = self.pool.lengths()
+        for r, _ in bad:
+            cur[r.slot] -= int(nv[r.slot])
+        self.pool.set_lengths(cur)
+        # replay ONLY the flagged rows on the exact pack, same batch shape
+        rep_nv = np.zeros_like(nv)
+        for r, _ in bad:
+            rep_nv[r.slot] = nv[r.slot]
+        rep_batch = ScheduledBatch(batch.kind, batch.tokens, rep_nv,
+                                   [r for r, _ in bad], [k for _, k in bad])
+        rep_params = (self._exact_params if self._exact_params is not None
+                      else self.params)
+        rep_logits = self._dispatch(rep_params, rep_batch, tables)
+        if self._paged:
+            self.pool.advance(rep_nv)
+        self.metrics.quarantines += len(bad)
+        self.metrics.quarantine_replays += len(bad)
+        finished, emitted, prompt_toks = self._postprocess(rep_batch,
+                                                           rep_logits)
+        for r, _ in bad:
+            tok = r.generated[-1] if r.generated else None
+            self.quarantine_log.append({"rid": r.rid, "slot": r.slot,
+                                        "step": self._steps, "token": tok})
+        clean_nv = np.array(nv, copy=True)
+        clean_nv[list(bad_slots)] = 0
+        clean = ScheduledBatch(
+            batch.kind, batch.tokens, clean_nv,
+            [r for r in batch.rows if r.slot not in bad_slots],
+            [k for r, k in zip(batch.rows, batch.row_kinds)
+             if r.slot not in bad_slots])
+        return clean, finished, emitted, prompt_toks
+
+    # -- error probe and governor --------------------------------------------
+
+    def _probe_due(self) -> bool:
+        """Whether the step about to run is probed (every N-th step)."""
+        return (self._probe is not None
+                and (self._steps + 1) % self.ecfg.error_probe_every == 0)
+
+    def _run_probe(self, batch: ScheduledBatch, lengths, tables) -> None:
+        """One approximation-error probe of the batch just served, from
+        the rows' pre-step cursors ``lengths``.  A dense-surface injector
+        arms its hook around the probe (a degraded MAC array corrupts what
+        the probe measures, which is how the governor sees it); the report
+        feeds the metrics and the governor's running SLO estimate."""
+        inj = self._injector
+        args = (self.params, batch.tokens, batch.n_valid, self.pool.cache,
+                lengths)
+        if inj is not None and inj.spec.surface == "dense":
+            log0 = len(inj.log)
+            with inj.armed(self._steps):
+                report = self._probe.run(*args, block_tables=tables)
+            self.metrics.faults_injected += len(inj.log) - log0
+        else:
+            report = self._probe.run(*args, block_tables=tables)
+        if report is None:
+            return
+        self.metrics.record_probe(report)
+        if self.governor is not None:
+            self._apply_decision(self.governor.observe_probe(report))
+
+    def _apply_decision(self, decision) -> None:
+        """Execute one governor ladder move: hot-swap the live pack.  Rung
+        packs build lazily through ``pack_fn`` and are cached per rung
+        name, so an escalate/relax cycle packs each rung once; every
+        request's KV carries over untouched."""
+        if decision is None:
+            return
+        rung = self.governor.rung
+        pack = self._rung_packs.get(rung.name)
+        if pack is None:
+            pack = self._pack_fn(rung.spec)
+            self._rung_packs[rung.name] = pack
+        self.params = pack
+        self.numerics = rung.name
+        self.metrics.numerics = rung.name
+        # the new rung's tokens attribute to ITS power profile from here on
+        self._register_power_profile()
+        self.metrics.governor_switches += 1
+        if decision.action == "escalate":
+            self.metrics.governor_escalations += 1
+        else:
+            self.metrics.governor_relaxes += 1
+
+    def _register_power_profile(self) -> None:
+        """Profile the LIVE pack (cached per numerics label) and register
+        it with the metrics' power attribution."""
+        label = self.numerics or "unknown"
+        prof = self._power_profiles.get(label)
+        if prof is None:
+            prof = power_profile_from_params(self.params)
+            self._power_profiles[label] = prof
+        self.metrics.set_power_profile(label, prof)
 
     def _dispatch(self, params, batch: ScheduledBatch,
                   tables=None) -> torch.Tensor:
@@ -242,6 +514,7 @@ class ServingEngine:
             self.pool.set_lengths(base)
 
         vb = self.scheduler.verify_batch(rnd)
+        probe_due = self._probe_due()
         logits = self._dispatch(self.params, vb, tables)
         (finished, emitted, prompt_toks,
          drafted, accepted) = self._spec_postprocess(rnd, vb, logits)
@@ -262,6 +535,11 @@ class ServingEngine:
             prompt_tokens=prompt_toks, generated_tokens=emitted,
             block_stats=self._windowed_block_stats() if self._paged else None,
             drafted=drafted, accepted=accepted, draft_calls=max_k)
+        self._steps += 1
+        if probe_due:
+            # a verify row against the exact path: under speculation the
+            # served parameters ARE exact, so this reports the noise floor
+            self._run_probe(vb, base, tables)
         return finished
 
     def _spec_postprocess(self, rnd, vb: ScheduledBatch, logits):
@@ -355,6 +633,7 @@ class ServingEngine:
         numerics labels; the paged pool's cumulative counters are rebased
         so the next snapshot covers one window."""
         self.metrics = self._new_metrics()
+        self._register_power_profile()
         if self._paged:
             self.pool.reset_peak_blocks()
             self._block_baseline = self.pool.block_stats()

@@ -1,8 +1,11 @@
 """Per-engine serving metrics: the throughput, TTFT and ITL subset of
 ``repro.serving.metrics``, with the paged layout's block counters (prefix
 hits, copy-on-write copies, utilization, capacity stalls), deadline
-expiries and the speculative counters (drafted and accepted tokens, the
-acceptance rate).
+expiries, the speculative counters (drafted and accepted tokens, the
+acceptance rate), the robustness counters (governor switches, injected
+and detected faults, quarantine replays), the error probe's Chan-merged
+approximate-vs-exact moments and the modeled power attribution.  The
+windowed time series of the reference are not ported yet.
 
 Counters are recorded on the host around each engine iteration.  Latency
 samples go through a bounded reservoir (exact count, sum and max; uniform
@@ -29,6 +32,35 @@ def _percentile(xs, q: float) -> float:
     lo = min(int(math.floor(pos)), len(ys) - 1)
     hi = min(lo + 1, len(ys) - 1)
     return ys[lo] + (ys[hi] - ys[lo]) * (pos - lo)
+
+
+def _merge_moments(a: tuple[int, float, float],
+                   b: tuple[int, float, float]) -> tuple[int, float, float]:
+    """Chan's parallel combine of (n, mean, variance) aggregates."""
+    na, ma, va = a
+    nb, mb, vb = b
+    if na == 0:
+        return b
+    if nb == 0:
+        return a
+    n = na + nb
+    d = mb - ma
+    mean = ma + d * nb / n
+    m2 = va * na + vb * nb + d * d * na * nb / n
+    return n, mean, m2 / n
+
+
+def merge_layer_moments(*maps: dict) -> dict:
+    """Dict-union Chan merge of layer-keyed ``(n, mean, var)`` maps (the
+    running probe totals and the governor's per-layer SLO windows):
+    associative, and the key union never depends on which map saw a layer
+    first."""
+    out: dict = {}
+    for m in maps:
+        for path, mom in m.items():
+            out[path] = _merge_moments(out.get(path, (0, 0.0, 0.0)),
+                                       tuple(mom))
+    return out
 
 
 class Reservoir:
@@ -115,6 +147,31 @@ class EngineMetrics:
     _block_samples: int = 0
     _last_block_stats: dict | None = None
 
+    # robustness counters (repro_torch.serving.governor, quant.faults):
+    # governor pack switches, injected/detected faults and the quarantined
+    # rows replayed on the exact pack
+    governor_switches: int = 0
+    governor_escalations: int = 0
+    governor_relaxes: int = 0
+    faults_injected: int = 0
+    faults_detected: int = 0
+    quarantines: int = 0
+    quarantine_replays: int = 0
+
+    # error-probe aggregation (repro_torch.quant.error_probe): per-layer
+    # and logits-level (n, mean, var) of approximate-vs-exact deltas,
+    # Chan-merged across probe runs
+    probe_runs: int = 0
+    _probe_layers: dict = dataclasses.field(default_factory=dict)
+    _probe_logits: tuple = (0, 0.0, 0.0)
+
+    # modeled power attribution: per-numerics-label layer profiles
+    # ({path: {mac_per_token, saving_pct}}, from the live pack) joined
+    # against the tokens served under each label, so a governor hot-swap
+    # splits the attribution between rungs
+    power_profiles: dict = dataclasses.field(default_factory=dict)
+    _tokens_by_numerics: dict = dataclasses.field(default_factory=dict)
+
     def start_clock(self) -> None:
         """Arm the throughput clock (idempotent)."""
         if self.t_start is None:
@@ -143,6 +200,12 @@ class EngineMetrics:
             self._last_block_stats = block_stats
         self.prompt_tokens += prompt_tokens
         self.generated_tokens += generated_tokens
+        if prompt_tokens or generated_tokens:
+            # served tokens attribute to the numerics label active now
+            label = self.numerics or "unknown"
+            self._tokens_by_numerics[label] = (
+                self._tokens_by_numerics.get(label, 0)
+                + prompt_tokens + generated_tokens)
         self._occupancy_sum += occupancy
         self._queue_depth_sum += queue_depth
         self._samples += 1
@@ -159,6 +222,97 @@ class EngineMetrics:
         self.finished += 1
         if req.t_finish is not None:
             self.latencies.push(req.t_finish - req.t_submit)
+
+    # -- approximation-error probe -------------------------------------------
+
+    def record_probe(self, report: dict) -> None:
+        """Fold one :class:`~repro_torch.quant.error_probe.ErrorProbe`
+        report (per-layer + logits ``{n, mean, var}``) into the running
+        per-layer moments."""
+        self.probe_runs += 1
+        for path, st in report.get("layers", {}).items():
+            self._probe_layers[path] = _merge_moments(
+                self._probe_layers.get(path, (0, 0.0, 0.0)),
+                (st["n"], st["mean"], st["var"]))
+        lg = report.get("logits")
+        if lg is not None:
+            self._probe_logits = _merge_moments(
+                self._probe_logits, (lg["n"], lg["mean"], lg["var"]))
+
+    def _probe_snapshot(self) -> dict | None:
+        if not self.probe_runs and not self._probe_layers:
+            return None
+        layers = {path: {"n": n, "err_mean": mean, "err_var": var}
+                  for path, (n, mean, var)
+                  in sorted(self._probe_layers.items())}
+        lvars = [st["err_var"] for st in layers.values()]
+        ln, lmean, lvar = self._probe_logits
+        return {
+            "runs": self.probe_runs,
+            "numerics": self.numerics,
+            "logits_err_n": ln,
+            "logits_err_mean": lmean,
+            "logits_err_var": lvar,
+            "mean_layer_err_var": sum(lvars) / len(lvars) if lvars else None,
+            "max_layer_err_var": max(lvars) if lvars else None,
+            "layers": layers,
+        }
+
+    # -- modeled power attribution -------------------------------------------
+
+    def set_power_profile(self, label: str, profile: dict) -> None:
+        """Register the per-layer MAC cost/saving profile of one numerics
+        label (:func:`repro_torch.serving.engine.power_profile_from_params`);
+        the engine registers the live pack's at construction and after
+        every governor hot-swap."""
+        self.power_profiles[label] = dict(profile)
+
+    def _power_attribution(self) -> dict | None:
+        """Join the served token mix against the registered profiles.
+        ``mac_units`` are tokens x MACs-per-token, a relative energy proxy;
+        ``mac_units_saved`` applies each layer's cost-model saving."""
+        if not self.power_profiles:
+            return None
+        per_layer: dict[str, dict] = {}
+        per_tier: dict[str, dict] = {}
+        for label, toks in sorted(self._tokens_by_numerics.items()):
+            prof = self.power_profiles.get(label) or {}
+            t_units = t_saved = 0.0
+            for path, ent in prof.items():
+                units = toks * ent["mac_per_token"]
+                saved = units * ent["saving_pct"] / 100.0
+                t_units += units
+                t_saved += saved
+                lay = per_layer.setdefault(
+                    path, {"mac_units": 0.0, "mac_units_saved": 0.0})
+                lay["mac_units"] += units
+                lay["mac_units_saved"] += saved
+            per_tier[label] = {
+                "tokens": toks,
+                "mac_units": round(t_units, 1),
+                "mac_units_saved": round(t_saved, 1),
+                "power_saving_pct": (round(100.0 * t_saved / t_units, 3)
+                                     if t_units else 0.0),
+            }
+        for lay in per_layer.values():
+            lay["saving_pct"] = (
+                round(100.0 * lay["mac_units_saved"] / lay["mac_units"], 3)
+                if lay["mac_units"] else 0.0)
+            lay["mac_units"] = round(lay["mac_units"], 1)
+            lay["mac_units_saved"] = round(lay["mac_units_saved"], 1)
+        units = sum(t["mac_units"] for t in per_tier.values())
+        saved = sum(t["mac_units_saved"] for t in per_tier.values())
+        return {
+            "tokens_attributed": sum(self._tokens_by_numerics.values()),
+            "tokens_by_numerics": dict(sorted(
+                self._tokens_by_numerics.items())),
+            "mac_units": round(units, 1),
+            "mac_units_saved": round(saved, 1),
+            "modeled_power_saving_pct": (round(100.0 * saved / units, 3)
+                                         if units else 0.0),
+            "per_tier": per_tier,
+            "per_layer": dict(sorted(per_layer.items())),
+        }
 
     def snapshot(self) -> dict:
         elapsed = (max(time.perf_counter() - self.t_start, 1e-9)
@@ -179,6 +333,13 @@ class EngineMetrics:
             "requests_rejected": self.rejected,
             "requests_evicted": self.evicted,
             "no_capacity_stalls": self.no_capacity_stalls,
+            "governor_switches": self.governor_switches,
+            "governor_escalations": self.governor_escalations,
+            "governor_relaxes": self.governor_relaxes,
+            "faults_injected": self.faults_injected,
+            "faults_detected": self.faults_detected,
+            "quarantines": self.quarantines,
+            "quarantine_replays": self.quarantine_replays,
             "requests_retried": self.requests_retried,
             "requests_deadline_expired": self.requests_deadline_expired,
             "prefix_hits": self.prefix_hits,
@@ -221,4 +382,6 @@ class EngineMetrics:
                                     if self._samples else 0.0),
             "mean_queue_depth": (self._queue_depth_sum / self._samples
                                  if self._samples else 0.0),
+            "error_probe": self._probe_snapshot(),
+            "power_attribution": self._power_attribution(),
         }

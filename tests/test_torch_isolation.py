@@ -84,7 +84,7 @@ def test_port_runs_with_jax_unimportable():
         # folds, grouped CV, the paged layout, speculative decode, plan
         from repro_torch.configs import EngineConfig
         from repro_torch.launch.serve import run_plan
-        from repro_torch.numerics import get_preset
+        from repro_torch.numerics import NumericsSpec, get_preset
         from repro_torch.serving import ServingEngine
         from repro_torch.serving.paged import PagedKVPool
         from repro_torch.serving.speculative import plan_round
@@ -102,6 +102,30 @@ def test_port_runs_with_jax_unimportable():
         reqs = [eng.submit([1, 2, 3, 4, 5], 6), eng.submit([7, 8], 4)]
         assert len(eng.run()) == 2 and eng.compile_count() == 2
         assert eng.snapshot()["drafted_tokens"] > 0 and plan_round({}, 2, 8) is None
+        # the robustness layer: probe, governor, faults, ladder, auto
+        from repro_torch.numerics import auto, resolve_ladder
+        from repro_torch.quant.faults import FaultInjector, FaultSpec
+        from repro_torch.serving import GovernorConfig, NumericsGovernor
+        approx = build_serving_params(raw, cfg, ServeConfig(
+            policy=ApproxPolicy("perforated", 2)), device="cpu")
+        gov = NumericsGovernor(
+            resolve_ladder([get_preset("serve-default"), "int8", "float"], raw),
+            GovernorConfig(slo_err_var=1e-3, window_probes=1))
+        eng = ServingEngine(cfg, approx, EngineConfig(
+            slots=2, max_len=32, prefill_chunk=8, error_probe_every=1),
+            api=api, governor=gov, pack_fn=lambda s: raw if s is None else
+            verify, exact_params=verify,
+            fault_injector=FaultInjector(FaultSpec.parse("dense-noise@1@0-3")))
+        eng.submit([1, 2, 3], 4)
+        assert len(eng.run()) == 1 and eng.snapshot()["error_probe"]["runs"]
+        assert gov.decisions and eng.snapshot()["power_attribution"]
+        from repro_torch.core.approx_linear import dense
+        toy = {"q": {"w": torch.randn(8, 8)}, "o": {"w": torch.randn(8, 8)}}
+        x = torch.randn(4, 8)
+        plan = NumericsSpec(name="a", default=auto(0.5)).resolve(
+            toy, apply_fn=lambda p, b: dense(p["o"], dense(p["q"], b)),
+            calib_inputs=x)
+        assert all(e.policy is not None for e in plan.entries)
         class Args:
             arch, mode, m, no_cv, preset, spec_json = (
                 "deepseek-67b", "perforated", 2, False, None, None)
