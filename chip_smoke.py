@@ -102,6 +102,23 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    `fold=False` (the exact-integer product) and the kernel sweep, the fold
    bytes against the plan's, a grouped-CV (4 groups) pack's error beside
    single-CV's, and a profiled B=250 forward, folded and `fold=False`;
+6b. "paper", the paper's own evaluation (`repro_torch.paper`): Table 1
+   (every entry over 1M sample pairs, the card's integer error sums equal
+   to the host's), the conv-error bench (every row: mean nullified, Eq. 20
+   within 0.1), Figs. 7-9 and Table 5; then Tables 2-4 through the bench's
+   own `run`: the six nets trained on the card (the reference's SGD
+   recipe, 300 steps at batch 64) at 10 and 100 classes, calibrated,
+   packed at every paper-grid point with the CV on and off (`backend:
+   "pallas"`, every layer packed) and evaluated on 1,000 test images, the
+   launches counted; per net its first 5 training steps on the card
+   against the host's, its training trained (loss falling, float accuracy
+   above twice chance) or one of the recipe's failure modes (collapse to
+   the uniform prediction, divergence: printed, kept out of the summary),
+   and at one point per mode, CV on and off, kernel logits bit-equal to the
+   plain version's and (nets that trained) top-1 predictions agreeing with
+   the `jnp` pack's on 99% of the test images;
+   prints the rows, the mean accuracy loss with and without the CV, the
+   modelled power saving and Fig. 10 (`chiprun_out/paper.json`);
 7. kernel times at the paths' shapes (kernel, plain, library, bound),
    the approx-matmul also at the prefills' and the encoder's shapes and
    at the decode shapes of qwen3-4b, rwkv6-1.6b (head too) and
@@ -3056,6 +3073,325 @@ def teacher_forced(torch, label: str, mod, run) -> list[float]:
     return gaps, calls
 
 
+# ---------------------------------------------------------------------------
+# the paper's own evaluation
+# ---------------------------------------------------------------------------
+
+#: the paper phase's bounds: the conv-error bench's Eq. 20 variance
+#: prediction (tests/test_control_variate.py::test_eq20_variance_prediction);
+#: a trained net's float test accuracy at least PAPER_CHANCE_X times chance;
+#: the kernel path's top-1 predictions against the ``backend: "jnp"``
+#: pack's on the 1,000 test images, for a net that trained (both evaluate
+#: the same integer products; an activation code that rounds the other way
+#: after a float ulp may flip a near-tie, and a collapsed net's outputs
+#: are all near-ties: its agreement is printed only)
+PAPER_EQ20_MAX, PAPER_CHANCE_X, PAPER_TOP1_MIN = 0.1, 2.0, 0.99
+#: the card's training path against the host's: the first PAPER_SGD_STEPS
+#: steps of the recipe from the same initial weights, every loss within
+#: PAPER_SGD_RTOL (float32 sums in other orders; the CPU tests hold the
+#: recipe against the reference's over 20 steps to 1e-3)
+PAPER_SGD_STEPS, PAPER_SGD_RTOL = 5, 1e-3
+#: the reference's recipe (BN as a plain affine, so nothing normalises the
+#: activations; SGD at lr 0.05 with momentum) does not train every net
+#: from every initialisation (ROADMAP queue 3).  Its two failure modes are
+#: kept out of the summary and do not fail the phase: "diverged" (weights
+#: not finite) and "collapsed" (the last 50 steps' mean loss within
+#: PAPER_COLLAPSE_RTOL of ln(classes), the loss of a constant uniform
+#: prediction).  Any other net below the accuracy margin fails it, and so
+#: does a class count at which no net trains
+PAPER_COLLAPSE_RTOL = 0.05
+
+
+@contextlib.contextmanager
+def pack_recorder(t24, packed: list):
+    """Records (packed layer count, plan layer count) of every pack the
+    Tables 2-4 bench builds inside the block, and fails on a pack that
+    leaves a layer float or holds its codes other than K-major."""
+    from repro_torch.core.approx_linear import packed_layer_paths
+
+    build = t24.apply_numerics
+
+    def checked(params, plan, **kw):
+        tree = build(params, plan, **kw)
+        paths = packed_layer_paths(tree)
+        if paths != sorted(e.path for e in plan.entries):
+            fail(f"paper: {plan.name} packed {len(paths)} of "
+                 f"{len(plan.entries)} layers")
+        check_packs("paper", tree)
+        packed.append(len(paths))
+        return tree
+
+    t24.apply_numerics = checked
+    try:
+        yield
+    finally:
+        t24.apply_numerics = build
+
+
+def paper_error_model(torch, dev) -> dict:
+    """Phase 6b, first half: Table 1 (every entry: the device's integer
+    error sums equal the host's, mu and sigma beside the paper's and the
+    analytic uniform moments), the conv-error bench (every row: the mean
+    nullified, Eq. 20 within PAPER_EQ20_MAX), Figs. 7-9 and Table 5."""
+    from repro_torch.core import control_variate as cv
+    from repro_torch.core import multipliers as am
+    from repro_torch.paper import (conv_error_validation, fig7_9_power,
+                                   table1_error, table5_overhead)
+
+    t0 = time.perf_counter()
+    n_sums = 0
+    for mode, dist, w, a in table1_error.samples():
+        wd, ad = torch.from_numpy(w).to(dev), torch.from_numpy(a).to(dev)
+        for m in table1_error.PAPER[(mode, dist)]:
+            sums = []
+            for ww, aa in ((wd, ad), (w, a)):
+                e = am.am_error(ww, aa, mode, m).to(torch.int64)
+                sums.append((int(e.sum()), int((e * e).sum())))
+            if sums[0] != sums[1]:
+                fail(f"paper table1 {mode}/{dist}/m{m}: device error sums "
+                     f"{sums[0]} != the host's {sums[1]}")
+            n_sums += 1
+    table1 = table1_error.run(device=dev)
+    for r in table1:
+        _, mode, dist, m = r["name"].split("/")
+        mu_a, sig_a = am.analytic_error_moments_uniform(mode, int(m[1:]))
+        print(f"paper {r['name']}: mu {r['mu']} (paper {r['mu_paper']}, "
+              f"analytic uniform {mu_a:.2f}), sigma {r['sigma']} (paper "
+              f"{r['sigma_paper']}, analytic uniform {sig_a:.2f})",
+              flush=True)
+    print(f"paper table1: {n_sums} entries x {table1_error.N_SAMPLES:,} "
+          "samples, device integer "
+          "error sums and sums of squares equal the host's", flush=True)
+    conv = conv_error_validation.run(device=dev)
+    for r in conv:
+        _, mode, m = r["name"].split("/")
+        mu12, sig12 = cv.predicted_conv_error_no_cv_uniform(
+            mode, int(m[1:]), conv_error_validation.K)
+        print(f"paper {r['name']}: Eq. 12 mean {mu12:.1f} std {sig12:.1f}; "
+              + json.dumps({k: v for k, v in r.items() if k != "name"}),
+              flush=True)
+        if not r["mean_nullified"] or r.get("eq20_var_rel_err", 0.0) \
+                >= PAPER_EQ20_MAX:
+            fail(f"paper {r['name']}: mean not nullified or Eq. 20 off by "
+                 f"{r.get('eq20_var_rel_err')} (max {PAPER_EQ20_MAX})")
+    figs = fig7_9_power.run() + table5_overhead.run()
+    for r in figs:
+        print(f"paper {r['name']}: "
+              + json.dumps({k: v for k, v in r.items() if k != "name"}),
+              flush=True)
+    return {"table1": table1, "conv_error": conv, "fig7_9_table5": figs,
+            "seconds": time.perf_counter() - t0}
+
+
+def paper_checks(torch, dev, t24, net: str, classes: int, data,
+                 row0: dict) -> dict:
+    """Phase 6b, per net after the Tables 2-4 run: the first training steps
+    on the card against the host's; the run's training: trained (the loss
+    fell, the float accuracy reached PAPER_CHANCE_X x chance), or one of
+    the recipe's failure modes (PAPER_COLLAPSE_RTOL); then, for finite
+    weights, at one grid point per mode, CV on and off:
+    kernel-path logits bit-equal to the plain version's (first CNN_BATCH
+    test images) and, for a net that trained, top-1 predictions agreeing
+    with the ``jnp`` pack's on the test images."""
+    from repro_torch.configs.cnn_suite import get_cnn
+    from repro_torch.kernels import approx_matmul as amk
+    from repro_torch.nn.cnn import cnn_apply
+    from repro_torch.numerics import apply_numerics, paper_grid_specs
+
+    label = f"paper {net} c{classes}"
+    xtr, ytr, xte, _ = data
+    cfg = get_cnn(net, classes)
+    init = t24.initial_params(cfg, dev)
+    card = t24.sgd_steps(init, cfg, xtr, ytr, PAPER_SGD_STEPS, dev)[1]
+    host = t24.sgd_steps(init, cfg, xtr.cpu(), ytr.cpu(), PAPER_SGD_STEPS,
+                         torch.device("cpu"))[1]
+    params, losses = t24.train_cnn(net, cfg, xtr, ytr, device=dev)
+    same = "equal to" if card == losses[:PAPER_SGD_STEPS] else "not"
+    print(f"{label}: first {PAPER_SGD_STEPS} training steps' losses on the "
+          f"card {card} ({same} the run's), on the host {host}", flush=True)
+    if not all(math.isclose(c, h, rel_tol=PAPER_SGD_RTOL)
+               or math.isnan(c) and math.isnan(h)
+               for c, h in zip(card, host)):
+        fail(f"{label}: the card's training steps leave the host's "
+             f"(rtol {PAPER_SGD_RTOL})")
+    first, last = (statistics.fmean(losses[:50]),
+                   statistics.fmean(losses[-50:]))
+    chance, uniform = 1.0 / classes, math.log(classes)
+    finite = all(bool(torch.isfinite(t).all()) for t in t24._leaves(params))
+    if not finite:
+        status = "diverged"
+    elif last < first and row0["acc_float"] >= PAPER_CHANCE_X * chance:
+        status = "trained"
+    elif abs(last - uniform) <= PAPER_COLLAPSE_RTOL * uniform:
+        status = "collapsed"
+    else:
+        fail(f"{label}: the loss fell from {first:.4f} to {last:.4f} and the "
+             f"float accuracy is {row0['acc_float']}: neither trained (loss "
+             f"falling, accuracy at least {PAPER_CHANCE_X} x chance) nor the "
+             "recipe's collapse or divergence")
+    print(f"{label}: training loss first 50 steps {first:.4f}, last 50 "
+          f"{last:.4f} (uniform prediction {uniform:.4f}); float test "
+          f"accuracy {row0['acc_float']} (chance {chance}): {status}",
+          flush=True)
+    res = {"loss_first50": first, "loss_last50": last, "status": status,
+           "sgd_card": card, "sgd_host": host, "points": []}
+    if not finite:
+        print(f"{label}: non-finite weights, no pack checks", flush=True)
+        return res
+    ranges = t24.calibrate(params, cfg, xtr[:t24.N_CALIB])
+    x0 = xte[:CNN_BATCH]
+    for i in CNN_POINTS:
+        for cv in (True, False):
+            kspec = paper_grid_specs(use_cv=cv, backend="pallas")[i]
+            jspec = paper_grid_specs(use_cv=cv)[i]
+            kpack = apply_numerics(params, kspec.resolve(params),
+                                   act_ranges=ranges)
+            jpack = apply_numerics(params, jspec.resolve(params),
+                                   act_ranges=ranges)
+            with torch.no_grad():
+                yk = torch.cat([cnn_apply(kpack, xte[j:j + CNN_BATCH], cfg)
+                                for j in range(0, len(xte), CNN_BATCH)])
+                plain = [(amk, "approx_matmul_cv_fused",
+                          amk.approx_matmul_cv_fused_plain)]
+                with plain_swapped(label, plain):
+                    yp = cnn_apply(kpack, x0, cfg)
+                yj = torch.cat([cnn_apply(jpack, xte[j:j + CNN_BATCH], cfg)
+                                for j in range(0, len(xte), CNN_BATCH)])
+            if not torch.equal(yp, yk[:CNN_BATCH]):
+                fail(f"{label}: {kspec.name} kernel-path logits differ from "
+                     "the plain version's: max "
+                     f"{float((yp - yk[:CNN_BATCH]).abs().max())}")
+            agree = float((yk.argmax(-1) == yj.argmax(-1)).float().mean())
+            pol = kspec.default
+            res["points"].append({"mode": pol.mode, "m": pol.m, "cv": cv,
+                                  "top1_kernel_vs_jnp": agree})
+            if agree < PAPER_TOP1_MIN and status == "trained":
+                fail(f"{label}: {kspec.name} top-1 agreement with the jnp "
+                     f"pack {agree:.4f} < {PAPER_TOP1_MIN}")
+    print(f"{label}: kernel-path logits bit-equal to the plain version's at "
+          f"{len(CNN_POINTS)} points x CV on/off (B={CNN_BATCH}); top-1 "
+          "agreement with the jnp packs "
+          f"{[p['top1_kernel_vs_jnp'] for p in res['points']]}", flush=True)
+    return res
+
+
+def run_paper(torch, dev) -> dict:
+    """Phase 6b: the paper's own evaluation on the card (error model, then
+    Tables 2-4 through ``repro_torch.paper.tables2_4_accuracy.run``:
+    the six CNN_SUITE nets trained on the card at 10 and 100 classes, every
+    grid point with the CV on and off on ``backend: "pallas"`` packs,
+    launches counted; per-net checks; the summary and Fig. 10).  Returns
+    the launch counts of each class count's run."""
+    import shutil
+
+    from repro_torch.configs.cnn_suite import CNN_SUITE
+    from repro_torch.core.cost_model import power_saving
+    from repro_torch.paper import fig10_pareto
+    from repro_torch.paper import tables2_4_accuracy as t24
+
+    t_start = time.perf_counter()
+    line = {"error_model": paper_error_model(torch, dev)}
+    t24.ART_DIR = str(ROOT / "build" / "paper_cnn")  # trained here, afresh
+    shutil.rmtree(t24.ART_DIR, ignore_errors=True)
+    n_grid = 9
+    make_data, data = t24.dataset, {}
+
+    def kept(classes, d):
+        data[classes] = make_data(classes, d)
+        return data[classes]
+
+    launches, rows, checks, seconds = {}, [], {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the depthwise convs
+    t24.dataset = kept
+    try:
+        for classes in (10, 100):
+            packed: list = []
+            n_batches = -(-t24.N_TEST // 250)
+            want = {"approx_matmul_cv_fused": sum(
+                2 * n_grid * n_batches * CNN_LAYERS[n] for n in CNN_SUITE)}
+            with pack_recorder(t24, packed):
+                got, wall, counts, _ = counted_run(
+                    torch, f"paper tables2_4 c{classes}",
+                    lambda: t24.run(class_counts=(classes,), device=dev),
+                    want, f"{len(CNN_SUITE)} nets x {2 * n_grid} packs x "
+                    f"{n_batches} "
+                    "batches x their layers")
+            if packed != [CNN_LAYERS[n] for n in CNN_SUITE
+                          for _ in range(2 * n_grid)]:
+                fail(f"paper c{classes}: packs of {packed} layers, want each "
+                     f"net's CNN_LAYERS count {2 * n_grid} times")
+            launches[f"paper tables2_4 c{classes}"] = counts
+            seconds[f"c{classes}"] = wall
+            rows += got
+            for j, net in enumerate(CNN_SUITE):
+                net_rows = got[j * n_grid:(j + 1) * n_grid]
+                for r in net_rows:
+                    print(f"paper {r['name']}: " + json.dumps(
+                        {k: v for k, v in r.items() if k != "name"}),
+                        flush=True)
+                checks[f"{net}/c{classes}"] = paper_checks(
+                    torch, dev, t24, net, classes, data[classes], net_rows[0])
+            if not any(checks[f"{net}/c{classes}"]["status"] == "trained"
+                       for net in CNN_SUITE):
+                fail(f"paper c{classes}: no net trained")
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        t24.dataset = make_data
+    line["tables2_4"] = rows
+    line["checks"] = checks
+    line["tables2_4_seconds"] = seconds
+
+    # the summary: findings, printed, never failed on
+    def summary(sel):
+        n = len(sel)
+        if not n:
+            return {"rows": 0}
+        loss_cv = sum(r["loss_cv_pct"] for r in sel) / n
+        loss_no = sum(r["loss_no_cv_pct"] for r in sel) / n
+        acc_cv = sum(r["acc_cv"] for r in sel) / n
+        acc_no = sum(r["acc_no_cv"] for r in sel) / n
+        return {"rows": n, "mean_loss_cv_pct": loss_cv,
+                "mean_loss_no_cv_pct": loss_no,
+                # a ratio only where the CV loses at least 0.01 points
+                "loss_ratio_no_cv_over_cv": loss_no / loss_cv
+                if loss_cv >= 0.01 else None,
+                "mean_acc_cv": acc_cv, "mean_acc_no_cv": acc_no,
+                "acc_ratio_cv_over_no_cv": acc_cv / acc_no if acc_no
+                else None}
+
+    trained = [r for r in rows if checks["/".join(
+        r["name"].split("/")[1:3])]["status"] == "trained"]
+    points = {}
+    for r in trained:
+        mode, m = r["name"].split("/")[3:]
+        points.setdefault((mode, int(m[1:])), []).append(r)
+    per_point = {f"{mode}/m{m}": {
+        "power_saving_pct_n64": power_saving(mode, m, 64),
+        **summary(sel)} for (mode, m), sel in points.items()}
+    under_1pct = [(v["power_saving_pct_n64"], k) for k, v in
+                  per_point.items() if v["mean_loss_cv_pct"] < 1.0]
+    line["summary"] = {
+        "all_nets": summary(rows), "trained_nets": summary(trained),
+        "per_point_trained_nets": per_point,
+        "best_saving_under_1pct_cv_loss": max(under_1pct, default=None),
+        # the reference's default (resnet44, 100 classes), then every net
+        "fig10": [r for net in CNN_SUITE
+                  for r in fig10_pareto.run(net, 100)]}
+    line["seconds"] = time.perf_counter() - t_start
+    print("paper summary: " + json.dumps(line["summary"]), flush=True)
+    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+    shutil.copy(os.path.join(t24.ART_DIR, "results_cache.json"),
+                ROOT / "chiprun_out" / "paper_results_cache.json")
+    write_line("paper", "paper.json", line)
+    print(f"paper: {line['seconds']:.1f} s (error model "
+          f"{line['error_model']['seconds']:.1f} s; Tables 2-4 "
+          f"{json.dumps(seconds)} s, training included); TF32 off",
+          flush=True)
+    return launches
+
+
 def attn_scan_times(torch, dev, card: str) -> dict:
     """Phase 7, second half: flash attention at the prefill shapes of
     olmo-1b, qwen3-4b and qwen2-vl-2b and of hubert-xlarge's encoder, and
@@ -3232,6 +3568,8 @@ def main() -> int:
     cnn = run_cnn_suite(torch, dev, card)
     for name, res in cnn.items():
         paths[f"cnn {name}"] = res["launches"]
+    torch.cuda.empty_cache()
+    paths.update(run_paper(torch, dev))
     ratios = {f"{r['mode']}(m={r['m']})": [
         round(cnn[name]["c10"][i]["err_ratio_no_cv_over_cv"], 3)
         for name in cnn] for i, r in enumerate(next(iter(cnn.values()))["c10"])}

@@ -1,4 +1,4 @@
-"""Control-variate approximation (the paper's Sec. 3), single-C form.
+"""Control-variate approximation (the paper's Sec. 3).
 
 Port of ``repro.core.control_variate``:
 
@@ -10,13 +10,15 @@ Port of ``repro.core.control_variate``:
 
 C and C0 are per-output-channel constants from the weight codes; the
 runtime statistic is the per-row sum_j x_j.  Grouped CV (beyond the
-paper) keeps one C per contiguous slice of the fan-in axis.
+paper) keeps one C per contiguous slice of the fan-in axis.  The analytic
+predictions of Eqs. 12, 20, 22 and 28 back the conv-error bench.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core import multipliers as am
@@ -118,3 +120,54 @@ def cv_term_grouped(a_codes, const: CVConstants, mode: Mode, m: int,
     ag = a.reshape(*a.shape[:-1], groups, k // groups)
     sx = sum_x(ag, mode, m, dim=-1).to(torch.float32)  # (..., groups)
     return torch.matmul(sx, const.c) + const.c0
+
+
+def approx_matmul_cv(a_codes, w_codes, mode: Mode, m: int,
+                     const: CVConstants | None = None,
+                     groups: int = 1) -> torch.Tensor:
+    """G*-style corrected code-space matmul: sum AM(w, a) + V (float32),
+    the reference composition (the oracle of the fused kernel)."""
+    acc = am.approx_matmul(a_codes, w_codes, mode, m).to(torch.float32)
+    if mode == "exact" or m == 0:
+        return acc
+    if const is None:
+        const = (cv_constants(w_codes, mode, m) if groups == 1
+                 else cv_constants_grouped(w_codes, mode, m, groups))
+    if groups == 1:
+        return acc + cv_term(a_codes, const, mode, m)
+    return acc + cv_term_grouped(a_codes, const, mode, m, groups)
+
+
+# -- analytic predictions (Eqs. 12, 20, 22, 28), numpy as the reference -----
+
+
+def _np(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def predicted_conv_error_no_cv_uniform(mode: Mode, m: int,
+                                       k: int) -> tuple[float, float]:
+    """Eq. 12: mean/std of the convolution error WITHOUT the control
+    variate, for k-term dot products of i.i.d. uniform codes."""
+    mu, sigma = am.analytic_error_moments_uniform(mode, m)
+    return k * mu, float(np.sqrt(k) * sigma)
+
+
+def predicted_var_with_cv_perforated(w_codes, m: int) -> float:
+    """Eq. 20 at the optimal C = E[W]: Var(eps_G*) = Var(x) * sum_j (W_j -
+    E[W])^2, Var(x) = (2^m-1)(2^m+1)/12 for uniform A."""
+    w = _np(w_codes).astype(np.float64)
+    var_x = ((1 << m) - 1) * ((1 << m) + 1) / 12.0
+    return float(var_x * np.sum((w - w.mean()) ** 2))
+
+
+def predicted_var_with_cv_recursive(w_codes, m: int) -> float:
+    """Eq. 20 for the recursive multiplier: W replaced by W mod 2^m."""
+    wl = _np(w_codes).astype(np.int64) % (1 << m)
+    return predicted_var_with_cv_perforated(wl, m)
+
+
+def predicted_mean_with_cv(w_codes, mode: Mode, m: int) -> float:
+    """Eqs. 22/28: with the paper's (C, C0) the mean error is exactly zero
+    for uniform A (the benches check the empirical mean against it)."""
+    return 0.0

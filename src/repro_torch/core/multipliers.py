@@ -12,11 +12,14 @@ Two forms, equal bit for bit: the elementwise scalar definition (oracle)
 and the bit-slice matmul algebra.  The exact integer product behind the
 matmul form is a float64 ``matmul`` (:func:`_int_matmul`): every partial
 sum is at most 255*255*k, below 2^53 for any k the port serves, so the
-float64 result is the exact integer on any device.
+float64 result is the exact integer on any device.  The error model
+(Eqs. 3, 6, 8, the partial-product-matrix oracle, empirical and analytic
+moments) backs the paper's Table 1 and the control-variate derivations.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Literal
 
 import numpy as np
@@ -73,6 +76,16 @@ def am_recursive(w, a, m: int) -> torch.Tensor:
     return am_exact(w, a) - low_bits(w, m) * low_bits(a, m)
 
 
+def err_perforated(w, a, m: int) -> torch.Tensor:
+    """Eq. 3: eps = W * p,  p = A mod 2^m."""
+    return _as_i32(w) * low_bits(a, m)
+
+
+def err_recursive(w, a, m: int) -> torch.Tensor:
+    """Eq. 6: eps = W_L * A_L."""
+    return low_bits(w, m) * low_bits(a, m)
+
+
 def err_truncated(w, a, m: int) -> torch.Tensor:
     """Eq. 8: eps = sum_{i=0}^{m-1} (W mod 2^{m-i}) * a_i * 2^i."""
     w, a = _as_i32(w), _as_i32(a)
@@ -88,6 +101,20 @@ def am_truncated(w, a, m: int) -> torch.Tensor:
     return am_exact(w, a) - err_truncated(w, a, m)
 
 
+def am_truncated_ppmatrix(w, a, m: int) -> torch.Tensor:
+    """AM_T from first principles: the sum of the partial-product bits
+    w_j & a_i with i + j >= m (the gates with i + j < m are not built).
+    O(n^2) bit ops: a test oracle for :func:`am_truncated`."""
+    w, a = _as_i32(w), _as_i32(a)
+    acc = torch.zeros(torch.broadcast_shapes(w.shape, a.shape),
+                      dtype=torch.int32, device=w.device)
+    for i in range(NBITS):
+        for j in range(NBITS):
+            if i + j >= m:
+                acc = acc + (bit(w, j) * bit(a, i)) * (1 << (i + j))
+    return acc
+
+
 _ELEMENTWISE = {
     "exact": lambda w, a, m: am_exact(w, a),
     "perforated": am_perforated,
@@ -96,9 +123,28 @@ _ELEMENTWISE = {
 }
 
 
+def _err_exact(w, a, m: int) -> torch.Tensor:
+    w, a = _as_i32(w), _as_i32(a)
+    return torch.zeros(torch.broadcast_shapes(w.shape, a.shape),
+                       dtype=torch.int32, device=w.device)
+
+
+_ERROR = {
+    "exact": _err_exact,
+    "perforated": err_perforated,
+    "recursive": err_recursive,
+    "truncated": err_truncated,
+}
+
+
 def am(w, a, mode: Mode, m: int) -> torch.Tensor:
     """Approximate product of uint8 codes under ``mode``/``m``."""
     return _ELEMENTWISE[mode](w, a, m)
+
+
+def am_error(w, a, mode: Mode, m: int) -> torch.Tensor:
+    """Multiplication error ``w*a - AM(w, a)`` (int32)."""
+    return _ERROR[mode](w, a, m)
 
 
 # -- matmul-algebra forms ----------------------------------------------------
@@ -119,6 +165,16 @@ def _int_matmul(a, w) -> torch.Tensor:
     out = torch.matmul(torch.as_tensor(a).to(torch.float64),
                        torch.as_tensor(w).to(torch.float64))
     return out.to(torch.int32)
+
+
+def truncated_error_planes(w, m: int) -> torch.Tensor:
+    """AM_T's weight error planes, plane[i] = W mod 2^{m-i}: (m, *w.shape)
+    int32."""
+    w = _as_i32(w)
+    if m == 0:
+        return torch.zeros((0,) + tuple(w.shape), dtype=torch.int32,
+                           device=w.device)
+    return torch.stack([low_bits(w, m - i) for i in range(m)])
 
 
 def approx_matmul_ref(a, w, mode: Mode, m: int) -> torch.Tensor:
@@ -193,4 +249,34 @@ def analytic_error_moments_uniform(mode: Mode, m: int) -> tuple[float, float]:
         mu = float(mu_w.mean())
         var = float(var_w.mean() + mu_w.var())
         return mu, float(np.sqrt(var))
+    raise ValueError(f"unknown mode: {mode}")
+
+
+def empirical_error_moments(mode: Mode, m: int, w_codes,
+                            a_codes) -> tuple[float, float]:
+    """Empirical (mu, sigma) of the error over the given code samples, in
+    float64 on the samples' device (population sigma, as numpy's ``std``;
+    torch's reduction order differs from numpy's, so the two agree to
+    float64 ulps, not bit for bit)."""
+    err = am_error(w_codes, a_codes, mode, m).to(torch.float64)
+    return float(err.mean()), float(err.std(correction=0))
+
+
+@functools.lru_cache(maxsize=None)
+def error_mean_per_weight_uniform_a(mode: Mode, m: int) -> np.ndarray:
+    """E_A[eps | W = w] for all 256 codes w, A ~ U{0..255} (numpy): Eq. 23
+    for truncated, W * E[A mod 2^m] for perforated, (W mod 2^m) * E[A_L]
+    for recursive."""
+    w = np.arange(256, dtype=np.float64)
+    if mode == "exact" or m == 0:
+        return np.zeros(256)
+    if mode == "perforated":
+        return w * ((1 << m) - 1) / 2.0
+    if mode == "recursive":
+        return (np.arange(256) % (1 << m)) * ((1 << m) - 1) / 2.0
+    if mode == "truncated":
+        acc = np.zeros(256)
+        for i in range(m):
+            acc += (np.arange(256) % (1 << (m - i))) * (1 << i)
+        return acc / 2.0  # E[a_i] = 1/2
     raise ValueError(f"unknown mode: {mode}")
