@@ -932,12 +932,17 @@ def engine_run(torch, label: str, cfg, api, params, ecfg, trace, per_call,
     decode), ``per_probe(C)`` in each error probe of a (slots, C) step of
     ``params`` and never in a step or probe of another pack (a governor's
     ``int8`` and float rungs, a quarantine's exact pack; no other wrapper
-    at all), ``compile_count()`` is ``compiles`` (None: not checked), and
-    every parameter and cache tensor is on the card.  ``engine_kw`` goes
-    to the engine (governor, injector ...).  Returns the engine, the
+    at all), plus, under a shadow (``engine_kw`` ``shadow_params``, a pack
+    of ``params``' structure), ``per_call(C)`` in each of a replay's
+    ``ceil(len / C)`` chunk-shaped calls of each of its two packs,
+    ``compile_count()`` is ``compiles`` (None: not checked), and every
+    parameter and cache tensor is on the card.  ``engine_kw`` goes to the
+    engine (governor, injector, shadow ...).  Returns the engine, the
     requests, launches, metrics snapshot, peak bytes, the cache, each
-    request's (C, n_valid) per step of ``params`` and the probes' (C,
-    parameters)."""
+    request's (C, n_valid) per step of ``params``, the probes' (C,
+    parameters), the shadow replays' fed lengths, and the steps and wall
+    seconds of the serving loop (submissions to the last step,
+    synchronised)."""
     from repro_torch.core.approx_linear import iter_tensors
     from repro_torch.serving import ServingEngine
 
@@ -965,12 +970,22 @@ def engine_run(torch, label: str, cfg, api, params, ecfg, trace, per_call,
             return probe_run(p, tokens, *rest, **kw)
 
         eng._probe.run = probe_logged
+    replays = []
+    if eng._shadow is not None:
+        shadow_replay = eng._shadow.replay
+
+        def replay_logged(prompt, generated):
+            replays.append(len(prompt) + len(generated) - 1)
+            return shadow_replay(prompt, generated)
+
+        eng._shadow.replay = replay_logged
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wr = wrappers()
     for w in wr.values():
         w.launches = 0
     pre = before(eng) if before is not None else None
+    t_loop = time.perf_counter()
     reqs = [eng.submit(p, g, deadline_ms=deadline(i) if deadline else None)
             for i, (p, g) in enumerate(trace)]
     finished = []
@@ -979,6 +994,7 @@ def engine_run(torch, label: str, cfg, api, params, ecfg, trace, per_call,
         if on_step is not None:
             on_step(reqs)
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t_loop
     launches = {n: w.launches for n, w in wr.items()}
     snap = eng.snapshot()
     peak = torch.cuda.max_memory_allocated()
@@ -998,7 +1014,9 @@ def engine_run(torch, label: str, cfg, api, params, ecfg, trace, per_call,
         per_call(c) if p is params else
         per_draft(c) if draft is not None and p is draft else 0
         for c, p in steps) + sum(per_probe(c) for c, p in probes
-                                 if per_probe is not None and p is params)
+                                 if per_probe is not None and p is params) \
+        + sum(2 * math.ceil(n / ecfg.prefill_chunk)
+              * per_call(ecfg.prefill_chunk) for n in replays)
     print(f"{label}: steps prefill={snap['prefill_steps']} mixed="
           f"{snap['mixed_steps']} decode={snap['decode_steps']} spec="
           f"{snap['spec_rounds']} (draft calls {snap['draft_calls']}); "
@@ -1018,7 +1036,8 @@ def engine_run(torch, label: str, cfg, api, params, ecfg, trace, per_call,
              f"{off[:3]}")
     return {"engine": eng, "reqs": reqs, "launches": launches, "snap": snap,
             "peak": peak, "cache": eng.pool.cache, "sched": sched,
-            "before": pre, "probes": probes}
+            "before": pre, "probes": probes, "replays": replays,
+            "steps": eng._steps, "wall_s": wall}
 
 
 def replay_dense(torch, api, params, ecfg, prompt, calls) -> list[int]:
@@ -1192,6 +1211,8 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
 
 #: tokens a KV block of the paged phases, and the speculative draft depth
 PAGED_BLOCK, SPEC_K = 16, 4
+#: fleet steps between prefix shares (the serve CLI's default)
+FLEET_SHARE_EVERY = 4
 
 
 def run_paged(torch, label: str, cfg, api, packed, ecfg, trace, cont,
@@ -1842,6 +1863,386 @@ def run_governor(torch, built: dict, cv_logits_var: float) -> dict:
     return {f"engine {label}": run["launches"]}
 
 
+#: the observability phase: windows of OBS_WINDOW_S seconds (a run of a few
+#: seconds rolls several), the governor's SLOs (whole-logits and per
+#: layer) OBS_SLO_FACTOR x the probe phase's CV variances, so that the
+#: bookkeeping runs and no rung is switched; the shadow samples every
+#: second finished request
+OBS_WINDOW_S, OBS_SLO_FACTOR, SHADOW_FRACTION = 0.25, 1000.0, 0.5
+
+
+def _tools():
+    """The repo's trace tools (``tools/``: pure Python, no JAX)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import obs_dashboard
+    import trace_report
+
+    return trace_report, obs_dashboard
+
+
+def run_observability(torch, built: dict, probe_summ: dict) -> dict:
+    """Tracing, windowed metrics, OpenMetrics and A/B shadow serving on the
+    olmo-1b packs.  A traced run of the main trace (windows of
+    OBS_WINDOW_S, the probe every PROBE_EVERY steps, the governor with
+    whole-logits and per-layer SLOs it does not breach): every lifecycle
+    span, the probe and window kinds, both exports read by
+    ``tools/trace_report.py --assert-lifecycle`` and rendered by
+    ``tools/obs_dashboard.py``, the OpenMetrics text parsed back to the
+    snapshot's numbers, two (parameters, shape) pairs and the main run's
+    tokens.  Then the cost of tracing: the main trace untraced, traced,
+    traced, untraced (no probe), wall ms per step.  Then the shadow pair
+    (the no-CV kernel pack shadows the CV one, every second finished
+    request replayed through both: its launches counted) and the control
+    (the CV pack shadows itself: logits variance exactly 0; its token
+    match is printed, not checked, since the primary's tokens came from
+    thin calls and the replay is chunk-shaped), one replay of the pair
+    profiled.  Returns the launches by run."""
+    import dataclasses
+
+    from repro_torch.numerics import resolve_ladder
+    from repro_torch.serving import GovernorConfig, NumericsGovernor
+    from repro_torch.serving.prom import (metric_value, parse_openmetrics,
+                                          to_openmetrics)
+    from repro_torch.serving.telemetry import LIFECYCLE_KINDS
+
+    trace_report, obs_dashboard = _tools()
+    cfg, api, ecfg, trace = (built[k] for k in ("cfg", "api", "ecfg",
+                                                "trace"))
+    per_call = dense_calls(cfg, ecfg.slots)
+    main_toks = [r.generated for r in built["run"]["reqs"]]
+    out, part_s, t0 = {}, {}, time.perf_counter()
+
+    # -- the traced run --------------------------------------------------
+    cv = probe_summ["probe olmo-1b"]
+    gov = NumericsGovernor(
+        resolve_ladder([pallas_spec(), "int8", "float"], built["float"]),
+        GovernorConfig(slo_err_var=OBS_SLO_FACTOR * cv["logits_err_var"],
+                       window_probes=GOV_WINDOW,
+                       clean_windows_to_relax=GOV_RELAX,
+                       layer_slo={"blocks/*": OBS_SLO_FACTOR
+                                  * cv["max_layer_err_var"]}))
+
+    def no_switch(spec):
+        fail(f"observability: the governor switched to {spec}")
+
+    tecfg = dataclasses.replace(ecfg, trace=True,
+                                metrics_window_s=OBS_WINDOW_S,
+                                error_probe_every=PROBE_EVERY)
+    label = "observability olmo-1b"
+    run = engine_run(torch, label, cfg, api, built["packed"], tecfg, trace,
+                     per_call, built["numerics"],
+                     per_probe=dense_calls(cfg, 1),
+                     engine_kw={"governor": gov, "pack_fn": no_switch})
+    out[f"engine {label}"] = run["launches"]
+    eng, snap = run["engine"], run["snap"]
+    if [r.generated for r in run["reqs"]] != main_toks:
+        fail(f"{label}: tokens differ from the untraced main run's")
+    kinds = {e.kind for e in eng.tracer.events()}
+    want = set(LIFECYCLE_KINDS) | {"probe", "metrics_window"}
+    series = list(eng.metrics.timeseries)
+    if not want <= kinds or len(series) < 2 or \
+            not any(s.get("probe_layers") for s in series):
+        fail(f"{label}: span kinds {sorted(kinds)} (want {sorted(want)}), "
+             f"{len(series)} windows, probe layers in "
+             f"{sum(bool(s.get('probe_layers')) for s in series)}")
+    odir = ROOT / "chiprun_out"
+    odir.mkdir(exist_ok=True)
+    paths = [str(odir / "obs_trace.json"), str(odir / "obs_trace.jsonl")]
+    for path in paths:
+        eng.tracer.write(path)
+        if trace_report.main([path, "--assert-lifecycle"]) != 0:
+            fail(f"{label}: trace_report rejects {path}")
+    if obs_dashboard.main([paths[1], "--out", str(odir / "obs.html"),
+                           "--assert-sections", "windows", "heatmap"]) != 0:
+        fail(f"{label}: obs_dashboard did not render the windows")
+    text = to_openmetrics(snap, labels={"engine": eng.engine_id})
+    parsed = parse_openmetrics(text)
+    gauges = {k: v for k, v in snap.items()
+              if isinstance(v, (int, float)) and v is not None}
+    bad = [k for k, v in gauges.items()
+           if metric_value(parsed, f"repro_{k}", engine=eng.engine_id)
+           != float(v)]
+    if bad or metric_value(parsed, "repro_probe_runs") != \
+            snap["error_probe"]["runs"]:
+        fail(f"{label}: OpenMetrics round trip lost {bad}")
+    (odir / "obs.prom").write_text(text)
+    print(f"{label}: {len(eng.tracer)} spans ({eng.tracer.dropped} dropped)"
+          f" of kinds {sorted(kinds)}; {len(series)} windows of "
+          f"{OBS_WINDOW_S} s (gen tok/s "
+          f"{[s['gen_tok_per_s'] for s in series]}); trace_report and "
+          f"obs_dashboard read both exports; {len(parsed)} OpenMetrics "
+          f"series parse back to the snapshot; governor switches "
+          f"{snap['governor_switches']}; tokens equal the main run's",
+          flush=True)
+    traced_run = {"spans": len(eng.tracer), "windows": len(series),
+                  "probes": snap["error_probe"]["runs"],
+                  "om_series": len(parsed),
+                  "ms_per_step": run["wall_s"] / run["steps"] * 1e3}
+    del run, eng
+    part_s["traced run"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    # -- what tracing costs: untraced, traced, traced, untraced ----------
+    cost = {"untraced": [], "traced": []}
+    for traced in (False, True, True, False):
+        key = "traced" if traced else "untraced"
+        cecfg = dataclasses.replace(ecfg, trace=traced,
+                                    metrics_window_s=OBS_WINDOW_S * traced)
+        run = engine_run(torch, f"{label} {key}", cfg, api, built["packed"],
+                         cecfg, trace, per_call, built["numerics"])
+        if [r.generated for r in run["reqs"]] != main_toks:
+            fail(f"{label} {key}: tokens differ from the main run's")
+        cost[key].append(run["wall_s"] / run["steps"] * 1e3)
+        del run
+    print(f"{label}: wall ms a step, the main trace without the probe, "
+          f"in turns: untraced {cost['untraced']}, traced {cost['traced']}",
+          flush=True)
+    part_s["cost runs"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    # -- the shadow pair and the control ---------------------------------
+    shadows = {}
+    for key, shadow, name in (
+            ("pair", built["packed_nocv"], "serve-default no-cv"),
+            ("control", built["packed"], built["numerics"])):
+        secfg = dataclasses.replace(ecfg, shadow_fraction=SHADOW_FRACTION)
+        slabel = f"shadow {key} olmo-1b"
+        run = engine_run(torch, slabel, cfg, api, built["packed"], secfg,
+                         trace, per_call, built["numerics"],
+                         engine_kw={"shadow_params": shadow,
+                                    "shadow_numerics": name})
+        out[f"engine {slabel}"] = run["launches"]
+        eng = run["engine"]
+        verdict = eng.shadow_verdict()
+        want_replays = len(trace) // round(1 / SHADOW_FRACTION)
+        if [r.generated for r in run["reqs"]] != main_toks or \
+                verdict is None or \
+                verdict["sampled_requests"] != want_replays or \
+                len(run["replays"]) != want_replays:
+            fail(f"{slabel}: tokens changed or verdict {verdict} (want "
+                 f"{want_replays} replays)")
+        if key == "control" and verdict["logits_err_var"] != 0.0:
+            fail(f"{slabel}: a pack shadowing itself gave logits variance "
+                 f"{verdict['logits_err_var']}")
+        shadows[key] = {"verdict": verdict, "replays": run["replays"],
+                        "launches": run["launches"]}
+        if key == "pair":
+            # one replay of the longest request profiled, past the counted
+            # run (the runner's own method; the verdict is already taken)
+            r = max(run["reqs"], key=lambda q: q.prompt_len)
+            runner = eng._shadow
+            shadows[key]["replay_profile"] = profile_fn(
+                torch, f"{slabel}: one replay ({r.prompt_len} + "
+                f"{len(r.generated)} tokens, 2 packs)",
+                lambda: type(runner).replay(runner, r.prompt, r.generated),
+                "host_profile_shadow_replay.txt")
+        print(f"{slabel}: {verdict['verdict']}, token match "
+              f"{verdict['token_match_rate']} over {verdict['tokens']} "
+              f"tokens ({verdict['sampled_requests']} replays, fed lengths "
+              f"{run['replays']}), logits_err_var "
+              f"{verdict['logits_err_var']:.6g}, power delta "
+              f"{verdict['power_delta_pct']}pp [{verdict['reason']}]; "
+              "replay launches counted as 2 packs x ceil(len/chunk) x "
+              f"{per_call(ecfg.prefill_chunk)} fused calls", flush=True)
+        del run, eng
+        part_s[f"shadow {key}"], t0 = (time.perf_counter() - t0,
+                                       time.perf_counter())
+    print(f"{label}: seconds by part {json.dumps(part_s)}", flush=True)
+    write_line("observability", "observability_olmo-1b.json", {
+        "traced_run": traced_run, "ms_per_step": cost,
+        "window_s": OBS_WINDOW_S, "shadow": shadows, "seconds": part_s})
+    return out
+
+
+def _close(a, b) -> bool:
+    """Equal, floats to 1e-9 relative (a flat merge and a merge of merges
+    associate their float sums differently), dicts key by key."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_close(a[k], b[k]) for k in a)
+    if isinstance(a, float) and isinstance(b, float):
+        return math.isclose(a, b, rel_tol=1e-9)
+    return a == b
+
+
+def run_fleet_phase(torch, built: dict) -> dict:
+    """The fleet on the olmo-1b packs, paged (blocks of PAGED_BLOCK),
+    traced: tiers ``float`` x 1 (exact) and the ``serve-default`` kernel
+    pack x 2, spec-aware routing, prefixes shared every 4 fleet steps.
+    First a warmed shared-prefix pair whose halves land on the two
+    serve-default replicas (the share imports blocks, the second half
+    hits them), then the main trace classed (every third request bulk).
+    Checks: every imported block bit-equal to the exporter's; the
+    sibling's tokens equal a sequential decode of its whole prompt (the
+    imported positions at the exporter's call shapes); latency requests
+    only on the exact tier; each trace request's
+    tokens equal a sequential decode on its tier's pack at the engine's own
+    call shapes; the kernel launched ``dense_calls`` in every step of a
+    serve-default replica and never on the float one; at most two
+    (parameters, shape) pairs a replica; the fleet snapshot equal to
+    ``EngineMetrics.merge`` of the replica snapshots (time-derived keys
+    aside); one trace file a replica, every event carrying its engine id.
+    Returns the launches."""
+    import dataclasses
+
+    from repro_torch.launch.serve import mixed_trace
+    from repro_torch.serving import EngineMetrics, TierConfig, build_fleet
+
+    cfg, api, ecfg = (built[k] for k in ("cfg", "api", "ecfg"))
+    fecfg = dataclasses.replace(ecfg, kv_layout="paged",
+                                kv_block_size=PAGED_BLOCK, trace=True)
+    packs = {"float": (built["float"], "float", None),
+             "serve-default": (built["packed"], built["numerics"],
+                               pallas_spec())}
+    tiers = [TierConfig("float", "float", 1),
+             TierConfig("serve-default", "serve-default", 2)]
+    fleet = build_fleet(cfg, built["float"], tiers, fecfg,
+                        lambda name: packs[name], api=api,
+                        policy="spec-aware")
+    label = "fleet olmo-1b"
+    steps, sched = [], {}
+    for rep in fleet.replicas:
+        dispatch = rep.engine._dispatch
+
+        def logged(p, batch, *rest, _d=dispatch, _id=rep.replica_id):
+            c = batch.tokens.shape[1]
+            steps.append((c, p))
+            for r in batch.rows:
+                sched.setdefault((_id, r.rid), []).append(
+                    (c, int(batch.n_valid[r.slot])))
+            return _d(p, batch, *rest)
+
+        rep.engine._dispatch = logged
+    per_call = dense_calls(cfg, ecfg.slots)
+    wr = wrappers()
+    torch.cuda.synchronize()
+    for w in wr.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    # the warmed pair: one serve-default replica prefills, the share
+    # carries its blocks, the sibling serves the longer prompt from them
+    warm_rep, cold_rep = fleet.replicas[1], fleet.replicas[2]
+    rng = torch.Generator().manual_seed(17)
+    shared = torch.randint(0, cfg.vocab, (min(4 * ecfg.prefill_chunk,
+                                              ecfg.max_len // 2),),
+                           generator=rng).tolist()
+    warm = warm_rep.engine.submit(shared, 2)
+    warm_rep.engine.drain()
+    imported = fleet.share_prefixes()
+    # every imported block bit-equal to the exporter's, leaf by leaf, in
+    # the cache's own dtype (the export went to the host and back)
+    src_pool, dst_pool = warm_rep.engine.pool, cold_rep.engine.pool
+    src_bids = dict(src_pool.prefix.items())
+    checked = 0
+    for h, bid in dst_pool.prefix.items():
+        for k in dst_pool._block_keys:
+            a = dst_pool.cache[k][:, bid].contiguous()
+            b = src_pool.cache[k][:, src_bids[h]].contiguous()
+            if a.dtype != b.dtype or not torch.equal(a.view(torch.uint8),
+                                                     b.view(torch.uint8)):
+                fail(f"{label}: imported block {h.hex()[:12]} leaf {k} "
+                     f"differs from the exporter's ({a.dtype}, {b.dtype})")
+        checked += 1
+    if checked != imported:
+        fail(f"{label}: the sibling holds {checked} prefix blocks, "
+             f"{imported} were imported")
+    full = shared + torch.randint(0, cfg.vocab, (4,), generator=rng).tolist()
+    hit = cold_rep.engine.submit(full, 4)
+    cold_rep.engine.drain()
+    shareable = len(shared) // PAGED_BLOCK * PAGED_BLOCK
+    shareable = min(shareable, len(shared) - 1)
+    if imported <= 0 or hit.prefix_hit_tokens < shareable:
+        fail(f"{label}: {imported} blocks imported, the sibling hit "
+             f"{hit.prefix_hit_tokens} tokens (want >= {shareable})")
+    trace = mixed_trace(cfg, 8, ecfg.max_len, ecfg.prefill_chunk, seed=0)
+    placed = [fleet.submit(p, g, klass="bulk" if i % 3 == 2 else "latency")
+              for i, (p, g) in enumerate(trace)]
+    t1 = time.perf_counter()
+    steps0 = fleet.steps
+    fleet.drain(share_every=FLEET_SHARE_EVERY)
+    fleet_steps = fleet.steps - steps0
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {n: w.launches for n, w in wr.items()}
+    expected = {n: 0 for n in wr}
+    expected["approx_matmul_cv_fused"] = sum(
+        per_call(c) for c, p in steps if p is built["packed"])
+    if launches != expected:
+        fail(f"{label}: launches {launches} != {expected}")
+    # the sibling's tokens against a sequential decode of the full prompt
+    # (past the counted run): the imported positions at the exporter's
+    # prefill call shapes (the calls that wrote those blocks), then the
+    # sibling's own calls
+    calls, left = [], hit.prefix_hit_tokens
+    for c, n in sched[(warm_rep.replica_id, warm.rid)]:
+        if left <= 0:
+            break
+        calls.append((c, min(n, left)))
+        left -= n
+    calls += sched[(cold_rep.replica_id, hit.rid)]
+    want = replay_dense(torch, api, packs["serve-default"][0], ecfg, full,
+                        calls)
+    if hit.generated != want:
+        fail(f"{label}: the sibling's tokens {hit.generated} from the "
+             f"imported blocks != a sequential decode of its prompt {want}")
+    by_id = {r.replica_id: r for r in fleet.replicas}
+    for r, (prompt, gen) in zip(placed, trace):
+        rep = by_id[r.fleet_replica]
+        if r.fleet_class == "latency" and not rep.exact:
+            fail(f"{label}: latency request on {r.fleet_replica}")
+        if not r.finished or len(r.generated) != gen:
+            fail(f"{label}: request {r.rid} on {r.fleet_replica} "
+                 f"unfinished")
+        want = replay_dense(torch, api, packs[rep.tier.name][0], ecfg,
+                            prompt, sched[(r.fleet_replica, r.rid)])
+        if r.generated != want:
+            fail(f"{label}: request {r.rid} on {r.fleet_replica}: tokens "
+                 f"{r.generated} != its tier's sequential decode {want}")
+    counts = {r.replica_id: r.engine.compile_count() for r in fleet.replicas}
+    if max(counts.values()) > 2:
+        fail(f"{label}: (parameters, shape) pairs by replica {counts}")
+    snaps = [r.engine.snapshot() for r in fleet.replicas]
+    snap = fleet.snapshot()
+    merged = EngineMetrics.merge(snaps)
+    timed = {"elapsed_s", "gen_tok_per_s", "total_tok_per_s"}
+    diff = [k for k in merged
+            if k not in timed and not _close(merged[k], snap["fleet"][k])]
+    if diff or set(merged) != set(snap["fleet"]):
+        fail(f"{label}: fleet snapshot differs from the merge of the "
+             f"replica snapshots at {diff}")
+    odir = ROOT / "chiprun_out" / "fleet_traces"
+    files = fleet.write_traces(str(odir))
+    for path, rep in zip(files, fleet.replicas):
+        with open(path) as f:
+            engines = {json.loads(line)["engine"] for line in f}
+        if engines != {rep.replica_id}:
+            fail(f"{label}: {path} carries engines {engines}")
+    if len(files) != len(fleet.replicas):
+        fail(f"{label}: {len(files)} trace files for "
+             f"{len(fleet.replicas)} replicas")
+    tiers_out = {t: {k: s[k] for k in ("engines", "requests_finished",
+                                       "generated_tokens", "prefix_hits",
+                                       "prefix_imports")}
+                 for t, s in snap["tiers"].items()}
+    ms_step = (t2 - t1) / fleet_steps * 1e3
+    print(f"{label}: placed {[r.fleet_replica for r in placed]}; "
+          f"routing {snap['routing']}; tiers {json.dumps(tiers_out)}; "
+          f"warm pair: {imported} blocks imported, each bit-equal to the "
+          f"exporter's, sibling hit {hit.prefix_hit_tokens} tokens and "
+          f"its tokens equal a sequential decode; tokens equal each tier's "
+          f"sequential decode; launches {launches}; (parameters, shape) "
+          f"pairs {counts}; fleet snapshot = merge of the replica "
+          f"snapshots; {len(files)} trace files; {fleet_steps} fleet steps, "
+          f"{ms_step:.2f} wall ms a fleet step ({t2 - t0:.1f} s in all)",
+          flush=True)
+    write_line("fleet", "fleet_olmo-1b.json", {
+        "placed": [r.fleet_replica for r in placed],
+        "routing": snap["routing"], "tiers": tiers_out,
+        "prefix_blocks_imported": imported,
+        "sibling_hit_tokens": hit.prefix_hit_tokens,
+        "fleet_steps": fleet_steps, "ms_per_fleet_step": ms_step,
+        "compile_counts": counts, "launches": launches,
+        **served_metrics(snap["fleet"])})
+    return {label: launches}
+
+
 def run_auto(torch, dev) -> None:
     """``auto(...)`` at full width: the ``paper-grid`` preset (budget
     AUTO_BUDGET) resolved on AUTO_NET with the CNN phase's 256 calibration
@@ -1914,7 +2315,7 @@ def run_auto(torch, dev) -> None:
 def served_metrics(snap: dict) -> dict:
     return {key: snap[key] for key in (
         "requests_finished", "generated_tokens", "prompt_tokens", "elapsed_s",
-        "gen_tok_per_s", "total_tok_per_s", "ttft_p50_s", "ttft_p95_s",
+        "gen_tok_per_s", "total_tok_per_s", "ttft_p50_s", "ttft_max_s",
         "itl_p50_s", "itl_p95_s")}
 
 
@@ -3540,11 +3941,17 @@ def main() -> int:
     paths.update(run_governor(torch, built, probe_summ["probe olmo-1b"][
         "logits_err_var"]))
     phase_s["governor"], t0 = time.perf_counter() - t0, time.perf_counter()
+    paths.update(run_observability(torch, built, probe_summ))
+    phase_s["observability"], t0 = (time.perf_counter() - t0,
+                                    time.perf_counter())
+    paths.update(run_fleet_phase(torch, built))
+    phase_s["fleet"], t0 = time.perf_counter() - t0, time.perf_counter()
     del built
     torch.cuda.empty_cache()
     run_auto(torch, dev)
     phase_s["auto"] = time.perf_counter() - t0
-    print("robustness phases, seconds: " + json.dumps(phase_s), flush=True)
+    print("robustness, observability and fleet phases, seconds: "
+          + json.dumps(phase_s), flush=True)
     torch.cuda.empty_cache()
     paths.update(run_qwen3_engine(torch, dev))
     torch.cuda.empty_cache()

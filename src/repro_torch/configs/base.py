@@ -45,6 +45,14 @@ class EngineConfig:
     kv_blocks: int = 0
     #: content-hash cache of full prompt blocks (paged layout)
     prefix_cache: bool = True
+    #: request-span tracing (``repro_torch.serving.telemetry``): typed span
+    #: events into a per-engine ring of ``trace_buffer`` events (oldest
+    #: dropped), exportable as JSONL or Chrome trace JSON
+    trace: bool = False
+    trace_buffer: int = 65536
+    #: windowed time series: a sample of rates, depths and utilization
+    #: every ``metrics_window_s`` seconds (0 disables)
+    metrics_window_s: float = 0.0
     #: self-verifying speculative decode (``repro_torch.serving.
     #: speculative``): up to k greedy drafts a slot through the draft
     #: parameters, verified in one chunk-shaped exact call; 0 disables
@@ -60,6 +68,10 @@ class EngineConfig:
     #: replayed on the exact pack) before any token is emitted
     #: (``repro_torch.quant.faults``); implied by a fault injector
     detect_faults: bool = False
+    #: A/B shadow serving (``repro_torch.serving.shadow``): every
+    #: round(1/fraction)-th finished request replays teacher-forced through
+    #: a second pack (``ServingEngine(shadow_params=)``); 0 disables
+    shadow_fraction: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)

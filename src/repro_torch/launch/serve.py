@@ -34,11 +34,22 @@ rejections) and the robustness layer: ``--error-probe-every N``
 float, with ``--governor-window``, ``--governor-relax-after`` and
 ``--layer-slo PATTERN=VAR``), ``--inject-faults KIND@EVERY[@START-STOP]
 [@LAYERS]`` with ``--fault-seed``, and ``--detect-faults`` (quarantine
-replay of corrupted rows on the exact pack).  ``--metrics-window`` and
-``--assert-layer-breach`` need the windowed metrics, which the port does
-not have yet, and are refused.  The ``plan`` subcommand prints the per-layer assignment
-table (``--json``: the PackPlan) from shapes alone, on the ``meta``
-device:
+replay of corrupted rows on the exact pack).  Observability:
+``--trace-out FILE`` (the span trace, ``*.jsonl`` or Chrome JSON),
+``--metrics-window SECONDS`` (the windowed time series, counter tracks in
+the trace), ``--prom-out FILE`` (OpenMetrics text), ``--shadow-spec
+NAME_OR_FILE --shadow-fraction F`` (A/B shadow replay, with
+``--assert-shadow``) and ``--assert-layer-breach [PATTERN]`` (a governor
+``layer_slo_breach`` present in the windowed per-layer series).
+``--fleet`` serves through numerics tiers behind the spec-aware router
+(``--tier SPEC=COUNT``, ``--route-policy``, ``--spill-threshold``,
+``--share-prefixes-every``, ``--assert-prefix-share``, ``--trace-dir``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --fleet \
+        --tier float=1 --tier serve-default=2 --kv-layout paged
+
+The ``plan`` subcommand prints the per-layer assignment table (``--json``:
+the PackPlan) from shapes alone, on the ``meta`` device:
 
     PYTHONPATH=src python -m repro_torch.launch.serve plan \
         --arch deepseek-67b --preset serve-default
@@ -48,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import fnmatch
 import json
 import sys
 import time
@@ -132,18 +144,23 @@ def _spec_from_args(args) -> NumericsSpec | None:
     return get_preset("serve-default", policy=policy)
 
 
+def _spec_by_name_or_file(text: str) -> NumericsSpec:
+    """A preset name or a spec-JSON file path -> NumericsSpec."""
+    from repro_torch.numerics import PRESETS
+
+    if text in PRESETS:
+        return get_preset(text)
+    with open(text) as f:
+        return NumericsSpec.from_json(f.read())
+
+
 def _draft_spec_from_args(args) -> NumericsSpec:
     """The draft spec under speculation: ``--draft-spec`` (a preset name or
     a spec-JSON file), else what the numerics flags resolve to; the
     verifier is always the ``int8`` preset."""
-    from repro_torch.numerics import PRESETS
-
     ds = getattr(args, "draft_spec", None)
     if ds:
-        if ds in PRESETS:
-            return get_preset(ds)
-        with open(ds) as f:
-            return NumericsSpec.from_json(f.read())
+        return _spec_by_name_or_file(ds)
     spec = _spec_from_args(args)
     if spec is None:
         raise SystemExit(
@@ -372,16 +389,62 @@ def _report_robustness(eng, cfg: ArchConfig, finished, injector,
                   + (f" layer={dd['layer']}" if dd.get("layer") else ""))
 
 
+def _report_observability(args, eng, label: str, shadow_label, governor
+                          ) -> None:
+    """The shadow verdict line and the ``--assert-shadow`` and
+    ``--assert-layer-breach`` checks (the reference CLI's)."""
+    verdict = eng.shadow_verdict()
+    if verdict is not None:
+        print(f"  shadow A/B [{label} vs {shadow_label}]: "
+              f"{verdict['verdict']} — match "
+              f"{verdict['token_match_rate']:.3f} over "
+              f"{verdict['tokens']} tokens "
+              f"({verdict['sampled_requests']} replays), "
+              f"logits_err_var={verdict['logits_err_var']:.3g}, "
+              f"power_delta={verdict['power_delta_pct']:+.2f}pp "
+              f"[{verdict['reason']}]")
+    if args.assert_shadow:
+        # at least one finished request replayed and a verdict reached
+        assert verdict is not None and verdict["sampled_requests"] >= 1, (
+            f"shadow smoke expected >=1 sampled replay, got {verdict!r}")
+    if args.assert_layer_breach is not None:
+        pattern = args.assert_layer_breach or "*"
+        # run_engine refused the flag up front without a governor
+        breaches = [d.to_dict() for d in governor.decisions
+                    if d.to_dict().get("reason") == "layer_slo_breach"]
+        named = [d for d in breaches
+                 if fnmatch.fnmatch(d.get("layer") or "", pattern)]
+        assert named, (
+            f"no governor escalation with reason=layer_slo_breach matching "
+            f"layer pattern {pattern!r} (breaches seen: "
+            f"{[d.get('layer') for d in breaches]})")
+        # the breaching layer is visible in the windowed per-layer series
+        layer = named[0]["layer"]
+        windows_with = [s for s in eng.metrics.timeseries
+                        if layer in (s.get("probe_layers") or {})]
+        assert windows_with, (
+            f"breaching layer {layer!r} absent from all "
+            f"{len(eng.metrics.timeseries)} metrics_window samples")
+        print(f"  layer-SLO breach: {layer} escalated "
+              f"{named[0]['from']} -> {named[0]['to']}, present in "
+              f"{len(windows_with)} window sample(s)")
+
+
 def run_engine(args) -> dict:
     """Serve ``mixed_trace`` through the engine; returns the metrics
     snapshot."""
     from repro_torch.serving import ServingEngine
 
-    if args.metrics_window > 0 or args.assert_layer_breach is not None:
-        raise SystemExit(
-            "--metrics-window and --assert-layer-breach need the windowed "
-            "metrics time series, which the port does not have yet "
-            "(ROADMAP queue 1, item 10)")
+    if args.metrics_window < 0:
+        raise SystemExit("--metrics-window: the windowed metrics interval "
+                         f"must be >= 0 seconds, got {args.metrics_window}")
+    if args.assert_layer_breach is not None and not (
+            args.governor and args.layer_slo and args.metrics_window > 0):
+        # checked up front: the assertion reads the governor's decisions
+        # and the windowed per-layer series, which a run without them lacks
+        raise SystemExit("--assert-layer-breach needs --governor with "
+                         "--layer-slo and the windowed metrics "
+                         "(--metrics-window > 0)")
     cfg = get_config(args.arch)
     api = build_model(cfg, args.device)
     params_float = params = api.init(0)
@@ -399,6 +462,24 @@ def run_engine(args) -> dict:
             label = spec.name
     governor, pack_fn, injector, exact_params, probe_every = _robustness(
         args, cfg, params_float, spec, label, api.device)
+    # -- A/B shadow serving (repro_torch.serving.shadow) ---------------------
+    shadow_params = shadow_label = None
+    shadow_fraction = 0.0
+    if args.shadow_spec:
+        if spec_k:
+            raise SystemExit("--shadow-spec is incompatible with "
+                             "--speculative-k (the engine refuses mixed "
+                             "draft/shadow dual-pack regimes)")
+        if governor is not None:
+            raise SystemExit("--shadow-spec is incompatible with --governor "
+                             "(a hot-swapping primary makes the A/B verdict "
+                             "a mixed-regime average)")
+        shadow_spec = _spec_by_name_or_file(args.shadow_spec)
+        shadow_params = build_serving_params(
+            params_float, cfg, ServeConfig(spec=shadow_spec),
+            device=api.device)
+        shadow_label = shadow_spec.name
+        shadow_fraction = args.shadow_fraction
     ecfg = EngineConfig(slots=args.slots, max_len=args.max_len,
                         prefill_chunk=args.chunk, cache_dtype=args.cache_dtype,
                         mixed_batches=not args.no_mixed,
@@ -406,12 +487,17 @@ def run_engine(args) -> dict:
                         kv_block_size=args.block_size,
                         kv_blocks=args.kv_blocks,
                         prefix_cache=not args.no_prefix_cache,
+                        trace=bool(args.trace_out),
+                        metrics_window_s=args.metrics_window,
                         speculative_k=spec_k, error_probe_every=probe_every,
-                        detect_faults=args.detect_faults)
+                        detect_faults=args.detect_faults,
+                        shadow_fraction=shadow_fraction)
     eng = ServingEngine(cfg, params, ecfg, api=api, numerics=label,
                         draft_params=draft, draft_numerics=draft_label,
                         governor=governor, pack_fn=pack_fn,
-                        fault_injector=injector, exact_params=exact_params)
+                        fault_injector=injector, exact_params=exact_params,
+                        shadow_params=shadow_params,
+                        shadow_numerics=shadow_label)
     print(f"arch={cfg.name} numerics={label} slots={ecfg.slots} "
           f"max_len={ecfg.max_len} chunk={ecfg.prefill_chunk} "
           f"kv={ecfg.cache_dtype} mixed={ecfg.mixed_batches} "
@@ -424,6 +510,8 @@ def run_engine(args) -> dict:
              f"slo_err_var={args.slo_err_var}" if governor else "")
           + (f" inject={injector.spec.kind}@{injector.spec.every} "
              f"seed={injector.spec.seed}" if injector else "")
+          + (f" shadow={shadow_label} fraction={shadow_fraction}"
+             if shadow_params is not None else "")
           + f" device={api.device}")
     trace = mixed_trace(cfg, args.requests, ecfg.max_len, ecfg.prefill_chunk)
     if args.shared_prefix_pair:
@@ -475,11 +563,171 @@ def run_engine(args) -> dict:
               f"drafted={snap['drafted_tokens']} "
               f"accepted={snap['accepted_draft_tokens']}")
     _report_robustness(eng, cfg, finished, injector, governor)
+    _report_observability(args, eng, label, shadow_label, governor)
     print(json.dumps(snap, indent=2))
+    if args.prom_out:
+        from repro_torch.serving.prom import to_openmetrics
+
+        with open(args.prom_out, "w") as f:
+            f.write(to_openmetrics(snap, labels={"engine": eng.engine_id}))
+        print(f"openmetrics: {args.prom_out}")
+    if args.trace_out:
+        eng.tracer.write(args.trace_out)
+        print(f"trace: {len(eng.tracer)} spans "
+              f"({eng.tracer.dropped} dropped) -> {args.trace_out}")
     for r in finished[:4]:
         print(f"  req {r.rid}: prompt {r.prompt_len:4d} -> gen "
               f"{len(r.generated):3d} [{r.finish_reason}] "
               f"sample {r.generated[:8]}")
+    return snap
+
+
+def _parse_tiers(items: list[str] | None) -> list:
+    """``--tier SPEC=COUNT`` -> TierConfig list (tier name == spec name;
+    SPEC is anything :func:`repro_torch.numerics.ladder_spec` resolves).
+    Default: an exact-int8 latency tier and an approximate bulk tier, two
+    replicas each."""
+    from repro_torch.serving import TierConfig
+
+    items = items or ["int8=2", "serve-default=2"]
+    tiers = []
+    for item in items:
+        spec, sep, cnt = item.partition("=")
+        if not spec:
+            raise SystemExit(f"--tier {item!r}: expected SPEC=COUNT")
+        try:
+            count = int(cnt) if sep else 1
+        except ValueError:
+            raise SystemExit(
+                f"--tier {item!r}: COUNT must be an integer") from None
+        tiers.append(TierConfig(name=spec, spec=spec, count=count))
+    return tiers
+
+
+def run_fleet(args) -> dict:
+    """``--fleet``: numerics tiers of replicas packed from ONE float init,
+    behind the spec-aware router (:mod:`repro_torch.serving.fleet`).
+    Serves ``mixed_trace`` classed: chat turns are latency traffic (exact
+    tiers only), every third request, a long document, is bulk
+    (approximate tiers, spilling into exact ones past
+    ``--spill-threshold``).  Asserts that every latency request landed on
+    an exact replica under ``spec-aware``; ``--assert-prefix-share``
+    also asserts a cross-replica prefix-cache adoption.  Returns the fleet
+    snapshot."""
+    from repro_torch.numerics import ladder_spec
+    from repro_torch.serving import build_fleet
+
+    cfg = get_config(args.arch)
+    tiers = _parse_tiers(args.tier)
+    api = build_model(cfg, args.device)
+    params_float = api.init(0)
+
+    def pack(spec_name, _p=params_float):
+        label, spec = ladder_spec(spec_name)
+        if spec is None:
+            return _p, label, None
+        return (build_serving_params(_p, cfg, ServeConfig(spec=spec),
+                                     device=api.device), label, spec)
+
+    ecfg = EngineConfig(slots=args.slots, max_len=args.max_len,
+                        prefill_chunk=args.chunk,
+                        cache_dtype=args.cache_dtype,
+                        mixed_batches=not args.no_mixed,
+                        kv_layout=args.kv_layout,
+                        kv_block_size=args.block_size,
+                        kv_blocks=args.kv_blocks,
+                        prefix_cache=not args.no_prefix_cache,
+                        trace=bool(args.trace_dir))
+    fleet = build_fleet(cfg, params_float, tiers, ecfg, pack, api=api,
+                        policy=args.route_policy,
+                        spill_threshold=args.spill_threshold or None)
+    by_id = {r.replica_id: r for r in fleet.replicas}
+    print(f"arch={cfg.name} fleet replicas={len(fleet.replicas)} "
+          f"policy={fleet.policy} spill_threshold={fleet.spill_threshold} "
+          f"layout={ecfg.kv_layout} device={api.device}")
+    for rep in fleet.replicas:
+        print(f"  replica {rep.replica_id}: numerics={rep.engine.numerics} "
+              f"exact={rep.exact}")
+
+    if args.assert_prefix_share:
+        # warm ONE replica of a multi-replica tier, share, then a sibling
+        # serves the same prompt from the imported blocks
+        if ecfg.kv_layout != "paged" or not ecfg.prefix_cache:
+            raise SystemExit("--assert-prefix-share needs --kv-layout "
+                             "paged with the prefix cache enabled")
+        pair = next((tuple(reps) for t in tiers
+                     for reps in [[r for r in fleet.replicas
+                                   if r.tier.name == t.name]]
+                     if len(reps) >= 2), None)
+        if pair is None:
+            raise SystemExit("--assert-prefix-share needs a tier with "
+                             ">= 2 replicas")
+        warm_rep, cold_rep = pair[0], pair[1]
+        rng = np.random.default_rng(17)
+        shared = rng.integers(
+            0, cfg.vocab,
+            min(4 * ecfg.prefill_chunk, ecfg.max_len // 2)).tolist()
+        warm_rep.engine.submit(shared, 2)
+        warm_rep.engine.drain()
+        imported = fleet.share_prefixes()
+        hit = cold_rep.engine.submit(
+            shared + rng.integers(0, cfg.vocab, 4).tolist(), 4)
+        cold_rep.engine.drain()
+        shareable = min(len(shared) // ecfg.kv_block_size
+                        * ecfg.kv_block_size, len(shared) - 1)
+        assert imported > 0, "share_prefixes imported nothing"
+        assert hit.prefix_hit_tokens >= shareable, (
+            hit.prefix_hit_tokens, shareable)
+        print(f"  prefix share: {imported} blocks "
+              f"{warm_rep.replica_id} -> fleet; {cold_rep.replica_id} "
+              f"hit {hit.prefix_hit_tokens} tokens")
+
+    trace = mixed_trace(cfg, args.requests, ecfg.max_len, ecfg.prefill_chunk)
+    placed = []
+    for i, (prompt, gen) in enumerate(trace):
+        klass = "bulk" if i % 3 == 2 else "latency"
+        prio = 0 if klass == "latency" else 1
+        r = fleet.submit(prompt, gen, priority=prio, klass=klass)
+        attempt = 0
+        while (r.state.value == "rejected"
+               and (r.reject_reason or "").startswith("queue full")
+               and attempt < args.submit_retries):
+            for _ in range(2 ** attempt):
+                fleet.step()
+            attempt += 1
+            r = fleet.submit(prompt, gen, priority=prio, klass=klass)
+        if r.state.value == "rejected":
+            print(f"  request {r.rid} rejected: {r.reject_reason}")
+        else:
+            placed.append(r)
+    finished = fleet.drain(share_every=args.share_prefixes_every or None)
+
+    # the routing contract: latency-class requests only on exact replicas
+    for r in placed:
+        if r.fleet_class == "latency" and fleet.policy == "spec-aware":
+            assert by_id[r.fleet_replica].exact, (
+                f"latency request {r.rid} on approximate replica "
+                f"{r.fleet_replica}")
+    snap = fleet.snapshot()
+    print(f"finished {len(finished)}/{len(placed)} placed requests, "
+          f"{fleet.compile_count()} compiled shapes across the fleet")
+    for tname, ts in snap["tiers"].items():
+        print(f"  tier {tname}: numerics={ts['numerics']} "
+              f"engines={ts['engines']} finished={ts['requests_finished']} "
+              f"gen_tok={ts['generated_tokens']} "
+              f"prefix_imports={ts['prefix_imports']}")
+    rt = snap["routing"]
+    print(f"  routing: {rt['routed_by_class']} spills={rt['spills']}")
+    print(json.dumps(snap["fleet"], indent=2))
+    if args.trace_dir:
+        paths = fleet.write_traces(args.trace_dir)
+        print(f"traces: {len(paths)} replica files -> {args.trace_dir}")
+    if args.prom_out:
+        from repro_torch.serving.prom import to_openmetrics
+
+        with open(args.prom_out, "w") as f:
+            f.write(to_openmetrics(snap["fleet"], labels={"fleet": "all"}))
+        print(f"openmetrics: {args.prom_out}")
     return snap
 
 
@@ -629,13 +877,68 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--detect-faults", action="store_true",
                     help="NaN/divergence detection + quarantine replay even "
                     "without an injector")
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="write the request-span trace here: *.jsonl for "
+                    "JSONL, anything else for Chrome trace_event JSON "
+                    "(opens in Perfetto); enables tracing")
     ap.add_argument("--metrics-window", type=float, default=0.0,
                     metavar="SECONDS",
-                    help="windowed metrics (refused: not ported yet)")
+                    help="windowed time-series sample interval (0 disables; "
+                    "samples ride the trace as counters)")
+    ap.add_argument("--shadow-spec", default=None, metavar="NAME_OR_FILE",
+                    help="A/B shadow serving: replay a deterministic sample "
+                    "of finished requests teacher-forced through a second "
+                    "pack built under this spec (preset name or spec-JSON "
+                    "path) and diff tokens, logits and modeled power; "
+                    "incompatible with --speculative-k and --governor")
+    ap.add_argument("--shadow-fraction", type=float, default=0.25,
+                    metavar="F",
+                    help="fraction of finished requests replayed through the "
+                    "shadow pack (every-Nth sampling; default %(default)s)")
+    ap.add_argument("--assert-shadow", action="store_true",
+                    help="fail unless the shadow replayed >= 1 request and "
+                    "reached a verdict")
     ap.add_argument("--assert-layer-breach", nargs="?", const="*",
                     default=None, metavar="PATTERN",
-                    help="assert a layer-SLO breach in the windowed metrics "
-                    "(refused: not ported yet)")
+                    help="fail unless the governor escalated with reason "
+                    "layer_slo_breach on a layer matching PATTERN (default "
+                    "any) AND that layer appears in the windowed per-layer "
+                    "err-var samples (needs --governor --layer-slo "
+                    "--metrics-window)")
+    ap.add_argument("--prom-out", default=None, metavar="FILE",
+                    help="write the final metrics snapshot (engine, or the "
+                    "merged fleet with --fleet) as OpenMetrics text")
+    ap.add_argument("--fleet", action="store_true",
+                    help="serve through numerics tiers of replicas behind "
+                    "the spec-aware router instead of one engine; the "
+                    "numerics flags are ignored, --tier chooses each "
+                    "tier's spec")
+    ap.add_argument("--tier", action="append", metavar="SPEC=COUNT",
+                    help="one fleet tier: COUNT replicas packed under SPEC "
+                    "(a preset name, 'float', or a spec-JSON path); "
+                    "repeatable (default: int8=2 serve-default=2)")
+    ap.add_argument("--route-policy", default="spec-aware",
+                    choices=["spec-aware", "least-loaded", "round-robin"],
+                    help="fleet routing policy (spec-aware: latency class -> "
+                    "exact tiers, bulk -> approximate tiers, least-loaded "
+                    "within each)")
+    ap.add_argument("--spill-threshold", type=int, default=0, metavar="N",
+                    help="bulk traffic spills from a saturated approximate "
+                    "tier into the exact tiers once the least-loaded bulk "
+                    "replica has >= N pending requests (0 disables; latency "
+                    "traffic never spills to approximate tiers)")
+    ap.add_argument("--share-prefixes-every", type=int, default=4,
+                    metavar="STEPS",
+                    help="propagate prefix-cache blocks across each tier's "
+                    "replicas every N fleet iterations while draining (0 "
+                    "disables)")
+    ap.add_argument("--assert-prefix-share", action="store_true",
+                    help="warm one replica, share, and assert a sibling "
+                    "replica's prefix-cache hit on the imported blocks "
+                    "(needs --kv-layout paged and a tier of >= 2 replicas)")
+    ap.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="fleet tracing: one JSONL span trace a replica in "
+                    "DIR (tools/trace_report.py --trace ... reads them)")
     ap.add_argument("--device", default="cuda",
                     help="device to serve on (cuda by default; cpu runs the "
                     "plain PyTorch path)")
@@ -650,6 +953,8 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
     if args.legacy:
         run_legacy(args)
+    elif args.fleet:
+        run_fleet(args)
     else:
         run_engine(args)
     return 0

@@ -35,8 +35,17 @@ The robustness layer rides the same loop:
   * every served token is priced with the cost model's modeled power
     saving of the pack that served it (``power_profile_from_params``).
 
-Shadow serving, the fleet, request-span tracing and the windowed metrics
-are later slices.
+Observability rides it too: with ``EngineConfig.trace`` every point that
+touches a request records a typed span (:mod:`repro_torch.serving.
+telemetry`) into a per-engine ring, ``metrics_window_s`` rolls the
+metrics' windowed time series (bridged into the trace as counter events),
+and ``shadow_fraction`` with ``shadow_params`` replays a deterministic
+sample of finished requests teacher-forced through a second pack
+(:mod:`repro_torch.serving.shadow`) for an A/B verdict.  The replica
+handle a fleet router drives (:mod:`repro_torch.serving.fleet`) is
+``submit`` / ``step`` / ``drain`` / ``load`` / ``snapshot`` /
+``export_prefix`` / ``import_prefix`` / ``tracer``, with plain data
+across it.
 """
 
 from __future__ import annotations
@@ -58,6 +67,28 @@ from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.request import (AdmissionController, Request,
                                          RequestQueue, RequestState)
 from repro_torch.serving.scheduler import ScheduledBatch, SlotScheduler
+from repro_torch.serving.telemetry import SpanTracer
+
+
+def _has_blocked_packs(params) -> bool:
+    """True iff a packed leaf carries the kernel's blocked layout (only
+    ``backend: "pallas"`` packs do; the decode-specialized flag is gated
+    on it)."""
+    from repro_torch.core.approx_linear import (LayerStack, QuantizedDense,
+                                                QuantizedDenseGroup)
+
+    def walk(node) -> bool:
+        if isinstance(node, (QuantizedDense, QuantizedDenseGroup)):
+            return node.blocked is not None
+        if isinstance(node, LayerStack):
+            return any(walk(node[i]) for i in range(len(node)))
+        if isinstance(node, dict):
+            return any(walk(v) for v in node.values())
+        if isinstance(node, (list, tuple)):
+            return any(walk(v) for v in node)
+        return False
+
+    return walk(params)
 
 
 def power_profile_from_params(params, n_array: int = 64) -> dict:
@@ -109,7 +140,9 @@ class ServingEngine:
                  device=None, draft_params=None,
                  draft_numerics: str | None = None, governor=None,
                  pack_fn: Callable | None = None, fault_injector=None,
-                 exact_params=None) -> None:
+                 exact_params=None, engine_id: str | None = None,
+                 shadow_params=None,
+                 shadow_numerics: str | None = None) -> None:
         """``device`` defaults to ``cuda`` and raises without a card; pass
         ``device="cpu"`` (or an ``api`` built for it) to serve on the CPU.
         ``params`` serve (and, under speculation, verify); ``draft_params``
@@ -119,7 +152,10 @@ class ServingEngine:
         each rung's pack on first use (None: float); ``fault_injector``
         corrupts deterministically for testing; ``exact_params`` is the
         pack quarantine replays run on (default: the live pack, right when
-        that is exact, e.g. ``int8``)."""
+        that is exact, e.g. ``int8``).  ``engine_id`` names the engine in
+        traces and fleets (default: the numerics label).  ``shadow_params``
+        is the second pack shadow replays run (``ecfg.shadow_fraction >
+        0``), labelled ``shadow_numerics``."""
         self.cfg = cfg
         self.ecfg = ecfg
         self.params = params
@@ -130,6 +166,8 @@ class ServingEngine:
                 "this arch yet (no slot cache); use the lock-step path "
                 "(`python -m repro_torch.launch.serve --legacy`)")
         self.numerics = numerics
+        #: identity in traces and fleet routing
+        self.engine_id = engine_id or numerics or "engine"
         self.draft_params = draft_params
         self.draft_numerics = draft_numerics
         self._spec_k = int(ecfg.speculative_k)
@@ -168,7 +206,20 @@ class ServingEngine:
             kv_blocks=self.pool.blocks_total if self._paged else None)
         self.scheduler = SlotScheduler(ecfg.slots, ecfg.prefill_chunk,
                                        ecfg.interleave, ecfg.mixed_batches)
+        from repro_torch.kernels.ops import DECODE_M_MAX
+
+        # thin steps run the kernel's split-K decode rows: only blocked
+        # (kernel) packs go through it
+        self._decode_specialized = (ecfg.slots <= DECODE_M_MAX
+                                    and _has_blocked_packs(params))
+        self._shadow = None
         self.metrics = self._new_metrics()
+        # request-span tracing: a bounded ring of typed events, recorded
+        # at points the engine already touches each request
+        self.tracer = (SpanTracer(capacity=ecfg.trace_buffer,
+                                  engine=self.engine_id)
+                       if ecfg.trace else None)
+        self._bridge_window_samples()
         # -- robustness layer ------------------------------------------------
         self._probe = None
         self._steps = 0
@@ -216,6 +267,31 @@ class ServingEngine:
                 "position-indexed KV cache to roll a corrupted step back "
                 "(recurrent RWKV state has already advanced past the step, "
                 "so a replay onto it is not the clean step)")
+        # -- A/B shadow serving (repro_torch.serving.shadow) -----------------
+        # a sampled fraction of FINISHED requests replays teacher-forced
+        # through a second pack at finish time inside step()
+        self._finish_count = 0
+        if ecfg.shadow_fraction > 0:
+            if shadow_params is None:
+                raise ValueError(
+                    "shadow_fraction > 0 needs shadow_params: the second "
+                    "NumericsSpec pack sampled requests replay through "
+                    "(same weights, different numerics)")
+            if self._spec_k:
+                raise ValueError(
+                    "shadow serving + speculative decode is unsupported: "
+                    "the draft pack already occupies the second-pack slot")
+            if governor is not None:
+                raise ValueError(
+                    "shadow serving + governor is unsupported: a mid-run "
+                    "hot-swap would mix regimes inside one A/B verdict")
+            from repro_torch.serving.shadow import ShadowRunner
+
+            self._shadow = ShadowRunner(
+                self.api, ecfg, params, shadow_params,
+                primary_label=numerics or "primary",
+                shadow_label=shadow_numerics or "shadow")
+            self.metrics.shadow_numerics = self._shadow.shadow_label
         self._power_profiles: dict = {}
         self._register_power_profile()
         self.active: dict[int, Request] = {}
@@ -227,8 +303,23 @@ class ServingEngine:
     def _new_metrics(self) -> EngineMetrics:
         return EngineMetrics(
             numerics=self.numerics, kv_layout=self.ecfg.kv_layout,
+            decode_specialized=self._decode_specialized,
+            window_s=self.ecfg.metrics_window_s,
             speculative_k=self._spec_k,
-            draft_numerics=self.draft_numerics if self._spec_k else None)
+            draft_numerics=self.draft_numerics if self._spec_k else None,
+            shadow_numerics=(self._shadow.shadow_label
+                             if self._shadow is not None else None))
+
+    def _bridge_window_samples(self) -> None:
+        """Forward the windowed metrics samples into the span trace as
+        Chrome counter events; the sample's own ``t`` rides as
+        ``window_t``."""
+        if self.tracer is not None and self.metrics.window_s > 0:
+            self.metrics.on_window_sample = (
+                lambda s: self.tracer.record(
+                    "metrics_window",
+                    **{("window_t" if k == "t" else k): v
+                       for k, v in s.items()}))
 
     # -- submission ----------------------------------------------------------
 
@@ -244,11 +335,14 @@ class ServingEngine:
                       eos_id=eos_id, on_token=on_token,
                       deadline_ms=deadline_ms)
         self.metrics.submitted += 1
+        tr = self.tracer
         ok, reason, evicted = self.admission.admit(self.queue, req)
         if not ok:
             req.state = RequestState.REJECTED
             req.reject_reason = reason
             self.metrics.rejected += 1
+            if tr is not None:
+                tr.record("rejected", rid=req.rid, reason=reason)
             return req
         if evicted is not None:
             evicted.state = RequestState.REJECTED
@@ -256,7 +350,12 @@ class ServingEngine:
                                      f"higher-priority request {req.rid}")
             self.metrics.rejected += 1
             self.metrics.evicted += 1
+            if tr is not None:
+                tr.record("evicted", rid=evicted.rid, by=req.rid)
         self.queue.push(req)
+        if tr is not None:
+            tr.record("queued", rid=req.rid, t=req.t_queued_mono,
+                      prompt_len=req.prompt_len, priority=req.priority)
         return req
 
     # -- engine loop ---------------------------------------------------------
@@ -268,13 +367,18 @@ class ServingEngine:
     def step(self) -> list[Request]:
         """One engine iteration; returns the requests that finished in it
         (queued requests whose deadline passed included)."""
-        expired = self.scheduler.purge_expired(self.queue, self.metrics)
+        tr = self.tracer
+        expired = self.scheduler.purge_expired(self.queue, self.metrics,
+                                               tracer=tr)
         admitted = self.scheduler.admit(self.queue, self.pool, self.active,
-                                        self.metrics)
+                                        self.metrics, tracer=tr)
         for r in admitted:
             if r.prefix_hit_tokens:
                 self.metrics.prefix_hits += 1
                 self.metrics.prefix_hit_tokens += r.prefix_hit_tokens
+                if tr is not None:
+                    tr.record("prefix_hit", rid=r.rid,
+                              hit_tokens=r.prefix_hit_tokens)
         if self._spec_k:
             # every turn is a speculative round, so plain decode rows ride
             # chunk-shaped exact calls and the exact parameters never run
@@ -289,14 +393,18 @@ class ServingEngine:
             return expired
         # arm the throughput clock before the first served dispatch
         self.metrics.start_clock()
+        t0 = time.perf_counter() if tr is not None else 0.0
         probe_due = self._probe_due()
         tables = None
         if self._paged:
             # copy-on-write barrier: every block this batch writes is
             # uniquely owned before the step runs
+            cow0 = self.pool.cow_copies
             for slot, nv in enumerate(batch.n_valid):
                 self.pool.ensure_writable(slot, int(nv))
             self.pool.flush_copies()
+            if tr is not None and self.pool.cow_copies > cow0:
+                tr.record("cow_copy", copies=self.pool.cow_copies - cow0)
             tables = self.pool.block_tables_array()
         # the probe re-runs a row from its pre-step cursor (the cache is
         # written in place, so the cursor is what must be kept)
@@ -322,6 +430,13 @@ class ServingEngine:
         finished += q_finished
         emitted += q_emitted
         prompt_toks += q_prompt
+        if tr is not None:
+            t1 = time.perf_counter()
+            for r, kind in zip(batch.rows, batch.row_kinds):
+                tr.record("prefill_chunk" if kind == "prefill"
+                          else "decode_step", rid=r.rid, t=t0, dur=t1 - t0,
+                          slot=r.slot, n_valid=int(batch.n_valid[r.slot]))
+            self._trace_finished(finished)
         self.metrics.record_step(
             batch.kind, self.pool.occupancy, len(self.queue),
             prompt_tokens=prompt_toks, generated_tokens=emitted,
@@ -329,7 +444,42 @@ class ServingEngine:
         self._steps += 1
         if probe_due:
             self._run_probe(batch, pre_lengths, tables)
+        if self._shadow is not None and finished:
+            self._run_shadow(finished)
         return expired + finished
+
+    def _trace_finished(self, finished: list[Request]) -> None:
+        for r in finished:
+            self.tracer.record("finished", rid=r.rid, reason=r.finish_reason,
+                               generated=len(r.generated))
+
+    # -- A/B shadow serving (repro_torch.serving.shadow) ---------------------
+
+    def _run_shadow(self, finished: list[Request]) -> None:
+        """Replay the sampled finished requests (every Nth with generated
+        tokens) teacher-forced through both packs; each replay records a
+        ``shadow`` span whose duration is its wall time."""
+        for r in finished:
+            if not r.generated:
+                continue
+            self._finish_count += 1
+            if not self._shadow.wants(self._finish_count):
+                continue
+            t0 = time.perf_counter()
+            rec = self._shadow.replay(r.prompt, r.generated)
+            t1 = time.perf_counter()
+            self.metrics.record_shadow(rec)
+            if self.tracer is not None:
+                self.tracer.record(
+                    "shadow", rid=r.rid, t=t0, dur=t1 - t0,
+                    tokens=rec["tokens"], matches=rec["matches"],
+                    logits_err_var=rec["logits_err"]["var"],
+                    logits_err_max_abs=rec["logits_err"]["max_abs"])
+
+    def shadow_verdict(self) -> dict | None:
+        """The accumulated A/B verdict (None without a shadow, or before
+        the first replay)."""
+        return self._shadow.verdict() if self._shadow is not None else None
 
     # -- fault detection & quarantine (repro_torch.quant.faults) -------------
 
@@ -360,7 +510,12 @@ class ServingEngine:
             return batch, [], 0, 0
         bad = [live[i] for i in np.nonzero(mask)[0]]
         bad_slots = {r.slot for r, _ in bad}
+        tr = self.tracer
         self.metrics.faults_detected += len(bad)
+        if tr is not None:
+            for r, _ in bad:
+                tr.record("fault_detected", rid=r.rid, slot=r.slot,
+                          step=self._steps)
         if self.governor is not None:
             # a detected fault is an unbounded-variance observation: the
             # governor escalates at once, no window arithmetic
@@ -389,6 +544,9 @@ class ServingEngine:
             tok = r.generated[-1] if r.generated else None
             self.quarantine_log.append({"rid": r.rid, "slot": r.slot,
                                         "step": self._steps, "token": tok})
+            if tr is not None:
+                tr.record("quarantine", rid=r.rid, slot=r.slot,
+                          step=self._steps, replayed=int(rep_nv[r.slot]))
         clean_nv = np.array(nv, copy=True)
         clean_nv[list(bad_slots)] = 0
         clean = ScheduledBatch(
@@ -411,6 +569,7 @@ class ServingEngine:
         arms its hook around the probe (a degraded MAC array corrupts what
         the probe measures, which is how the governor sees it); the report
         feeds the metrics and the governor's running SLO estimate."""
+        t0 = time.perf_counter()
         inj = self._injector
         args = (self.params, batch.tokens, batch.n_valid, self.pool.cache,
                 lengths)
@@ -421,9 +580,27 @@ class ServingEngine:
             self.metrics.faults_injected += len(inj.log) - log0
         else:
             report = self._probe.run(*args, block_tables=tables)
+        t1 = time.perf_counter()
         if report is None:
             return
         self.metrics.record_probe(report)
+        if self.tracer is not None:
+            # the span's duration is the probe's wall time, so the decode
+            # gap it opens reads as probe cost, not scheduler idle
+            rid = next((r.rid for r in batch.rows
+                        if r.slot == report["row"]), None)
+            lvars = {p: st["var"] for p, st in report["layers"].items()}
+            extra = {}
+            if lvars:
+                worst = max(lvars, key=lvars.get)
+                extra = {"max_layer_err_var": lvars[worst],
+                         "worst_layer": worst}
+            self.tracer.record(
+                "probe", rid=rid, t=t0, dur=t1 - t0,
+                logits_err_var=report["logits"]["var"],
+                logits_err_max_abs=report["logits"]["max_abs"],
+                mean_layer_err_var=(sum(lvars.values()) / len(lvars)
+                                    if lvars else 0.0), **extra)
         if self.governor is not None:
             self._apply_decision(self.governor.observe_probe(report))
 
@@ -449,6 +626,9 @@ class ServingEngine:
             self.metrics.governor_escalations += 1
         else:
             self.metrics.governor_relaxes += 1
+        if self.tracer is not None:
+            self.tracer.record("governor_switch", step=self._steps,
+                               **decision.to_dict())
 
     def _register_power_profile(self) -> None:
         """Profile the LIVE pack (cached per numerics label) and register
@@ -484,6 +664,7 @@ class ServingEngine:
         chunk-shaped call with the exact parameters over the verify rows
         (prompt chunks and budget-exhausted decoders ride along), then
         longest-agreeing-prefix emission and the final cursors."""
+        tr = self.tracer
         self.metrics.start_clock()
         ch = self.ecfg.prefill_chunk
         tables = None
@@ -491,6 +672,7 @@ class ServingEngine:
             # one copy-on-write barrier for the whole round: prompt chunks,
             # draft writes [L, L+k) and verify writes [L, L+k] land in
             # blocks made uniquely owned here (a rollback never remaps)
+            cow0 = self.pool.cow_copies
             for r in rnd.prefilling:
                 self.pool.ensure_writable(
                     r.slot, min(ch, r.prompt_len - r.prefilled))
@@ -499,15 +681,19 @@ class ServingEngine:
             for r in rnd.plain:
                 self.pool.ensure_writable(r.slot, 1)
             self.pool.flush_copies()
+            if tr is not None and self.pool.cow_copies > cow0:
+                tr.record("cow_copy", copies=self.pool.cow_copies - cow0)
             tables = self.pool.block_tables_array()
         base = self.pool.lengths()
 
+        t_d0 = time.perf_counter()
         max_k = rnd.max_k
         for i in range(max_k):
             db = self.scheduler.draft_batch(rnd, i)
             logits = self._dispatch(self.draft_params, db, tables)
             toks = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
             speculative.record_drafts(rnd, i, toks)
+        t_d1 = time.perf_counter()
         if max_k:
             # the draft K/V above each base cursor is approximate: retreat
             # the cursors; the verify call overwrites those positions
@@ -515,7 +701,9 @@ class ServingEngine:
 
         vb = self.scheduler.verify_batch(rnd)
         probe_due = self._probe_due()
+        t_v0 = time.perf_counter()
         logits = self._dispatch(self.params, vb, tables)
+        t_v1 = time.perf_counter()
         (finished, emitted, prompt_toks,
          drafted, accepted) = self._spec_postprocess(rnd, vb, logits)
 
@@ -529,6 +717,21 @@ class ServingEngine:
         for row in rnd.spec_rows:
             final[row.req.slot] = base[row.req.slot] + row.emitted
         self.pool.set_lengths(final)
+        if tr is not None:
+            for r, kind in zip(vb.rows, vb.row_kinds):
+                if kind != "verify":
+                    tr.record("prefill_chunk" if kind == "prefill"
+                              else "decode_step", rid=r.rid, t=t_v0,
+                              dur=t_v1 - t_v0, slot=r.slot,
+                              n_valid=int(vb.n_valid[r.slot]))
+            for row in rnd.spec_rows:
+                tr.record("draft", rid=row.req.rid, t=t_d0,
+                          dur=t_d1 - t_d0, slot=row.req.slot, k=row.k_eff)
+                tr.record("verify", rid=row.req.rid, t=t_v0,
+                          dur=t_v1 - t_v0, slot=row.req.slot,
+                          drafted=row.k_eff, accepted=row.accepted,
+                          emitted=row.emitted)
+            self._trace_finished(finished)
         self.metrics.record_step(
             "spec" if rnd.spec_rows else ("mixed" if rnd.plain else "prefill"),
             self.pool.occupancy, len(self.queue),
@@ -607,6 +810,11 @@ class ServingEngine:
                 break
         return finished
 
+    # -- replica handle ------------------------------------------------------
+    # What a FleetRouter (repro_torch.serving.fleet) drives a replica
+    # through; everything crossing it is plain data (token lists, dicts,
+    # host tensors).
+
     def drain(self, max_steps: int | None = None) -> list[Request]:
         return self.run(max_steps)
 
@@ -621,6 +829,25 @@ class ServingEngine:
     def snapshot(self) -> dict:
         return self.metrics.snapshot()
 
+    def export_prefix(self) -> list[tuple[bytes, dict]]:
+        """This replica's prefix-cache entries, (chain hash, host block
+        content), for adoption by a colder replica ([] unless paged)."""
+        if not self._paged:
+            return []
+        return self.pool.export_prefix_entries()
+
+    def import_prefix(self, entries) -> int:
+        """Adopt prefix entries another replica exported; returns the
+        blocks imported (0 on the contiguous layout)."""
+        if not self._paged or not entries:
+            return 0
+        imported = self.pool.import_prefix_entries(entries)
+        if imported:
+            self.metrics.prefix_imports += imported
+            if self.tracer is not None:
+                self.tracer.record("prefix_import", blocks=imported)
+        return imported
+
     def compile_count(self) -> int:
         """Distinct (parameter tree, token shape) pairs dispatched so far:
         the port has no jit, so this counts what the reference's jit cache
@@ -633,6 +860,7 @@ class ServingEngine:
         numerics labels; the paged pool's cumulative counters are rebased
         so the next snapshot covers one window."""
         self.metrics = self._new_metrics()
+        self._bridge_window_samples()
         self._register_power_profile()
         if self._paged:
             self.pool.reset_peak_blocks()

@@ -1,6 +1,5 @@
 """Paged KV cache: block-granular allocation with copy-on-write prefix
-reuse (port of ``repro.serving.paged``, without the cross-pool prefix
-export and import).
+reuse (port of ``repro.serving.paged``).
 
 * :class:`BlockAllocator` — refcounted free list over a pool of
   fixed-size KV blocks; block 0 is the NULL block that padding table
@@ -12,7 +11,8 @@ export and import).
   every cached full block of its prompt and skips that prefill.
 * :class:`PagedKVPool` — the engine-facing manager, with ``SlotPool``'s
   surface (``acquire_for`` / ``release`` / ``cache``) plus block tables,
-  the host cursor mirror, the COW barrier and block statistics.
+  the host cursor mirror, the COW barrier, block statistics and the
+  cross-pool prefix export and import a fleet's replicas share blocks by.
 
 Shared blocks are immutable: every sharer's cursor starts past them.  The
 one write into a shared block is the re-prefill of a fully cached
@@ -145,6 +145,14 @@ class PrefixCache:
         self._entries[h] = bid
         return True
 
+    def items(self) -> list[tuple[bytes, int]]:
+        """(chain hash, physical block id) pairs, LRU first (a copy, so
+        callers cannot skew recency)."""
+        return list(self._entries.items())
+
+    def __contains__(self, h: bytes) -> bool:
+        return h in self._entries
+
     def evict_lru(self, allocator: BlockAllocator) -> bool:
         """Drop the coldest entry whose block only the cache holds;
         entries of blocks live requests hold free nothing and are kept.
@@ -197,6 +205,7 @@ class PagedKVPool:
         self._pending_copies: list[tuple[int, int]] = []
         self.cow_copies = 0
         self.prefix_evictions = 0
+        self.prefix_imports = 0
 
     # -- allocation ----------------------------------------------------------
 
@@ -321,6 +330,45 @@ class PagedKVPool:
                                               self.allocator)
         self._registered[slot] = max(self._registered.get(slot, 0), n_full)
         return published
+
+    # -- cross-pool prefix sharing -------------------------------------------
+
+    def export_prefix_entries(self) -> list[tuple[bytes, dict]]:
+        """Every prefix-cache entry as (chain hash, block content): the
+        block's slice of each K/V leaf, ``(L, Hkv, block_size, hd)``, as a
+        host tensor in the cache's own dtype (bf16 and int8 included, which
+        numpy could not carry).  The hash commits to the whole token prefix
+        and the block size, so a pool with the same model and cache config
+        adopts the block sight unseen; registered blocks are frozen full
+        prompt blocks, so the copy never races a write."""
+        if self.prefix is None:
+            return []
+        return [(h, {k: self.cache[k][:, bid].cpu() for k in self._block_keys})
+                for h, bid in self.prefix.items()]
+
+    def import_prefix_entries(self, entries) -> int:
+        """Adopt another pool's exported entries: each new one is copied
+        into a fresh block on this pool's device and published under its
+        hash, held by the prefix cache alone (refcount 1, LRU-evictable).
+        Known hashes are skipped, and when no room can be made the rest is
+        dropped (sharing is an optimization).  Returns the blocks
+        imported."""
+        if self.prefix is None:
+            return 0
+        imported = 0
+        for h, content in entries:
+            if h in self.prefix:
+                continue
+            if not self._make_room(1):
+                break
+            bid = self.allocator.alloc()
+            for k, v in content.items():
+                self.cache[k][:, bid].copy_(v)
+            self.prefix.register(h, bid, self.allocator)  # the cache's ref
+            self.allocator.decref(bid)  # drop the alloc ref: cache-owned
+            imported += 1
+        self.prefix_imports += imported
+        return imported
 
     # -- state ---------------------------------------------------------------
 

@@ -58,6 +58,11 @@ class Request:
     generated: list[int] = dataclasses.field(default_factory=list)
 
     t_submit: float = dataclasses.field(default_factory=time.perf_counter)
+    #: submission stamp on the span tracer's clock (queue waits); the
+    #: same clock as ``t_submit`` here, kept as its own field as in the
+    #: reference, whose ``t_submit`` is wall-clock time
+    t_queued_mono: float = dataclasses.field(
+        default_factory=time.perf_counter, repr=False)
     t_first_token: float | None = None
     t_last_token: float | None = None
     t_finish: float | None = None

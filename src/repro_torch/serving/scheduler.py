@@ -48,10 +48,11 @@ class SlotScheduler:
         self.mixed = mixed
         self._prefill_turn = True  # alternation state when both kinds pend
 
-    def purge_expired(self, queue: RequestQueue,
-                      metrics=None) -> list[Request]:
+    def purge_expired(self, queue: RequestQueue, metrics=None,
+                      tracer=None) -> list[Request]:
         """Finish every queued request whose deadline passed, before it
-        takes a slot (``finish_reason`` "deadline")."""
+        takes a slot (``finish_reason`` "deadline"; an ``evicted`` span
+        with reason ``deadline`` each)."""
         expired = queue.purge(lambda r: r.deadline_expired)
         for r in expired:
             r.state = RequestState.FINISHED
@@ -59,15 +60,20 @@ class SlotScheduler:
             r.t_finish = time.perf_counter()
             if metrics is not None:
                 metrics.requests_deadline_expired += 1
+            if tracer is not None:
+                tracer.record("evicted", rid=r.rid, reason="deadline",
+                              deadline_ms=r.deadline_ms)
         return expired
 
     def admit(self, queue: RequestQueue, pool, active: dict[int, Request],
-              metrics=None) -> list[Request]:
+              metrics=None, tracer=None) -> list[Request]:
         """Move queued requests into free slots (priority, then FIFO).  The
         head is placed before it is popped: when the pool lacks a slot or
         (paged) blocks it keeps its place and the iteration counts as a
         ``no_capacity_stalls`` sample.  A prefix-cache hit enters prefill
-        with ``prefix_hit_tokens`` of its prompt done."""
+        with ``prefix_hit_tokens`` of its prompt done.  ``tracer`` gets an
+        ``admitted`` span a placement (with its queue wait) and a
+        ``capacity_stall`` span a stalled iteration."""
         admitted = []
         stalled = False
         while len(queue):
@@ -85,8 +91,19 @@ class SlotScheduler:
             req.state = RequestState.PREFILL
             active[slot] = req
             admitted.append(req)
-        if stalled and metrics is not None:
-            metrics.no_capacity_stalls += 1
+            if tracer is not None:
+                tracer.record(
+                    "admitted", rid=req.rid, slot=slot,
+                    queue_wait_s=round(
+                        time.perf_counter() - req.t_queued_mono, 6))
+        if stalled:
+            if metrics is not None:
+                metrics.no_capacity_stalls += 1
+            if tracer is not None:
+                head = queue.peek()
+                tracer.record("capacity_stall",
+                              rid=head.rid if head else None,
+                              queued=len(queue))
         return admitted
 
     def backlog(self, queue: RequestQueue,

@@ -466,7 +466,7 @@ def test_cli_nan_quarantine(capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--metrics-window", "1"], "windowed metrics"),
+    (["--metrics-window", "-1"], "windowed metrics"),
     (["--assert-layer-breach"], "windowed metrics"),
     (["--governor"], "--slo-err-var"),
     (["--governor", "--slo-err-var", "1", "--mode", "float"],

@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX and nothing of the reference package, and
-its entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: no JAX and nothing of the reference package (every
+module, the serving layer's telemetry, prom, shadow and fleet included),
+and its entry points run on the card unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -133,6 +134,28 @@ def test_port_runs_with_jax_unimportable():
         import contextlib, io
         with contextlib.redirect_stdout(io.StringIO()):
             assert len(run_plan(Args()).entries) == 8
+        # observability and the fleet: spans, windows, the merge, the
+        # OpenMetrics text, a shadow replay, prefix sharing across replicas
+        from repro_torch.serving import EngineMetrics, TierConfig, build_fleet
+        from repro_torch.serving.prom import parse_openmetrics, to_openmetrics
+        eng = ServingEngine(cfg, approx, EngineConfig(
+            slots=2, max_len=32, prefill_chunk=8, trace=True,
+            metrics_window_s=1e-4, shadow_fraction=1.0), api=api,
+            shadow_params=verify, shadow_numerics="int8")
+        eng.submit([1, 2, 3], 4)
+        assert len(eng.run()) == 1
+        assert eng.shadow_verdict()["sampled_requests"] == 1
+        assert {e.kind for e in eng.tracer.events()} >= {
+            "queued", "finished", "shadow", "metrics_window"}
+        snap = EngineMetrics.merge([eng.snapshot(), eng.snapshot()])
+        assert snap["engines"] == 2 and parse_openmetrics(to_openmetrics(snap))
+        fleet = build_fleet(cfg, raw, [TierConfig("int8", "int8", count=2)],
+                            EngineConfig(slots=2, max_len=32, prefill_chunk=8,
+                                         kv_layout="paged", kv_block_size=4),
+                            lambda n: (verify, n, get_preset(n)), api=api)
+        fleet.replicas[0].engine.submit(list(range(12)), 2)
+        fleet.drain()
+        assert fleet.share_prefixes() == 3  # 12 prompt tokens, blocks of 4
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
@@ -160,6 +183,12 @@ def test_entry_points_default_to_cuda():
         ServingEngine(cfg, params, EngineConfig(slots=2, max_len=16))
     with pytest.raises(RuntimeError, match="CUDA"):
         build_serving_params(params, cfg, ServeConfig())
+    from repro_torch.serving import TierConfig, build_fleet
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_fleet(cfg, params, [TierConfig("float", "float")],
+                    EngineConfig(slots=2, max_len=16),
+                    lambda name: (params, name, None))
     from repro_torch.configs.cnn_suite import get_cnn
     from repro_torch.nn.cnn import init_cnn
 
