@@ -17,8 +17,12 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    calls, inputs on quantization ties, plus exact-integer accumulator
    checks (M=4, 128, 300), qwen2-vl-2b's and hubert-xlarge's layers
    (biases included) at M=4, 128 and 4096 and their decode members,
-   hubert's head (N=504) on both tiles, equal to the plain version on
-   every matmul tile of the source, and every decode call twice bit-equal;
+   hubert's head (N=504) on both tiles, deepseek-v2-lite-16b's and
+   moonshot-v1-16b-a3b's new shapes (q N=3072, the shared experts'
+   gate|up N=5632 and down K=2816, the dense layer's gate|up N=21888 and
+   down K=10944, the head N=102400) at M=4 and 128, equal to
+   the plain version on every matmul tile of the source, and every decode
+   call twice bit-equal;
    the CNN suite's conv and head shapes (K = 16 ... 1152, N = 4 ... 128)
    in float32 at M = 4, 250, 16,000 and 256,000, every mode, CV on and off;
    flash attention at the olmo-1b, qwen3-4b (GQA 32/8) and qwen2-vl-2b
@@ -75,6 +79,18 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    preset lowered on resnet44 at full width from 256 calibration images
    (its policies, forwards and seconds, mean modeled saving, and relative
    logit error on 1,000 test images beside serve-default's);
+4c. "moe": deepseek-v2-lite-16b at full width and depth (27 layers: MLA,
+   one dense layer, 64 routed experts top-6 and 2 shared) on
+   `serve-default` kernel packs built a layer at a time (a float32 tree
+   and its serving copy do not fit on the card together), through the
+   engine (the main trace, bf16 KV cache): 109 fused calls a chunk step and
+   136 a thin step, tokens equal to a sequential decode, the kernel path
+   bit-equal to the plain one, one CUDA launch a thin step's fused call;
+   then the paged layout as above; then moonshot-v1-16b-a3b at full width
+   and 8 of its 48 layers (depth cut for time and memory) with the same
+   engine checks; prints gen tok/s, TTFT and ITL, a thin and a chunk
+   step's wall and device ms, params GiB with the float experts apart, KV
+   GiB beside a GQA cache of the same heads, peak GiB of build and run;
 5. lock-step paths (`launch.serve.run_legacy`): full-width olmo-1b,
    qwen3-4b and qwen2-vl-2b (B=4, T=1024) and rwkv6-1.6b (B=4, T=512), 32
    tokens each,
@@ -210,6 +226,20 @@ WIDE_KN = {"granite-8b": [(4096, (4096, 1024, 1024)), (4096, (14336, 14336)),
                           (14336, (4096,))],
            "deepseek-67b": [(8192, (8192, 1024, 1024)),
                             (8192, (22016, 22016)), (22016, (8192,))]}
+#: deepseek-v2-lite-16b's packed layers (MLA packs q and o; kv_a, kv_b,
+#: the router and the routed experts stay float): q, o, the shared
+#: experts' fused gate|up and down a chunk step, their members a thin
+#: step; the leading dense layer's; the untied head (moonshot-v1-16b-a3b's
+#: layers have olmo-1b's q|k|v and o and deepseek's shared experts; its
+#: head is held against the plain version by the moe phase's
+#: kernel_vs_plain)
+DSV2_KN = [(2048, 3072), (2048, 2048), (2048, 5632), (2816, 2048)]
+DSV2_DECODE_KN = [(2048, 3072), (2048, 2048), (2048, 2816), (2048, 2816),
+                  (2816, 2048)]
+DSV2_DENSE_KN = [(2048, 3072), (2048, 2048), (2048, 21888), (10944, 2048)]
+DSV2_DENSE_DECODE_KN = [(2048, 3072), (2048, 2048), (2048, 10944),
+                        (2048, 10944), (10944, 2048)]
+DSV2_HEAD_KN = (2048, 102400)
 #: decode-row cases (M, K, N) beyond the path shapes: one and DECODE_M_MAX
 #: rows at olmo-1b's shapes, rwkv6-1.6b's key and value projections and head,
 #: a ragged call (K off 16 bytes, N off the 32-column tile)
@@ -467,6 +497,18 @@ def check_kernels(torch, dev) -> dict:
               for k, n in QWEN2VL_KN + HUBERT_KN + [HUBERT_HEAD_KN]]
     cases += [(4, k, (n,), both, False, (k, n) in biased)
               for k, n in sorted(set(QWEN2VL_DECODE_KN + HUBERT_DECODE_KN))]
+    # deepseek-v2-lite-16b's and moonshot-v1-16b-a3b's new shapes at the
+    # engine's thin (split-K) and chunk (tile) rows: q (N = 3072), the
+    # shared experts' gate|up (N = 5632) and down (K = 2816), the dense
+    # layer's gate|up (N = 21888) and down (K = 10944), the head (N =
+    # 102400), and the thin steps' gate and up members
+    moe_groups = {(2048, 5632): (2816, 2816), (2048, 21888): (10944, 10944)}
+    cases += [(mm, k, moe_groups.get((k, n), (n,)), both, False, False)
+              for mm in (4, 128)
+              for k, n in sorted(set(DSV2_KN + DSV2_DENSE_KN)
+                                 | {DSV2_HEAD_KN})]
+    cases += [(4, k, (n,), both, False, False)
+              for k, n in ((2048, 2816), (2048, 10944))]
     n_cases = n_twice = 0
     for mode, m in MODES:
         for mm, k, ws, dtypes, codes_in, bias in cases:
@@ -794,8 +836,10 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
     small = sorted({(4, k, n) for k, n in DECODE_KN + PATH_KN + RWKV_KN
                     + [RWKV_HEAD_KN] + QWEN_DECODE_KN + QWEN_KN
                     + QWEN2VL_DECODE_KN + HUBERT_DECODE_KN
-                    + [HUBERT_HEAD_KN]}
-                   | {(128, k, n) for k, n in PATH_KN + QWEN_KN + QWEN2VL_KN})
+                    + [HUBERT_HEAD_KN] + DSV2_DECODE_KN
+                    + DSV2_DENSE_DECODE_KN + [DSV2_HEAD_KN]}
+                   | {(128, k, n) for k, n in PATH_KN + QWEN_KN + QWEN2VL_KN
+                      + DSV2_KN + DSV2_DENSE_KN + [DSV2_HEAD_KN]})
     prefill = sorted({(OLMO_PREFILL_M, k, n) for k, n in PREFILL_KN}
                      | {(RWKV_PREFILL_M, k, n) for k, n in RWKV_KN}
                      | {(QWEN_PREFILL_M, k, n) for k, n in QWEN_KN}
@@ -905,14 +949,18 @@ def pallas_spec(use_cv: bool = True):
 
 
 def dense_calls(cfg, slots: int):
-    """Fused-wrapper calls of one dense (slots, C) engine step: fused q|k|v,
-    o, fused gate|up and down a layer above DECODE_M_MAX rows, the seven
-    members at or below it; an untied packed head adds one."""
+    """Fused-wrapper calls of one (slots, C) engine step: fused q|k|v, o,
+    fused gate|up and down a layer above DECODE_M_MAX rows, the seven
+    members at or below it; an MLA layer packs q and o only (kv_a and kv_b
+    stay float), so 4 calls and 5 members; an MoE layer's packed MLP is its
+    shared experts' gate|up and down (the router and the routed expert
+    stacks stay float); an untied packed head adds one."""
     from repro_torch.kernels import approx_matmul as amk
 
     head = 0 if cfg.tie_embeddings else 1
+    thin = 5 if cfg.attn == "mla" else 7
     return lambda c: cfg.n_layers * (
-        7 if slots * c <= amk.DECODE_M_MAX else 4) + head
+        thin if slots * c <= amk.DECODE_M_MAX else 4) + head
 
 
 def engine_run(torch, label: str, cfg, api, params, ecfg, trace, per_call,
@@ -1283,8 +1331,10 @@ def run_paged(torch, label: str, cfg, api, packed, ecfg, trace, cont,
                  f"{r.prefix_hit_tokens}) tokens {r.generated} != a "
                  f"sequential decode's {want}")
     pool = eng.pool
-    if any(bool(pool.cache[k][:, 0].any()) for k in ("k", "v")):
+    leaves = [k for k in pool.cache if k != "lengths"]
+    if any(bool(pool.cache[k][:, 0].any()) for k in leaves):
         fail(f"{label}: the NULL block was written")
+    kv_dtype = pool.cache[leaves[0]].dtype
     peak_gib = snap["peak_blocks_in_use"] * pool.per_block_bytes() / 2**30
     cont_gib = cache_gib(cont["cache"])
     # one thin step on each layout, fresh caches, every slot at the same
@@ -1296,14 +1346,13 @@ def run_paged(torch, label: str, cfg, api, packed, ecfg, trace, cont,
 
     def paged_step():
         cache = api.init_paged_cache(pool.allocator.num_blocks, PAGED_BLOCK,
-                                     ecfg.slots, pool.cache["k"].dtype)
+                                     ecfg.slots, kv_dtype)
         cache["lengths"].fill_(ecfg.prefill_chunk)
         api.decode_slots(packed, toks, cache, nv, block_tables=tables,
                          kv_len=ecfg.max_len)
 
     def cont_step():
-        cache = api.init_slot_cache(ecfg.slots, ecfg.max_len,
-                                    pool.cache["k"].dtype)
+        cache = api.init_slot_cache(ecfg.slots, ecfg.max_len, kv_dtype)
         cache["lengths"].fill_(ecfg.prefill_chunk)
         api.decode_slots(packed, toks, cache, nv)
 
@@ -3051,6 +3100,229 @@ def run_hubert_encoder(torch, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
+#: depth of moonshot-v1-16b-a3b in the "moe" phase (widths full; 48
+#: layers cut to 8 for the phase's time and the card's memory)
+MOON_LAYERS = 8
+
+
+def build_by_layer(torch, dev, cfg) -> tuple[dict, dict]:
+    """``serve-default`` packs on the approx kernel of a full-width model
+    through the port's layer-at-a-time build
+    (``build_serving_params_by_layer``, byte-equal on the CPU to
+    ``build_serving_params(api.init(0))``), which the serve CLI takes
+    where the float32 init and its serving copy do not fit on the card
+    together (deepseek-v2-lite-16b: 62.8 GB of float32).  Fails unless the
+    packed layers are the plan's for the whole model.  Returns the tree
+    and the build's seconds, peak GiB and the CLI's route."""
+    import gc
+
+    from repro_torch.core.approx_linear import packed_layer_paths
+    from repro_torch.launch.serve import (ServeConfig, _float_tree_fits,
+                                          build_serving_params_by_layer)
+    from repro_torch.models import build_model
+
+    # earlier engines hold reference cycles: free what they kept, so that
+    # the build's peak is its own
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    route = ("whole" if _float_tree_fits(cfg, torch.device(dev))
+             else "by layer")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scfg = ServeConfig(spec=pallas_spec())
+    packed = build_serving_params_by_layer(cfg, scfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plan = scfg.numerics_spec().resolve(build_model(cfg, "meta").init(0))
+    want = sorted(e.path for e in plan.packed)
+    if packed_layer_paths(packed) != want:
+        fail(f"{cfg.name}: layer-by-layer packs {packed_layer_paths(packed)}"
+             f" != the plan's {want}")
+    return packed, {"build_s": seconds, "build_peak_gib": peak,
+                    "cli_build_route": route}
+
+
+def run_moe_arch(torch, dev, arch: str, n_layers: int | None = None,
+                 paged: bool = False, want_calls=None) -> dict:
+    """One MoE arch through the engine at full width (``n_layers`` cuts the
+    depth only): 8 requests of ``mixed_trace(seed=0)``, slots 4, max_len
+    256, chunk 32, bf16 KV cache, on ``serve-default`` kernel packs built
+    layer by layer.  The engine checks of the olmo-1b phase (launch counts,
+    tokens equal a sequential decode, kernel path bit-equal to the plain
+    path chunk-shaped and thin, one CUDA launch a thin step's fused call),
+    then with ``paged`` the paged layout (``run_paged``).  ``want_calls``
+    = (chunk, thin) fused calls a step the phase must count.  Returns the
+    launches by path and the phase's JSON line."""
+    import dataclasses
+
+    from repro_torch.configs import EngineConfig, get_config
+    from repro_torch.core.approx_linear import iter_tensors
+    from repro_torch.launch.serve import mixed_trace
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    label = f"moe {arch}"
+    if n_layers is not None and n_layers != cfg.n_layers:
+        print(f"{label}: depth cut {cfg.n_layers} -> {n_layers} layers for "
+              "the phase's time and memory (widths unchanged)", flush=True)
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    packed, build = build_by_layer(torch, dev, cfg)
+    api = build_model(cfg, dev)
+    members = check_packs(label, packed)
+    expert_gib = storage_gib([t for t in iter_tensors(
+        packed["blocks"]["mlp"]["experts"])])
+    pack_gib = storage_gib(iter_tensors(packed))
+    print(f"{label}: layers={cfg.n_layers} (dense {cfg.first_dense_layers})"
+          f" d_model={cfg.d_model} heads={cfg.n_heads} attn={cfg.attn} "
+          f"experts={cfg.n_experts} top_k={cfg.top_k} shared="
+          f"{cfg.n_shared_experts} d_ff_expert={cfg.d_ff_expert} d_ff="
+          f"{cfg.d_ff} vocab={cfg.vocab}; built layer by layer (the CLI's "
+          f"route here: {build['cli_build_route']}) in "
+          f"{build['build_s']:.1f} s, peak {build['build_peak_gib']:.2f} "
+          f"GiB; serving params {pack_gib:.3f} GiB, of which the float "
+          f"routed experts {expert_gib:.3f} GiB (the rest "
+          f"{pack_gib - expert_gib:.3f} GiB), K-major weight codes "
+          f"{k_major_gib(packed):.3f} GiB ({members} fused-group members "
+          "read row slices of their group's)", flush=True)
+    ecfg = EngineConfig(slots=4, max_len=256, prefill_chunk=32,
+                        cache_dtype="bfloat16")
+    per_call = dense_calls(cfg, ecfg.slots)
+    calls = (per_call(ecfg.prefill_chunk), per_call(1))
+    if want_calls is not None and calls != want_calls:
+        fail(f"{label}: {calls} fused calls a (chunk, thin) step, want "
+             f"{want_calls}")
+    print(f"{label}: {calls[0]} fused calls a chunk step, {calls[1]} a thin "
+          "step", flush=True)
+    trace = mixed_trace(cfg, 8, ecfg.max_len, ecfg.prefill_chunk, seed=0)
+    spec = pallas_spec()
+    warm_up(torch, api, packed, ecfg)
+    run = engine_run(torch, label, cfg, api, packed, ecfg, trace, per_call,
+                     spec.name)
+    check_sequential(label, run, trace, lambda p, g, c: replay_dense(
+        torch, api, packed, ecfg, p, c))
+    g = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (ecfg.slots, ecfg.prefill_chunk),
+                         generator=g, device=dev)
+    kernel_vs_plain(torch, label, api, packed, ecfg, toks)
+    breakdown = {kind: profile_call(torch, label, api, packed, ecfg, c)
+                 for kind, c in (("thin", 1), ("chunk", ecfg.prefill_chunk))}
+    check_one_launch(f"{label}: thin step", breakdown["thin"])
+    kv = cache_gib(run["cache"])
+    if cfg.attn == "mla":
+        per_tok, gqa_per_tok = (cfg.kv_lora_rank + cfg.qk_rope_dim,
+                                2 * cfg.n_heads * cfg.v_head_dim)
+    else:
+        per_tok = gqa_per_tok = 2 * cfg.kv_heads * cfg.head_dim
+    line = {**served_metrics(run["snap"]), "layers": cfg.n_layers,
+            "numerics": spec.name, "cache_dtype": ecfg.cache_dtype,
+            **build, "run_peak_gib": run["peak"] / 2**30,
+            "pack_gib": pack_gib, "expert_gib": expert_gib,
+            "pack_gib_without_experts": pack_gib - expert_gib,
+            "k_major_gib": k_major_gib(packed), "kv_gib": kv,
+            "kv_values_per_token_layer": per_tok,
+            "gqa_kv_gib_same_heads": kv * gqa_per_tok / per_tok,
+            "launches": run["launches"], "fused_calls_chunk_thin": calls,
+            "step_breakdown": breakdown}
+    print(f"{label}: KV cache {kv:.4f} GiB ({per_tok} values a "
+          f"token-layer); a GQA cache of the same heads would need "
+          f"{line['gqa_kv_gib_same_heads']:.4f} GiB ({gqa_per_tok}); peak "
+          f"GiB build {build['build_peak_gib']:.2f}, run "
+          f"{line['run_peak_gib']:.2f}", flush=True)
+    out = {label: run["launches"]}
+    if paged:
+        out[f"paged {arch}"] = run_paged(
+            torch, f"paged {arch}", cfg, api, packed, ecfg, trace, run,
+            spec.name)
+    del run
+    write_line(label, f"moe_{arch}.json", line)
+    return out
+
+
+def run_moe_cli(torch, arch: str) -> dict:
+    """The serve CLI (``repro_torch.launch.serve.main``, in this process)
+    on ``arch`` at full width and depth on the kernel packs, 4 requests of
+    ``mixed_trace``, slots 4, max_len 256, chunk 32: the float32 init and
+    its serving copy do not fit on the card together, so it must build
+    the serving params a layer at a time.  Fails unless every request
+    finishes and the fused wrapper's launches, zeroed just before, equal
+    the steps' fused calls.  Returns the launches."""
+    import gc
+    import io
+    import re
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    label = f"cli {arch}"
+    spec_path = ROOT / "chiprun_out" / "moe_cli_spec.json"
+    os.makedirs(spec_path.parent, exist_ok=True)
+    spec_path.write_text(pallas_spec().to_json())
+    argv = ["--arch", arch, "--spec-json", str(spec_path), "--requests",
+            "4", "--slots", "4", "--max-len", "256", "--chunk", "32"]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wr = wrappers()
+    for w in wr.values():
+        w.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wr.items()}
+    out = buf.getvalue()
+    (ROOT / "chiprun_out" / f"moe_cli_{arch}.txt").write_text(out)
+    if "a layer at a time" not in out:
+        fail(f"{label}: the CLI did not build the serving params a layer at "
+             "a time")
+    if "finished 4/4 requests" not in out:
+        fail(f"{label}: not every request finished")
+    steps = {k: int(re.search(rf'"{k}": (\d+)', out).group(1))
+             for k in ("prefill_steps", "mixed_steps", "decode_steps")}
+    per_call = dense_calls(get_config(arch), 4)
+    want = {n: 0 for n in wr}
+    want["approx_matmul_cv_fused"] = (
+        (steps["prefill_steps"] + steps["mixed_steps"]) * per_call(32)
+        + steps["decode_steps"] * per_call(1))
+    gen = re.search(r'"gen_tok_per_s": ([0-9.]+)', out).group(1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label}: python -m repro_torch.launch.serve "
+          f"{' '.join(argv)}: built a layer at a time, 4/4 requests in "
+          f"{seconds:.1f} s (the build included; cold, no warm-up: "
+          f"{gen} gen tok/s), peak {peak:.2f} GiB; steps {steps}; wrapper "
+          f"launches {launches}, the steps imply {want}", flush=True)
+    if launches != want:
+        fail(f"{label}: launches {launches} != {want}")
+    return launches
+
+
+def run_moe_phase(torch, dev) -> dict:
+    """The "moe" phase: deepseek-v2-lite-16b at full width and depth (27
+    layers: MLA, one leading dense layer, 64 routed experts top-6 and 2
+    shared) on the contiguous and the paged layout, then through the serve
+    CLI, then moonshot-v1-16b-a3b at full width and MOON_LAYERS of its 48
+    layers.
+    Returns the launches by path."""
+    import gc
+
+    t0 = time.perf_counter()
+    out = run_moe_arch(torch, dev, "deepseek-v2-lite-16b", paged=True,
+                       want_calls=(109, 136))
+    out["cli deepseek-v2-lite-16b"] = run_moe_cli(torch,
+                                                  "deepseek-v2-lite-16b")
+    out.update(run_moe_arch(torch, dev, "moonshot-v1-16b-a3b",
+                            n_layers=MOON_LAYERS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"moe: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def cnn_net(torch, dev, name: str, classes: int = 10):
     """(cfg, seeded float params on the card, their float plan) of one
     CNN_SUITE net at full width (torch.Generator seed 0)."""
@@ -3921,8 +4193,19 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: " + line.strip(), flush=True)
 
+    # seconds of each phase, printed at the end (the whole run must stay
+    # inside the card check's time limit)
+    laps, lap_t = {"build": time.perf_counter() - t0}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = round(now - lap_t[0], 1)
+        lap_t[0] = now
+
     errs = check_kernels(torch, dev)
+    lap("kernels")
     errs.update(check_attention_and_scan(torch, dev))
+    lap("attention and scan")
     # every path is driven with the launch counts zeroed just before it and
     # read just after it
     built = run_main_path(torch, dev, args.layers)
@@ -3932,6 +4215,7 @@ def main() -> int:
         built["ecfg"], built["trace"], built["run"], built["numerics"])
     paths["deadlines olmo-1b"] = run_deadlines(torch, built)
     paths.update(run_speculative(torch, built))
+    lap("olmo-1b engine, paged, deadlines, speculative")
     phase_s, t0 = {}, time.perf_counter()
     launches, probe_summ = run_probe_phase(torch, built)
     paths.update(launches)
@@ -3952,10 +4236,13 @@ def main() -> int:
     phase_s["auto"] = time.perf_counter() - t0
     print("robustness, observability and fleet phases, seconds: "
           + json.dumps(phase_s), flush=True)
+    lap("robustness, observability, fleet, auto")
     torch.cuda.empty_cache()
     paths.update(run_qwen3_engine(torch, dev))
+    lap("qwen3-4b engines")
     torch.cuda.empty_cache()
     paths["engine rwkv6-1.6b"] = run_rwkv_engine(torch, dev)
+    lap("rwkv6-1.6b engine")
     torch.cuda.empty_cache()
     paths["engine qwen2-vl-2b"], built = run_qwen2vl_engine(torch, dev)
     res = run_vlm_embeds(torch, dev, built)  # on the engine phase's packs
@@ -3963,20 +4250,27 @@ def main() -> int:
     paths["embeds qwen2-vl-2b"] = res["launches"]
     per_layer = {"embeds qwen2-vl-2b": max(res["per_layer_max_abs_err"])}
     torch.cuda.empty_cache()
+    lap("qwen2-vl-2b engine, embeds")
+    paths.update(run_moe_phase(torch, dev))
+    lap("moe")
     for arch in LEGACY:
         line = run_legacy_path(torch, dev, arch)
         paths[f"legacy {arch}"] = line["launches"]
         per_layer[arch] = max(line["per_layer_max_abs_err"])
         torch.cuda.empty_cache()
+    lap("lock-step")
     res = run_hubert_encoder(torch, dev)
+    lap("hubert-xlarge encoder")
     paths["encoder hubert-xlarge"] = res["launches"]
     per_layer["encoder hubert-xlarge"] = max(res["per_layer_max_abs_err"])
     torch.cuda.empty_cache()
     cnn = run_cnn_suite(torch, dev, card)
+    lap("cnn suite")
     for name, res in cnn.items():
         paths[f"cnn {name}"] = res["launches"]
     torch.cuda.empty_cache()
     paths.update(run_paper(torch, dev))
+    lap("paper")
     ratios = {f"{r['mode']}(m={r['m']})": [
         round(cnn[name]["c10"][i]["err_ratio_no_cv_over_cv"], 3)
         for name in cnn] for i, r in enumerate(next(iter(cnn.values()))["c10"])}
@@ -3989,6 +4283,7 @@ def main() -> int:
     print("launches by path: " + json.dumps(paths), flush=True)
     rows = kernel_times(torch, dev, card)
     new_rows = attn_scan_times(torch, dev, card)
+    lap("kernel times")
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "kernel_times.json").write_text(
         json.dumps({"card": card, "rows": rows, "attention_scan": new_rows,
@@ -4017,6 +4312,18 @@ def main() -> int:
               "M=128): " + json.dumps(step_entry(rows, name, QWEN_KN, 128)),
               flush=True)
         for label, kn, mm in (
+                ("deepseek-v2-lite-16b decode step (MoE layer, 5 launches, "
+                 "M=4)", DSV2_DECODE_KN, 4),
+                ("deepseek-v2-lite-16b engine chunk step (MoE layer, 4 "
+                 "launches, M=128)", DSV2_KN, 128),
+                ("deepseek-v2-lite-16b decode step (dense layer, 5 "
+                 "launches, M=4)", DSV2_DENSE_DECODE_KN, 4),
+                ("deepseek-v2-lite-16b engine chunk step (dense layer, 4 "
+                 "launches, M=128)", DSV2_DENSE_KN, 128),
+                ("deepseek-v2-lite-16b head, decode step (1 launch, M=4)",
+                 [DSV2_HEAD_KN], 4),
+                ("deepseek-v2-lite-16b head, engine chunk step (1 launch, "
+                 "M=128)", [DSV2_HEAD_KN], 128),
                 ("qwen2-vl-2b decode step (7 launches, M=4)",
                  QWEN2VL_DECODE_KN, 4),
                 ("qwen2-vl-2b engine chunk step (4 launches, M=128)",
@@ -4069,6 +4376,7 @@ def main() -> int:
             "library_ms": (None if r["library_us"] is None
                            else r["library_us"] / 1e3),
         })
+    print("phases, seconds: " + json.dumps(laps), flush=True)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

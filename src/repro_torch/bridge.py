@@ -51,18 +51,22 @@ def _nest(flat: dict[str, np.ndarray], device="cpu") -> dict:
 
 def from_jax_params(flat: dict[str, np.ndarray], cfg: ArchConfig,
                     device="cpu") -> dict:
-    """Flat reference parameters of an LLM -> the port's nested dict."""
+    """Flat reference parameters of an LLM -> the port's nested dict:
+    ``blocks`` stacked over the layers after the leading dense ones (an
+    MoE arch's expert stacks (L, E, k, n) as they are), ``dense_blocks``
+    a list of one dict a dense layer."""
     out = _nest(flat, device)
     if cfg.norm == "nonparametric_ln":  # parameter-free norms: no leaves
         blocks = out.get("blocks", {})
         for key in ("attn_norm", "mlp_norm"):
             blocks.setdefault(key, {})
         out.setdefault("final_norm", {})
+    n = cfg.n_layers - cfg.first_dense_layers
     bad = [k for k, a in flat.items()
-           if k.startswith("blocks/") and np.shape(a)[0] != cfg.n_layers]
+           if k.startswith("blocks/") and np.shape(a)[0] != n]
     if bad:
-        raise ValueError(f"block leaves without a leading {cfg.n_layers}-layer "
-                         f"axis: {bad[:3]}")
+        raise ValueError(f"block leaves without a leading {n}-layer axis: "
+                         f"{bad[:3]}")
     return out
 
 

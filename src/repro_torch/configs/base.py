@@ -1,9 +1,10 @@
 """Architecture and engine configuration (port of ``repro.configs.base``).
 
-Only the fields the ported paths read are kept (dense GQA with rmsnorm or
-layernorm, qk-norm, QKV bias, RoPE / M-RoPE / no positions, causal or
-bidirectional attention, swiglu or gelu MLPs; RWKV6); the other
-architecture families land with the slices that serve them.  The
+Only the fields the ported paths read are kept (GQA or MLA attention with
+rmsnorm or layernorm, qk-norm, QKV bias, RoPE / M-RoPE / no positions,
+causal or bidirectional attention, swiglu, gelu or MoE MLPs with leading
+dense layers; RWKV6); the other architecture families land with the
+slices that serve them.  The
 reference's ``mlp_bias`` and ``input_mode`` are not kept: its gelu MLP
 always has biases and its models take embeddings whenever the batch holds
 them, so neither field changes what a ported path does.
@@ -77,7 +78,7 @@ class EngineConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: Literal["dense", "vlm", "audio", "ssm"]
+    family: Literal["dense", "moe", "vlm", "audio", "ssm"]
     n_layers: int
     d_model: int
     n_heads: int
@@ -86,7 +87,7 @@ class ArchConfig:
     vocab: int
     head_dim: int = 0  # 0 -> d_model // n_heads
 
-    attn: Literal["gqa", "none"] = "gqa"
+    attn: Literal["gqa", "mla", "none"] = "gqa"
     norm: Literal["rmsnorm", "layernorm", "nonparametric_ln"] = "rmsnorm"
     qk_norm: bool = False
     rope: Literal["rope", "mrope", "none"] = "rope"
@@ -94,7 +95,18 @@ class ArchConfig:
     mrope_sections: tuple[int, int, int] = (16, 24, 24)
     causal: bool = True
     qkv_bias: bool = False
-    mlp: Literal["swiglu", "gelu"] = "swiglu"
+    # MLA (deepseek-v2)
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    mlp: Literal["swiglu", "gelu", "moe"] = "swiglu"
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    first_dense_layers: int = 0
     # rwkv
     rwkv: bool = False
     rwkv_head_dim: int = 64
@@ -116,6 +128,23 @@ class ArchConfig:
                           mrope_sections=self.mrope_sections,
                           qkv_bias=self.qkv_bias)
 
+    def mla_config(self):
+        from repro_torch.nn.attention import MLAConfig
+
+        return MLAConfig(d_model=self.d_model, n_heads=self.n_heads,
+                         kv_lora_rank=self.kv_lora_rank,
+                         qk_nope_dim=self.qk_nope_dim,
+                         qk_rope_dim=self.qk_rope_dim,
+                         v_head_dim=self.v_head_dim,
+                         rope_theta=self.rope_theta)
+
+    def moe_config(self):
+        from repro_torch.nn.moe import MoEConfig
+
+        return MoEConfig(d_model=self.d_model, d_ff_expert=self.d_ff_expert,
+                         n_experts=self.n_experts, top_k=self.top_k,
+                         n_shared=self.n_shared_experts)
+
     def rwkv_config(self):
         from repro_torch.nn.rwkv import RWKVConfig
 
@@ -126,19 +155,68 @@ class ArchConfig:
     def has_decode(self) -> bool:
         return self.causal  # encoder-only archs have no decode step
 
+    @property
+    def n_scan_layers(self) -> int:
+        """Layers in the stacked ``blocks`` (after the dense ones)."""
+        return self.n_layers - self.first_dense_layers
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head), the
+        reference's formula."""
+        d, ff, v, L = self.d_model, self.d_ff, self.vocab, self.n_layers
+        hd = self.head_dim
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.rwkv:
+            tm = d * d * 5 + d * (5 * 32 + 5 * 32) + d * 64 * 2 + 2 * d
+            cm = d * ff * 2 + d * d
+            return emb + L * (tm + cm + 4 * d)
+        if self.attn == "mla":
+            attn = (d * self.n_heads * (self.qk_nope_dim + self.qk_rope_dim)
+                    + d * (self.kv_lora_rank + self.qk_rope_dim)
+                    + self.kv_lora_rank * self.n_heads
+                    * (self.qk_nope_dim + self.v_head_dim)
+                    + self.n_heads * self.v_head_dim * d)
+        else:
+            attn = (d * self.n_heads * hd + 2 * d * self.kv_heads * hd
+                    + self.n_heads * hd * d)
+        if self.mlp == "moe":
+            moe_l = (3 * d * self.d_ff_expert * self.n_experts
+                     + 3 * d * self.d_ff_expert * self.n_shared_experts
+                     + d * self.n_experts)
+            mlp_total = (self.n_scan_layers * moe_l
+                         + self.first_dense_layers * 3 * d * ff)
+        else:
+            mlp_total = L * 3 * d * ff
+        return emb + L * attn + mlp_total
+
+    def active_param_count(self) -> int:
+        """Activated parameters a token (MoE: only the routed top-k)."""
+        if self.mlp != "moe":
+            return self.param_count()
+        per_expert = 3 * self.d_model * self.d_ff_expert
+        return self.param_count() - self.n_scan_layers * per_expert * (
+            self.n_experts - self.top_k)
+
     def reduced(self) -> "ArchConfig":
         """CPU smoke-test variant: same structure, tiny dims (the same
         values as ``repro.configs.base.ArchConfig.reduced``)."""
         return dataclasses.replace(
             self,
             name=self.name + "-reduced",
-            n_layers=2,
+            n_layers=2 + self.first_dense_layers,
             d_model=64,
             n_heads=4,
             kv_heads=max(1, min(self.kv_heads, 2)),
             head_dim=16,
             d_ff=128,
             vocab=256,
+            n_experts=8 if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            d_ff_expert=32 if self.d_ff_expert else 0,
+            kv_lora_rank=32,
+            qk_nope_dim=16,
+            qk_rope_dim=8,
+            v_head_dim=16,
             rwkv_head_dim=16,
             mrope_sections=((2, 3, 3) if self.rope == "mrope"
                             else self.mrope_sections),

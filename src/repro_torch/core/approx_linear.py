@@ -125,7 +125,10 @@ class LayerStack(nn.Module):
 
 
 def is_linear_params(p: Any) -> bool:
-    """Float linear leaf: 2D weights, or 3D = (layers, k, n) stack."""
+    """Float linear leaf: 2D weights, or 3D = (layers, k, n) stack (or a
+    standalone (experts, k, n) stack).  A model's 4-D (layers, experts, k,
+    n) expert stacks are not linear leaves, as in the reference: they stay
+    float (ROADMAP queue 3)."""
     return isinstance(p, dict) and "w" in p and getattr(p["w"], "ndim", 0) in (2, 3)
 
 
@@ -347,7 +350,8 @@ def _fusable(node: dict, names, companion, path, policy_fn, act_ranges,
         return None
     leaves = [node[n] for n in names]
     w0 = leaves[0]["w"]
-    if any(leaf["w"].shape[:-1] != w0.shape[:-1] for leaf in leaves):
+    if any(leaf["w"].shape[:-1] != w0.shape[:-1]
+           or leaf["w"].ndim != w0.ndim for leaf in leaves):
         return None
     if len({leaf.get("b") is not None for leaf in leaves}) > 1:
         return None
@@ -368,7 +372,9 @@ def pack_params(params: Any, policy_fn: PolicyFn,
     """Walk a parameter tree, replacing float linear leaves with packed
     modules (``policy_fn(path)`` None keeps a leaf float).  With ``fuse``,
     sibling sets of :data:`FUSABLE_GROUPS` sharing a policy and activation
-    range become one :class:`QuantizedDenseGroup` at key "qkv"/"gateup".
+    range become one :class:`QuantizedDenseGroup` at key "qkv"/"gateup"
+    (never inside an ``experts`` dict, whose stacks pack per expert,
+    without folded operands).
     With ``fold`` (the default, as the reference's), packs that do not run
     the kernel carry the folded float32 operands where ``build_fold``
     builds them; ``fold=False`` keeps every such pack on the exact-integer
@@ -380,11 +386,16 @@ def pack_params(params: Any, policy_fn: PolicyFn,
             if policy is None:
                 return node
             rng = (act_ranges or {}).get("/".join(path), default_range)
-            return pack_dense(node, policy, rng, fold=fold)
+            # expert stacks run the grouped path, which reads only the
+            # canonical packs: folded operands would be dead weight
+            leaf_fold = fold and path[-2:-1] != ("experts",)
+            return pack_dense(node, policy, rng, fold=leaf_fold)
         if isinstance(node, dict):
             groups: dict[str, tuple[str, Any]] = {}
             consumed: set[str] = set()
-            if fuse:
+            # an "experts" dict holds gate/up/down stacks that run through
+            # the grouped path, never a fused group
+            if fuse and path[-1:] != ("experts",):
                 for names, gkey, companion in FUSABLE_GROUPS:
                     if consumed.intersection(names):
                         continue

@@ -99,6 +99,8 @@ class ServeConfig:
 def _to_device(tree: Any, dev: torch.device) -> Any:
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):  # dense_blocks
+        return type(tree)(_to_device(v, dev) for v in tree)
     if isinstance(tree, torch.Tensor):
         return tree.to(dev)
     return tree
@@ -121,12 +123,120 @@ def build_serving_params(params: Any, cfg: ArchConfig, scfg: ServeConfig,
             return node
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):  # dense_blocks
+            return type(node)(walk(v) for v in node)
         if (isinstance(node, torch.Tensor) and node.dtype == torch.float32
                 and node.ndim >= 1):
             return node.to(torch.bfloat16)
         return node
 
     return walk(packed)
+
+
+def build_serving_params_by_layer(cfg: ArchConfig, scfg: ServeConfig,
+                                  seed: int = 0, device=None) -> Any:
+    """``build_serving_params(api.init(seed), cfg, scfg)``, byte for byte,
+    without the whole float32 tree: each layer is initialised on
+    ``device`` in :func:`~repro_torch.models.lm.init_params`' order (the
+    table, the scanned layers, the dense layers, the head) from one seeded
+    generator, packed under its model path (``blocks`` or
+    ``dense_blocks/i``) and cast, and its float leaves are freed before
+    the next layer.  A float32 deepseek-v2-lite-16b (62.8 GB) and its
+    serving copy do not fit on one 80 GB card together.  A layer's routed
+    expert stacks, 3-D there and packable, are set aside float and stacked
+    into the model's 4-D bf16 leaves, which the model's plan leaves float.
+    The plan is resolved once on the ``meta`` tree; an ``auto`` rule,
+    which needs the whole model's values, is refused by it.  Transformer
+    archs only."""
+    from repro_torch import seeded_generator
+    from repro_torch.models import lm
+    from repro_torch.nn.layers import init_norm
+
+    dev = resolve_device(device)
+    plan = scfg.numerics_spec().resolve(lm.init_params(cfg, seed, "meta"))
+
+    def build(tree, prefix: str | None):
+        """Pack ``tree`` with the plan's entries under ``prefix`` (None:
+        the entries outside the layers)."""
+        if prefix is None:
+            entries = [e for e in plan.entries if not e.path.startswith(
+                ("blocks/", "dense_blocks/"))]
+        else:
+            entries = [e for e in plan.entries if e.path.startswith(prefix)]
+        return build_serving_params(
+            tree, cfg, scfg, device=dev,
+            plan=dataclasses.replace(plan, entries=tuple(entries)))
+
+    gen = seeded_generator(dev, seed)
+    d = cfg.d_model
+    table = torch.randn(cfg.vocab, d, generator=gen, device=dev) * 0.02
+    layers, experts = [], {}
+    for i in range(cfg.n_scan_layers):
+        bp = lm.init_block(cfg, gen, dev)
+        if "experts" in bp["mlp"]:
+            for name, leaf in bp["mlp"]["experts"].items():
+                if name not in experts:
+                    experts[name] = torch.empty(
+                        (cfg.n_scan_layers,) + tuple(leaf["w"].shape),
+                        dtype=torch.bfloat16, device=dev)
+                experts[name][i] = leaf["w"]
+            bp["mlp"]["experts"] = {}
+        layers.append(build({"blocks": bp}, "blocks/")["blocks"])
+        del bp
+    blocks = lm.stack_layers(layers)
+    del layers
+    if experts:
+        blocks["mlp"]["experts"] = {name: {"w": w}
+                                    for name, w in experts.items()}
+    out = {"embed": None, "blocks": blocks, "final_norm": None}
+    if cfg.first_dense_layers:
+        dense_cfg = dataclasses.replace(cfg, mlp="swiglu")
+        out["dense_blocks"] = []
+        for i in range(cfg.first_dense_layers):
+            tree = [{}] * i + [lm.init_block(dense_cfg, gen, dev)]
+            out["dense_blocks"].append(build(
+                {"dense_blocks": tree}, f"dense_blocks/{i}/")[
+                    "dense_blocks"][i])
+            del tree
+    top = {"embed": {"table": table},
+           "final_norm": init_norm(cfg.norm, d, dev)}
+    if not cfg.tie_embeddings:
+        top["lm_head"] = {"w": torch.randn(d, cfg.vocab, generator=gen,
+                                           device=dev) * d ** -0.5}
+    del table
+    out.update(build(top, None))
+    return out
+
+
+def _float_tree_fits(cfg: ArchConfig, dev: torch.device) -> bool:
+    """Whether the float32 init and its serving copy (at most 2 bytes a
+    parameter: bf16 leaves, 1-byte weight codes) fit in ``dev``'s free
+    memory together; always on the CPU."""
+    if dev.type != "cuda":
+        return True
+    return 6 * cfg.param_count() < torch.cuda.mem_get_info(dev)[0]
+
+
+def _packed_init(cfg: ArchConfig, api, spec: NumericsSpec,
+                 needs_float: list[str]) -> tuple[Any, Any]:
+    """``(float init, its serving params)`` under ``spec``; where the two
+    do not fit on the card together, the serving params alone, built a
+    layer at a time, and None for the float init (refused when one of
+    ``needs_float``, the flags that repack from it, was given)."""
+    scfg = ServeConfig(spec=spec)
+    if cfg.rwkv or _float_tree_fits(cfg, api.device):
+        params = api.init(0)
+        return params, build_serving_params(params, cfg, scfg,
+                                            device=api.device)
+    if needs_float:
+        raise SystemExit(
+            f"{', '.join(needs_float)} repack the float init of {cfg.name}, "
+            f"which does not fit on {api.device} beside its serving copy; "
+            "serve it without them")
+    print(f"{cfg.name}: the float init and its serving copy do not fit on "
+          f"{api.device} together; building the serving params a layer at "
+          "a time")
+    return None, build_serving_params_by_layer(cfg, scfg, device=api.device)
 
 
 def _spec_from_args(args) -> NumericsSpec | None:
@@ -246,14 +356,17 @@ def run_legacy(args, params: Any = None) -> dict:
     parameters."""
     cfg = get_config(args.arch)
     api = build_model(cfg, args.device)
-    if params is None:
-        params = api.init(0)
     spec = _spec_from_args(args)
     label = "float"
     if spec is not None:
-        params = build_serving_params(params, cfg, ServeConfig(spec=spec),
-                                      device=api.device)
+        if params is None:
+            params = _packed_init(cfg, api, spec, [])[1]
+        else:
+            params = build_serving_params(params, cfg, ServeConfig(spec=spec),
+                                          device=api.device)
         label = spec.name
+    elif params is None:
+        params = api.init(0)
     rng = np.random.default_rng(0)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab,
                                           (args.batch, args.prompt_len)),
@@ -447,19 +560,21 @@ def run_engine(args) -> dict:
                          "(--metrics-window > 0)")
     cfg = get_config(args.arch)
     api = build_model(cfg, args.device)
-    params_float = params = api.init(0)
     spec_k = args.speculative_k
-    draft = draft_label = spec = None
+    draft = draft_label = None
+    spec = None if spec_k else _spec_from_args(args)
+    label = "float" if spec is None else spec.name
+    if spec is not None:
+        needs_float = [flag for flag, on in (
+            ("--governor", args.governor),
+            ("--inject-faults", args.inject_faults),
+            ("--shadow-spec", args.shadow_spec)) if on]
+        params_float, params = _packed_init(cfg, api, spec, needs_float)
+    else:
+        params_float = params = api.init(0)
     if spec_k:
         params, label, draft, draft_label = _prepare_speculative_params(
             params, cfg, args, device=api.device)
-    else:
-        spec = _spec_from_args(args)
-        label = "float"
-        if spec is not None:
-            params = build_serving_params(params, cfg, ServeConfig(spec=spec),
-                                          device=api.device)
-            label = spec.name
     governor, pack_fn, injector, exact_params, probe_every = _robustness(
         args, cfg, params_float, spec, label, api.device)
     # -- A/B shadow serving (repro_torch.serving.shadow) ---------------------
@@ -951,6 +1066,11 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--gen", type=int, default=32,
                     help="--legacy tokens generated per row")
     args = ap.parse_args(argv)
+    if args.cache_dtype == "int8" and get_config(args.arch).attn == "mla":
+        raise SystemExit(
+            f"--cache-dtype int8 is refused on {args.arch}: the reference "
+            "writes MLA's RMS-normed latent with a raw int8 cast, which "
+            "zeroes most of it (ROADMAP queue 3); use bfloat16 or float32")
     if args.legacy:
         run_legacy(args)
     elif args.fleet:

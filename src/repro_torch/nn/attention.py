@@ -1,14 +1,23 @@
-"""GQA attention (port of the GQA half of ``repro.nn.attention``): config,
-RoPE / M-RoPE angles (or none), the Q/K/V projection (optional QKV bias
-and per-head qk-norm), the plain full-sequence attention ``_sdpa``
-(causal or bidirectional), the KV-cache storage casts
-(bf16, f32, or int8 fixed point) and the one-token decode step.  The
-slot attention lives in ``repro_torch.models.lm._gqa_slots``; the prefill
-attention on the card is the flash kernel
-(:mod:`repro_torch.kernels.flash_attention`).
+"""Attention (port of ``repro.nn.attention``).
 
-GQA cache: ``{"k": (B, Hkv, S, hd), "v": (B, Hkv, S, hd), "pos": int}``.
-:func:`attention_decode_step` writes it IN PLACE.
+  * GQA: config, RoPE / M-RoPE angles (or none), the Q/K/V projection
+    (optional QKV bias and per-head qk-norm), the plain full-sequence
+    attention ``_sdpa`` (causal or bidirectional), the KV-cache storage
+    casts (bf16, f32, or int8 fixed point) and the one-token decode step.
+    The prefill attention on the card is the flash kernel
+    (:mod:`repro_torch.kernels.flash_attention`).
+  * MLA, DeepSeek-V2's multi-head latent attention: the decompressed
+    prefill and the weight-absorbed decode over the latent cache.  Both
+    are plain PyTorch, as the reference's are plain jnp.
+
+The slot attention of both lives in ``repro_torch.models.lm``
+(``_gqa_slots``, ``_mla_slots``).  Caches:
+
+  GQA: ``{"k": (B, Hkv, S, hd), "v": (B, Hkv, S, hd), "pos": int}``
+  MLA: ``{"latent": (B, S, r), "rope": (B, S, dr), "pos": int}``
+
+:func:`attention_decode_step` and :func:`mla_decode_step` write them IN
+PLACE.
 """
 
 from __future__ import annotations
@@ -164,3 +173,164 @@ def attention_decode_step(p: dict, x: torch.Tensor, cache: dict,
                        _from_cache(cache["v"], q.dtype))
     y = dense(p["o"], ctx.reshape(b, 1, cfg.q_dim), name="o")
     return y, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# MLA: DeepSeek-V2 multi-head latent attention
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
+
+
+def init_mla(cfg: MLAConfig, *, generator, device=None) -> dict:
+    """q, the latent down-projection ``kv_a`` (latent | shared rope key)
+    with its norm, the up-projection ``kv_b`` (per-head nope key | value)
+    and o.  ``kv_a`` and ``kv_b`` stay float under the serving rules: the
+    absorbed decode reads ``kv_b``'s raw matrix."""
+    h = cfg.n_heads
+    shapes = (("q", cfg.d_model, h * cfg.qk_head_dim),
+              ("kv_a", cfg.d_model, cfg.kv_lora_rank + cfg.qk_rope_dim),
+              ("kv_b", cfg.kv_lora_rank,
+               h * (cfg.qk_nope_dim + cfg.v_head_dim)),
+              ("o", h * cfg.v_head_dim, cfg.d_model))
+    p = {name: init_dense(k, n, generator=generator, bias=False,
+                          device=device) for name, k, n in shapes}
+    p["kv_a_norm"] = init_rmsnorm(cfg.kv_lora_rank, device)
+    return p
+
+
+def _mla_q(p: dict, x: torch.Tensor, cfg: MLAConfig, positions):
+    """(q_nope (B, T, H, dn), q_rope (B, T, H, dr) rotated)."""
+    b, t, _ = x.shape
+    q = dense(p["q"], x, name="q").reshape(b, t, cfg.n_heads,
+                                           cfg.qk_head_dim)
+    q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    cos, sin = rope_angles(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def _mla_latent(p: dict, x: torch.Tensor, cfg: MLAConfig, positions):
+    """(latent (B, T, r) normed, k_rope (B, T, dr) rotated, shared by the
+    heads)."""
+    kv_a = dense(p["kv_a"], x, name="kv_a")
+    latent = rmsnorm(p["kv_a_norm"], kv_a[..., :cfg.kv_lora_rank])
+    k_rope = kv_a[..., cfg.kv_lora_rank:][:, :, None, :]
+    cos, sin = rope_angles(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    return latent, apply_rope(k_rope, cos, sin)[:, :, 0, :]
+
+
+def _mla_absorbed(p: dict, cfg: MLAConfig):
+    """``kv_b``'s matrix split per head: (W_UK (r, H, dn), W_UV (r, H,
+    dv))."""
+    w_b = p["kv_b"]["w"].reshape(cfg.kv_lora_rank, cfg.n_heads,
+                                 cfg.qk_nope_dim + cfg.v_head_dim)
+    return w_b[..., :cfg.qk_nope_dim], w_b[..., cfg.qk_nope_dim:]
+
+
+def _ein(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two-operand einsum in the promoted dtype (``jnp.einsum``'s rule: a
+    bf16 serving leaf meets float32 activations in float32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def mla_attend_latent(p: dict, q_nope, q_rope, lat, rope, mask,
+                      cfg: MLAConfig, dtype) -> torch.Tensor:
+    """Weight-absorbed attention in latent space: q~ = q_nope W_UK a head,
+    logits = q~ . latent + q_rope . k_rope, ctx = (probs . latent) W_UV.
+    q (B, Tq, H, .), lat (B, S, r), rope (B, S, dr), mask broadcastable to
+    (B, H, Tq, S).  Returns ctx (B, Tq, H * dv)."""
+    w_uk, w_uv = _mla_absorbed(p, cfg)
+    q_lat = _ein("bqhd,rhd->bqhr", q_nope, w_uk)
+    logits = (_ein("bqhr,bkr->bhqk", q_lat, lat)
+              + _ein("bqhd,bkd->bhqk", q_rope, rope)
+              ) * cfg.qk_head_dim ** -0.5
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(dtype)
+    ctx_lat = _ein("bhqk,bkr->bqhr", probs, lat)
+    ctx = _ein("bqhr,rhd->bqhd", ctx_lat, w_uv)
+    return ctx.reshape(ctx.shape[0], ctx.shape[1], -1)
+
+
+def mla_kv(p: dict, latent: torch.Tensor, cfg: MLAConfig):
+    """Decompressed per-head keys and values from the (B, T, r) latent:
+    (k_nope (B, T, H, dn), v (B, T, H, dv))."""
+    b, t, _ = latent.shape
+    kv = dense(p["kv_b"], latent, name="kv_b").reshape(
+        b, t, cfg.n_heads, cfg.qk_nope_dim + cfg.v_head_dim)
+    return kv[..., :cfg.qk_nope_dim], kv[..., cfg.qk_nope_dim:]
+
+
+def mla_attend_full(q_nope, q_rope, k_nope, k_rope, v, q_off: int,
+                    cfg: MLAConfig, dtype) -> torch.Tensor:
+    """Causal decompressed attention of the queries at positions q_off,
+    q_off + 1, ... over every key: ctx (B, Tq, H, dv)."""
+    t = k_nope.shape[1]
+    logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
+              + torch.einsum("bqhd,bkd->bhqk", q_rope, k_rope)
+              ) * cfg.qk_head_dim ** -0.5
+    q_pos = q_off + torch.arange(q_nope.shape[1], device=k_nope.device)
+    mask = torch.arange(t, device=k_nope.device)[None, :] <= q_pos[:, None]
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def mla_prefill(p: dict, x: torch.Tensor, cfg: MLAConfig,
+                positions=None) -> torch.Tensor:
+    """Decompressed path: per-head K/V materialized from the latent."""
+    b, t, _ = x.shape
+    if positions is None:
+        positions = torch.arange(t, device=x.device).expand(b, t)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    latent, k_rope = _mla_latent(p, x, cfg, positions)
+    k_nope, v = mla_kv(p, latent, cfg)
+    ctx = mla_attend_full(q_nope, q_rope, k_nope, k_rope, v, 0, cfg, x.dtype)
+    return dense(p["o"], ctx.reshape(b, t, -1), name="o")
+
+
+def init_mla_cache(cfg: MLAConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device=None) -> dict:
+    return {"latent": torch.zeros(batch, max_len, cfg.kv_lora_rank,
+                                  dtype=dtype, device=device),
+            "rope": torch.zeros(batch, max_len, cfg.qk_rope_dim, dtype=dtype,
+                                device=device),
+            "pos": 0}
+
+
+def mla_decode_step(p: dict, x: torch.Tensor, cache: dict,
+                    cfg: MLAConfig) -> tuple[torch.Tensor, dict]:
+    """One-token weight-absorbed decode, x (B, 1, D): attention runs in
+    latent space over the (B, S, r) cache.  Writes the token's latent and
+    rope key at ``cache["pos"]`` IN PLACE with the reference's raw cast
+    (no int8 fixed point: ROADMAP queue 3), returns (y, cache with pos +
+    1)."""
+    b = x.shape[0]
+    pos = int(cache["pos"])
+    s = cache["latent"].shape[1]
+    if pos >= s:
+        raise ValueError(f"decode write at {pos} past the cache capacity {s}")
+    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    latent_t, k_rope_t = _mla_latent(p, x, cfg, positions)
+    cache["latent"][:, pos] = latent_t[:, 0].to(cache["latent"].dtype)
+    cache["rope"][:, pos] = k_rope_t[:, 0].to(cache["rope"].dtype)
+    mask = torch.arange(s, device=x.device) < pos + 1
+    ctx = mla_attend_latent(p, q_nope, q_rope, cache["latent"].to(x.dtype),
+                            cache["rope"].to(x.dtype), mask, cfg, x.dtype)
+    y = dense(p["o"], ctx, name="o")
+    return y, {"latent": cache["latent"], "rope": cache["rope"],
+               "pos": pos + 1}

@@ -1,5 +1,6 @@
 """The port stands alone: no JAX and nothing of the reference package (every
-module, the serving layer's telemetry, prom, shadow and fleet included),
+module, the serving layer's telemetry, prom, shadow and fleet included, and
+the MLA/MoE archs with ``nn.moe`` and ``core.grouped_approx``),
 and its entry points run on the card unless the caller asks for the CPU."""
 
 import ast
@@ -54,8 +55,11 @@ def test_port_runs_with_jax_unimportable():
             params, torch.zeros(2, 4, dtype=torch.long), cache, [4, 2])
         assert logits.shape == (2, 4, cfg.vocab) and torch.isfinite(logits).all()
         assert cache["lengths"].tolist() == [4, 2]
+        import repro_torch.core.grouped_approx  # noqa: F401
         for arch in ("olmo-1b-reduced", "rwkv6-1.6b-reduced",
-                     "qwen3-4b-reduced", "deepseek-67b-reduced"):
+                     "qwen3-4b-reduced", "deepseek-67b-reduced",
+                     "deepseek-v2-lite-16b-reduced",
+                     "moonshot-v1-16b-a3b-reduced"):
             cfg = get_config(arch)
             api = build_model(cfg, "cpu")
             params = build_serving_params(api.init(0), cfg, ServeConfig(
