@@ -20,14 +20,18 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    hubert's head (N=504) on both tiles, deepseek-v2-lite-16b's and
    moonshot-v1-16b-a3b's new shapes (q N=3072, the shared experts'
    gate|up N=5632 and down K=2816, the dense layer's gate|up N=21888 and
-   down K=10944, the head N=102400) at M=4 and 128, equal to
+   down K=10944, the head N=102400) at M=4 and 128, hymba-1.5b's layers
+   (q|k|v 1600+320+320, in_proj N=6400, out_proj K=3200, gate|up, down,
+   the head N=32001, x_proj N=132, dt_proj K=100 with its bias) at M=4
+   and 128 and its new shapes at the prefill's M=8192, equal to
    the plain version on every matmul tile of the source, and every decode
    call twice bit-equal;
    the CNN suite's conv and head shapes (K = 16 ... 1152, N = 4 ... 128)
    in float32 at M = 4, 250, 16,000 and 256,000, every mode, CV on and off;
-   flash attention at the olmo-1b, qwen3-4b (GQA 32/8) and qwen2-vl-2b
-   (GQA 12/2) prefill shapes and hubert-xlarge's encoder (D=80,
-   non-causal), the JAX kernel tests' shapes in float32 and bfloat16 (GQA,
+   flash attention at the olmo-1b, qwen3-4b (GQA 32/8), qwen2-vl-2b
+   (GQA 12/2) and hymba-1.5b (GQA 25/5, D=64, window 1024 of T=2048)
+   prefill shapes and hubert-xlarge's encoder (D=80, non-causal), the JAX
+   kernel tests' shapes in float32 and bfloat16 (GQA,
    window, non-causal, Tq < Tk at D=64, 80 and 128) and ragged lengths
    (D=128 and 80), each row held to its own scale;
    the RWKV6 scan (out and final state, and two calls bit-equal) at the
@@ -47,10 +51,12 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    the contiguous and paged layouts and with a no-CV draft (tokens equal
    the `int8` engine's, kernel launches only in draft calls, the
    acceptance rate with and without the CV, one round profiled against an
-   `int8` thin step); qwen3-4b again with the int8 KV cache and
-   under the `int8` preset (plain exact-integer products, 8 layers),
-   full-width rwkv6-1.6b (24 layers, per-slot recurrent state) and
-   qwen2-vl-2b (28 layers, token prompts, M-RoPE ids equal).  Checks
+   `int8` thin step); qwen3-4b at 12 of its 36 layers (its lock-step
+   path below runs all 36), again with the int8 KV cache and under the
+   `int8` preset (plain exact-integer products, 8 layers), full-width
+   rwkv6-1.6b at 8 of its 24 layers (per-slot recurrent state; the
+   lock-step path runs all 24) and qwen2-vl-2b (28 layers, token prompts,
+   M-RoPE ids equal).  Checks
    completion, the kernel launch count the schedule implies, that each
    request's tokens equal a sequential decode of it on the same packs
    (rwkv6: the lock-step recurrent decode), that the packs hold their
@@ -100,7 +106,21 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    the flash and scan kernels swapped for their plain versions, and each
    layer's flash (scan) call against its plain version on the kernel
    path's own layer input (teacher-forced, so the gap cannot compound),
-   within the kernel's per-call tolerance; then hubert-xlarge's
+   within the kernel's per-call tolerance; then "hybrid": hymba-1.5b
+   the same way at full width and depth (32 layers, B=4, T=2048, so the
+   window of 1024 binds and the ring wraps), plus every flash call of a
+   prefill in window mode at GQA group 5, the fused calls at hymba's (M,
+   K, N), the kernel path's prefill logits bit-equal to the plain path's,
+   the loop again over an int8 ring cache (launches, the SSM state
+   float32, token agreement with bf16), and the SSM recurrence's share of
+   a prefill and a decode step; then "train" (`launch.train`): olmo-1b,
+   rwkv6-1.6b and hymba-1.5b at full width cut to 2 layers, float32, 2
+   steps on the card against the same steps on the host (losses rtol
+   1e-4, parameters atol 1e-4), then olmo-1b at full width and depth, 8
+   steps of B=4, T=512 on the synthetic stream (each step's loss, wall
+   ms, tokens/s, a profiled step's device ms, peak GiB; losses finite,
+   the last below the first; no inference kernel launched); then
+   hubert-xlarge's
    encoder (48 layers, `forward` over (4, 1024, 1280) frame embeddings:
    non-causal flash at D=80, the N=504 head on the prefill tile), with the
    same launch, determinism, plain-gap and teacher-forced checks;
@@ -137,10 +157,11 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    modelled power saving and Fig. 10 (`chiprun_out/paper.json`);
 7. kernel times at the paths' shapes (kernel, plain, library, bound),
    the approx-matmul also at the prefills' and the encoder's shapes and
-   at the decode shapes of qwen3-4b, rwkv6-1.6b (head too) and
-   qwen2-vl-2b, and (kernel only: no phase drives them) at the shapes of
-   hubert-xlarge's `--legacy` decode step and head, flash at the four prefill and encoder
-   shapes beside `scaled_dot_product_attention`.
+   at the decode shapes of qwen3-4b, rwkv6-1.6b (head too), qwen2-vl-2b
+   and hymba-1.5b (head too), and (kernel only: no phase drives them) at
+   the shapes of hubert-xlarge's `--legacy` decode step and head, flash at
+   the five prefill and encoder shapes beside
+   `scaled_dot_product_attention` (hymba's window as its boolean mask).
 
 Prints the card line and one `kernels` JSON line before the last line, and
 ends with `{"ok": true, "device": {...}}`.  Any failure exits non-zero.
@@ -240,6 +261,25 @@ DSV2_DENSE_KN = [(2048, 3072), (2048, 2048), (2048, 21888), (10944, 2048)]
 DSV2_DENSE_DECODE_KN = [(2048, 3072), (2048, 2048), (2048, 10944),
                         (2048, 10944), (10944, 2048)]
 DSV2_HEAD_KN = (2048, 102400)
+#: hymba-1.5b's packed layers under serve-default (x_proj and dt_proj stay
+#: float by the serving keep-float rules): fused q|k|v (q 1600, k 320, v
+#: 320 columns: GQA 25/5 at head dim 64), o, the SSM's in_proj (N = 6400)
+#: and out_proj (K = 3200), fused gate|up, down; decode steps run the
+#: members; the untied head (N = 32001, the first odd N), one call a step
+#: at M = B (the prefill's last token, then each decode step)
+HYMBA_QKV = (1600, 320, 320)
+HYMBA_KN = [(1600, 2240), (1600, 1600), (1600, 6400), (3200, 1600),
+            (1600, 11008), (5504, 1600)]
+HYMBA_DECODE_KN = [(1600, 1600), (1600, 320), (1600, 320), (1600, 1600),
+                   (1600, 6400), (3200, 1600), (1600, 5504), (1600, 5504),
+                   (5504, 1600)]
+HYMBA_HEAD_KN = (1600, 32001)
+#: the SSM's x_proj (N = dt_rank + 2 d_state = 132) and dt_proj (K =
+#: dt_rank = 100, with its bias), packed by a spec without the keep-float
+#: rules: kernel cases only
+HYMBA_SSM_FLOAT_KN = [(3200, 132), (100, 3200)]
+#: rows of the hymba lock-step prefill: B=4 x T=2048
+HYMBA_PREFILL_M = 8192
 #: decode-row cases (M, K, N) beyond the path shapes: one and DECODE_M_MAX
 #: rows at olmo-1b's shapes, rwkv6-1.6b's key and value projections and head,
 #: a ragged call (K off 16 bytes, N off the 32-column tile)
@@ -509,6 +549,22 @@ def check_kernels(torch, dev) -> dict:
                                  | {DSV2_HEAD_KN})]
     cases += [(4, k, (n,), both, False, False)
               for k, n in ((2048, 2816), (2048, 10944))]
+    # hymba-1.5b's: every packed layer at the thin and chunk rows, its new
+    # K and N (in_proj N = 6400, out_proj K = 3200) and q|k|v at the
+    # lock-step prefill's rows in bf16 as served, the decode members, the
+    # head (N = 32001: odd, off every column tile) at decode rows, and the
+    # SSM's x_proj (N = 132) and dt_proj (K = 100, biased), which
+    # serve-default keeps float
+    hymba_groups = {(1600, 2240): HYMBA_QKV, (1600, 11008): (5504, 5504)}
+    cases += [(mm, k, hymba_groups.get((k, n), (n,)), both, False,
+               (k, n) == (100, 3200))
+              for mm in (4, 128)
+              for k, n in HYMBA_KN + HYMBA_SSM_FLOAT_KN + [HYMBA_HEAD_KN]]
+    cases += [(HYMBA_PREFILL_M, k, hymba_groups.get((k, n), (n,)),
+               (torch.bfloat16,), False, False)
+              for k, n in ((1600, 2240), (1600, 6400), (3200, 1600))]
+    cases += [(4, k, (n,), both, False, False)
+              for k, n in sorted(set(HYMBA_DECODE_KN) - set(HYMBA_KN))]
     n_cases = n_twice = 0
     for mode, m in MODES:
         for mm, k, ws, dtypes, codes_in, bias in cases:
@@ -662,10 +718,14 @@ SCAN_RTOL = 1e-4
 #: window, non-causal and Tq < Tk cases in bfloat16 at D=64, 80 and 128
 #: (tensor-core route), a ragged T; qwen2-vl-2b's prefill (GQA group 6)
 #: and hubert-xlarge's encoder (D=80, non-causal) in both types, and a
-#: ragged T at D=80
+#: ragged T at D=80; hymba-1.5b's prefill (GQA group 5, window 1024) and
+#: group 5 with a window in float32 at a ragged T
 QWEN_FLASH = (4, 32, 8, 1024, 1024, 128, True, None, "bfloat16")
 QWEN2VL_FLASH = (4, 12, 2, 1024, 1024, 128, True, None, "bfloat16")
 HUBERT_FLASH = (4, 16, 16, 1024, 1024, 80, False, None, "bfloat16")
+#: hymba-1.5b's lock-step prefill: GQA group 5 at D=64 in window mode
+#: (window 1024 of a 2048-token prompt)
+HYMBA_FLASH = (4, 25, 5, 2048, 2048, 64, True, 1024, "bfloat16")
 FLASH_CASES = [
     (4, 16, 16, 1024, 1024, 128, True, None, "bfloat16"),
     QWEN_FLASH,
@@ -677,6 +737,7 @@ FLASH_CASES = [
     (4, 16, 16, 1000, 1000, 128, True, None, "bfloat16"),
     QWEN2VL_FLASH, QWEN2VL_FLASH[:-1] + ("float32",),
     HUBERT_FLASH, HUBERT_FLASH[:-1] + ("float32",),
+    HYMBA_FLASH, (2, 25, 5, 300, 300, 64, True, 128, "float32"),
     (4, 16, 16, 1000, 1000, 80, False, None, "bfloat16"),
     (4, 16, 16, 1000, 1000, 80, False, None, "float32"),
 ] + [case for d in (64, 80, 128) for case in (
@@ -837,7 +898,8 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
                     + [RWKV_HEAD_KN] + QWEN_DECODE_KN + QWEN_KN
                     + QWEN2VL_DECODE_KN + HUBERT_DECODE_KN
                     + [HUBERT_HEAD_KN] + DSV2_DECODE_KN
-                    + DSV2_DENSE_DECODE_KN + [DSV2_HEAD_KN]}
+                    + DSV2_DENSE_DECODE_KN + [DSV2_HEAD_KN]
+                    + HYMBA_DECODE_KN + [HYMBA_HEAD_KN]}
                    | {(128, k, n) for k, n in PATH_KN + QWEN_KN + QWEN2VL_KN
                       + DSV2_KN + DSV2_DENSE_KN + [DSV2_HEAD_KN]})
     prefill = sorted({(OLMO_PREFILL_M, k, n) for k, n in PREFILL_KN}
@@ -845,7 +907,8 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
                      | {(QWEN_PREFILL_M, k, n) for k, n in QWEN_KN}
                      | {(QWEN2VL_PREFILL_M, k, n) for k, n in QWEN2VL_KN}
                      | {(HUBERT_M, k, n)
-                        for k, n in HUBERT_KN + [HUBERT_HEAD_KN]})
+                        for k, n in HUBERT_KN + [HUBERT_HEAD_KN]}
+                     | {(HYMBA_PREFILL_M, k, n) for k, n in HYMBA_KN})
     plain_at = (OLMO_PREFILL_M, 2048, 2048)
     for mm, k, n in small + prefill:
         pack, a_qp, blocked = random_pack(torch, k, n, mode, m, gen, dev)
@@ -2395,14 +2458,18 @@ def warm_up(torch, api, params, ecfg) -> None:
 #: (``quantized_linear`` -> ``_int_matmul`` in float64), as the reference
 #: does at fan-ins above 258, and no kernel
 INT8_PRESET_LAYERS = 8
+#: depth of the qwen3-4b and rwkv6-1.6b engine phases, cut (widths are
+#: never cut) to pay for the hybrid and train phases; their lock-step
+#: paths still run at full depth (36 and 24 layers)
+QWEN3_ENGINE_LAYERS, RWKV_ENGINE_LAYERS = 12, 8
 
 
 def run_qwen3_engine(torch, dev) -> dict:
-    """Phase 4b: full-width qwen3-4b (36 layers) through the engine, with
-    the checks of the olmo-1b phase: ``serve-default`` packs on the approx
-    kernel with a bf16 KV cache; the same packs with the int8 KV cache;
-    the ``int8`` preset at INT8_PRESET_LAYERS layers.  Returns the launches
-    of each run."""
+    """Phase 4b: full-width qwen3-4b at QWEN3_ENGINE_LAYERS of its 36
+    layers through the engine, with the checks of the olmo-1b phase:
+    ``serve-default`` packs on the approx kernel with a bf16 KV cache; the
+    same packs with the int8 KV cache; the ``int8`` preset at
+    INT8_PRESET_LAYERS layers.  Returns the launches of each run."""
     import dataclasses
 
     from repro_torch.configs import EngineConfig, get_config
@@ -2412,7 +2479,8 @@ def run_qwen3_engine(torch, dev) -> dict:
     from repro_torch.models import build_model
     from repro_torch.numerics import get_preset
 
-    cfg = get_config("qwen3-4b")
+    cfg = dataclasses.replace(get_config("qwen3-4b"),
+                              n_layers=QWEN3_ENGINE_LAYERS)
     print(f"qwen3: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
           f"heads={cfg.n_heads} kv={cfg.kv_heads} head_dim={cfg.head_dim} "
           f"q_dim={cfg.n_heads * cfg.head_dim} d_ff={cfg.d_ff} "
@@ -2515,14 +2583,19 @@ def _slice_layers(tree, n: int):
     return tree[:n]
 
 
-def build_packed(torch, dev, arch: str):
+def build_packed(torch, dev, arch: str, n_layers: int | None = None):
     """(cfg, api, serve-default packs on the approx kernel) of one arch at
-    full width and depth, from the seeded init (freed once packed)."""
+    full width and depth (or ``n_layers``), from the seeded init (freed
+    once packed)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import ServeConfig, build_serving_params
     from repro_torch.models import build_model
 
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     api = build_model(cfg, dev)
     params = api.init(0)
     packed = build_serving_params(params, cfg, ServeConfig(spec=pallas_spec()),
@@ -2534,7 +2607,8 @@ def build_packed(torch, dev, arch: str):
 
 
 def run_rwkv_engine(torch, dev) -> dict:
-    """Phase 4c: full-width rwkv6-1.6b (24 layers) through the engine on
+    """Phase 4c: full-width rwkv6-1.6b at RWKV_ENGINE_LAYERS of its 24
+    layers through the engine on
     ``serve-default`` packs: the per-slot recurrent state, each chunk as
     single-token steps (no scan), the approx kernel at decode rows only;
     engine tokens equal the lock-step path's greedy tokens (its
@@ -2545,7 +2619,8 @@ def run_rwkv_engine(torch, dev) -> dict:
     from repro_torch.core.approx_linear import iter_tensors
     from repro_torch.launch.serve import mixed_trace
 
-    cfg, api, packed = build_packed(torch, dev, "rwkv6-1.6b")
+    cfg, api, packed = build_packed(torch, dev, "rwkv6-1.6b",
+                                    RWKV_ENGINE_LAYERS)
     spec = pallas_spec()
     check_packs("rwkv6", packed)
     ecfg = EngineConfig(slots=4, max_len=256, prefill_chunk=32,
@@ -2715,9 +2790,15 @@ BATCH, GEN = 4, 32
 #: at decode, packed head calls per step).  olmo-1b runs its fused q|k|v
 #: and gate|up groups at prefill rows and their members at decode rows
 #: (M = 4 <= DECODE_M_MAX) and has a tied float head, as has qwen3-4b;
-#: rwkv6 has no fusable group and a packed head.
+#: rwkv6 has no fusable group and a packed head; hymba-1.5b (its own
+#: "hybrid" phase, at full depth: 32 layers) runs q|k|v, o, the SSM's
+#: in_proj and out_proj, gate|up and down at prefill rows, the members and
+#: the rest at decode rows (x_proj and dt_proj stay float), and a packed
+#: head.  Every path runs at full depth.
 LEGACY = {"olmo-1b": (1024, 4, 7, 0), "rwkv6-1.6b": (512, 8, 8, 1),
-          "qwen3-4b": (1024, 4, 7, 0), "qwen2-vl-2b": (1024, 4, 7, 0)}
+          "qwen3-4b": (1024, 4, 7, 0), "qwen2-vl-2b": (1024, 4, 7, 0),
+          "hymba-1.5b": (2048, 6, 9, 1)}
+HYMBA = "hymba-1.5b"
 
 
 def wrappers() -> dict:
@@ -2788,7 +2869,8 @@ def check_prefill(torch, label: str, logits, shape: tuple, mod, plain=None):
 
 def run_legacy_path(torch, dev, arch: str) -> dict:
     """Phase 5: one arch through ``launch.serve.run_legacy`` at full width
-    and depth: B=4, the arch's prompt length, 32 greedy tokens."""
+    and depth: B=4, the arch's prompt length, 32 greedy tokens.  A hybrid
+    arch adds :func:`hybrid_checks`."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2810,11 +2892,12 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
     spec_path.parent.mkdir(exist_ok=True)
     spec_path.write_text(spec.to_json())
 
-    def args(gen):
+    def args(gen, cache_dtype="bfloat16"):
         return argparse.Namespace(
             arch=arch, batch=BATCH, prompt_len=prompt_len, gen=gen,
             mode="perforated", m=2, no_cv=False, preset=None,
-            spec_json=str(spec_path), device=dev.type)
+            spec_json=str(spec_path), device=dev.type,
+            cache_dtype=cache_dtype)
 
     api = build_model(cfg, dev)
     params = api.init(0)
@@ -2828,7 +2911,8 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
         torch, label, lambda: serve.run_legacy(args(GEN), params=params),
         expected, f"the schedule (one prefill, {GEN - 1} decode steps)")
     packed = res["params"]
-    del params
+    if not cfg.parallel_ssm:  # the hybrid's int8-cache run repacks them
+        del params
     check_packs(label, packed)
     toks = res["tokens"]
     if toks.shape != (BATCH, GEN) or not bool(
@@ -2848,9 +2932,11 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
             first.append(a)
         return rsk.rwkv6_scan_plain(*a, **kw)
 
+    t0 = time.perf_counter()
     checked, _ = check_prefill(torch, label, last_logits, (BATCH, cfg.vocab),
                                rsk if cfg.rwkv else fak,
                                scan_plain if cfg.rwkv else None)
+    t_checks = time.perf_counter() - t0
     flips = None
     if first:  # where the gap starts: the model casts the WKV output to bf16
         o_k, o_p = rsk.rwkv6_scan(*first[0])[0], rsk.rwkv6_scan_plain(
@@ -2866,14 +2952,19 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
     cache = api.prefill(packed, {"tokens": prompt}, prompt_len + GEN)[1]
     tok = torch.zeros(BATCH, 1, dtype=torch.long, device=dev)
     breakdown = {
-        "prefill": profile_fn(torch, f"{label}: profile prefill",
-                              last_logits, f"host_profile_{arch}_prefill.txt"),
+        "prefill": (hybrid_prefill_profile(torch, label, api, last_logits)
+                    if cfg.parallel_ssm else
+                    profile_fn(torch, f"{label}: profile prefill",
+                               last_logits,
+                               f"host_profile_{arch}_prefill.txt")),
         # one decode step after the prompt; the ten profiled steps stay
         # inside the cache's GEN free positions
         "decode": profile_fn(torch, f"{label}: profile decode step",
                              lambda: api.decode_step(packed, tok, cache),
                              f"host_profile_{arch}_decode.txt")}
     check_one_launch(f"{label}: decode step", breakdown["decode"])
+    print(f"{label}: prefill checks {t_checks:.1f} s, profiles "
+          f"{time.perf_counter() - t0 - t_checks:.1f} s", flush=True)
     line = {"arch": arch, "layers": cfg.n_layers, "batch": BATCH,
             "prompt_len": prompt_len, "gen": GEN,
             "prefill_ms": res["prefill_s"] * 1e3,
@@ -2883,6 +2974,11 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
             "tok_per_s": res["tok_per_s"], "peak_mem_gib": peak / 2**30,
             **checked, "scan_bf16_flips_layer0": flips,
             "launches": launches, "step_breakdown": breakdown}
+    if cfg.parallel_ssm:
+        line.update(hybrid_checks(torch, label, api, packed, prompt, res,
+                                  lambda: serve.run_legacy(
+                                      args(GEN, "int8"), params=params),
+                                  expected, breakdown))
     print(f"{label}: prefill_ms {line['prefill_ms']:.2f}; decode_ms_per_token "
           f"{line['decode_ms_per_token']:.2f} (one token per sequence per "
           f"step, {BATCH} sequences); tok_per_s {line['tok_per_s']:.1f}; "
@@ -2891,6 +2987,352 @@ def run_legacy_path(torch, dev, arch: str) -> dict:
           f"{line['k_major_gib']:.3f} GiB of it)", flush=True)
     write_line(label, f"legacy_{arch}.json", line)
     return line
+
+
+def hybrid_prefill_profile(torch, label: str, api, last_logits) -> dict:
+    """hymba's prefill profiled in two parts, because its SSM scan makes
+    ~10^5 operations (one ``addcmul`` a time step and layer) and tracing
+    them costs the profiler over a minute of host time: the prefill with
+    ``nn.ssm._scan`` replaced by a stand-in that returns zeros of its
+    output's shape (``profile_fn``: every other kernel, and the stand-in's
+    zero fill), and one layer's scan at the prefill's shapes (``profile_fn``
+    on random inputs: its elementwise kernels do the same work whatever the
+    values), scaled by the depth.  Device ms is their sum; wall ms is the
+    median of 3 real prefills, and the scan's wall what they take beyond
+    the stand-in's.  Returns ``profile_fn``'s keys for the prefill and the
+    scan's share (``ssm_scan``)."""
+    from repro_torch.nn import ssm as ssm_lib
+
+    cfg = api.cfg
+    scfg = cfg.ssm_config()
+    b, t, dev = BATCH, LEGACY[HYMBA][0], api.device
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        last_logits()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall_ms = statistics.median(walls) * 1e3
+    real = ssm_lib._scan
+
+    def stand_in(h, a, xc, *rest):
+        return torch.zeros(xc.shape, dtype=torch.float32, device=dev), h
+
+    ssm_lib._scan = stand_in
+    try:
+        rest = profile_fn(torch, f"{label}: profile prefill, the SSM scan "
+                          "replaced by zeros", last_logits,
+                          "host_profile_hymba-1.5b_prefill.txt")
+    finally:
+        ssm_lib._scan = real
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    xc = rnd(b, t, scfg.d_inner)
+    dt = torch.nn.functional.softplus(rnd(b, t, scfg.d_inner))
+    bm, cm = rnd(b, t, scfg.d_state), rnd(b, t, scfg.d_state)
+    h0 = torch.zeros(b, scfg.d_inner, scfg.d_state, device=dev)
+    a = -torch.arange(1, scfg.d_state + 1, device=dev, dtype=torch.float32
+                      ).repeat(scfg.d_inner, 1)
+    scan = profile_fn(torch, f"{label}: profile one layer's SSM scan "
+                      f"(B={b}, T={t})",
+                      lambda: ssm_lib._scan(h0, a, xc, dt, bm, cm),
+                      "host_profile_hymba_ssm_scan.txt")
+    n = cfg.n_layers
+    device_ms = rest["device_ms"] + n * scan["device_ms"]
+    top = dict(rest["top_device_us"])
+    for name, us in scan["top_device_us"].items():
+        top[name] = top.get(name, 0.0) + n * us
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "device_idle_share": 1 - device_ms / wall_ms,
+           "top_device_us": dict(sorted(top.items(), key=lambda kv: kv[1],
+                                        reverse=True)[:6]),
+           "fused_calls": rest["fused_calls"],
+           "approx_launches": rest["approx_launches"],
+           # the scan's wall: what the prefill takes beyond the stand-in's
+           # (one layer's scan timed alone overstates it: a call's own
+           # synchronisation and host start-up)
+           "ssm_scan": {"one_layer": scan,
+                        "ssm_wall_ms": wall_ms - rest["wall_ms"],
+                        "ssm_device_ms": n * scan["device_ms"],
+                        "wall_share": 1 - rest["wall_ms"] / wall_ms,
+                        "device_share": n * scan["device_ms"] / device_ms}}
+    print(f"{label}: profile prefill (the two parts): " + json.dumps(
+        {k: v for k, v in out.items() if k != "ssm_scan"}), flush=True)
+    return out
+
+
+def hybrid_checks(torch, label: str, api, packed, prompt, res, run_int8,
+                  expected: dict, breakdown: dict) -> dict:
+    """The "hybrid" phase's checks beyond the lock-step path's, on its
+    packs: every flash call of a prefill is in window mode at GQA group 5
+    (the spy sees the kernel's arguments), the fused approx calls of a
+    prefill and a decode step are at hymba's (M, K, N) and as many as the
+    layers imply, the kernel path's logits bit-equal to the plain path's
+    with the approx wrapper swapped, the same loop over an int8 ring cache
+    (the launch counts, the ring int8 and the SSM state float32; the
+    tokens' agreement with the bf16 cache's and the first decode step's
+    logit gap, printed), and the SSM's share of a prefill (from
+    :func:`hybrid_prefill_profile`) and of a decode step (one layer's
+    ``ssm_decode_step`` profiled and scaled by the depth)."""
+    from collections import Counter
+
+    from repro_torch.core.approx_linear import layer_params
+    from repro_torch.kernels import approx_matmul as amk
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.nn import ssm as ssm_lib
+
+    cfg = api.cfg
+    b, t = prompt.shape
+    max_len = t + GEN
+    flash_calls, fused = [], Counter()
+    real_fa, real_am = fak.flash_attention, amk.approx_matmul_cv_fused
+
+    def fa_spy(q, k, v, **kw):
+        flash_calls.append((tuple(q.shape), tuple(k.shape), kw.get("causal"),
+                            kw.get("window")))
+        return real_fa(q, k, v, **kw)
+
+    def am_spy(x, *a, **kw):
+        fused[(x.shape[0], kw["k"], kw["n"])] += 1
+        return real_am(x, *a, **kw)
+
+    t0 = time.perf_counter()
+    fa_spy.launches = am_spy.launches = 0
+    fak.flash_attention, amk.approx_matmul_cv_fused = fa_spy, am_spy
+    tok = res["tokens"][:, :1]
+    try:
+        lk, cache = api.prefill(packed, {"tokens": prompt}, max_len)
+        dl16 = api.decode_step(packed, tok, cache)[0]
+    finally:
+        fak.flash_attention, amk.approx_matmul_cv_fused = real_fa, real_am
+    del cache
+    want_fa = ((b, cfg.n_heads, t, cfg.head_dim),
+               (b, cfg.kv_heads, t, cfg.head_dim), True, cfg.window)
+    if flash_calls != [want_fa] * cfg.n_layers:
+        fail(f"{label}: flash calls {sorted(set(flash_calls))} x "
+             f"{len(flash_calls)}, want {want_fa} x {cfg.n_layers}")
+    want_am = Counter()
+    for k, n in HYMBA_KN:
+        want_am[(b * t, k, n)] += cfg.n_layers
+    for k, n in HYMBA_DECODE_KN:
+        want_am[(b, k, n)] += cfg.n_layers
+    want_am[(b,) + HYMBA_HEAD_KN] += 2
+    if fused != want_am:
+        fail(f"{label}: fused calls {dict(fused)}, want {dict(want_am)}")
+    print(f"{label}: a prefill's {len(flash_calls)} flash calls all at q "
+          f"{want_fa[0]} k/v {want_fa[1]} causal, window {cfg.window} (GQA "
+          f"group {cfg.n_heads // cfg.kv_heads}); a prefill and a decode "
+          f"step made the fused calls (M, K, N): "
+          + json.dumps({str(key): c for key, c in sorted(fused.items())}),
+          flush=True)
+
+    swaps = [(amk, "approx_matmul_cv_fused", amk.approx_matmul_cv_fused_plain)]
+    with plain_swapped(label, swaps):
+        lp = api.prefill(packed, {"tokens": prompt}, max_len)[0]
+    torch.cuda.synchronize()
+    if not torch.equal(lk, lp):
+        fail(f"{label}: the approx kernel path's prefill logits differ from "
+             f"the plain path's by {float((lk - lp).abs().max())}")
+    print(f"{label}: prefill logits through the approx kernel equal the "
+          "plain path's (flash on the kernel in both); spies and the plain "
+          f"prefill {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+
+    res8, _, launches8, peak8 = counted_run(
+        torch, f"{label} int8-cache", run_int8, expected,
+        f"the schedule (one prefill, {GEN - 1} decode steps)")
+    c8 = api.prefill(packed, {"tokens": prompt}, max_len,
+                     cache_dtype=torch.int8)[1]
+    dtypes = {k: str(v.dtype) for k, v in c8.items() if k != "pos"}
+    if dtypes != {"k": "torch.int8", "v": "torch.int8",
+                  "ssm_conv": "torch.float32", "ssm_h": "torch.float32"} \
+            or c8["k"].shape[-2] != cfg.window:
+        fail(f"{label}: int8 cache leaves {dtypes}, ring "
+             f"{c8['k'].shape[-2]}")
+    # a different numeric from the bf16 cache (steps of 1/16 on the ring's
+    # keys and values): the agreement and the first decode step's logit
+    # gap are reported, not asserted
+    agree = float((res8["tokens"] == res["tokens"]).float().mean())
+    dl8 = api.decode_step(packed, tok, c8)[0]
+    gap = float((dl8 - dl16).abs().max())
+    ring_gib = sum(c8[k].numel() * c8[k].element_size()
+                   for k in ("k", "v")) / 2**30
+    ssm_gib = sum(c8[k].numel() * 4 for k in ("ssm_conv", "ssm_h")) / 2**30
+    print(f"{label} int8-cache: ring leaves int8 ({ring_gib:.4f} GiB, "
+          f"{cfg.window} positions a layer), SSM state float32 "
+          f"({ssm_gib:.4f} GiB); {agree:.3f} of the generated tokens equal "
+          f"the bf16 cache run's; the first decode step's logits differ by "
+          f"at most {gap:.4g} (logit scale {float(dl16.abs().max()):.4g}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del c8, res8
+    t0 = time.perf_counter()
+
+    # the SSM decode step alone (one layer's, at the model's shapes) scaled
+    # by the depth, against the whole decode step; the prefill's share is
+    # part of its profile (hybrid_prefill_profile)
+    scfg = cfg.ssm_config()
+    bp = layer_params(packed["blocks"], 0)["ssm"]
+    state = ssm_lib.init_ssm_state(scfg, b, device=api.device)
+    x1 = torch.randn(b, 1, cfg.d_model, device=api.device).to(torch.bfloat16)
+    step = profile_fn(torch, f"{label}: profile one layer's ssm_decode_step",
+                      lambda: ssm_lib.ssm_decode_step(bp, x1, state, scfg),
+                      "host_profile_hymba_ssm_decode.txt")
+    pre, dec = breakdown["prefill"], breakdown["decode"]
+    share = {"prefill": {k: pre["ssm_scan"][k] for k in (
+                 "ssm_wall_ms", "ssm_device_ms", "wall_share",
+                 "device_share")},
+             "decode": {"ssm_wall_ms": step["wall_ms"] * cfg.n_layers,
+                        "ssm_device_ms": step["device_ms"] * cfg.n_layers,
+                        "wall_share": (step["wall_ms"] * cfg.n_layers
+                                       / dec["wall_ms"]),
+                        "device_share": (step["device_ms"] * cfg.n_layers
+                                         / dec["device_ms"])}}
+    print(f"{label}: the SSM (prefill: the scan; decode: the whole "
+          f"ssm_decode_step) scaled by {cfg.n_layers} layers against the "
+          f"step: " + json.dumps(share)
+          + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"flash_calls_window": len(flash_calls), "fused_calls_by_shape":
+            {str(key): c for key, c in sorted(fused.items())},
+            "int8_cache": {"launches": launches8, "peak_mem_gib":
+                           peak8 / 2**30, "token_agreement_with_bf16": agree,
+                           "first_decode_logit_gap": gap,
+                           "ring_gib": ring_gib, "ssm_state_gib": ssm_gib},
+            "ssm_share": share}
+
+
+#: the "train" phase.  Card against host: each arch at full width cut to
+#: TRAIN_CHECK_LAYERS layers, float32 compute (TF32 off), the same initial
+#: weights and batches, TRAIN_CHECK_STEPS steps of make_train_step (lr
+#: 1e-3, no warm-up, AdamW eps 1e-4, so that float32 noise in a
+#: near-zero gradient element cannot flip its normalised step): every loss
+#: within TRAIN_LOSS_RTOL and every parameter within TRAIN_PARAM_ATOL (a
+#: tenth of one step at lr 1e-3) of the host's
+TRAIN_CHECK_ARCHS = ("olmo-1b", "rwkv6-1.6b", "hymba-1.5b")
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_STEPS = 2, 2
+TRAIN_CHECK_B, TRAIN_CHECK_T = 2, 64
+TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 1e-4, 1e-4
+#: then olmo-1b at full width and depth as configured (bf16 compute, remat
+#: "full"): TRAIN_STEPS steps of B x T on the synthetic stream
+TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "olmo-1b", 4, 512, 8
+
+
+def run_train_phase(torch, dev) -> dict:
+    """The training step on the card (``launch.train``): card steps against
+    host steps on three archs, then a full-size olmo-1b run: each step's
+    loss, wall and device ms, tokens/s, peak GiB; the losses finite and the
+    last below the first.  Training reaches neither inference kernel (the
+    wrappers' counts stay 0)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLMConfig, lm_batch
+    from repro_torch.launch.train import (TrainConfig, init_train_state,
+                                          make_train_step)
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    out = {"card_vs_host": {}}
+    tcfg = TrainConfig(optimizer=AdamWConfig(eps=1e-4), base_lr=1e-3,
+                       warmup_steps=0, total_steps=100)
+    for arch in TRAIN_CHECK_ARCHS:
+        cfg = dataclasses.replace(get_config(arch),
+                                  n_layers=TRAIN_CHECK_LAYERS,
+                                  compute_dtype="float32")
+        host = build_model(cfg, "cpu").init(0)
+        states = {"cpu": init_train_state(cfg, tcfg, device="cpu",
+                                          params=host),
+                  "cuda": init_train_state(cfg, tcfg, device=dev, params=(
+                      tree_map(lambda _, a: a.to(dev), host)))}
+        steps = {d: make_train_step(cfg, tcfg, device=d if d == "cpu"
+                                    else dev) for d in states}
+        dcfg = SyntheticLMConfig(vocab=cfg.vocab, seq_len=TRAIN_CHECK_T,
+                                 batch=TRAIN_CHECK_B)
+        losses = {d: [] for d in states}
+        t0 = time.perf_counter()
+        for i in range(TRAIN_CHECK_STEPS):
+            batch = lm_batch(dcfg, i)
+            for d in states:
+                states[d], m = steps[d](states[d], batch)
+                losses[d].append(float(m["loss"]))
+        worst = max(float((a.to("cpu") - b_).abs().max()) for a, b_ in zip(
+            tree_leaves(states["cuda"]["params"]),
+            tree_leaves(states["cpu"]["params"])))
+        rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(losses["cuda"],
+                                                          losses["cpu"]))
+        print(f"train: {arch} full width, {TRAIN_CHECK_LAYERS} layers, "
+              f"float32, B={TRAIN_CHECK_B} T={TRAIN_CHECK_T}: card losses "
+              f"{losses['cuda']} host {losses['cpu']} (max rel diff "
+              f"{rel:.3g}, rtol {TRAIN_LOSS_RTOL}); parameters after "
+              f"{TRAIN_CHECK_STEPS} steps max abs diff {worst:.3g} (atol "
+              f"{TRAIN_PARAM_ATOL}); {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if not (rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_PARAM_ATOL):
+            fail(f"train: {arch}: the card's steps leave the host's")
+        out["card_vs_host"][arch] = {"losses_card": losses["cuda"],
+                                     "losses_host": losses["cpu"],
+                                     "loss_rel_diff": rel,
+                                     "param_max_abs_diff": worst}
+        del states, steps, host
+
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(base_lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, tcfg, device=dev)
+    step = make_train_step(cfg, tcfg, device=dev)
+    dcfg = SyntheticLMConfig(vocab=cfg.vocab, seq_len=TRAIN_T, batch=TRAIN_B)
+    print(f"train: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"params={cfg.param_count() / 1e9:.3f} B, compute "
+          f"{cfg.compute_dtype}, remat {cfg.remat}; B={TRAIN_B} "
+          f"T={TRAIN_T}, {TRAIN_STEPS} steps", flush=True)
+    wr = wrappers()
+    for w in wr.values():
+        w.launches = 0
+    rows = []
+    for i in range(TRAIN_STEPS):
+        batch = lm_batch(dcfg, i)
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        state, m = step(state, batch)
+        ev1.record()
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows.append({"step": i, "loss": loss, "lr": float(m["lr"]),
+                     "wall_ms": wall * 1e3,
+                     "gpu_elapsed_ms": ev0.elapsed_time(ev1),
+                     "tok_per_s": TRAIN_B * TRAIN_T / wall})
+        print("train step " + json.dumps(rows[-1]), flush=True)
+    launches = {n: w.launches for n, w in wr.items()}
+    if any(launches.values()):
+        fail(f"train: the training step launched inference kernels "
+             f"{launches}")
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"train: losses {losses}: not finite, or the last not below "
+             "the first")
+    batch = lm_batch(dcfg, TRAIN_STEPS)
+    prof = profile_fn(torch, f"train: profile one {cfg.name} step",
+                      lambda: step(state, batch), "host_profile_train.txt")
+    out.update({"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_B,
+                "seq": TRAIN_T, "steps": rows,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "step_profile": prof})
+    print(f"train: {cfg.name} losses {[round(x, 4) for x in losses]}; "
+          f"median step {statistics.median(r['wall_ms'] for r in rows[1:]):.1f}"
+          f" wall ms, {prof['device_ms']:.1f} device ms; "
+          f"{statistics.median(r['tok_per_s'] for r in rows[1:]):.0f} "
+          f"tokens/s; peak {out['peak_mem_gib']:.2f} GiB", flush=True)
+    write_line("train", "train.json", out)
+    del state, step
+    torch.cuda.empty_cache()
+    return {w: 0 for w in wr}
 
 
 def run_qwen2vl_engine(torch, dev) -> dict:
@@ -4067,7 +4509,8 @@ def run_paper(torch, dev) -> dict:
 
 def attn_scan_times(torch, dev, card: str) -> dict:
     """Phase 7, second half: flash attention at the prefill shapes of
-    olmo-1b, qwen3-4b and qwen2-vl-2b and of hubert-xlarge's encoder, and
+    olmo-1b, qwen3-4b, qwen2-vl-2b and hymba-1.5b (window 1024) and of
+    hubert-xlarge's encoder, and
     the scan at the rwkv6-1.6b prefill shape (kernel, plain, library,
     bound)."""
     from repro_torch.kernels import flash_attention as fak
@@ -4079,25 +4522,36 @@ def attn_scan_times(torch, dev, card: str) -> dict:
 
     bf = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for key, (b, hq, hkv, t, _, d, causal, *_) in (
+    for key, (b, hq, hkv, t, _, d, causal, window, _) in (
             ("flash_attention", FLASH_CASES[0]),
             ("flash_attention qwen3-4b", QWEN_FLASH),
             ("flash_attention qwen2-vl-2b", QWEN2VL_FLASH),
-            ("flash_attention hubert-xlarge", HUBERT_FLASH)):
+            ("flash_attention hubert-xlarge", HUBERT_FLASH),
+            ("flash_attention hymba-1.5b", HYMBA_FLASH)):
         # 28-80 MB of q, k, v per call: three copies exceed the 50 MB L2
         qkv = [tuple(torch.randn(b, h, t, d, generator=gen, device=dev).to(bf)
                      for h in (hq, hkv, hkv)) for _ in range(3)]
-        # QK and PV over the visible (query, key) pairs
-        pairs = t * (t + 1) / 2 if causal else t * t
+        # QK and PV over the visible (query, key) pairs: causal, or a
+        # window of W keys (query i sees min(i + 1, W))
+        if window is not None:
+            pairs = window * (window + 1) / 2 + (t - window) * window
+        else:
+            pairs = t * (t + 1) / 2 if causal else t * t
         flops = 4.0 * b * hq * d * pairs
         # q and out, k and v
         nbytes = 2.0 * (2 * b * hq * t * d + 2 * b * hkv * t * d)
         # SDPA's own GQA (enable_gqa), or, in a PyTorch without it, KV heads
-        # repeated beforehand (the yardstick then reads the copies)
+        # repeated beforehand (the yardstick then reads the copies); a
+        # window is SDPA's boolean mask (SDPA has no window argument)
+        mask = {"is_causal": causal}
+        if window is not None:
+            i = torch.arange(t, device=dev)
+            mask = {"attn_mask": (i[None, :] <= i[:, None])
+                    & (i[None, :] > i[:, None] - window)}
         lib, gqa = qkv, {"enable_gqa": True}
         if hq != hkv:
             try:
-                sdpa(*qkv[0], is_causal=causal, **gqa)
+                sdpa(*qkv[0], **mask, **gqa)
             except TypeError:
                 reps, gqa = hq // hkv, {}
                 lib = [(q, k.repeat_interleave(reps, 1),
@@ -4107,17 +4561,21 @@ def attn_scan_times(torch, dev, card: str) -> dict:
         t_ops, t_bytes = flops / bf16_peak, nbytes / bw
         rows[key] = {
             "shape": [b, hq, hkv, t, d], "dtype": "bfloat16", "causal": causal,
+            "window": window,
             "kernel_us": time_calls(torch, [
-                lambda a=a: fak.flash_attention(*a, causal=causal)
+                lambda a=a: fak.flash_attention(*a, causal=causal,
+                                                window=window)
                 for a in qkv]) * 1e6,
             "plain_us": time_calls(torch, [
-                lambda a=a: fak.flash_attention_plain(*a, causal=causal)
+                lambda a=a: fak.flash_attention_plain(*a, causal=causal,
+                                                      window=window)
                 for a in qkv[:2]], reps=5) * 1e6,
             "library_us": time_calls(torch, [
-                lambda a=a: sdpa(*a, is_causal=causal, **gqa)
+                lambda a=a: sdpa(*a, **mask, **gqa)
                 for a in lib]) * 1e6,
             "library": ("scaled_dot_product_attention"
-                        + (" enable_gqa" if gqa else "")),
+                        + (" enable_gqa" if gqa else "")
+                        + (" attn_mask" if window is not None else "")),
             "bound_us": max(t_ops, t_bytes) * 1e6,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         print("time " + json.dumps(rows[key]), flush=True)
@@ -4254,11 +4712,22 @@ def main() -> int:
     paths.update(run_moe_phase(torch, dev))
     lap("moe")
     for arch in LEGACY:
+        if arch == HYMBA:
+            continue
         line = run_legacy_path(torch, dev, arch)
         paths[f"legacy {arch}"] = line["launches"]
         per_layer[arch] = max(line["per_layer_max_abs_err"])
         torch.cuda.empty_cache()
     lap("lock-step")
+    line = run_legacy_path(torch, dev, HYMBA)
+    paths[f"legacy {HYMBA}"] = line["launches"]
+    paths[f"legacy {HYMBA} int8-cache"] = line["int8_cache"]["launches"]
+    per_layer[HYMBA] = max(line["per_layer_max_abs_err"])
+    del line
+    torch.cuda.empty_cache()
+    lap("hybrid")
+    paths["train"] = run_train_phase(torch, dev)
+    lap("train")
     res = run_hubert_encoder(torch, dev)
     lap("hubert-xlarge encoder")
     paths["encoder hubert-xlarge"] = res["launches"]
@@ -4333,7 +4802,11 @@ def main() -> int:
                  HUBERT_DECODE_KN, 4),
                 ("hubert-xlarge head at --legacy decode rows, kernel only "
                  "(no phase drives it; 1 launch, M=4)",
-                 [HUBERT_HEAD_KN], 4)):
+                 [HUBERT_HEAD_KN], 4),
+                ("hymba-1.5b decode step (9 launches, M=4)",
+                 HYMBA_DECODE_KN, 4),
+                ("hymba-1.5b head, a prefill or decode step (1 launch, "
+                 "M=4)", [HYMBA_HEAD_KN], 4)):
             print(f"{name} per layer, {label}: "
                   + json.dumps(step_entry(rows, name, kn, mm)), flush=True)
         if name == "approx_matmul_cv_fused":
@@ -4344,7 +4817,8 @@ def main() -> int:
                     ("qwen2-vl-2b", QWEN2VL_KN, QWEN2VL_PREFILL_M),
                     ("hubert-xlarge encoder", HUBERT_KN, HUBERT_M),
                     ("hubert-xlarge encoder head", [HUBERT_HEAD_KN],
-                     HUBERT_M)):
+                     HUBERT_M),
+                    ("hymba-1.5b", HYMBA_KN, HYMBA_PREFILL_M)):
                 print(f"{name} per layer, {label} prefill "
                       f"({len(kn)} launches, M={mm}): "
                       + json.dumps(step_entry(rows, name, kn, mm)),

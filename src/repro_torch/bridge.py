@@ -53,8 +53,10 @@ def from_jax_params(flat: dict[str, np.ndarray], cfg: ArchConfig,
                     device="cpu") -> dict:
     """Flat reference parameters of an LLM -> the port's nested dict:
     ``blocks`` stacked over the layers after the leading dense ones (an
-    MoE arch's expert stacks (L, E, k, n) as they are), ``dense_blocks``
-    a list of one dict a dense layer."""
+    MoE arch's expert stacks (L, E, k, n) as they are; a hybrid's SSM
+    leaves, ``blocks/ssm/{conv_w, conv_b, a_log, d_skip}`` and its four
+    projections, likewise), ``dense_blocks`` a list of one dict a dense
+    layer."""
     out = _nest(flat, device)
     if cfg.norm == "nonparametric_ln":  # parameter-free norms: no leaves
         blocks = out.get("blocks", {})

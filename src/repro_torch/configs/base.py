@@ -2,9 +2,11 @@
 
 Only the fields the ported paths read are kept (GQA or MLA attention with
 rmsnorm or layernorm, qk-norm, QKV bias, RoPE / M-RoPE / no positions,
-causal or bidirectional attention, swiglu, gelu or MoE MLPs with leading
-dense layers; RWKV6); the other architecture families land with the
-slices that serve them.  The
+causal, bidirectional or sliding-window attention, swiglu, gelu or MoE
+MLPs with leading dense layers, hymba's parallel SSM heads; RWKV6; the
+training remat policy); the reference's sharding fields
+(``scan_layers``, ``sequence_parallel``, ``moe_impl``,
+``capacity_factor``) land with the distributed slice.  The
 reference's ``mlp_bias`` and ``input_mode`` are not kept: its gelu MLP
 always has biases and its models take embeddings whenever the batch holds
 them, so neither field changes what a ported path does.
@@ -78,7 +80,7 @@ class EngineConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: Literal["dense", "moe", "vlm", "audio", "ssm"]
+    family: Literal["dense", "moe", "hybrid", "vlm", "audio", "ssm"]
     n_layers: int
     d_model: int
     n_heads: int
@@ -94,6 +96,7 @@ class ArchConfig:
     rope_theta: float = 10000.0
     mrope_sections: tuple[int, int, int] = (16, 24, 24)
     causal: bool = True
+    window: int | None = None  # sliding-window attention
     qkv_bias: bool = False
     # MLA (deepseek-v2)
     kv_lora_rank: int = 512
@@ -107,10 +110,17 @@ class ArchConfig:
     n_shared_experts: int = 0
     d_ff_expert: int = 0
     first_dense_layers: int = 0
+    # hybrid SSM heads (hymba)
+    parallel_ssm: bool = False
+    ssm_state: int = 16
+    ssm_expand: int = 2
     # rwkv
     rwkv: bool = False
     rwkv_head_dim: int = 64
     tie_embeddings: bool = False
+    #: activation recomputation in training (``torch.utils.checkpoint`` on
+    #: every block for "full" and "dots"; the numbers do not change)
+    remat: Literal["none", "full", "dots"] = "none"
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
 
@@ -124,7 +134,8 @@ class ArchConfig:
         return AttnConfig(d_model=self.d_model, n_heads=self.n_heads,
                           kv_heads=self.kv_heads, head_dim=self.head_dim,
                           causal=self.causal, qk_norm=self.qk_norm,
-                          rope=self.rope, rope_theta=self.rope_theta,
+                          window=self.window, rope=self.rope,
+                          rope_theta=self.rope_theta,
                           mrope_sections=self.mrope_sections,
                           qkv_bias=self.qkv_bias)
 
@@ -145,11 +156,24 @@ class ArchConfig:
                          n_experts=self.n_experts, top_k=self.top_k,
                          n_shared=self.n_shared_experts)
 
+    def ssm_config(self):
+        from repro_torch.nn.ssm import SSMConfig
+
+        return SSMConfig(d_model=self.d_model,
+                         d_inner=self.ssm_expand * self.d_model,
+                         d_state=self.ssm_state)
+
     def rwkv_config(self):
         from repro_torch.nn.rwkv import RWKVConfig
 
         return RWKVConfig(d_model=self.d_model, d_ff=self.d_ff,
                           head_dim=self.rwkv_head_dim)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """SSM, linear attention or a windowed hybrid (the reference's
+        long-context eligibility)."""
+        return self.rwkv or (self.parallel_ssm and self.window is not None)
 
     @property
     def has_decode(self) -> bool:
@@ -187,7 +211,12 @@ class ArchConfig:
                          + self.first_dense_layers * 3 * d * ff)
         else:
             mlp_total = L * 3 * d * ff
-        return emb + L * attn + mlp_total
+        ssm = 0
+        if self.parallel_ssm:
+            di = self.ssm_expand * d
+            ssm = L * (2 * d * di + di * d
+                       + di * (self.ssm_state * 2 + d // 16))
+        return emb + L * attn + mlp_total + ssm
 
     def active_param_count(self) -> int:
         """Activated parameters a token (MoE: only the routed top-k)."""
@@ -220,5 +249,7 @@ class ArchConfig:
             rwkv_head_dim=16,
             mrope_sections=((2, 3, 3) if self.rope == "mrope"
                             else self.mrope_sections),
+            window=min(self.window, 8) if self.window else None,
+            remat="none",
             compute_dtype="float32",
         )

@@ -15,4 +15,5 @@ CONFIG = ArchConfig(
     d_ff=22016,
     vocab=102400,
     rope_theta=10000.0,
+    remat="full",
 )

@@ -17,4 +17,5 @@ CONFIG = ArchConfig(
     vocab=49152,
     rope_theta=10_000_000.0,
     tie_embeddings=True,
+    remat="full",
 )

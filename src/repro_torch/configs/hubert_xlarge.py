@@ -23,4 +23,5 @@ CONFIG = ArchConfig(
     mlp="gelu",
     rope="none",
     causal=False,
+    remat="full",
 )

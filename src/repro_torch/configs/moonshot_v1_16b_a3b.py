@@ -23,4 +23,5 @@ CONFIG = ArchConfig(
     n_shared_experts=2,
     d_ff_expert=1408,
     first_dense_layers=0,
+    remat="full",
 )

@@ -15,4 +15,5 @@ CONFIG = ArchConfig(
     vocab=50304,
     norm="nonparametric_ln",
     tie_embeddings=True,
+    remat="full",
 )

@@ -26,4 +26,5 @@ CONFIG = ArchConfig(
     rope_theta=1_000_000.0,
     qkv_bias=True,
     tie_embeddings=True,
+    remat="full",
 )

@@ -19,4 +19,5 @@ CONFIG = ArchConfig(
     qk_norm=True,
     rope_theta=1_000_000.0,
     tie_embeddings=True,
+    remat="full",
 )

@@ -18,4 +18,5 @@ CONFIG = ArchConfig(
     rwkv=True,
     rwkv_head_dim=64,
     norm="layernorm",
+    remat="full",
 )

@@ -15,9 +15,11 @@ hand-written CUDA kernel; the default CLI policy keeps the reference's
 runs on the card (``--device cpu`` for the plain path on the CPU), for
 every registered arch (``-reduced`` for the small CPU variant); the engine
 keeps its KV cache in bf16, f32 or int8 (``--cache-dtype``) and refuses an
-encoder-only arch (hubert-xlarge), as the reference's does.  ``--legacy``
-runs the lock-step loop instead (one prefill of a (B, T) token prompt,
-then G-1 greedy decode steps), for every ported arch:
+encoder-only arch (hubert-xlarge) and a sliding-window or parallel-SSM
+arch (hymba-1.5b: ring caches and SSM state have no per-slot form), as the
+reference's does.  ``--legacy`` runs the lock-step loop instead (one
+prefill of a (B, T) token prompt, then G-1 greedy decode steps, the cache
+in ``--cache-dtype``), for every ported arch:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --legacy \
         --arch rwkv6-1.6b --spec-json spec.json --batch 4 --prompt-len 512
@@ -350,8 +352,12 @@ def _sync(dev: torch.device) -> None:
 
 def run_legacy(args, params: Any = None) -> dict:
     """Lock-step batch loop: the prompt ``default_rng(0).integers(0, vocab,
-    (batch, prompt_len))``, one prefill, ``gen - 1`` greedy decode steps.
-    ``params`` are float parameters to serve instead of the seeded init.
+    (batch, prompt_len))``, one prefill, ``gen - 1`` greedy decode steps,
+    over a cache of ``args.cache_dtype`` (default bfloat16; the reference's
+    loop always keeps bfloat16).  This is the path that serves the archs
+    without a slot surface (hymba's ring caches and SSM state, hubert's
+    encoder).  ``params`` are float parameters to serve instead of the
+    seeded init.
     Returns the generated tokens (B, gen), the timings and the serving
     parameters."""
     cfg = get_config(args.arch)
@@ -372,7 +378,10 @@ def run_legacy(args, params: Any = None) -> dict:
                                           (args.batch, args.prompt_len)),
                              device=api.device)
     max_len = args.prompt_len + args.gen
-    prefill = make_prefill_step(cfg, max_len, device=api.device)
+    cache_dtype = getattr(args, "cache_dtype", "bfloat16")
+    prefill = make_prefill_step(cfg, max_len,
+                                ServeConfig(cache_dtype=cache_dtype),
+                                device=api.device)
     decode = make_decode_step(cfg, device=api.device)
 
     _sync(api.device)

@@ -1,8 +1,10 @@
 """Transformer LM (port of ``repro.models.lm``): GQA or MLA attention,
 swiglu, gelu or MoE MLPs with optional leading dense layers, RoPE / M-RoPE
-/ no positions, causal or bidirectional attention, token or embedding
-inputs; the full-sequence forward, the lock-step prefill/decode surface
-and the continuous-batching slot surface.
+/ no positions, causal, bidirectional or sliding-window attention, hymba's
+parallel SSM heads, token or embedding inputs; the full-sequence forward,
+the training loss (:func:`train_loss`, :func:`chunked_ce_loss`), the
+lock-step prefill/decode surface and the continuous-batching slot
+surface.
 
 ``forward`` and ``prefill`` take ``batch["embeds"]`` (B, T, d_model) in
 place of ``batch["tokens"]`` when it is present (the stubbed vision and
@@ -23,7 +25,21 @@ Prefill attention runs the flash kernel on the card for GQA
 (B, Hq, T, d) block: the kernel tiles the query axis itself, so the
 reference's ``Q_CHUNK`` scan is not needed) and the plain ``_sdpa`` on the
 CPU, as the reference does.  MLA's attention is plain on both, with the
-reference's ``Q_CHUNK`` scan over queries above 1024 tokens.
+reference's ``Q_CHUNK`` scan over queries above 1024 tokens.  The training
+loss runs GQA attention through the plain ``_sdpa`` on every device, under
+the same ``Q_CHUNK`` scan: the flash kernel has no backward, and the
+reference trains through its plain jnp attention too.  The choice is the
+explicit ``train`` argument of :func:`backbone` and :func:`_block_forward`.
+
+A hybrid layer (hymba: ``cfg.parallel_ssm``) runs its attention and an SSM
+head (:mod:`repro_torch.nn.ssm`) on the same normed input and averages
+their RMS-normed outputs.  A sliding-window arch (``cfg.window``) keeps
+RING caches of length min(max_len, W): absolute position a sits at slot a
+mod W (:func:`_ring_align` on prefill, ``attention_decode_ring`` on
+decode), and the SSM state rides beside them as ``ssm_conv`` (L, B, 3,
+d_inner) and ``ssm_h`` (L, B, d_inner, d_state), always float32.  Neither
+has a per-slot form, so the slot and paged constructors refuse such an arch
+(:func:`_slot_unsupported`), as the reference's do.
 
 The cache holds one leaf a layer group and attention key: GQA's ``k``,
 ``v`` (L, B, Hkv, S, hd), MLA's ``latent`` (L, B, S, r) and ``rope`` (L,
@@ -62,14 +78,18 @@ from repro_torch.core.approx_linear import (LayerStack, QuantizedDense, dense,
 from repro_torch.kernels import flash_attention as fak
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import moe as moe_lib
+from repro_torch.nn import ssm as ssm_lib
 from repro_torch.nn.layers import (apply_norm, embed, gelu_mlp, init_gelu_mlp,
-                                   init_norm, init_swiglu, swiglu)
+                                   init_norm, init_rmsnorm, init_swiglu,
+                                   rmsnorm, swiglu)
 from repro_torch.quant import observers
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-#: live MLA score tile: (B, H, Q_CHUNK, T)
+#: live score tile of the plain attentions: (B, H, Q_CHUNK, T)
 Q_CHUNK = 1024
+#: live logits tile of the training loss: (B, LOSS_CHUNK, V)
+LOSS_CHUNK = 512
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -92,6 +112,11 @@ def init_block(cfg: ArchConfig, generator: torch.Generator,
         p["attn"] = attn_lib.init_attention(cfg.attn_config(),
                                             generator=generator,
                                             device=device)
+    if cfg.parallel_ssm:
+        p["ssm"] = ssm_lib.init_ssm(cfg.ssm_config(), generator=generator,
+                                    device=device)
+        p["attn_out_norm"] = init_rmsnorm(d, device)
+        p["ssm_out_norm"] = init_rmsnorm(d, device)
     if cfg.mlp == "moe":
         p["mlp"] = moe_lib.init_moe(cfg.moe_config(), generator=generator,
                                     device=device)
@@ -140,20 +165,40 @@ def _logits_head(params: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.to(x.dtype)).to(torch.float32)
 
 
+def _sdpa_chunked(q, k, v, acfg) -> torch.Tensor:
+    """The reference's plain attention under its ``Q_CHUNK`` scan: above
+    Q_CHUNK tokens each chunk of queries attends to the keys up to its
+    end (a causal arch) or to all of them."""
+    t = q.shape[1]
+    if t <= Q_CHUNK:
+        return attn_lib._sdpa(q, k, v, causal=acfg.causal, window=acfg.window)
+    if t % Q_CHUNK:
+        raise ValueError(f"training attention over {t} tokens: above "
+                         f"{Q_CHUNK} the length must be a multiple of "
+                         f"{Q_CHUNK}")
+    return torch.cat([attn_lib._sdpa(
+        q[:, lo:lo + Q_CHUNK], k[:, :lo + Q_CHUNK if acfg.causal else t],
+        v[:, :lo + Q_CHUNK if acfg.causal else t], causal=acfg.causal,
+        window=acfg.window) for lo in range(0, t, Q_CHUNK)], dim=1)
+
+
 def _gqa_full(bp: dict, h: torch.Tensor, cfg: ArchConfig, positions,
-              want_cache: bool):
+              want_cache: bool, train: bool = False):
     """Full-sequence attention, h (B, T, D); returns (out, cache entry
-    {"k", "v": (B, Hkv, T, hd)} or None)."""
+    {"k", "v": (B, Hkv, T, hd)} or None).  ``train`` runs the plain
+    ``_sdpa`` (the flash kernel has no backward)."""
     acfg = cfg.attn_config()
     b, t, _ = h.shape
     q, k, v = attn_lib._project_qkv(bp, h, acfg,
                                     attn_lib._angles(acfg, positions))
-    if h.device.type == "cuda":
+    if train:
+        ctx = _sdpa_chunked(q, k, v, acfg)
+    elif h.device.type == "cuda":
         ctx = fak.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2),
-                                  causal=acfg.causal).transpose(1, 2)
+                                  v.transpose(1, 2), causal=acfg.causal,
+                                  window=acfg.window).transpose(1, 2)
     else:
-        ctx = attn_lib._sdpa(q, k, v, causal=acfg.causal)
+        ctx = attn_lib._sdpa(q, k, v, causal=acfg.causal, window=acfg.window)
     out = dense(bp["o"], ctx.reshape(b, t, acfg.q_dim), name="o")
     entry = None
     if want_cache:
@@ -196,10 +241,21 @@ def _mlp(bp: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def _block_forward(bp: dict, x: torch.Tensor, cfg: ArchConfig, positions,
-                   want_cache: bool = False):
+                   want_cache: bool = False, train: bool = False):
+    """One layer over the full sequence: (out, cache entry or None); a
+    hybrid layer's entry adds its SSM state (``ssm_conv``, ``ssm_h``)."""
     h = apply_norm(cfg.norm, bp.get("attn_norm"), x)
-    full = _mla_full if cfg.attn == "mla" else _gqa_full
-    a, entry = full(bp["attn"], h, cfg, positions, want_cache)
+    if cfg.attn == "mla":
+        a, entry = _mla_full(bp["attn"], h, cfg, positions, want_cache)
+    else:
+        a, entry = _gqa_full(bp["attn"], h, cfg, positions, want_cache,
+                             train)
+    if cfg.parallel_ssm:
+        s, st = ssm_lib.ssm_scan(bp["ssm"], h, cfg.ssm_config())
+        if want_cache:
+            entry["ssm_conv"], entry["ssm_h"] = st["conv"], st["h"]
+        a = 0.5 * (rmsnorm(bp["attn_out_norm"], a.to(x.dtype))
+                   + rmsnorm(bp["ssm_out_norm"], s.to(x.dtype)))
     x = (x + a).to(x.dtype)
     h = apply_norm(cfg.norm, bp.get("mlp_norm"), x)
     return (x + _mlp(bp["mlp"], h, cfg)).to(x.dtype), entry
@@ -228,16 +284,28 @@ def _layers(params: dict, cfg: ArchConfig):
 
 
 def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig,
-             positions=None) -> torch.Tensor:
+             positions=None, train: bool = False) -> torch.Tensor:
     """Embedded input -> final-norm output (the forward path).  The dense
     layers run under their ``dense_blocks/i`` scope, the stack unscoped,
-    as the reference's scan."""
+    as the reference's scan.  ``train`` is the training path: plain
+    attention, and with ``cfg.remat`` other than "none" every stacked
+    layer under ``torch.utils.checkpoint`` (recomputed in the backward
+    pass; the values do not change)."""
     x = x.to(_dtype(cfg.compute_dtype))
     positions = _positions(positions, x.shape[0], x.shape[1], x.device)
     for prefix, _, bp, scope in _layers(params, cfg):
         with observers.scope(*(scope if prefix else ())):
-            x, _ = _block_forward(bp, x, cfg, positions)
+            if train and cfg.remat != "none" and not prefix:
+                x = torch.utils.checkpoint.checkpoint(
+                    _train_block, bp, x, cfg, positions, use_reentrant=False)
+            else:
+                x, _ = _block_forward(bp, x, cfg, positions, train=train)
     return apply_norm(cfg.norm, params.get("final_norm"), x)
+
+
+def _train_block(bp: dict, x: torch.Tensor, cfg: ArchConfig,
+                 positions) -> torch.Tensor:
+    return _block_forward(bp, x, cfg, positions, train=True)[0]
 
 
 def forward(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
@@ -245,6 +313,60 @@ def forward(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     x = backbone(params, _embed_input(params, batch), cfg,
                  batch.get("positions"))
     return _logits_head(params, x)
+
+
+def _head_w(params: dict) -> torch.Tensor:
+    """The float unembedding matrix (d_model, V)."""
+    head = params.get("lm_head", params["embed"])
+    return head["table"].T if "table" in head else head["w"]
+
+
+def _ce_from_logits(logits, labels, mask):
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def chunked_ce_loss(x: torch.Tensor, head_w: torch.Tensor, labels, mask):
+    """Mean cross-entropy over (B, T, D) features without a (B, T, V)
+    logits tensor: the head and the loss in ``LOSS_CHUNK``-token pieces
+    above LOSS_CHUNK tokens (the last piece padded, masked out)."""
+    t = x.shape[1]
+    w = head_w.to(x.dtype)
+    mask = mask.to(torch.float32)
+    if t <= LOSS_CHUNK:
+        nll, cnt = _ce_from_logits(torch.matmul(x, w), labels, mask)
+        return nll / torch.clamp(cnt, min=1.0)
+    pad = (-t) % LOSS_CHUNK
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    nll = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, x.shape[1], LOSS_CHUNK):
+        sl = slice(lo, lo + LOSS_CHUNK)
+        n, c = _ce_from_logits(torch.matmul(x[:, sl], w), labels[:, sl],
+                               mask[:, sl])
+        nll, cnt = nll + n, cnt + c
+    return nll / torch.clamp(cnt, min=1.0)
+
+
+def train_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Next-token (causal) or masked-frame (encoder) cross-entropy over
+    ``batch["labels"]`` (and an optional ``mask``), on the training path
+    (:func:`backbone` with ``train=True``)."""
+    x = backbone(params, _embed_input(params, batch), cfg,
+                 batch.get("positions"), train=True)
+    labels = torch.as_tensor(batch["labels"], device=x.device)
+    mask = batch.get("mask")
+    if cfg.causal:
+        x, labels = x[:, :-1], labels[:, 1:]
+        mask = (torch.ones(labels.shape, device=x.device) if mask is None
+                else torch.as_tensor(mask, device=x.device)[:, 1:])
+    elif mask is None:
+        mask = torch.ones(labels.shape, device=x.device)
+    return chunked_ce_loss(x, _head_w(params), labels, mask)
 
 
 def _attn_keys(cfg: ArchConfig) -> tuple[str, str]:
@@ -279,30 +401,63 @@ def _cache_leaves(cfg: ArchConfig, rows: int, s: int, dtype, device) -> dict:
     return out
 
 
+def _cache_len(cfg: ArchConfig, max_len: int) -> int:
+    """Positions a layer's attention cache holds: a sliding-window arch
+    keeps a ring of min(max_len, W)."""
+    return min(max_len, cfg.window) if cfg.window else max_len
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Stacked-over-layers lock-step decode cache."""
-    return {**_cache_leaves(cfg, batch, max_len, dtype, device), "pos": 0}
+    """Stacked-over-layers lock-step decode cache.  A sliding-window arch
+    gets ring leaves of length min(max_len, W); a hybrid adds its SSM
+    state, float32 whatever ``dtype`` the attention leaves take."""
+    cache = _cache_leaves(cfg, batch, _cache_len(cfg, max_len), dtype, device)
+    if cfg.parallel_ssm:
+        scfg = cfg.ssm_config()
+        n = cfg.n_scan_layers
+        cache["ssm_conv"] = torch.zeros(
+            (n, batch, scfg.conv_kernel - 1, scfg.d_inner),
+            dtype=torch.float32, device=device)
+        cache["ssm_h"] = torch.zeros((n, batch, scfg.d_inner, scfg.d_state),
+                                     dtype=torch.float32, device=device)
+    return {**cache, "pos": 0}
+
+
+def _ring_align(data: torch.Tensor, s: int, t: int) -> torch.Tensor:
+    """Place the last ``s`` of ``t`` positions so that absolute position a
+    sits at slot a mod s (the ring invariant); sequence axis -2."""
+    if t > s:
+        data = torch.roll(data[..., t - s:, :], t % s, dims=-2)
+    elif t < s:
+        data = torch.nn.functional.pad(data, (0, 0, 0, s - t))
+    return data
 
 
 def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int,
             cache_dtype=torch.bfloat16) -> tuple[torch.Tensor, dict]:
     """Single-pass prompt processing: last-token logits (B, V) float32 and
     the filled cache (each layer's entries written into it as they are
-    made)."""
+    made; past a ring's length, its last positions rolled into place)."""
     x = _embed_input(params, batch).to(_dtype(cfg.compute_dtype))
     b, t = x.shape[:2]
     if t > max_len:
         raise ValueError(f"prompt of {t} tokens exceeds max_len {max_len}")
     positions = _positions(batch.get("positions"), b, t, x.device)
     cache = init_cache(cfg, b, max_len, cache_dtype, x.device)
+    s = _cache_len(cfg, max_len)
     for prefix, i, bp, scope in _layers(params, cfg):
         with observers.scope(*(scope if prefix else ())):
             x, entry = _block_forward(bp, x, cfg, positions,
                                       want_cache=True)
         for key in _attn_keys(cfg):
-            cache[prefix + key][i][..., :t, :] = attn_lib._to_cache(
-                entry[key], cache_dtype)
+            vals = entry[key] if t <= s else _ring_align(entry[key], s, t)
+            cache[prefix + key][i][..., :vals.shape[-2], :] = \
+                attn_lib._to_cache(vals, cache_dtype)
+        if cfg.parallel_ssm:
+            conv = entry["ssm_conv"]  # the last min(t, k - 1) inputs
+            cache["ssm_conv"][i][:, -conv.shape[1]:] = conv
+            cache["ssm_h"][i] = entry["ssm_h"]
     cache["pos"] = t
     x = apply_norm(cfg.norm, params.get("final_norm"), x)
     return _logits_head(params, x[:, -1]), cache
@@ -310,13 +465,21 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int,
 
 def _block_decode(bp: dict, x: torch.Tensor, lc: dict,
                   cfg: ArchConfig) -> torch.Tensor:
-    """One block's decode step; ``lc`` this layer's cache views + pos."""
+    """One block's decode step; ``lc`` this layer's cache views + pos (and
+    a hybrid layer's SSM state views), written in place."""
     h = apply_norm(cfg.norm, bp.get("attn_norm"), x)
     if cfg.attn == "mla":
         a, _ = attn_lib.mla_decode_step(bp["attn"], h, lc, cfg.mla_config())
     else:
-        a, _ = attn_lib.attention_decode_step(bp["attn"], h, lc,
-                                              cfg.attn_config())
+        step = (attn_lib.attention_decode_ring if cfg.window
+                else attn_lib.attention_decode_step)
+        a, _ = step(bp["attn"], h, lc, cfg.attn_config())
+    if cfg.parallel_ssm:
+        s, _ = ssm_lib.ssm_decode_step(
+            bp["ssm"], h, {"conv": lc["ssm_conv"], "h": lc["ssm_h"]},
+            cfg.ssm_config())
+        a = 0.5 * (rmsnorm(bp["attn_out_norm"], a.to(x.dtype))
+                   + rmsnorm(bp["ssm_out_norm"], s.to(x.dtype)))
     x = (x + a).to(x.dtype)
     h = apply_norm(cfg.norm, bp.get("mlp_norm"), x)
     return (x + _mlp(bp["mlp"], h, cfg)).to(x.dtype)
@@ -328,16 +491,37 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
     x = embed(params["embed"], tokens).to(_dtype(cfg.compute_dtype))
     pos = int(cache["pos"])
     for prefix, i, bp, _ in _layers(params, cfg):
-        lc = {k: cache[prefix + k][i] for k in _attn_keys(cfg)}
+        keys = _attn_keys(cfg) + (("ssm_conv", "ssm_h")
+                                  if cfg.parallel_ssm and not prefix else ())
+        lc = {k: cache[prefix + k][i] for k in keys}
         x = _block_decode(bp, x, {**lc, "pos": pos}, cfg)
     cache["pos"] = pos + 1
     x = apply_norm(cfg.norm, params.get("final_norm"), x)
     return _logits_head(params, x[:, 0]), cache
 
 
+def _slot_unsupported(cfg: ArchConfig) -> str | None:
+    """Why an arch has no slot (and no paged) surface, or None; the
+    reference's reasons."""
+    if cfg.window is not None:
+        return "sliding-window ring caches have no per-slot phase yet"
+    if cfg.parallel_ssm:
+        return "parallel-SSM state is not slot-managed yet"
+    if cfg.attn == "none":
+        return "arch has no attention cache"
+    return None
+
+
+def _refuse_slots(cfg: ArchConfig, what: str) -> None:
+    reason = _slot_unsupported(cfg)
+    if reason is not None:
+        raise NotImplementedError(f"{what} decode for {cfg.name}: {reason}")
+
+
 def init_slot_cache(cfg: ArchConfig, slots: int, max_len: int,
                     dtype=torch.bfloat16, device=None) -> dict:
     """Pooled (slots, ...) decode cache with per-slot write cursors."""
+    _refuse_slots(cfg, "slot")
     return {**_cache_leaves(cfg, slots, max_len, dtype, device),
             "lengths": torch.zeros(slots, dtype=torch.int32, device=device)}
 
@@ -351,9 +535,9 @@ def init_paged_slot_cache(cfg: ArchConfig, num_blocks: int, block_size: int,
     at: it is never allocated or written, so it stays all zeros.  (The
     leaves are a slot cache of ``num_blocks`` rows of ``block_size``
     positions.)"""
-    cache = init_slot_cache(cfg, num_blocks, block_size, dtype, device)
-    cache["lengths"] = torch.zeros(slots, dtype=torch.int32, device=device)
-    return cache
+    _refuse_slots(cfg, "paged")
+    return {**_cache_leaves(cfg, num_blocks, block_size, dtype, device),
+            "lengths": torch.zeros(slots, dtype=torch.int32, device=device)}
 
 
 def rollback_slots(cache: dict, new_lengths) -> dict:
@@ -476,6 +660,7 @@ def decode_slots(params: dict, tokens: torch.Tensor, cache: dict,
     entries are written at their (block, offset) only; a write into the
     NULL block 0 or past ``kv_len`` raises.
     """
+    _refuse_slots(cfg, "slot")
     b, c = tokens.shape
     dev = tokens.device
     keys = _attn_keys(cfg)

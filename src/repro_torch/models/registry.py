@@ -20,6 +20,10 @@ class ModelApi:
     #: (params, {"tokens": (B, T)} or {"embeds": (B, T, D)}, optionally
     #: with "positions") -> logits (B, T, V) float32
     forward: Callable
+    #: (params, the same batch with "labels" (B, T) and an optional "mask")
+    #: -> the mean cross-entropy, on the training path (plain attention and
+    #: WKV, which have backward passes)
+    train_loss: Callable
     #: (params, the same batch, max_len, cache_dtype) -> (logits (B, V),
     #: cache)
     prefill: Callable
@@ -42,8 +46,21 @@ class ModelApi:
     @property
     def supports_slots(self) -> bool:
         """True when the arch can serve through the slot engine: an
-        encoder-only arch (no decode step) cannot."""
-        return self.cfg.has_decode
+        encoder-only arch (no decode step) cannot, nor can a
+        sliding-window or parallel-SSM arch (:attr:`slot_refusal`)."""
+        if not self.cfg.has_decode:
+            return False
+        return self.cfg.rwkv or self.slot_refusal is None
+
+    @property
+    def slot_refusal(self) -> str | None:
+        """Why a transformer arch has no slot surface (the reference's
+        ``_slot_unsupported`` reasons), or None."""
+        if self.cfg.rwkv:
+            return None
+        from repro_torch.models.lm import _slot_unsupported
+
+        return _slot_unsupported(self.cfg)
 
     @property
     def supports_paged(self) -> bool:
@@ -63,6 +80,7 @@ def build_model(cfg: ArchConfig, device=None) -> ModelApi:
             cfg=cfg, device=dev,
             init=lambda seed=0: m.init_params(cfg, seed, dev),
             forward=lambda p, b: m.forward(p, b, cfg),
+            train_loss=lambda p, b: m.train_loss(p, b, cfg),
             prefill=lambda p, b, max_len=0, cache_dtype=torch.bfloat16:
                 m.prefill(p, b, cfg, max_len, cache_dtype),
             decode_step=lambda p, t, c: m.decode_step(p, t, c, cfg),
@@ -75,20 +93,25 @@ def build_model(cfg: ArchConfig, device=None) -> ModelApi:
         )
     from repro_torch.models import lm as m
 
+    slots = m._slot_unsupported(cfg) is None
     return ModelApi(
         cfg=cfg, device=dev,
         init=lambda seed=0: m.init_params(cfg, seed, dev),
         forward=lambda p, b: m.forward(p, b, cfg),
+        train_loss=lambda p, b: m.train_loss(p, b, cfg),
         prefill=lambda p, b, max_len, cache_dtype=torch.bfloat16:
             m.prefill(p, b, cfg, max_len, cache_dtype),
         decode_step=lambda p, t, c: m.decode_step(p, t, c, cfg),
         init_cache=lambda batch, max_len, dtype=torch.bfloat16:
             m.init_cache(cfg, batch, max_len, dtype, dev),
-        init_slot_cache=lambda slots, max_len, dtype=torch.bfloat16:
-            m.init_slot_cache(cfg, slots, max_len, dtype, dev),
-        decode_slots=lambda p, t, c, n_valid, block_tables=None, kv_len=None:
-            m.decode_slots(p, t, c, cfg, n_valid, block_tables, kv_len),
-        init_paged_cache=lambda num_blocks, block_size, slots,
-            dtype=torch.bfloat16: m.init_paged_slot_cache(
-                cfg, num_blocks, block_size, slots, dtype, dev),
+        init_slot_cache=(lambda n, max_len, dtype=torch.bfloat16:
+                         m.init_slot_cache(cfg, n, max_len, dtype, dev))
+        if slots else None,
+        decode_slots=(lambda p, t, c, n_valid, block_tables=None, kv_len=None:
+                      m.decode_slots(p, t, c, cfg, n_valid, block_tables,
+                                     kv_len)) if slots else None,
+        init_paged_cache=(lambda num_blocks, block_size, n,
+                          dtype=torch.bfloat16: m.init_paged_slot_cache(
+                              cfg, num_blocks, block_size, n, dtype, dev))
+        if slots else None,
     )

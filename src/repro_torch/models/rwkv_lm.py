@@ -7,8 +7,9 @@ Same public surface as :mod:`repro_torch.models.lm`: ``init_params``,
 constant-size recurrent state: per-layer shift vectors and WKV matrices.
 :func:`decode_step` and :func:`decode_slots` update it IN PLACE and return
 the same dict.  The layer ``lax.scan`` becomes a Python loop; the
-reference's sharding constraints and remat have no counterpart without a
-mesh.
+reference's sharding constraints have no counterpart without a mesh.
+:func:`train_loss` runs the plain chunked WKV (``train=True``), with every
+block under ``torch.utils.checkpoint`` when ``cfg.remat`` asks for it.
 """
 
 from __future__ import annotations
@@ -55,10 +56,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     }
 
 
-def _block(bp: dict, x: torch.Tensor, cfg: ArchConfig):
+def _block(bp: dict, x: torch.Tensor, cfg: ArchConfig, train: bool = False):
     """One block from a zero state: (x, {shift_tm, shift_cm, wkv})."""
     h = apply_norm("layernorm", bp["ln1"], x)
-    tm_out, shift_tm, wkv = rwkv_lib.time_mix(bp["tm"], h, cfg.rwkv_config())
+    tm_out, shift_tm, wkv = rwkv_lib.time_mix(bp["tm"], h, cfg.rwkv_config(),
+                                              train)
     x = x + tm_out
     h = apply_norm("layernorm", bp["ln2"], x)
     cm_out, shift_cm = rwkv_lib.channel_mix(bp["cm"], h)
@@ -66,14 +68,24 @@ def _block(bp: dict, x: torch.Tensor, cfg: ArchConfig):
     return x, {"shift_tm": shift_tm, "shift_cm": shift_cm, "wkv": wkv}
 
 
+def _train_block(bp: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    return _block(bp, x, cfg, train=True)[0]
+
+
 def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig,
-             want_states: bool = False):
-    """Embedded input -> (final-norm output, per-layer states or None)."""
+             want_states: bool = False, train: bool = False):
+    """Embedded input -> (final-norm output, per-layer states or None);
+    ``train`` is the training path (plain WKV, ``cfg.remat``)."""
     x = apply_norm("layernorm", params["ln0"],
                    x.to(_DTYPES[cfg.compute_dtype]))
     states = []
     for i in range(cfg.n_layers):
-        x, st = _block(layer_params(params["blocks"], i), x, cfg)
+        bp = layer_params(params["blocks"], i)
+        if train and cfg.remat != "none":
+            x = torch.utils.checkpoint.checkpoint(_train_block, bp, x, cfg,
+                                                  use_reentrant=False)
+            continue
+        x, st = _block(bp, x, cfg, train)
         if want_states:
             states.append(st)
     x = apply_norm("layernorm", params["final_norm"], x)
@@ -90,6 +102,20 @@ def _logits_head(params: dict, x: torch.Tensor) -> torch.Tensor:
 def forward(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     x, _ = backbone(params, embed(params["embed"], batch["tokens"]), cfg)
     return _logits_head(params, x)
+
+
+def train_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Next-token cross-entropy over ``batch["labels"]`` (and an optional
+    ``mask``) through the chunked head (``lm.chunked_ce_loss``)."""
+    from repro_torch.models.lm import chunked_ce_loss
+
+    x, _ = backbone(params, embed(params["embed"], batch["tokens"]), cfg,
+                    train=True)
+    labels = torch.as_tensor(batch["labels"], device=x.device)[:, 1:]
+    mask = batch.get("mask")
+    mask = (torch.ones(labels.shape, device=x.device) if mask is None
+            else torch.as_tensor(mask, device=x.device)[:, 1:])
+    return chunked_ce_loss(x[:, :-1], params["lm_head"]["w"], labels, mask)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0,

@@ -2,8 +2,10 @@
 
   * GQA: config, RoPE / M-RoPE angles (or none), the Q/K/V projection
     (optional QKV bias and per-head qk-norm), the plain full-sequence
-    attention ``_sdpa`` (causal or bidirectional), the KV-cache storage
-    casts (bf16, f32, or int8 fixed point) and the one-token decode step.
+    attention ``_sdpa`` (causal, bidirectional or sliding-window), the
+    KV-cache storage casts (bf16, f32, or int8 fixed point), the one-token
+    decode step and the sliding-window decode over a ring cache of length
+    W (hymba).
     The prefill attention on the card is the flash kernel
     (:mod:`repro_torch.kernels.flash_attention`).
   * MLA, DeepSeek-V2's multi-head latent attention: the decompressed
@@ -14,10 +16,11 @@ The slot attention of both lives in ``repro_torch.models.lm``
 (``_gqa_slots``, ``_mla_slots``).  Caches:
 
   GQA: ``{"k": (B, Hkv, S, hd), "v": (B, Hkv, S, hd), "pos": int}``
+  (a sliding-window ring: S = W, absolute position a at slot a mod W)
   MLA: ``{"latent": (B, S, r), "rope": (B, S, dr), "pos": int}``
 
-:func:`attention_decode_step` and :func:`mla_decode_step` write them IN
-PLACE.
+:func:`attention_decode_step`, :func:`attention_decode_ring` and
+:func:`mla_decode_step` write them IN PLACE.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ class AttnConfig:
     head_dim: int
     causal: bool = True
     qk_norm: bool = False
+    window: int | None = None  # sliding-window size (hymba)
     rope: Literal["rope", "mrope", "none"] = "rope"
     rope_theta: float = 10000.0
     mrope_sections: tuple[int, int, int] = (16, 24, 24)
@@ -166,7 +170,44 @@ def attention_decode_step(p: dict, x: torch.Tensor, cache: dict,
     qg = q.reshape(b, 1, hkv, hq // hkv, d)
     logits = torch.einsum("bqhgd,bhkd->bhgqk", qg,
                           _from_cache(cache["k"], q.dtype)) * (d ** -0.5)
-    mask = torch.arange(s, device=x.device) < pos + 1
+    j = torch.arange(s, device=x.device)
+    mask = j < pos + 1
+    if cfg.window is not None:
+        mask = mask & (j > pos - cfg.window)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
+    ctx = torch.einsum("bhgqk,bhkd->bqhgd", probs,
+                       _from_cache(cache["v"], q.dtype))
+    y = dense(p["o"], ctx.reshape(b, 1, cfg.q_dim), name="o")
+    return y, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+def attention_decode_ring(p: dict, x: torch.Tensor, cache: dict,
+                          cfg: AttnConfig) -> tuple[torch.Tensor, dict]:
+    """Sliding-window decode against a RING cache of length W, x (B, 1, D),
+    k/v (B, Hkv, W, d).
+
+    Invariant: absolute position a lives at slot a mod W, so the ring only
+    ever holds the last W positions and the window mask is implicit; slots
+    not yet written (pos < W) are masked through the recovered absolute
+    position abs_j = pos - ((pos - j) mod W) >= 0.  Writes the token's K/V
+    at slot pos mod W IN PLACE through the cache's storage cast (the
+    reference writes a raw cast: ROADMAP queue 3) and returns (y, cache
+    with pos + 1)."""
+    b = x.shape[0]
+    pos = int(cache["pos"])
+    w_len = cache["k"].shape[2]
+    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, _angles(cfg, positions))
+    slot = pos % w_len
+    cache["k"][:, :, slot] = _to_cache(k[:, 0], cache["k"].dtype)
+    cache["v"][:, :, slot] = _to_cache(v[:, 0], cache["v"].dtype)
+    hq, hkv, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    qg = q.reshape(b, 1, hkv, hq // hkv, d)
+    logits = torch.einsum("bqhgd,bhkd->bhgqk", qg,
+                          _from_cache(cache["k"], q.dtype)) * (d ** -0.5)
+    j = torch.arange(w_len, device=x.device)
+    mask = pos - torch.remainder(pos - j, w_len) >= 0
     logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
     ctx = torch.einsum("bhgqk,bhkd->bqhgd", probs,

@@ -103,9 +103,11 @@ def _decay(p: dict, xw: torch.Tensor) -> torch.Tensor:
     return torch.exp(-torch.exp((p["decay_base"] + lora).to(torch.float32)))
 
 
-def time_mix(p: dict, x: torch.Tensor, cfg: RWKVConfig):
+def time_mix(p: dict, x: torch.Tensor, cfg: RWKVConfig, train: bool = False):
     """Prefill time-mix from a zero state, x (B, T, D).  Returns
-    (out, last token (B, D), WKV state (B, H, hd, hd) float32)."""
+    (out, last token (B, D), WKV state (B, H, hd, hd) float32).  ``train``
+    runs the plain chunked WKV (the scan kernel has no backward; the
+    reference trains through its jnp ``wkv_chunked``)."""
     b, t, d = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
     x_prev = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
@@ -115,7 +117,8 @@ def time_mix(p: dict, x: torch.Tensor, cfg: RWKVConfig):
     v = dense(p["v"], xv).reshape(b, t, h, hd)
     g = dense(p["g"], xg)
     w = _decay(p, xw).reshape(b, t, h, hd)
-    out, state = rsk.rwkv6_scan(r, k, v, w, p["bonus"], chunk=cfg.wkv_chunk)
+    scan = rsk.rwkv6_scan_plain if train else rsk.rwkv6_scan
+    out, state = scan(r, k, v, w, p["bonus"], chunk=cfg.wkv_chunk)
     out = out.reshape(b, t, d).to(x.dtype)
     out = _group_norm_heads(out, p["ln_x_scale"], p["ln_x_bias"], h)
     out = out * F.silu(g)

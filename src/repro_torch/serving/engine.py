@@ -161,9 +161,10 @@ class ServingEngine:
         self.params = params
         self.api = api or build_model(cfg, device)
         if self.api.init_slot_cache is None or self.api.decode_slots is None:
+            why = self.api.slot_refusal or "no slot cache"
             raise NotImplementedError(
                 f"{cfg.name}: the continuous-batching engine does not serve "
-                "this arch yet (no slot cache); use the lock-step path "
+                f"this arch ({why}); use the lock-step path "
                 "(`python -m repro_torch.launch.serve --legacy`)")
         self.numerics = numerics
         #: identity in traces and fleet routing

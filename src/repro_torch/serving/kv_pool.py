@@ -27,9 +27,11 @@ class SlotPool:
     def __init__(self, api: ModelApi, slots: int, max_len: int,
                  cache_dtype: str = "bfloat16") -> None:
         if not api.supports_slots:
+            reason = api.slot_refusal or "an encoder-only arch has no decode"
             raise NotImplementedError(
-                f"{api.cfg.name}: architecture not servable through the slot "
-                "engine yet (ring-buffer / SSM slot state are ROADMAP items)")
+                f"{api.cfg.name}: not servable through the slot engine "
+                f"({reason}, as in the reference); use the lock-step path "
+                "(--legacy)")
         try:
             dtype = _CACHE_DTYPES[cache_dtype]
         except KeyError:

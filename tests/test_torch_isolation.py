@@ -1,7 +1,9 @@
 """The port stands alone: no JAX and nothing of the reference package (every
-module, the serving layer's telemetry, prom, shadow and fleet included, and
-the MLA/MoE archs with ``nn.moe`` and ``core.grouped_approx``),
-and its entry points run on the card unless the caller asks for the CPU."""
+module, the serving layer's telemetry, prom, shadow and fleet included,
+the MLA/MoE archs with ``nn.moe`` and ``core.grouped_approx``, the hybrid
+with ``nn.ssm``, and the training step with ``optim``, ``data.synthetic``
+and ``launch.train``), and its entry points run on the card unless the
+caller asks for the CPU."""
 
 import ast
 import os
@@ -59,7 +61,7 @@ def test_port_runs_with_jax_unimportable():
         for arch in ("olmo-1b-reduced", "rwkv6-1.6b-reduced",
                      "qwen3-4b-reduced", "deepseek-67b-reduced",
                      "deepseek-v2-lite-16b-reduced",
-                     "moonshot-v1-16b-a3b-reduced"):
+                     "moonshot-v1-16b-a3b-reduced", "hymba-1.5b-reduced"):
             cfg = get_config(arch)
             api = build_model(cfg, "cpu")
             params = build_serving_params(api.init(0), cfg, ServeConfig(
@@ -69,6 +71,19 @@ def test_port_runs_with_jax_unimportable():
             logits, cache = api.prefill(params, {"tokens": toks}, 8)
             logits, cache = api.decode_step(params, toks[:, :1], cache)
             assert logits.shape == (2, cfg.vocab) and cache["pos"] == 6
+        assert cache["ssm_h"].dtype == torch.float32  # hymba's SSM state
+        # the training step on the synthetic stream
+        from repro_torch.data.synthetic import SyntheticLMConfig, lm_batch
+        from repro_torch.launch.train import (TrainConfig, init_train_state,
+                                              make_train_step)
+        for arch in ("olmo-1b-reduced", "rwkv6-1.6b-reduced"):
+            cfg = get_config(arch)
+            tcfg = TrainConfig(grad_compress=True, microbatches=2)
+            state = init_train_state(cfg, tcfg, device="cpu")
+            step = make_train_step(cfg, tcfg, device="cpu")
+            state, m = step(state, lm_batch(SyntheticLMConfig(
+                vocab=cfg.vocab, seq_len=8, batch=2), 0))
+            assert torch.isfinite(m["loss"]) and state["opt"]["step"] == 1
         from repro_torch.configs.cnn_suite import get_cnn
         from repro_torch.core.cost_model import power_saving
         from repro_torch.data.vision import VisionConfig, make_vision_dataset
@@ -166,7 +181,8 @@ def test_port_runs_with_jax_unimportable():
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
-                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                              "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
@@ -198,3 +214,10 @@ def test_entry_points_default_to_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         init_cnn(get_cnn("vgg13"), generator=torch.Generator())
+    from repro_torch.launch.train import (TrainConfig, init_train_state,
+                                          make_train_step)
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(cfg, TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(cfg, TrainConfig())
