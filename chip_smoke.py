@@ -51,12 +51,13 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    the contiguous and paged layouts and with a no-CV draft (tokens equal
    the `int8` engine's, kernel launches only in draft calls, the
    acceptance rate with and without the CV, one round profiled against an
-   `int8` thin step); qwen3-4b at 12 of its 36 layers (its lock-step
+   `int8` thin step); qwen3-4b at 6 of its 36 layers (its lock-step
    path below runs all 36), again with the int8 KV cache and under the
-   `int8` preset (plain exact-integer products, 8 layers), full-width
+   `int8` preset (plain exact-integer products), full-width
    rwkv6-1.6b at 8 of its 24 layers (per-slot recurrent state; the
-   lock-step path runs all 24) and qwen2-vl-2b (28 layers, token prompts,
-   M-RoPE ids equal).  Checks
+   lock-step path runs all 24) and qwen2-vl-2b at 14 of its 28 layers
+   (token prompts, M-RoPE ids equal; the lock-step path runs all 28).
+   Checks
    completion, the kernel launch count the schedule implies, that each
    request's tokens equal a sequential decode of it on the same packs
    (rwkv6: the lock-step recurrent decode), that the packs hold their
@@ -85,6 +86,19 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    preset lowered on resnet44 at full width from 256 calibration images
    (its policies, forwards and seconds, mean modeled saving, and relative
    logit error on 1,000 test images beside serve-default's);
+   "checkpoint" (after the fleet phase): the olmo-1b engine phase's
+   full-width float32 parameters (4.71 GB) saved with `save_pytree`
+   (codec none, the NumericsSpec in the meta), restored onto the card
+   (every leaf bit-equal), packed again (byte-equal to the engine phase's
+   packs) and served on the main trace through the approx kernel (tokens
+   and launches equal to the engine phase's run); `plan
+   --diff-checkpoint` on the shard (0 under its spec, 7 under `int8`); the
+   train CLI at olmo-1b-reduced, twice in one directory (the second run
+   resumes); `run_resilient` with two injected failures against a clean
+   run (every restore bit-equal to the saved state, losses and parameters
+   within the train phase's tolerances, the straggler flags); save and
+   load MB/s by codec on one 64 MiB leaf and the projected save time of a
+   full-width training checkpoint under the default codec;
 4c. "moe": deepseek-v2-lite-16b at full width and depth (27 layers: MLA,
    one dense layer, 64 routed experts top-6 and 2 shared) on
    `serve-default` kernel packs built a layer at a time (a float32 tree
@@ -2355,6 +2369,318 @@ def run_fleet_phase(torch, built: dict) -> dict:
     return {label: launches}
 
 
+#: the "checkpoint" phase.  The olmo-1b drift count of ``plan --preset
+#: int8 --diff-checkpoint`` against a shard saved under pallas_spec()
+#: (tests/test_torch_runtime.py::test_plan_diff_checkpoint_gate holds the
+#: reference's CLI to it); the train CLI's scale (two runs in one
+#: directory: CKPT_CLI_STEPS, then resumed to CKPT_CLI_MORE steps); the
+#: resilient loop at that scale with failures injected at
+#: CKPT_FAILURES, a checkpoint every CKPT_EVERY steps, against a clean run
+OLMO_INT8_DRIFT = 7
+CKPT_ARCH = "olmo-1b-reduced"
+CKPT_CLI_STEPS, CKPT_CLI_MORE = 20, 40
+CKPT_STEPS, CKPT_EVERY, CKPT_FAILURES = 24, 5, (7, 16)
+#: full-width olmo-1b training state (float32 params, AdamW m and v), the
+#: checkpoint whose save time the phase projects from one leaf's rate
+TRAIN_STATE_COPIES = 3
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Same dtype, shape and bytes (``torch.equal`` calls -0.0 == 0.0)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                       b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def run_checkpoint_phase(torch, built: dict) -> dict:
+    """Phase 4b': full-width olmo-1b served from a checkpoint the port
+    wrote.  The engine phase's float32 parameters (16 layers, 4.71 GB) are
+    saved with ``save_pytree`` (codec "none", the NumericsSpec of their
+    packs in the meta), restored onto the card through ``load_pytree``
+    with a ``meta`` template and a placement tree (every leaf bit-equal),
+    packed again (every pack tensor byte-equal to the engine phase's) and
+    served on the main trace through the approx kernel (tokens and
+    launches equal to the engine phase's run).  Then ``plan
+    --diff-checkpoint`` on the shard (0 under its own spec, SystemExit(7)
+    under ``int8``); the train CLI at its own scale, twice in one
+    directory (the second run resumes); ``run_resilient`` with two
+    injected failures against a clean run (every restore bit-equal to what
+    was saved, losses and parameters within the train phase's
+    tolerances), the straggler monitor's flags; and ``save_pytree`` /
+    ``load_pytree`` MB/s by codec on one 64 MiB leaf, with the projected
+    seconds of a full-width training checkpoint under the default codec.
+    Returns the serving run's launches."""
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import (CheckpointManager, load_pytree,
+                                        read_meta, save_pytree)
+    from repro_torch.checkpoint.manager import _default_codec, _walk
+    from repro_torch.configs import get_config
+    from repro_torch.core.approx_linear import iter_tensors
+    from repro_torch.data import ShardedLoader, SyntheticLMConfig
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch.serve import ServeConfig, build_serving_params
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import (TrainConfig, init_train_state,
+                                          main as train_main,
+                                          make_train_step)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.runtime import (RetryPolicy, StragglerMonitor,
+                                     run_resilient)
+
+    label = "checkpoint olmo-1b"
+    cfg, api, ecfg, trace = (built[k] for k in ("cfg", "api", "ecfg",
+                                                "trace"))
+    dev = api.device
+    spec = pallas_spec()
+    params = built["float"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build")
+    out: dict = {}
+    try:
+        # 1. the float checkpoint, saved and restored onto the card
+        path = os.path.join(work, "olmo-1b.ckpt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_pytree(params, path, codec="none",
+                    meta={"numerics": spec.to_dict()})
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        n_params = sum(t.numel() for _, t in _walk(params))
+        template = tree_map(lambda _, t: t.to("meta"), params)
+        placement = tree_map(lambda _, t: dev, params)
+        t0 = time.perf_counter()
+        restored = load_pytree(template, path, placement)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        bad = [k for (k, a), (_, b) in zip(_walk(params), _walk(restored))
+               if not (b.device == a.device and bits_equal(torch, a, b))]
+        if bad or len(list(_walk(restored))) != len(list(_walk(params))):
+            fail(f"{label}: restored leaves differ from the saved ones: "
+                 f"{bad[:4]}")
+        meta = read_meta(path)
+        if meta != {"codec": "none", "numerics": spec.to_dict()}:
+            fail(f"{label}: shard meta {meta}")
+        print(f"{label}: {n_params:,} float32 parameters, shard "
+              f"{nbytes:,} bytes (codec none); save {save_s:.2f} s "
+              f"({nbytes / save_s / 1e6:.0f} MB/s, card to file, fsynced), "
+              f"restore {load_s:.2f} s ({nbytes / load_s / 1e6:.0f} MB/s, "
+              "file to card, page cache warm); every leaf bit-equal",
+              flush=True)
+        out.update({"params": n_params, "bytes": nbytes, "save_s": save_s,
+                    "restore_s": load_s})
+
+        # 2. packed again, byte-equal, and served through the kernel
+        t0 = time.perf_counter()
+        packed = build_serving_params(restored, cfg, ServeConfig(spec=spec),
+                                      device=dev)
+        del restored
+        mine, theirs = (list(iter_tensors(p)) for p in (packed,
+                                                        built["packed"]))
+        if len(mine) != len(theirs) or not all(
+                bits_equal(torch, a, b) for a, b in zip(mine, theirs)):
+            fail(f"{label}: the restored tree's packs differ from the "
+                 "engine phase's")
+        check_packs(label, packed)
+        pack_s = time.perf_counter() - t0
+        run = engine_run(torch, label, cfg, api, packed, ecfg, trace,
+                         dense_calls(cfg, ecfg.slots), spec.name)
+        got = [r.generated for r in run["reqs"]]
+        want = [r.generated for r in built["run"]["reqs"]]
+        if got != want or run["launches"] != built["launches"]:
+            fail(f"{label}: served {got} with launches {run['launches']}; "
+                 f"the engine phase {want} with {built['launches']}")
+        print(f"{label}: {len(mine)} pack tensors byte-equal to the engine "
+              f"phase's ({pack_s:.1f} s); the main trace's tokens and "
+              f"launches {run['launches']} equal the engine phase's run",
+              flush=True)
+        del run["engine"], packed
+
+        # 3. plan --diff-checkpoint, under the shard's spec and int8
+        spec_file = os.path.join(work, "spec.json")
+        with open(spec_file, "w") as f:
+            f.write(spec.to_json())
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve_main(["plan", "--arch", "olmo-1b", "--spec-json",
+                        spec_file, "--diff-checkpoint", path])
+        same = buf.getvalue().splitlines()[-1]
+        buf = io.StringIO()
+        code = 0
+        try:
+            with contextlib.redirect_stdout(buf):
+                serve_main(["plan", "--arch", "olmo-1b", "--preset", "int8",
+                            "--diff-checkpoint", path])
+        except SystemExit as e:
+            code = e.code
+        if "no drift" not in same or code != OLMO_INT8_DRIFT:
+            fail(f"{label}: plan --diff-checkpoint gave {same!r} under the "
+                 f"shard's spec and exit {code} under int8 (want "
+                 f"{OLMO_INT8_DRIFT})")
+        print(f"{label}: plan --diff-checkpoint: {same}; under int8 "
+              f"SystemExit({code})", flush=True)
+        os.remove(path)
+
+        # 4. the train CLI on the card at its own scale, then resumed
+        cli_dir = os.path.join(work, "cli")
+        args = ["--arch", CKPT_ARCH, "--ckpt-dir", cli_dir, "--ckpt-every",
+                "10", "--device", dev.type]
+        logs = []
+        for n in (CKPT_CLI_STEPS, CKPT_CLI_MORE):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                train_main(args + ["--steps", str(n)])
+            logs.append((buf.getvalue(), time.perf_counter() - t0))
+        first, second = (text for text, _ in logs)
+        steps = CheckpointManager(cli_dir).steps()
+        if "step     0  loss" not in first or "step     0" in second or \
+                f"step    {CKPT_CLI_STEPS}  loss" not in second or \
+                steps[-1] != CKPT_CLI_MORE - 1:
+            fail(f"{label}: the train CLI did not resume:\n{first}\n{second}")
+        for text, secs in logs:
+            print(f"{label}: train CLI ({secs:.1f} s): "
+                  + " | ".join(text.strip().splitlines()), flush=True)
+
+        # 5. run_resilient with two injected failures against a clean run
+        rcfg = get_config(CKPT_ARCH)
+        tcfg = TrainConfig(optimizer=AdamWConfig(eps=1e-4), base_lr=1e-3,
+                           warmup_steps=0, total_steps=CKPT_STEPS)
+        step_fn = make_train_step(rcfg, tcfg, device=dev)
+        dcfg = SyntheticLMConfig(vocab=rcfg.vocab, seq_len=128, batch=8)
+
+        class Checked(CheckpointManager):
+            """Keeps a host copy of every saved state; every restore must
+            give it back bit for bit."""
+
+            def __init__(self, d):
+                super().__init__(d)
+                self.saved, self.restores = {}, 0
+
+            def save(self, tree, step, blocking=True, numerics=None):
+                self.saved[step] = tree_map(
+                    lambda _, t: t.to("cpu", copy=True)
+                    if isinstance(t, torch.Tensor) else t, tree)
+                super().save(tree, step, blocking, numerics)
+
+            def restore(self, template, step=None, placement=None):
+                tree, s = super().restore(template, step, placement)
+                bad = [k for (k, a), (_, b) in zip(_walk(tree),
+                                                   _walk(self.saved[s]))
+                       if not (bits_equal(torch, a.cpu(), b)
+                               if isinstance(a, torch.Tensor) else a == b)]
+                if bad:
+                    fail(f"{label}: restore of step {s} differs from the "
+                         f"saved state at {bad[:4]}")
+                self.restores += 1
+                return tree, s
+
+        runs = {}
+        for name, failures in (("clean", ()), ("failures", CKPT_FAILURES)):
+            mgr = Checked(os.path.join(work, name))
+            pending, losses = set(failures), {}
+            monitor = StragglerMonitor()
+
+            def wrapped(state, batch, i):
+                state, m = step_fn(state, batch)
+                losses[i] = float(m["loss"])
+                return state
+
+            def hook(i):
+                if i in pending:
+                    pending.discard(i)
+                    raise RuntimeError("injected node failure")
+
+            loader = ShardedLoader(lambda s, sh, ns: lm_batch(dcfg, s, sh,
+                                                              ns))
+            t0 = time.perf_counter()
+            try:
+                final = run_resilient(
+                    init_state=lambda: init_train_state(rcfg, tcfg, seed=0,
+                                                        device=dev),
+                    step_fn=wrapped, loader=loader, manager=mgr,
+                    total_steps=CKPT_STEPS,
+                    policy=RetryPolicy(max_failures=3, backoff_s=0.0,
+                                       checkpoint_every=CKPT_EVERY),
+                    monitor=monitor, failure_hook=hook)
+            finally:
+                loader.close()
+            runs[name] = {"losses": losses, "final": final,
+                          "restores": mgr.restores,
+                          "seconds": time.perf_counter() - t0,
+                          "flagged": monitor.flagged}
+        clean, hurt = runs["clean"], runs["failures"]
+        rel = max(abs(hurt["losses"][i] - clean["losses"][i])
+                  / abs(clean["losses"][i]) for i in range(CKPT_STEPS))
+        worst = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
+            _walk(hurt["final"]["params"]), _walk(clean["final"]["params"])))
+        if hurt["restores"] != len(CKPT_FAILURES) or \
+                sorted(hurt["losses"]) != list(range(CKPT_STEPS)) or \
+                not (rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_PARAM_ATOL):
+            fail(f"{label}: the resilient run with failures at "
+                 f"{CKPT_FAILURES} left the clean run: {hurt['restores']} "
+                 f"restores, loss rel diff {rel:.3g}, params {worst:.3g}")
+        print(f"{label}: run_resilient {CKPT_ARCH} B=8 T=128, "
+              f"{CKPT_STEPS} steps, a checkpoint every {CKPT_EVERY}: "
+              f"failures at {list(CKPT_FAILURES)}, {hurt['restores']} "
+              "restores each bit-equal to the saved state; against the "
+              f"clean run losses max rel diff {rel:.3g} (rtol "
+              f"{TRAIN_LOSS_RTOL}), parameters max abs diff {worst:.3g} "
+              f"(atol {TRAIN_PARAM_ATOL}); {clean['seconds']:.1f} / "
+              f"{hurt['seconds']:.1f} s; straggler flags (step, s): clean "
+              f"{clean['flagged']}, failures {hurt['flagged']}", flush=True)
+        out["resilient"] = {k: {"losses": [v["losses"][i]
+                                           for i in range(CKPT_STEPS)],
+                                "restores": v["restores"],
+                                "seconds": v["seconds"],
+                                "stragglers": v["flagged"]}
+                            for k, v in runs.items()}
+        out["resilient"].update({"loss_rel_diff": rel,
+                                 "param_max_abs_diff": worst})
+
+        # 6. save / load rate by codec on one full-width leaf
+        leaf = params["blocks"]["mlp"]["down"]["w"][0]
+        rates, codec = {}, _default_codec()
+        for codec in dict.fromkeys(("none", "zlib", codec)):
+            p = os.path.join(work, f"leaf_{codec}.ckpt")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_pytree({"w": leaf}, p, codec=codec)
+            t1 = time.perf_counter()
+            back = load_pytree({"w": leaf}, p)["w"]
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if not bits_equal(torch, back, leaf):
+                fail(f"{label}: the {codec} leaf came back changed")
+            mb = leaf.numel() * leaf.element_size() / 1e6
+            rates[codec] = {"save_mb_s": mb / (t1 - t0),
+                            "load_mb_s": mb / (t2 - t1),
+                            "file_ratio": os.path.getsize(p) / (mb * 1e6)}
+            os.remove(p)
+        codec = _default_codec()  # the manager's, zlib without zstandard
+        state_gb = TRAIN_STATE_COPIES * nbytes / 1e9
+        projected = state_gb * 1e3 / rates[codec]["save_mb_s"]
+        print(f"{label}: one {tuple(leaf.shape)} float32 leaf "
+              f"({mb / 1.048576:.0f} MiB): "
+              + "; ".join(f"{c} save {r['save_mb_s']:.0f} MB/s, load "
+                          f"{r['load_mb_s']:.0f} MB/s, file/raw "
+                          f"{r['file_ratio']:.3f}" for c, r in rates.items())
+              + f"; a full-width olmo-1b training checkpoint (params, m, v: "
+              f"{state_gb:.2f} GB) under the default codec ({codec}) would "
+              f"take ~{projected:.0f} s to save", flush=True)
+        out.update({"codec_rates": rates, "default_codec": codec,
+                    "train_state_gb": state_gb,
+                    "projected_train_save_s": projected})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    write_line(label, "checkpoint.json", out)
+    return {label: run["launches"]}
+
+
 def run_auto(torch, dev) -> None:
     """``auto(...)`` at full width: the ``paper-grid`` preset (budget
     AUTO_BUDGET) resolved on AUTO_NET with the CNN phase's 256 calibration
@@ -2458,10 +2784,12 @@ def warm_up(torch, api, params, ecfg) -> None:
 #: (``quantized_linear`` -> ``_int_matmul`` in float64), as the reference
 #: does at fan-ins above 258, and no kernel
 INT8_PRESET_LAYERS = 8
-#: depth of the qwen3-4b and rwkv6-1.6b engine phases, cut (widths are
-#: never cut) to pay for the hybrid and train phases; their lock-step
-#: paths still run at full depth (36 and 24 layers)
-QWEN3_ENGINE_LAYERS, RWKV_ENGINE_LAYERS = 12, 8
+#: depth of the qwen3-4b, rwkv6-1.6b and qwen2-vl-2b engine phases, cut
+#: (widths are never cut) to pay for the hybrid and train phases (qwen3-4b
+#: 36 -> 12, rwkv6-1.6b 24 -> 8) and then the checkpoint phase (qwen3-4b
+#: 12 -> 6, qwen2-vl-2b 28 -> 14); their lock-step paths still run at
+#: full depth (36, 24 and 28 layers)
+QWEN3_ENGINE_LAYERS, RWKV_ENGINE_LAYERS, QWEN2VL_ENGINE_LAYERS = 6, 8, 14
 
 
 def run_qwen3_engine(torch, dev) -> dict:
@@ -3336,8 +3664,9 @@ def run_train_phase(torch, dev) -> dict:
 
 
 def run_qwen2vl_engine(torch, dev) -> dict:
-    """Phase 4d: full-width qwen2-vl-2b (28 layers; M-RoPE with the three
-    ids equal, as token prompts give; QKV biases; GQA 12/2) through the
+    """Phase 4d: full-width qwen2-vl-2b (QWEN2VL_ENGINE_LAYERS of its 28
+    layers; M-RoPE with the three ids equal, as token prompts give; QKV
+    biases; GQA 12/2) through the
     engine on ``serve-default`` packs with a bf16 KV cache, with the checks
     of the olmo-1b phase.  The engine takes token prompts only, as the
     reference's does.  Returns the launch counts and (cfg, api, packs) for
@@ -3347,7 +3676,8 @@ def run_qwen2vl_engine(torch, dev) -> dict:
     from repro_torch.launch.serve import mixed_trace
 
     t0 = time.perf_counter()
-    cfg, api, packed = build_packed(torch, dev, "qwen2-vl-2b")
+    cfg, api, packed = build_packed(torch, dev, "qwen2-vl-2b",
+                                    QWEN2VL_ENGINE_LAYERS)
     label = "qwen2-vl"
     members = check_packs(label, packed)
     pack_gib = storage_gib(iter_tensors(packed))
@@ -4688,11 +5018,15 @@ def main() -> int:
                                     time.perf_counter())
     paths.update(run_fleet_phase(torch, built))
     phase_s["fleet"], t0 = time.perf_counter() - t0, time.perf_counter()
+    paths.update(run_checkpoint_phase(torch, built))
+    phase_s["checkpoint"], t0 = (time.perf_counter() - t0,
+                                 time.perf_counter())
     del built
     torch.cuda.empty_cache()
     run_auto(torch, dev)
     phase_s["auto"] = time.perf_counter() - t0
-    print("robustness, observability and fleet phases, seconds: "
+    print("robustness, observability, fleet and checkpoint phases, "
+          "seconds: "
           + json.dumps(phase_s), flush=True)
     lap("robustness, observability, fleet, auto")
     torch.cuda.empty_cache()

@@ -55,6 +55,10 @@ the PackPlan) from shapes alone, on the ``meta`` device:
 
     PYTHONPATH=src python -m repro_torch.launch.serve plan \
         --arch deepseek-67b --preset serve-default
+
+``plan --diff-checkpoint SHARD`` also re-resolves the NumericsSpec saved in
+a checkpoint shard's metadata (either package's) and exits with the number
+of layers whose assignment differs from the CLI's spec.
 """
 
 from __future__ import annotations
@@ -855,15 +859,42 @@ def run_fleet(args) -> dict:
     return snap
 
 
+def _plan_diff(plan: PackPlan, params, ckpt_path: str) -> int:
+    """Compare a resolved plan against the NumericsSpec a checkpoint was
+    saved with (its ``numerics`` metadata), re-resolved over the same
+    shape-only parameters.  Prints per-layer drift rows; returns the number
+    of drifted layers (the plan subcommand's exit code), so 0 == the
+    checkpoint really will serve under the numerics the CLI describes."""
+    from repro_torch.checkpoint.manager import read_meta
+
+    meta = read_meta(ckpt_path)
+    nd = (meta or {}).get("numerics")
+    if nd is None:
+        raise SystemExit(f"{ckpt_path}: checkpoint metadata carries no "
+                         "numerics spec (saved before numerics persistence, "
+                         "or not via save_pytree/CheckpointManager?)")
+    ck_spec = NumericsSpec.from_dict(nd)
+    ck_plan = ck_spec.resolve(params)
+    mine = {e.path: e.label for e in plan.entries}
+    theirs = {e.path: e.label for e in ck_plan.entries}
+    drift = [(p, mine.get(p), theirs.get(p))
+             for p in sorted(set(mine) | set(theirs))
+             if mine.get(p) != theirs.get(p)]
+    print(f"checkpoint spec: {ck_spec.name!r} ({ckpt_path})")
+    if not drift:
+        print(f"plan matches checkpoint: {len(mine)} layers, no drift")
+        return 0
+    print(f"PLAN DRIFT: {len(drift)} layer(s) differ (cli vs checkpoint)")
+    for path, a, b in drift:
+        print(f"  {path}: {a or '<absent>'} != {b or '<absent>'}")
+    return len(drift)
+
+
 def run_plan(args) -> PackPlan:
     """The ``plan`` subcommand: resolve and print the per-layer assignment
     table without packing.  The parameters are built on the ``meta``
     device (shapes only, the counterpart of ``jax.eval_shape``), so even
     deepseek-67b allocates nothing."""
-    if getattr(args, "diff_checkpoint", None):
-        raise SystemExit(
-            "--diff-checkpoint needs checkpoints, which the port does not "
-            "read yet (ROADMAP queue 1, item 15)")
     cfg = get_config(args.arch)
 
     def key_order(node):
@@ -886,6 +917,10 @@ def run_plan(args) -> PackPlan:
     else:
         print(f"arch={cfg.name} spec={spec.name}")
         print(plan.table())
+    if getattr(args, "diff_checkpoint", None):
+        drifted = _plan_diff(plan, params, args.diff_checkpoint)
+        if drifted:
+            raise SystemExit(drifted)
     return plan
 
 
@@ -912,8 +947,9 @@ def main(argv: list[str] | None = None) -> int:
         ap.add_argument("--json", action="store_true",
                         help="emit the PackPlan as JSON instead of a table")
         ap.add_argument("--diff-checkpoint", default=None, metavar="PATH",
-                        help="compare with a checkpoint's persisted spec "
-                        "(refused: the port reads no checkpoints yet)")
+                        help="compare the plan with the NumericsSpec a "
+                        "checkpoint shard was saved under; exits with the "
+                        "number of drifted layers")
         run_plan(ap.parse_args(argv[1:]))
         return 0
 

@@ -1,6 +1,13 @@
-"""Training step (port of the step half of ``repro.launch.train``): loss,
-gradients and AdamW, with mixed precision, gradient accumulation and int8
-error-feedback gradient compression.
+"""Training (port of ``repro.launch.train``): the step builder
+(loss, gradients and AdamW, with mixed precision, gradient accumulation and
+int8 error-feedback gradient compression) and a CLI that trains a reduced
+model on the synthetic stream through the fault-tolerance stack
+(checkpoint/restart, the sharded loader, the straggler monitor).
+
+    python -m repro_torch.launch.train --arch olmo-1b-reduced \
+        --steps 50 --batch 8 --seq 128 [--device cpu]
+
+or in code:
 
     from repro_torch.launch.train import (TrainConfig, init_train_state,
                                           make_train_step)
@@ -16,18 +23,23 @@ error-feedback gradient compression.
 
 The step runs the model's training path (``api.train_loss``: plain
 attention and WKV, ``cfg.remat``), never the inference kernels, which have
-no backward.  The reference's CLI (checkpoint/restart, the sharded loader,
-the straggler monitor) and its sharding arguments wait for the
-checkpoint, runtime and distributed slices.
+no backward.  The reference's sharding arguments (FSDP, the
+convert-before-gather cast, ``train_state_shardings``) wait for the
+distributed slice.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import os
+import tempfile
+import time
 from typing import Any
 
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import build_model
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
@@ -128,3 +140,71 @@ def init_train_state(cfg: ArchConfig, tcfg: TrainConfig, seed: int = 0,
     if tcfg.grad_compress:
         state["ef"] = compressor_init(params)
     return state
+
+
+# ---------------------------------------------------------------------------
+# The CLI (reduced archs; the card's full-size step is ``make_train_step``)
+# ---------------------------------------------------------------------------
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b-reduced")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_train_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--grad-compress", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import ShardedLoader, SyntheticLMConfig
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.runtime import (RetryPolicy, StragglerMonitor,
+                                     run_resilient)
+
+    cfg = get_config(args.arch)
+    tcfg = TrainConfig(base_lr=args.lr, total_steps=args.steps,
+                       grad_compress=args.grad_compress)
+    dcfg = SyntheticLMConfig(vocab=cfg.vocab, seq_len=args.seq,
+                             batch=args.batch)
+
+    step_fn = make_train_step(cfg, tcfg, device=args.device)
+    monitor = StragglerMonitor()
+    manager = CheckpointManager(args.ckpt_dir)
+    loader = ShardedLoader(lambda s, sh, ns: lm_batch(dcfg, s, sh, ns))
+    losses: list[float] = []
+
+    def wrapped(state, batch, step):
+        state, metrics = step_fn(state, batch)
+        # reading the loss waits for the step, so the monitor times the
+        # step and not its launch
+        losses.append(float(metrics["loss"]))
+        if step % 10 == 0:
+            print(f"step {step:5d}  loss {losses[-1]:.4f}")
+        return state
+
+    t0 = time.time()
+    run_resilient(
+        init_state=lambda: init_train_state(cfg, tcfg, seed=0,
+                                            device=args.device),
+        step_fn=wrapped,
+        loader=loader,
+        manager=manager,
+        total_steps=args.steps,
+        policy=RetryPolicy(checkpoint_every=args.ckpt_every),
+        monitor=monitor,
+    )
+    loader.close()
+    print(f"done: {args.steps} steps in {time.time()-t0:.1f}s; "
+          f"loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
+          f"stragglers={len(monitor.flagged)}")
+
+
+if __name__ == "__main__":
+    main()

@@ -442,8 +442,8 @@ def test_plan_subcommand_prints_the_jax_cli_output(arch, flags, capsys):
 
 
 def test_plan_refuses_diff_checkpoint_and_float(tmp_path):
-    with pytest.raises(SystemExit, match="checkpoints"):
-        serve_main(["plan", "--diff-checkpoint", str(tmp_path / "ckpt")])
+    # ``--diff-checkpoint`` is served now (tests/test_torch_runtime.py::
+    # test_plan_diff_checkpoint_gate); float serving has nothing to plan
     with pytest.raises(SystemExit, match="nothing to plan"):
         serve_main(["plan", "--mode", "float"])
 

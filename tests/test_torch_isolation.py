@@ -1,9 +1,12 @@
 """The port stands alone: no JAX and nothing of the reference package (every
 module, the serving layer's telemetry, prom, shadow and fleet included,
 the MLA/MoE archs with ``nn.moe`` and ``core.grouped_approx``, the hybrid
-with ``nn.ssm``, and the training step with ``optim``, ``data.synthetic``
-and ``launch.train``), and its entry points run on the card unless the
-caller asks for the CPU."""
+with ``nn.ssm``, the training step with ``optim``, ``data.synthetic``
+and ``launch.train``, and the checkpoint store (``checkpoint.manager``,
+``checkpoint._msgpack``, ``checkpoint.elastic``), ``data.loader`` and
+``runtime.fault_tolerance`` with the train CLI), without the ``msgpack``,
+``zstandard`` and ``ml_dtypes`` wheels; and its entry points run on the
+card unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -42,6 +45,8 @@ def test_port_runs_with_jax_unimportable():
         import sys
         sys.modules["jax"] = None
         sys.modules["repro"] = None
+        for wheel in ("msgpack", "zstandard", "ml_dtypes"):
+            sys.modules[wheel] = None
         import torch
         from repro_torch.configs import get_config
         from repro_torch.core.policy import ApproxPolicy
@@ -175,8 +180,47 @@ def test_port_runs_with_jax_unimportable():
         fleet.replicas[0].engine.submit(list(range(12)), 2)
         fleet.drain()
         assert fleet.share_prefixes() == 3  # 12 prompt tokens, blocks of 4
+        # checkpoints without the msgpack, zstandard and ml_dtypes wheels:
+        # a bf16 tree through zlib (the default codec here), the loader,
+        # the resilient loop and the train CLI
+        import tempfile
+        from repro_torch.checkpoint import (CheckpointManager, load_pytree,
+                                            read_meta, restore_with_sharding,
+                                            save_pytree)
+        from repro_torch.checkpoint.manager import _default_codec
+        from repro_torch.data import ShardedLoader
+        from repro_torch.launch.train import main as train_main
+        from repro_torch.runtime import RetryPolicy, run_resilient
+        assert _default_codec() == "zlib"
+        tree = {"w": torch.randn(3, 5).to(torch.bfloat16),
+                "s": [torch.arange(4, dtype=torch.int32), 7]}
+        with tempfile.TemporaryDirectory() as d:
+            save_pytree(tree, d + "/x.ckpt", meta={"numerics": {"name": "n"}})
+            back = load_pytree({"w": torch.zeros(3, 5, dtype=torch.bfloat16),
+                                "s": [torch.zeros(4, dtype=torch.int32), 0]},
+                               d + "/x.ckpt")
+            assert torch.equal(back["w"], tree["w"]) and back["s"][1] == 7
+            assert read_meta(d + "/x.ckpt")["codec"] == "zlib"
+            mgr = CheckpointManager(d + "/run")
+            loader = ShardedLoader(lambda s, sh, ns: {"x": float(s)})
+            try:
+                final = run_resilient(
+                    init_state=lambda: {"n": 0}, loader=loader, manager=mgr,
+                    step_fn=lambda st, b, i: {"n": st["n"] + 1},
+                    total_steps=4, policy=RetryPolicy(checkpoint_every=2))
+            finally:
+                loader.close()
+            assert final == {"n": 4} and mgr.steps() == [1, 3]
+            back, step = restore_with_sharding(mgr, {"n": 0}, {"n": "cpu"})
+            assert back == {"n": 4} and step == 3
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                train_main(["--device", "cpu", "--steps", "2", "--batch",
+                            "2", "--seq", "8", "--ckpt-dir", d + "/t"])
+            assert "done: 2 steps" in out.getvalue()
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m in sys.modules if sys.modules[m] is not None)
+        assert not any(sys.modules.get(w) for w in (
+            "msgpack", "zstandard", "ml_dtypes"))
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -186,7 +230,7 @@ def test_port_runs_with_jax_unimportable():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     from repro_torch.configs import EngineConfig, get_config
     from repro_torch.launch.serve import ServeConfig, build_serving_params
     from repro_torch.models import build_model
@@ -221,3 +265,7 @@ def test_entry_points_default_to_cuda():
         init_train_state(cfg, TrainConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         make_train_step(cfg, TrainConfig())
+    from repro_torch.launch.train import main as train_main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(["--steps", "1", "--ckpt-dir", str(tmp_path)])

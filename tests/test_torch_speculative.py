@@ -1,9 +1,9 @@
 """The port's self-verifying speculative decode
 (``repro_torch.serving.speculative`` through the engine): the counterparts
-of tests/test_speculative.py (``test_plan_diff_checkpoint_gate`` waits for
-checkpoints), and parity with the JAX engine on one trace — the same
-emitted tokens and the same drafted, accepted, round and draft-call
-counts, on both KV layouts.
+of tests/test_speculative.py (``test_plan_diff_checkpoint_gate``'s is in
+tests/test_torch_runtime.py, beside the checkpoints it reads), and parity
+with the JAX engine on one trace — the same emitted tokens and the same
+drafted, accepted, round and draft-call counts, on both KV layouts.
 
 One float init (JAX's, carried across by the bridge) packed twice: the
 ``int8`` preset verifies, ``serve-default`` (perforated m=2 + CV) on
