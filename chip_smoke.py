@@ -138,6 +138,23 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    encoder (48 layers, `forward` over (4, 1024, 1280) frame embeddings:
    non-causal flash at D=80, the N=504 head on the prefill tile), with the
    same launch, determinism, plain-gap and teacher-forced checks;
+5b. "distributed", right after the moe phase's deepseek-v2-lite-16b
+   engine and on its packs, over an NCCL process group of one rank and a
+   (1, 1) ("data", "model") mesh (no gloo, no CPU fallback; destroyed
+   before the later phases): the same trace through the engine with
+   `moe_impl="ep_psum"` and `mesh=` (tokens and approx-matmul launches
+   equal the local run's, one NCCL all-reduce a MoE layer a call); the
+   sharded training step, olmo-1b at full width and 2 layers in bf16 with
+   FSDP and sequence parallelism, then `dp_only` on a (1,) mesh, 2 steps
+   each against the unsharded step (losses and state bit-equal; wall and
+   device ms a step); `rs_matmul_overlapped` at (4096, 2048) x (2048,
+   8192) and `compressed_psum` of the sharded step's gradients against
+   their plain forms; the sharded state saved under (1, 1) and restored
+   under (1,), bit-equal; and the dry run of every reference cell on both
+   production meshes at H100 constants, started in the background at the
+   script's start (`python -m repro_torch.launch.dryrun --all`, niced, 3
+   workers, CPU only): one line a cell (`chiprun_out/dryrun/`,
+   `distributed.json`);
 6. the paper's CNN path: the six CNN_SUITE nets at full width (CIFAR
    geometry, seeded float weights), calibrated on 256 procedural train
    images and packed (`backend: "pallas"`) at every paper-grid point with
@@ -197,13 +214,6 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: data-sheet peaks by card name: (memory bytes/s, dense int8 ops/s, dense
-#: bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores)
-CARD_PEAKS = {
-    "H100 80GB HBM3": (3.35e12, 1979e12, 989e12, 67e12),  # SXM5
-    "H100 PCIe": (2.0e12, 1513e12, 756e12, 51e12),
-    "H100 NVL": (3.9e12, 1671e12, 835e12, 60e12),
-}
 
 #: kernel comparison tolerance: the kernel and its plain version run the
 #: same float32 epilogue operations in the same order (the kernel is built
@@ -412,10 +422,32 @@ def check_packs(label: str, tree) -> int:
 
 
 def peaks(name: str) -> tuple[float, float, float, float]:
-    for key, val in CARD_PEAKS.items():
-        if key in name:
-            return val
-    fail(f"no data-sheet peaks for card {name!r}: add it to CARD_PEAKS")
+    """The card's data-sheet peaks (``repro_torch.launch.roofline.
+    CARD_PEAKS``: bytes/s, int8 ops/s, bf16 FLOP/s, float32 FLOP/s)."""
+    from repro_torch.launch import roofline
+
+    val = roofline.peaks(name)
+    if val is None:
+        fail(f"no data-sheet peaks for card {name!r}: add it to "
+             "repro_torch.launch.roofline.CARD_PEAKS")
+    return val
+
+
+def approx_bound(mm: int, k: int, n: int, w_qbt_numel: int,
+                 epilogue_numel: int, meta_numel: int, x_itemsize: int,
+                 out_itemsize: int, card: str, mode: str = "perforated",
+                 m: int = 2) -> tuple[float, str]:
+    """(least seconds, bound_by) of one fused approx call on ``card``: the
+    work formula the dry run counts the kernel with
+    (``roofline.approx_matmul_work``), bytes over the memory rate against
+    int8 operations over the int8 peak."""
+    from repro_torch.launch import roofline
+
+    bw, int8_peak, _, _ = peaks(card)
+    nbytes, ops = roofline.approx_matmul_work(
+        mm, k, n, w_qbt_numel, epilogue_numel, meta_numel, x_itemsize,
+        out_itemsize, mode, m)
+    return roofline.bound(nbytes, ops, int8_peak, bw)
 
 
 # ---------------------------------------------------------------------------
@@ -899,13 +931,11 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
     qwen3-4b) for both entries, the three lock-step prefills' rows for the
     fused entry (its plain version timed at one prefill shape only)."""
     from repro_torch.kernels import approx_matmul as amk
+    from repro_torch.launch import roofline
     from repro_torch.quant.quantize import BlockedPack
 
     bw, int8_peak, _, _ = peaks(card)
     mode, m = "perforated", 2
-    # least work: one product per plane plus the main one (perforated and
-    # exact: one; recursive: two; truncated: m + 1)
-    products = 1 + len(amk.decomposition(mode, m)[1])
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
     small = sorted({(4, k, n) for k, n in DECODE_KN + PATH_KN + RWKV_KN
@@ -943,8 +973,8 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
             plain=[lambda b=b: amk.approx_matmul_cv_fused_plain(
                 x, b.w_qbt, b.epilogue, b.meta, k=k, n=n, mode=mode, m=m)
                 for b in blks[:2]],
-            nbytes=(x.numel() * 2 + w_bytes + blocked.epilogue.numel() * 4
-                    + blocked.meta.numel() * 4 + mm * n * 2))
+            bound=approx_bound(mm, k, n, w_bytes, blocked.epilogue.numel(),
+                               blocked.meta.numel(), 2, 2, card, mode, m))
         entries = [("approx_matmul_cv_fused", fused)]
         if mm <= 128:
             wqs = [pack.w_q] + [pack.w_q.clone() for _ in range(copies - 1)]
@@ -962,7 +992,8 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
                 plain=[lambda w=w: amk.approx_matmul_cv_plain(
                     a_q, w, pack.c, pack.c0, pack.sum_qw, bias, meta5,
                     mode=mode, m=m) for w in wqs[:2]],
-                nbytes=(mm * k + k * n + 4 * 4 * n + 4 * 5 + mm * n * 4))))
+                bound=roofline.bound(*roofline.approx_codes_work(
+                    mm, k, n, mode, m), int8_peak, bw))))
         w_f = [torch.randn(k, n, generator=gen, device=dev).to(torch.bfloat16)
                for _ in range(copies)]
         t_lib = time_calls(torch, [lambda w=w: torch.matmul(x, w) for w in w_f])
@@ -976,9 +1007,7 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
             t_int8 = time_calls(torch, [lambda w=w: torch._int_mm(x8, w)
                                         for w in w8])
             del w8, x8
-        t_ops = 2.0 * mm * k * n * products / int8_peak
         for name, d in entries:
-            t_bytes = d["nbytes"] / bw
             timed_plain = mm <= 128 or (mm, k, n) == plain_at
             rows.append({
                 "kernel": name, "M": mm, "K": k, "N": n,
@@ -987,8 +1016,7 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
                              if timed_plain else None),
                 "library_us": t_lib * 1e6,
                 "int8_library_us": None if t_int8 is None else t_int8 * 1e6,
-                "bound_us": max(t_bytes, t_ops) * 1e6,
-                "bound_by": ("bytes" if t_bytes >= t_ops else "operations")})
+                "bound_us": d["bound"][0] * 1e6, "bound_by": d["bound"][1]})
             print("time " + json.dumps(rows[-1]), flush=True)
         del blks, fused, entries
     return rows
@@ -3917,7 +3945,7 @@ def build_by_layer(torch, dev, cfg) -> tuple[dict, dict]:
 
 
 def run_moe_arch(torch, dev, arch: str, n_layers: int | None = None,
-                 paged: bool = False, want_calls=None) -> dict:
+                 paged: bool = False, want_calls=None, keep=None) -> dict:
     """One MoE arch through the engine at full width (``n_layers`` cuts the
     depth only): 8 requests of ``mixed_trace(seed=0)``, slots 4, max_len
     256, chunk 32, bf16 KV cache, on ``serve-default`` kernel packs built
@@ -3926,7 +3954,9 @@ def run_moe_arch(torch, dev, arch: str, n_layers: int | None = None,
     path chunk-shaped and thin, one CUDA launch a thin step's fused call),
     then with ``paged`` the paged layout (``run_paged``).  ``want_calls``
     = (chunk, thin) fused calls a step the phase must count.  Returns the
-    launches by path and the phase's JSON line."""
+    launches by path; a ``keep`` dict receives the packs, the trace and
+    the run's tokens and launches (the distributed phase serves them
+    again)."""
     import dataclasses
 
     from repro_torch.configs import EngineConfig, get_config
@@ -4007,6 +4037,11 @@ def run_moe_arch(torch, dev, arch: str, n_layers: int | None = None,
         out[f"paged {arch}"] = run_paged(
             torch, f"paged {arch}", cfg, api, packed, ecfg, trace, run,
             spec.name)
+    if keep is not None:
+        keep.update(cfg=cfg, packed=packed, ecfg=ecfg, trace=trace,
+                    per_call=per_call, numerics=spec.name,
+                    tokens=[list(r.generated) for r in run["reqs"]],
+                    launches=run["launches"], wall_s=run["wall_s"])
     del run
     write_line(label, f"moe_{arch}.json", line)
     return out
@@ -4073,18 +4108,25 @@ def run_moe_cli(torch, arch: str) -> dict:
     return launches
 
 
-def run_moe_phase(torch, dev) -> dict:
+def run_moe_phase(torch, dev, between=None) -> dict:
     """The "moe" phase: deepseek-v2-lite-16b at full width and depth (27
     layers: MLA, one leading dense layer, 64 routed experts top-6 and 2
     shared) on the contiguous and the paged layout, then through the serve
     CLI, then moonshot-v1-16b-a3b at full width and MOON_LAYERS of its 48
-    layers.
+    layers.  ``between(keep)`` runs after deepseek's engine, on its packs
+    (``run_moe_arch``'s ``keep``), and returns launches by path too.
     Returns the launches by path."""
     import gc
 
     t0 = time.perf_counter()
+    keep = {}
     out = run_moe_arch(torch, dev, "deepseek-v2-lite-16b", paged=True,
-                       want_calls=(109, 136))
+                       want_calls=(109, 136), keep=keep)
+    if between is not None:
+        out.update(between(keep))
+    keep.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     out["cli deepseek-v2-lite-16b"] = run_moe_cli(torch,
                                                   "deepseek-v2-lite-16b")
     out.update(run_moe_arch(torch, dev, "moonshot-v1-16b-a3b",
@@ -4093,6 +4135,365 @@ def run_moe_phase(torch, dev) -> dict:
     torch.cuda.empty_cache()
     print(f"moe: phase {time.perf_counter() - t0:.1f} s", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the distributed phase
+# ---------------------------------------------------------------------------
+
+#: the sharded training step's arch, depth (widths full), batch and steps,
+#: as the train phase's card-vs-host check cuts it
+DIST_ARCH, DIST_LAYERS, DIST_B, DIST_T, DIST_STEPS = "olmo-1b", 2, 4, 512, 2
+#: an olmo-1b layer's up projection over a B=4, T=1024 prefill
+OVERLAP_M, OVERLAP_K, OVERLAP_N = 4 * 1024, 2048, 8192
+#: dry-run cells counted in parallel (niced) while the earlier phases run
+DRYRUN_WORKERS = 3
+DRYRUN_LOG = ROOT / "chiprun_out" / "dryrun.log"
+
+
+def start_dryrun():
+    """Starts the dry run of every reference cell on both production
+    meshes (``python -m repro_torch.launch.dryrun --all``: CPU only, on the
+    ``meta`` device) in the background, at a lower priority, writing its
+    records to ``chiprun_out/dryrun/``.  Returns the process, which the
+    distributed phase waits for; it is stopped at exit."""
+    import atexit
+
+    out = ROOT / "chiprun_out" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    log = open(DRYRUN_LOG, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--workers", str(DRYRUN_WORKERS), "--out", str(out)],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+        preexec_fn=lambda: os.nice(10), start_new_session=True)
+    log.close()
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, time.perf_counter()
+
+
+def finish_dryrun(proc_t0) -> dict:
+    """Waits for the background dry run; prints one line a cell (dominant
+    term, its seconds, per-device GiB), the production-cell table and the
+    total seconds.  Fails unless every reference cell on both meshes was
+    counted or skipped as the reference skips it."""
+    from repro_torch.launch.dryrun import device_gib
+
+    proc, t0 = proc_t0
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("distributed: the dry run did not finish in 600 s more")
+    lines = DRYRUN_LOG.read_text().splitlines()
+    cells = [ln for ln in lines if ln.startswith("[")]
+    for ln in cells:
+        print("dryrun " + ln, flush=True)
+    total = next((ln for ln in lines if ln.startswith("dry run:")), "")
+    print(f"distributed: {total} ({DRYRUN_WORKERS} niced worker processes "
+          f"beside the earlier phases; {time.perf_counter() - t0:.1f} s "
+          "from its start to the end of the wait)", flush=True)
+    recs = [json.loads(p.read_text()) for p in sorted(
+        (ROOT / "chiprun_out" / "dryrun").glob("*.json"))]
+    ok = [r for r in recs if r["status"] == "ok"]
+    skip = [r for r in recs if r["status"] == "skip"]
+    if proc.returncode != 0 or len(recs) != 80 or len(ok) != 62 \
+            or len(skip) != 18:
+        fail(f"distributed: dry run rc {proc.returncode}, {len(ok)} cells "
+             f"counted and {len(skip)} skipped of {len(recs)} (want 62 and "
+             "18 of 80)")
+    return {"cells": len(ok), "skipped": len(skip), "summary": total,
+            "table": [{"arch": r["arch"], "shape": r["shape"],
+                       "mesh": r["mesh"],
+                       "dominant": r["roofline"]["dominant"],
+                       "seconds": r["roofline"][
+                           r["roofline"]["dominant"] + "_s"],
+                       "per_device_gib": device_gib(r),
+                       "useful_flops_ratio": r["useful_flops_ratio"]}
+                      for r in ok]}
+
+
+def timed_step(torch, step, state, batch):
+    """(new state, loss, wall ms, device ms) of one training step."""
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev0.record()
+    state, m = step(state, batch)
+    ev1.record()
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    return (state, loss, (time.perf_counter() - t0) * 1e3,
+            ev0.elapsed_time(ev1))
+
+
+def tree_gap(torch, a, b) -> float:
+    """Largest absolute difference of two trees' tensors, leaf by path."""
+    from repro_torch.optim.adamw import tree_map
+
+    got = {}
+    tree_map(lambda path, t: got.__setitem__(path, t), a)
+    gaps = []
+    tree_map(lambda path, t: gaps.append(float(
+        (got[path].float() - t.float()).abs().max())) if torch.is_tensor(t)
+        else None, b)
+    return max(gaps)
+
+
+def run_distributed_phase(torch, dev, keep: dict, dryrun) -> dict:
+    """The "distributed" phase, over an NCCL process group of one rank
+    (``file://`` init; no gloo, no CPU fallback) and a (1, 1) ("data",
+    "model") mesh on the card:
+
+    - expert parallelism: the moe phase's full-width deepseek-v2-lite-16b
+      packs through the engine with ``moe_impl="ep_psum"`` and ``mesh=``
+      on the same trace: tokens and approx-matmul launches equal the
+      phase's local run's, one NCCL all-reduce a MoE layer a call;
+    - the sharded training step: olmo-1b at full width and DIST_LAYERS
+      layers in bf16 with ``fsdp`` and ``sequence_parallel`` on (1, 1),
+      then ``dp_only`` on a (1,) mesh, DIST_STEPS steps each against the
+      unsharded step on the same batches: losses and parameters bit-equal,
+      each step's wall and device ms;
+    - the overlap collectives: ``rs_matmul_overlapped`` at an olmo-1b
+      layer's (4096, 2048) x (2048, 8192) and ``compressed_psum`` of the
+      sharded step's gradients, each bit-equal to its plain form;
+    - re-mesh: the sharded training state saved under (1, 1) (codec none,
+      a temporary directory under build/) and restored under (1,),
+      bit-equal;
+    - the dry run (``finish_dryrun``).
+    The process group is destroyed before the later phases run.  Returns
+    the launches by path."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager, restore_with_sharding
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLMConfig, lm_batch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import (TrainConfig, init_train_state,
+                                          make_train_step,
+                                          train_state_shardings)
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.sharding import tree_gather, tree_shard
+    from repro_torch.runtime.overlap import (compressed_psum,
+                                             rs_matmul_overlapped)
+
+    t_phase = time.perf_counter()
+    label = "distributed"
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    pg_dir = tempfile.mkdtemp(dir=build, prefix="dist_")
+    dist.init_process_group("nccl", init_method=f"file://{pg_dir}/pg",
+                            rank=0, world_size=1)
+    out, line = {}, {}
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"), device="cuda")
+        print(f"{label}: {dist.get_backend()} process group of "
+              f"{dist.get_world_size()} rank; mesh {mesh}", flush=True)
+
+        # -- expert parallelism through the engine ------------------------
+        cfg = dataclasses.replace(keep["cfg"], moe_impl="ep_psum")
+        packed, ecfg = keep.pop("packed"), keep["ecfg"]
+        api = build_model(cfg, dev)
+        calls = []
+        counting = dataclasses.replace(api, decode_slots=lambda *a, **kw: (
+            calls.append(1), api.decode_slots(*a, **kw))[1])
+        warm_up(torch, api, packed, ecfg)
+        comm.reset_counts()
+        t0 = time.perf_counter()
+        run = engine_run(torch, f"{label}: ep {cfg.name}", cfg, counting,
+                         packed, ecfg, keep["trace"], keep["per_call"],
+                         keep["numerics"], engine_kw={"mesh": mesh})
+        ep_s = time.perf_counter() - t0
+        tokens = [list(r.generated) for r in run["reqs"]]
+        moe_layers = cfg.n_layers - cfg.first_dense_layers
+        all_reduces = comm.COUNTS["all-reduce"]
+        print(f"{label}: ep {cfg.name} (moe_impl=ep_psum, mesh (1, 1)): "
+              f"{len(tokens)} requests, serving loop {run['wall_s']:.3f} s "
+              f"(the local run's {keep['wall_s']:.3f} s), tokens equal the "
+              f"local run's: {tokens == keep['tokens']}; approx launches "
+              f"{run['launches']} (local {keep['launches']}); NCCL "
+              f"all-reduces {all_reduces} = {moe_layers} MoE layers x "
+              f"{len(calls)} calls: {all_reduces == moe_layers * len(calls)}"
+              f"; collectives {dict(comm.COUNTS)}", flush=True)
+        if tokens != keep["tokens"]:
+            fail(f"{label}: EP tokens differ from the local run's")
+        if run["launches"] != keep["launches"]:
+            fail(f"{label}: EP launches {run['launches']} != local "
+                 f"{keep['launches']}")
+        if all_reduces != moe_layers * len(calls) or set(comm.COUNTS) != {
+                "all-reduce"}:
+            fail(f"{label}: collectives {dict(comm.COUNTS)}, want "
+                 f"{moe_layers} all-reduces a call x {len(calls)}")
+        out[f"ep {cfg.name}"] = run["launches"]
+        line["ep"] = {"arch": cfg.name, "requests": len(tokens),
+                      "seconds": ep_s, "loop_s": run["wall_s"],
+                      "local_loop_s": keep["wall_s"], "calls": len(calls),
+                      "all_reduces": all_reduces,
+                      "launches": run["launches"],
+                      "snapshot": served_metrics(run["snap"])}
+        del run, packed, api, counting
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the sharded training step ------------------------------------
+        tcfg = TrainConfig(fsdp=True, base_lr=1e-3, warmup_steps=0,
+                           total_steps=100)
+        tcfg_dp = dataclasses.replace(tcfg, fsdp=False)
+        cfg = dataclasses.replace(get_config(DIST_ARCH),
+                                  n_layers=DIST_LAYERS,
+                                  sequence_parallel=True)
+        dcfg = SyntheticLMConfig(vocab=cfg.vocab, seq_len=DIST_T,
+                                 batch=DIST_B)
+        batches = [lm_batch(dcfg, i) for i in range(DIST_STEPS)]
+        init = init_train_state(cfg, tcfg, seed=0, device=dev)
+        plain = make_train_step(cfg, tcfg, device=dev)
+        timed_step(torch, plain, init, batches[0])  # warm-up, discarded
+        state, ref_losses, ref_ms = init, [], []
+        for b in batches:
+            state, loss, wall, gpu = timed_step(torch, plain, state, b)
+            ref_losses.append(loss)
+            ref_ms.append({"wall_ms": wall, "device_ms": gpu})
+        ref_state = state
+        mesh1 = make_test_mesh((1,), ("data",), device="cuda")
+        runs = {}
+        for name, m, tc, dp_only in (("fsdp+sp (1, 1)", mesh, tcfg, False),
+                                     ("dp_only (1,)", mesh1, tcfg_dp, True)):
+            sh = train_state_shardings(cfg, tc, m, dp_only=dp_only)
+            local = tree_shard(init, sh, m)
+            step = make_train_step(cfg, tc, device=dev, mesh=m,
+                                   param_sh=sh["params"], dp_only=dp_only)
+            comm.reset_counts()
+            losses, ms = [], []
+            for b in batches:
+                local, loss, wall, gpu = timed_step(torch, step, local, b)
+                losses.append(loss)
+                ms.append({"wall_ms": wall, "device_ms": gpu})
+            colls = {k: (v, comm.BYTES[k]) for k, v in comm.COUNTS.items()}
+            full = tree_gather(local, sh, m)
+            gap = max(abs(a - b_) / abs(b_) for a, b_ in zip(losses,
+                                                              ref_losses))
+            pgap = tree_gap(torch, full, ref_state)
+            print(f"{label}: train {cfg.name} {DIST_LAYERS} layers bf16 "
+                  f"B={DIST_B} T={DIST_T}, {name}: losses {losses} vs "
+                  f"unsharded {ref_losses}: largest relative gap {gap} and "
+                  f"largest parameter/moment gap {pgap} (gate: bit-equal, "
+                  f"0); wall/device ms a step {ms} vs unsharded {ref_ms}; "
+                  f"collectives (count, bytes) over {DIST_STEPS} steps "
+                  f"{colls}", flush=True)
+            if gap != 0 or pgap != 0:
+                fail(f"{label}: the {name} step leaves the unsharded one "
+                     f"(loss gap {gap}, state gap {pgap})")
+            runs[name] = {"losses": losses, "ms": ms, "loss_gap": gap,
+                          "state_gap": pgap, "collectives": colls}
+            if not dp_only:
+                sharded = (local, sh, step)
+        line["train"] = {"arch": cfg.name, "layers": DIST_LAYERS,
+                         "batch": DIST_B, "seq": DIST_T,
+                         "unsharded_losses": ref_losses,
+                         "unsharded_ms": ref_ms, "runs": runs}
+
+        # -- the overlap collectives --------------------------------------
+        local, sh, step = sharded
+        gen = torch.Generator(device=dev).manual_seed(11)
+        x = torch.randn(OVERLAP_M, OVERLAP_K, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        w = torch.randn(OVERLAP_K, OVERLAP_N, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        world = mesh.group(mesh.axis_names)
+
+        def plain_mm():
+            y = torch.matmul(x.float(), w.float())
+            return comm.all_reduce(y, mesh.group(("model",))).to(x.dtype)
+
+        y = rs_matmul_overlapped(x, w, mesh, "model")
+        y_plain = plain_mm()
+        mm_ms = time_calls(torch, [lambda: rs_matmul_overlapped(
+            x, w, mesh, "model")], reps=5) * 1e3
+        plain_ms = time_calls(torch, [plain_mm], reps=5) * 1e3
+        _, grads = step.grads(local["params"], batches[0])
+        t0 = time.perf_counter()
+        psum = compressed_psum(grads, mesh, "data")
+        torch.cuda.synchronize()
+        psum_ms = (time.perf_counter() - t0) * 1e3
+
+        def dequant(_, g):
+            g32 = g.float()
+            scale = torch.clamp(g32.abs().max(), min=1e-12) / 127.0
+            q = torch.clip(torch.round(g32 / scale), -127, 127)
+            return (q.to(torch.int8).float() * scale).to(g.dtype)
+
+        want = tree_map(dequant, grads)
+        mm_eq = torch.equal(y, y_plain)
+        psum_gap = tree_gap(torch, psum, want)
+        print(f"{label}: rs_matmul_overlapped ({OVERLAP_M}, {OVERLAP_K}) x "
+              f"({OVERLAP_K}, {OVERLAP_N}) bf16 on (1, 1): bit-equal to the "
+              f"plain matmul + all-reduce: {mm_eq}; {mm_ms:.3f} ms against "
+              f"{plain_ms:.3f} (device, CUDA graph); compressed_psum of the "
+              f"sharded step's gradient tree: largest gap "
+              f"to the plain int8 round trip {psum_gap} (gate: 0), "
+              f"{psum_ms:.1f} wall ms", flush=True)
+        if not mm_eq or psum_gap != 0:
+            fail(f"{label}: an overlap collective leaves its plain form")
+        line["overlap"] = {"rs_matmul_ms": mm_ms, "plain_ms": plain_ms,
+                           "bit_equal": mm_eq, "compressed_psum_gap":
+                           psum_gap, "compressed_psum_wall_ms": psum_ms}
+        del x, w, y, y_plain, grads, psum, want
+
+        # -- re-mesh: save under (1, 1), restore under (1,) ---------------
+        ck = tempfile.mkdtemp(dir=build, prefix="remesh_")
+        try:
+            full = tree_gather(local, sh, mesh)
+            t0 = time.perf_counter()
+            CheckpointManager(ck, codec="none").save(local, DIST_STEPS,
+                                                     shardings=sh, mesh=mesh)
+            save_s = time.perf_counter() - t0
+            sh_b = train_state_shardings(cfg, tcfg, mesh1)
+            template = init_train_state(cfg, tcfg, seed=0, device="meta")
+            t0 = time.perf_counter()
+            restored, at = restore_with_sharding(
+                CheckpointManager(ck), template, sh_b, mesh=mesh1)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            want = tree_shard(full, sh_b, mesh1)
+            rgap = tree_gap(torch, restored, want)
+            nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                         for dp, _, fs in os.walk(ck) for f in fs)
+        finally:
+            shutil.rmtree(ck, ignore_errors=True)
+        print(f"{label}: re-mesh: the sharded state saved under (1, 1) "
+              f"({nbytes / 1e9:.3f} GB, codec none, {save_s:.2f} s) and "
+              f"restored under (1,) ({restore_s:.2f} s) at step {at}: "
+              f"largest gap {rgap} (gate: bit-equal, 0)", flush=True)
+        if rgap != 0 or at != DIST_STEPS:
+            fail(f"{label}: the re-mesh restore is not bit-equal")
+        line["remesh"] = {"gb": nbytes / 1e9, "save_s": save_s,
+                          "restore_s": restore_s, "gap": rgap}
+        del local, full, restored, want, init, state, ref_state, sharded
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(pg_dir, ignore_errors=True)
+    line["dryrun"] = finish_dryrun(dryrun)
+    line["seconds"] = time.perf_counter() - t_phase
+    print(f"{label}: phase {line['seconds']:.1f} s (the dry run's wait "
+          "included)", flush=True)
+    write_line(label, "distributed.json", line)
+    return out
+
 
 
 def cnn_net(torch, dev, name: str, classes: int = 10):
@@ -4147,16 +4548,14 @@ def conv_time(torch, dev, card: str, mm: int, k: int, n: int) -> dict:
     operand copy serves every replay, as the path reads them."""
     from repro_torch.kernels import approx_matmul as amk
 
-    bw, int8_peak, _, _ = peaks(card)
     gen = torch.Generator(device=dev).manual_seed(2)
     _, _, b = random_pack(torch, k, n, "perforated", 2, gen, dev)
     x = torch.randn(mm, k, generator=gen, device=dev)
     w = torch.randn(k, n, generator=gen, device=dev)
     args = (x, b.w_qbt, b.epilogue, b.meta)
     kw = dict(k=k, n=n, mode="perforated", m=2)
-    nbytes = (x.numel() * 4 + b.w_qbt.numel() + b.epilogue.numel() * 4
-              + b.meta.numel() * 4 + mm * n * 4)
-    t_bytes, t_ops = nbytes / bw, 2.0 * mm * k * n / int8_peak
+    bound, by = approx_bound(mm, k, n, b.w_qbt.numel(), b.epilogue.numel(),
+                             b.meta.numel(), 4, 4, card)
     return {
         "M": mm, "K": k, "N": n,
         "kernel_us": time_calls(torch, [
@@ -4167,8 +4566,7 @@ def conv_time(torch, dev, card: str, mm: int, k: int, n: int) -> dict:
         "library_us": time_calls(torch, [lambda: torch.matmul(x, w)] * 3)
         * 1e6,
         "library": "float32 torch.matmul, TF32 off",
-        "bound_us": max(t_bytes, t_ops) * 1e6,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        "bound_us": bound * 1e6, "bound_by": by}
 
 
 def run_cnn_net(torch, dev, card: str, name: str, data: dict) -> dict:
@@ -4845,6 +5243,7 @@ def attn_scan_times(torch, dev, card: str) -> dict:
     bound)."""
     from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import rwkv6_scan as rsk
+    from repro_torch.launch import roofline
 
     bw, _, bf16_peak, _ = peaks(card)
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -4862,14 +5261,9 @@ def attn_scan_times(torch, dev, card: str) -> dict:
         qkv = [tuple(torch.randn(b, h, t, d, generator=gen, device=dev).to(bf)
                      for h in (hq, hkv, hkv)) for _ in range(3)]
         # QK and PV over the visible (query, key) pairs: causal, or a
-        # window of W keys (query i sees min(i + 1, W))
-        if window is not None:
-            pairs = window * (window + 1) / 2 + (t - window) * window
-        else:
-            pairs = t * (t + 1) / 2 if causal else t * t
-        flops = 4.0 * b * hq * d * pairs
-        # q and out, k and v
-        nbytes = 2.0 * (2 * b * hq * t * d + 2 * b * hkv * t * d)
+        # window of W keys (query i sees min(i + 1, W)); q and out, k and v
+        nbytes, flops = roofline.flash_attention_work(
+            b, hq, hkv, t, t, d, causal, window, 2)
         # SDPA's own GQA (enable_gqa), or, in a PyTorch without it, KV heads
         # repeated beforehand (the yardstick then reads the copies); a
         # window is SDPA's boolean mask (SDPA has no window argument)
@@ -4888,7 +5282,7 @@ def attn_scan_times(torch, dev, card: str) -> dict:
                         v.repeat_interleave(reps, 1)) for q, k, v in qkv]
         else:
             gqa = {}
-        t_ops, t_bytes = flops / bf16_peak, nbytes / bw
+        bound, by = roofline.bound(nbytes, flops, bf16_peak, bw)
         rows[key] = {
             "shape": [b, hq, hkv, t, d], "dtype": "bfloat16", "causal": causal,
             "window": window,
@@ -4906,22 +5300,15 @@ def attn_scan_times(torch, dev, card: str) -> dict:
             "library": ("scaled_dot_product_attention"
                         + (" enable_gqa" if gqa else "")
                         + (" attn_mask" if window is not None else "")),
-            "bound_us": max(t_ops, t_bytes) * 1e6,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_us": bound * 1e6, "bound_by": by}
         print("time " + json.dumps(rows[key]), flush=True)
         del qkv, lib
 
     b, t, h, dk, dv, *_ = SCAN_CASES[0]
     ins = [scan_inputs(torch, b, t, h, dk, dv, bf, gen, dev) for _ in range(3)]
-    n_ch, ell, tri = -(-t // 32), 32, 32 * 31 / 2
-    # the products on the TF32 tensor cores (half the bf16 rate on Hopper),
-    # each in the passes the kernel runs: A = r~ k~^T (3) and A V (2, v is
-    # bf16) over the strict lower triangle, r~ S (3) and k~^T V (2) in full
-    flops = 2.0 * b * h * n_ch * (3 * tri * dk + 2 * tri * dv
-                                  + 5 * ell * dk * dv)
-    nbytes = (b * t * h * (2 * dk * 2 + dv * 2 + dk * 4 + dv * 4)
-              + b * h * dk * dv * 4 + h * dk * 4)
-    t_ops, t_bytes = flops / (bf16_peak / 2), nbytes / bw
+    # the products on the TF32 tensor cores (half the bf16 rate on Hopper)
+    nbytes, flops = roofline.rwkv6_scan_work(b, t, h, dk, dv, 2, 32)
+    bound, by = roofline.bound(nbytes, flops, bf16_peak / 2, bw)
     rows["rwkv6_scan"] = {
         "shape": [b, t, h, dk, dv], "dtype": "bfloat16",
         "blocks": rsk.grid_blocks(b, h),
@@ -4930,8 +5317,7 @@ def attn_scan_times(torch, dev, card: str) -> dict:
         "plain_us": time_calls(torch, [lambda a=a: rsk.rwkv6_scan_plain(*a)
                                        for a in ins[:2]], reps=5) * 1e6,
         "library_us": None,
-        "bound_us": max(t_ops, t_bytes) * 1e6,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        "bound_us": bound * 1e6, "bound_by": by}
     print("time " + json.dumps(rows["rwkv6_scan"]), flush=True)
     return rows
 
@@ -4954,6 +5340,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this check runs on the card only")
     import repro_torch  # noqa: F401  (fails outside a checkout)
+
+    # the dry run needs no card: it runs beside the earlier phases
+    dryrun = start_dryrun()
 
     dev = torch.device("cuda")
     card = card_line()
@@ -5043,8 +5432,9 @@ def main() -> int:
     per_layer = {"embeds qwen2-vl-2b": max(res["per_layer_max_abs_err"])}
     torch.cuda.empty_cache()
     lap("qwen2-vl-2b engine, embeds")
-    paths.update(run_moe_phase(torch, dev))
-    lap("moe")
+    paths.update(run_moe_phase(torch, dev, between=lambda keep: (
+        run_distributed_phase(torch, dev, keep, dryrun))))
+    lap("moe, distributed")
     for arch in LEGACY:
         if arch == HYMBA:
             continue

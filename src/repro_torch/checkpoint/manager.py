@@ -301,9 +301,13 @@ def load_pytree(template: Any, path: str, placement: Any = None) -> Any:
 class CheckpointManager:
     """Step-scoped checkpoints with retention, async commit, and resume."""
 
-    def __init__(self, directory: str, keep: int = 3) -> None:
+    def __init__(self, directory: str, keep: int = 3,
+                 codec: str | None = None) -> None:
+        """``codec`` is the shards' (``save_pytree``'s; None: its
+        default)."""
         self.dir = directory
         self.keep = keep
+        self.codec = codec
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
@@ -313,10 +317,10 @@ class CheckpointManager:
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.dir, f"step_{step:010d}")
 
-    def _shard_path(self, step: int) -> str:
-        """This process's shard file of ``step``."""
-        return os.path.join(self._step_dir(step),
-                            f"shard_{_process_index():05d}.ckpt")
+    def _shard_path(self, step: int, index: int | None = None) -> str:
+        """This process's shard file of ``step`` (or shard ``index``'s)."""
+        index = _process_index() if index is None else index
+        return os.path.join(self._step_dir(step), f"shard_{index:05d}.ckpt")
 
     def steps(self) -> list[int]:
         out = []
@@ -333,25 +337,42 @@ class CheckpointManager:
 
     # -- save ----------------------------------------------------------------
 
-    def _save_sync(self, items: list, step: int, meta: dict | None) -> None:
+    def _save_sync(self, items: list, step: int, meta: dict | None,
+                   index: int | None = None) -> None:
         sdir = self._step_dir(step)
         tmp_dir = sdir + ".tmp"
+        index = _process_index() if index is None else index
         shutil.rmtree(tmp_dir, ignore_errors=True)
         os.makedirs(tmp_dir, exist_ok=True)
         _save_host(items, os.path.join(
-            tmp_dir, f"shard_{_process_index():05d}.ckpt"), None, meta)
+            tmp_dir, f"shard_{index:05d}.ckpt"), self.codec, meta)
         os.replace(tmp_dir, sdir)
         with open(os.path.join(sdir, "DONE"), "w") as f:
             f.write(str(time.time()))
         self._gc()
 
     def save(self, tree: Any, step: int, blocking: bool = True,
-             numerics: Any = None) -> None:
+             numerics: Any = None, shardings: Any = None,
+             mesh=None) -> None:
         """``numerics`` (a NumericsSpec, or its dict form) is persisted in
         the shard metadata so a packed serving checkpoint carries the exact
         per-layer approximation recipe it was built under.  Every leaf is
         copied to host memory here, in the caller's thread (CPU tensors
-        too), so the caller may change or free the tree at once."""
+        too), so the caller may change or free the tree at once.
+
+        A sharded tree (this rank's pieces, ``shardings`` their spec tree
+        on ``mesh``) is saved as the whole tree: every leaf gathered whole
+        on every rank (a collective: every rank calls), rank 0 writing
+        shard 0 with the same bytes the unsharded tree writes, then a
+        barrier; the save is then blocking."""
+        if shardings is not None:
+            from repro_torch.parallel.sharding import tree_gather
+
+            full = tree_gather(tree, shardings, mesh)
+            if mesh.rank == 0:
+                self.save(full, step, numerics=numerics)
+            torch.distributed.barrier(group=mesh.group(mesh.axis_names))
+            return
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -397,9 +418,13 @@ class CheckpointManager:
         return step
 
     def restore(self, template: Any, step: int | None = None,
-                placement: Any = None) -> tuple[Any, int]:
+                placement: Any = None,
+                index: int | None = None) -> tuple[Any, int]:
+        """The tree of ``step`` (default: the latest) from this process's
+        shard (or shard ``index``'s)."""
         step = self._resolve(step)
-        return load_pytree(template, self._shard_path(step), placement), step
+        return load_pytree(template, self._shard_path(step, index),
+                           placement), step
 
     def numerics(self, step: int | None = None):
         """The NumericsSpec persisted with a step (None when the checkpoint

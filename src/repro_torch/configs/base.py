@@ -4,10 +4,10 @@ Only the fields the ported paths read are kept (GQA or MLA attention with
 rmsnorm or layernorm, qk-norm, QKV bias, RoPE / M-RoPE / no positions,
 causal, bidirectional or sliding-window attention, swiglu, gelu or MoE
 MLPs with leading dense layers, hymba's parallel SSM heads; RWKV6; the
-training remat policy); the reference's sharding fields
-(``scan_layers``, ``sequence_parallel``, ``moe_impl``,
-``capacity_factor``) land with the distributed slice.  The
-reference's ``mlp_bias`` and ``input_mode`` are not kept: its gelu MLP
+training remat policy, and the sharding fields ``sequence_parallel``,
+``moe_impl`` and ``capacity_factor``).  The reference's ``scan_layers``
+is not kept: the port loops over the layers in Python on every path, so
+there is no scan to switch off.  The reference's ``mlp_bias`` and ``input_mode`` are not kept: its gelu MLP
 always has biases and its models take embeddings whenever the batch holds
 them, so neither field changes what a ported path does.
 """
@@ -110,6 +110,8 @@ class ArchConfig:
     n_shared_experts: int = 0
     d_ff_expert: int = 0
     first_dense_layers: int = 0
+    moe_impl: str = "local"  # "local" | "ep_psum" (launch overrides)
+    capacity_factor: float = 1.25
     # hybrid SSM heads (hymba)
     parallel_ssm: bool = False
     ssm_state: int = 16
@@ -123,6 +125,10 @@ class ArchConfig:
     remat: Literal["none", "full", "dots"] = "none"
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    # sequence parallelism: under a mesh, shard the residual stream's
+    # sequence axis over "model" between blocks (Megatron-SP style: one
+    # all-gather at a block's start; ``models.lm._sp_constrain``)
+    sequence_parallel: bool = False
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -154,7 +160,9 @@ class ArchConfig:
 
         return MoEConfig(d_model=self.d_model, d_ff_expert=self.d_ff_expert,
                          n_experts=self.n_experts, top_k=self.top_k,
-                         n_shared=self.n_shared_experts)
+                         n_shared=self.n_shared_experts,
+                         capacity_factor=self.capacity_factor,
+                         impl=self.moe_impl)
 
     def ssm_config(self):
         from repro_torch.nn.ssm import SSMConfig
@@ -252,4 +260,5 @@ class ArchConfig:
             window=min(self.window, 8) if self.window else None,
             remat="none",
             compute_dtype="float32",
+            moe_impl="local",
         )

@@ -1,6 +1,13 @@
 """Hand-written Hopper kernels and their wrappers.  Importing this package
 builds nothing: each CUDA source compiles at its first launch on a card,
-or all together through :func:`build_all`."""
+or all together through :func:`build_all`.
+
+``trace_card``: while True, a model traced on the ``meta`` device takes
+the card's routes (the flash kernel for GQA prefill attention); only the
+dry run's op count (``launch/op_count.py``) sets it, around a trace whose
+kernel calls it counts instead of launching."""
+
+trace_card = False
 
 
 def build_all(force: bool = False) -> list:

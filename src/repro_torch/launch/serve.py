@@ -330,21 +330,23 @@ def _cache_dt(scfg: ServeConfig) -> torch.dtype:
                          f"choices: {sorted(_CACHE_DTYPES)}") from None
 
 
-def make_prefill_step(cfg: ArchConfig, max_len: int,
+def make_prefill_step(cfg: ArchConfig, max_len: int, mesh=None,
                       scfg: ServeConfig = ServeConfig(), device=None):
     api = build_model(cfg, device)
 
     def step(params, batch):
-        return api.prefill(params, batch, max_len, cache_dtype=_cache_dt(scfg))
+        return api.prefill(params, batch, max_len,
+                           cache_dtype=_cache_dt(scfg), mesh=mesh)
 
     return step
 
 
-def make_decode_step(cfg: ArchConfig, device=None):
+def make_decode_step(cfg: ArchConfig, mesh=None,
+                     scfg: ServeConfig = ServeConfig(), device=None):
     api = build_model(cfg, device)
 
     def step(params, tokens, cache):
-        return api.decode_step(params, tokens, cache)
+        return api.decode_step(params, tokens, cache, mesh=mesh)
 
     return step
 
@@ -384,7 +386,7 @@ def run_legacy(args, params: Any = None) -> dict:
     max_len = args.prompt_len + args.gen
     cache_dtype = getattr(args, "cache_dtype", "bfloat16")
     prefill = make_prefill_step(cfg, max_len,
-                                ServeConfig(cache_dtype=cache_dtype),
+                                scfg=ServeConfig(cache_dtype=cache_dtype),
                                 device=api.device)
     decode = make_decode_step(cfg, device=api.device)
 

@@ -59,6 +59,16 @@ entries, in place, at their (block, offset) and gathers each slot's blocks
 into a contiguous view of the contiguous layout's key length for
 attention, so the attention arithmetic has the contiguous layout's shapes.
 
+Every surface takes ``mesh=None`` where the reference threads it (a
+``launch.mesh.Mesh``): an MoE layer with ``cfg.moe_impl == "ep_psum"``
+runs expert-parallel over it (``nn.moe``), and on the training and
+forward path with ``cfg.sequence_parallel`` the residual stream between
+stacked blocks is sharded on T over "model" and gathered at a block's
+start (:func:`_sp_constrain`, :func:`_sp_gather`).  Under a mesh the
+model runs on the rank's rows of the batch (``mesh.batch_axes`` says how
+they are split), and :func:`train_loss` returns the loss over the whole
+mesh, each rank back-propagating its share (:func:`sharded_ce_loss`).
+
 An MLA cache is never int8: the reference writes the latent with a raw
 cast, which zeroes most of an RMS-normed latent (ROADMAP queue 3), so the
 cache constructors refuse it.
@@ -75,6 +85,7 @@ from repro_torch import seeded_generator
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.approx_linear import (LayerStack, QuantizedDense, dense,
                                             layer_params)
+from repro_torch import kernels
 from repro_torch.kernels import flash_attention as fak
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import moe as moe_lib
@@ -193,7 +204,8 @@ def _gqa_full(bp: dict, h: torch.Tensor, cfg: ArchConfig, positions,
                                     attn_lib._angles(acfg, positions))
     if train:
         ctx = _sdpa_chunked(q, k, v, acfg)
-    elif h.device.type == "cuda":
+    elif h.device.type == "cuda" or (h.device.type == "meta"
+                                     and kernels.trace_card):
         ctx = fak.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=acfg.causal,
                                   window=acfg.window).transpose(1, 2)
@@ -232,16 +244,18 @@ def _mla_full(bp: dict, h: torch.Tensor, cfg: ArchConfig, positions,
     return out, entry
 
 
-def _mlp(bp: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _mlp(bp: dict, h: torch.Tensor, cfg: ArchConfig,
+         mesh=None) -> torch.Tensor:
     """The layer's MLP: MoE where the layer has a router (a leading dense
     layer of an MoE arch has none), else gelu or swiglu."""
     if cfg.mlp == "moe" and "router" in bp:
-        return moe_lib.moe_apply(bp, h, cfg.moe_config())
+        return moe_lib.moe_apply(bp, h, cfg.moe_config(), mesh=mesh)
     return (gelu_mlp if cfg.mlp == "gelu" else swiglu)(bp, h)
 
 
 def _block_forward(bp: dict, x: torch.Tensor, cfg: ArchConfig, positions,
-                   want_cache: bool = False, train: bool = False):
+                   want_cache: bool = False, train: bool = False,
+                   mesh=None):
     """One layer over the full sequence: (out, cache entry or None); a
     hybrid layer's entry adds its SSM state (``ssm_conv``, ``ssm_h``)."""
     h = apply_norm(cfg.norm, bp.get("attn_norm"), x)
@@ -258,7 +272,39 @@ def _block_forward(bp: dict, x: torch.Tensor, cfg: ArchConfig, positions,
                    + rmsnorm(bp["ssm_out_norm"], s.to(x.dtype)))
     x = (x + a).to(x.dtype)
     h = apply_norm(cfg.norm, bp.get("mlp_norm"), x)
-    return (x + _mlp(bp["mlp"], h, cfg)).to(x.dtype), entry
+    return (x + _mlp(bp["mlp"], h, cfg, mesh)).to(x.dtype), entry
+
+
+def _sp_on(cfg: ArchConfig, mesh, t: int) -> bool:
+    """Sequence parallelism applies: ``cfg.sequence_parallel`` under a mesh
+    with a "model" axis whose ranks hold the same rows, T divisible by
+    it.  Otherwise both constraints are identities, as the reference's."""
+    return (cfg.sequence_parallel and mesh is not None
+            and "model" in mesh.axis_names
+            and "model" not in mesh.batch_axes
+            and t % mesh.shape["model"] == 0)
+
+
+def _sp_constrain(x: torch.Tensor, cfg: ArchConfig, mesh) -> torch.Tensor:
+    """Sequence-parallel residual stream: this rank's piece of T over
+    "model" (batch rows as they are) at a block boundary."""
+    from repro_torch.parallel import comm
+
+    if not _sp_on(cfg, mesh, x.shape[1]):
+        return x
+    return comm.slice_dim(x, 1, mesh.shape["model"], mesh.coord["model"])
+
+
+def _sp_gather(x: torch.Tensor, cfg: ArchConfig, mesh) -> torch.Tensor:
+    """The Megatron-SP all-gather point: the sequence re-assembled over
+    "model" (a reduce-scatter in the backward pass), ready for the
+    block."""
+    from repro_torch.parallel import comm
+
+    if mesh is None or not _sp_on(cfg, mesh,
+                                  x.shape[1] * mesh.shape.get("model", 1)):
+        return x
+    return comm.gather_dim(x, mesh.group(("model",)), 1)
 
 
 def _positions(positions, b: int, t: int, device) -> torch.Tensor:
@@ -284,34 +330,48 @@ def _layers(params: dict, cfg: ArchConfig):
 
 
 def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig,
-             positions=None, train: bool = False) -> torch.Tensor:
+             positions=None, train: bool = False, mesh=None,
+             seq_sharded: bool = False) -> torch.Tensor:
     """Embedded input -> final-norm output (the forward path).  The dense
     layers run under their ``dense_blocks/i`` scope, the stack unscoped,
     as the reference's scan.  ``train`` is the training path: plain
     attention, and with ``cfg.remat`` other than "none" every stacked
     layer under ``torch.utils.checkpoint`` (recomputed in the backward
-    pass; the values do not change)."""
+    pass; the values do not change).  Under sequence parallelism the
+    stacked blocks' residual stream is T-sharded between them; the output
+    is gathered back unless ``seq_sharded`` (the loss takes its piece)."""
     x = x.to(_dtype(cfg.compute_dtype))
     positions = _positions(positions, x.shape[0], x.shape[1], x.device)
+    sp = _sp_on(cfg, mesh, x.shape[1])
     for prefix, _, bp, scope in _layers(params, cfg):
         with observers.scope(*(scope if prefix else ())):
+            if sp and not prefix:
+                x = _sp_gather(x, cfg, mesh) if x.shape[1] < \
+                    positions.shape[-1] else x
             if train and cfg.remat != "none" and not prefix:
                 x = torch.utils.checkpoint.checkpoint(
-                    _train_block, bp, x, cfg, positions, use_reentrant=False)
+                    _train_block, bp, x, cfg, positions, mesh,
+                    use_reentrant=False)
             else:
-                x, _ = _block_forward(bp, x, cfg, positions, train=train)
+                x, _ = _block_forward(bp, x, cfg, positions, train=train,
+                                      mesh=mesh)
+            if sp and not prefix:
+                x = _sp_constrain(x, cfg, mesh)
+    if sp and not seq_sharded:
+        x = _sp_gather(x, cfg, mesh)
     return apply_norm(cfg.norm, params.get("final_norm"), x)
 
 
 def _train_block(bp: dict, x: torch.Tensor, cfg: ArchConfig,
-                 positions) -> torch.Tensor:
-    return _block_forward(bp, x, cfg, positions, train=True)[0]
+                 positions, mesh=None) -> torch.Tensor:
+    return _block_forward(bp, x, cfg, positions, train=True, mesh=mesh)[0]
 
 
-def forward(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def forward(params: dict, batch: dict, cfg: ArchConfig,
+            mesh=None) -> torch.Tensor:
     """Full-sequence logits (B, T, V) float32."""
     x = backbone(params, _embed_input(params, batch), cfg,
-                 batch.get("positions"))
+                 batch.get("positions"), mesh=mesh)
     return _logits_head(params, x)
 
 
@@ -332,12 +392,18 @@ def chunked_ce_loss(x: torch.Tensor, head_w: torch.Tensor, labels, mask):
     """Mean cross-entropy over (B, T, D) features without a (B, T, V)
     logits tensor: the head and the loss in ``LOSS_CHUNK``-token pieces
     above LOSS_CHUNK tokens (the last piece padded, masked out)."""
+    nll, cnt = _ce_sums(x, head_w, labels, mask)
+    return nll / torch.clamp(cnt, min=1.0)
+
+
+def _ce_sums(x: torch.Tensor, head_w: torch.Tensor, labels, mask):
+    """(summed negative log-likelihood, summed mask) of
+    :func:`chunked_ce_loss`."""
     t = x.shape[1]
     w = head_w.to(x.dtype)
     mask = mask.to(torch.float32)
     if t <= LOSS_CHUNK:
-        nll, cnt = _ce_from_logits(torch.matmul(x, w), labels, mask)
-        return nll / torch.clamp(cnt, min=1.0)
+        return _ce_from_logits(torch.matmul(x, w), labels, mask)
     pad = (-t) % LOSS_CHUNK
     if pad:
         x = torch.nn.functional.pad(x, (0, 0, 0, pad))
@@ -349,15 +415,71 @@ def chunked_ce_loss(x: torch.Tensor, head_w: torch.Tensor, labels, mask):
         n, c = _ce_from_logits(torch.matmul(x[:, sl], w), labels[:, sl],
                                mask[:, sl])
         nll, cnt = nll + n, cnt + c
-    return nll / torch.clamp(cnt, min=1.0)
+    return nll, cnt
 
 
-def train_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def sharded_ce_loss(x: torch.Tensor, head_w: torch.Tensor, labels, mask,
+                    causal: bool, mesh, seq_piece: int = 1
+                    ) -> torch.Tensor:
+    """The loss over the whole mesh from this rank's features: x (B_loc,
+    T / seq_piece, D), the rank's piece of T over "model" where
+    ``seq_piece`` > 1 (sequence parallelism), labels and mask (B_loc, T).
+
+    Each token counts on one rank: the ranks that hold the same features
+    (the axes the rows are not split over, "model" aside under sequence
+    parallelism) split them along T, or the first of them takes all where
+    T does not divide.  A rank's share is its tokens' summed NLL over the
+    mesh's token count, and the shares are summed over the mesh with an
+    identity backward (``comm.share_sum``).  Where the tokens need no
+    split the shift is the unsharded one, so at world size 1 the loss is
+    bit for bit :func:`chunked_ce_loss`'s."""
+    from repro_torch.parallel import comm
+
+    dev = x.device
+    labels = torch.as_tensor(labels, device=dev)
+    mask = (torch.ones(labels.shape, device=dev) if mask is None
+            else torch.as_tensor(mask, device=dev))
+    shared = tuple(a for a in mesh.axis_names if a not in mesh.batch_axes
+                   and not (seq_piece > 1 and a == "model"))
+    n_split = mesh.axes_size(shared)
+    if seq_piece == 1 and n_split == 1:
+        if causal:
+            x, labels, mask = x[:, :-1], labels[:, 1:], mask[:, 1:]
+    else:
+        if causal:  # position j predicts j + 1; the last predicts nothing
+            labels = torch.nn.functional.pad(labels[:, 1:], (0, 1))
+            mask = torch.nn.functional.pad(mask[:, 1:], (0, 1))
+        if seq_piece > 1:
+            labels = comm.piece(labels, 1, seq_piece, mesh.coord["model"])
+            mask = comm.piece(mask, 1, seq_piece, mesh.coord["model"])
+        t = x.shape[1]
+        i = mesh.axes_index(mesh.coord, shared)
+        if t % n_split == 0:
+            lo, hi = i * (t // n_split), (i + 1) * (t // n_split)
+        else:
+            lo, hi = 0, (t if i == 0 else 0)
+        x, labels, mask = x[:, lo:hi], labels[:, lo:hi], mask[:, lo:hi]
+    nll, cnt = _ce_sums(x, head_w, labels, mask)
+    world = mesh.group(mesh.axis_names)
+    share = nll / torch.clamp(comm.all_reduce(cnt, world), min=1.0)
+    return comm.share_sum(share, world)
+
+
+def train_loss(params: dict, batch: dict, cfg: ArchConfig,
+               mesh=None) -> torch.Tensor:
     """Next-token (causal) or masked-frame (encoder) cross-entropy over
     ``batch["labels"]`` (and an optional ``mask``), on the training path
-    (:func:`backbone` with ``train=True``)."""
-    x = backbone(params, _embed_input(params, batch), cfg,
-                 batch.get("positions"), train=True)
+    (:func:`backbone` with ``train=True``); under a mesh the loss over the
+    whole mesh (:func:`sharded_ce_loss`)."""
+    emb = _embed_input(params, batch)
+    t = emb.shape[1]
+    x = backbone(params, emb, cfg, batch.get("positions"), train=True,
+                 mesh=mesh, seq_sharded=True)
+    if mesh is not None:
+        sp = _sp_on(cfg, mesh, t)
+        return sharded_ce_loss(x, _head_w(params), batch["labels"],
+                               batch.get("mask"), cfg.causal, mesh,
+                               mesh.shape["model"] if sp else 1)
     labels = torch.as_tensor(batch["labels"], device=x.device)
     mask = batch.get("mask")
     if cfg.causal:
@@ -435,7 +557,8 @@ def _ring_align(data: torch.Tensor, s: int, t: int) -> torch.Tensor:
 
 
 def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int,
-            cache_dtype=torch.bfloat16) -> tuple[torch.Tensor, dict]:
+            cache_dtype=torch.bfloat16, mesh=None
+            ) -> tuple[torch.Tensor, dict]:
     """Single-pass prompt processing: last-token logits (B, V) float32 and
     the filled cache (each layer's entries written into it as they are
     made; past a ring's length, its last positions rolled into place)."""
@@ -449,7 +572,7 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int,
     for prefix, i, bp, scope in _layers(params, cfg):
         with observers.scope(*(scope if prefix else ())):
             x, entry = _block_forward(bp, x, cfg, positions,
-                                      want_cache=True)
+                                      want_cache=True, mesh=mesh)
         for key in _attn_keys(cfg):
             vals = entry[key] if t <= s else _ring_align(entry[key], s, t)
             cache[prefix + key][i][..., :vals.shape[-2], :] = \
@@ -464,7 +587,7 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int,
 
 
 def _block_decode(bp: dict, x: torch.Tensor, lc: dict,
-                  cfg: ArchConfig) -> torch.Tensor:
+                  cfg: ArchConfig, mesh=None) -> torch.Tensor:
     """One block's decode step; ``lc`` this layer's cache views + pos (and
     a hybrid layer's SSM state views), written in place."""
     h = apply_norm(cfg.norm, bp.get("attn_norm"), x)
@@ -482,11 +605,11 @@ def _block_decode(bp: dict, x: torch.Tensor, lc: dict,
                    + rmsnorm(bp["ssm_out_norm"], s.to(x.dtype)))
     x = (x + a).to(x.dtype)
     h = apply_norm(cfg.norm, bp.get("mlp_norm"), x)
-    return (x + _mlp(bp["mlp"], h, cfg)).to(x.dtype)
+    return (x + _mlp(bp["mlp"], h, cfg, mesh)).to(x.dtype)
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
-                cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+                cfg: ArchConfig, mesh=None) -> tuple[torch.Tensor, dict]:
     """tokens (B, 1) -> (logits (B, V) float32, cache UPDATED IN PLACE)."""
     x = embed(params["embed"], tokens).to(_dtype(cfg.compute_dtype))
     pos = int(cache["pos"])
@@ -494,7 +617,7 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
         keys = _attn_keys(cfg) + (("ssm_conv", "ssm_h")
                                   if cfg.parallel_ssm and not prefix else ())
         lc = {k: cache[prefix + k][i] for k in keys}
-        x = _block_decode(bp, x, {**lc, "pos": pos}, cfg)
+        x = _block_decode(bp, x, {**lc, "pos": pos}, cfg, mesh)
     cache["pos"] = pos + 1
     x = apply_norm(cfg.norm, params.get("final_norm"), x)
     return _logits_head(params, x[:, 0]), cache
@@ -629,7 +752,8 @@ def _mla_slots(bp: dict, h: torch.Tensor, lc: dict, idx, positions, mask,
 
 
 def _block_decode_slots(bp: dict, x: torch.Tensor, lc: dict, idx, rope,
-                        mask, cfg: ArchConfig, paged=None) -> torch.Tensor:
+                        mask, cfg: ArchConfig, paged=None,
+                        mesh=None) -> torch.Tensor:
     """One layer of a slot step; ``rope`` the GQA angle tables, or MLA's
     positions."""
     h = apply_norm(cfg.norm, bp.get("attn_norm"), x)
@@ -637,12 +761,13 @@ def _block_decode_slots(bp: dict, x: torch.Tensor, lc: dict, idx, rope,
     a = slots(bp["attn"], h, lc, idx, rope, mask, cfg, paged)
     x = (x + a).to(x.dtype)
     h = apply_norm(cfg.norm, bp.get("mlp_norm"), x)
-    return (x + _mlp(bp["mlp"], h, cfg)).to(x.dtype)
+    return (x + _mlp(bp["mlp"], h, cfg, mesh)).to(x.dtype)
 
 
 def decode_slots(params: dict, tokens: torch.Tensor, cache: dict,
                  cfg: ArchConfig, n_valid, block_tables=None,
-                 kv_len: int | None = None) -> tuple[torch.Tensor, dict]:
+                 kv_len: int | None = None,
+                 mesh=None) -> tuple[torch.Tensor, dict]:
     """Fixed-shape continuous-batching step.
 
     tokens (slots, C) int — row b's first ``n_valid[b]`` entries are real
@@ -705,7 +830,8 @@ def decode_slots(params: dict, tokens: torch.Tensor, cache: dict,
     for prefix, i, bp, scope in _layers(params, cfg):
         lc = {k: cache[prefix + k][i] for k in keys}
         with observers.scope(*scope):
-            x = _block_decode_slots(bp, x, lc, idx, rope, mask, cfg, paged)
+            x = _block_decode_slots(bp, x, lc, idx, rope, mask, cfg, paged,
+                                    mesh)
     cache["lengths"] += torch.as_tensor(nv, dtype=torch.int32, device=dev)
     x = apply_norm(cfg.norm, params.get("final_norm"), x)
     return _logits_head(params, x), cache

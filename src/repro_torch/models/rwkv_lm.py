@@ -6,8 +6,11 @@ Same public surface as :mod:`repro_torch.models.lm`: ``init_params``,
 ``init_slot_cache``, ``decode_slots``.  The decode "cache" is the
 constant-size recurrent state: per-layer shift vectors and WKV matrices.
 :func:`decode_step` and :func:`decode_slots` update it IN PLACE and return
-the same dict.  The layer ``lax.scan`` becomes a Python loop; the
-reference's sharding constraints have no counterpart without a mesh.
+the same dict.  The layer ``lax.scan`` becomes a Python loop.  Under a
+mesh (``mesh=``, a ``launch.mesh.Mesh``) the residual stream between
+blocks is D-sharded over "model" and each block gathers it at its entry
+(the reference's ``_constrain``), where the "model" ranks hold the same
+rows and D divides.
 :func:`train_loss` runs the plain chunked WKV (``train=True``), with every
 block under ``torch.utils.checkpoint`` when ``cfg.remat`` asks for it.
 """
@@ -72,22 +75,49 @@ def _train_block(bp: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return _block(bp, x, cfg, train=True)[0]
 
 
+def _d_sharded(x: torch.Tensor, mesh) -> bool:
+    return (mesh is not None and "model" in mesh.axis_names
+            and "model" not in mesh.batch_axes
+            and x.shape[-1] % mesh.shape["model"] == 0)
+
+
+def _constrain(x: torch.Tensor, mesh, shard_d: bool) -> torch.Tensor:
+    """Residual-stream layout: with ``shard_d`` this rank's piece of D
+    over "model" (the carry between blocks, where it applies), else the
+    whole of D from the pieces, one all-gather at a block's entry (a
+    reduce-scatter backward)."""
+    from repro_torch.parallel import comm
+
+    if shard_d:
+        if not _d_sharded(x, mesh):
+            return x
+        return comm.slice_dim(x, x.ndim - 1, mesh.shape["model"],
+                              mesh.coord["model"])
+    return comm.gather_dim(x, mesh.group(("model",)), x.ndim - 1)
+
+
 def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig,
-             want_states: bool = False, train: bool = False):
+             want_states: bool = False, train: bool = False, mesh=None):
     """Embedded input -> (final-norm output, per-layer states or None);
     ``train`` is the training path (plain WKV, ``cfg.remat``)."""
     x = apply_norm("layernorm", params["ln0"],
                    x.to(_DTYPES[cfg.compute_dtype]))
+    d = x.shape[-1]
     states = []
     for i in range(cfg.n_layers):
         bp = layer_params(params["blocks"], i)
+        if x.shape[-1] < d:
+            x = _constrain(x, mesh, shard_d=False)
         if train and cfg.remat != "none":
             x = torch.utils.checkpoint.checkpoint(_train_block, bp, x, cfg,
                                                   use_reentrant=False)
-            continue
-        x, st = _block(bp, x, cfg, train)
-        if want_states:
-            states.append(st)
+        else:
+            x, st = _block(bp, x, cfg, train)
+            if want_states:
+                states.append(st)
+        x = _constrain(x, mesh, shard_d=True)
+    if x.shape[-1] < d:
+        x = _constrain(x, mesh, shard_d=False)
     x = apply_norm("layernorm", params["final_norm"], x)
     return x, (states if want_states else None)
 
@@ -99,18 +129,25 @@ def _logits_head(params: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, head["w"].to(x.dtype)).to(torch.float32)
 
 
-def forward(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    x, _ = backbone(params, embed(params["embed"], batch["tokens"]), cfg)
+def forward(params: dict, batch: dict, cfg: ArchConfig,
+            mesh=None) -> torch.Tensor:
+    x, _ = backbone(params, embed(params["embed"], batch["tokens"]), cfg,
+                    mesh=mesh)
     return _logits_head(params, x)
 
 
-def train_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def train_loss(params: dict, batch: dict, cfg: ArchConfig,
+               mesh=None) -> torch.Tensor:
     """Next-token cross-entropy over ``batch["labels"]`` (and an optional
-    ``mask``) through the chunked head (``lm.chunked_ce_loss``)."""
-    from repro_torch.models.lm import chunked_ce_loss
+    ``mask``) through the chunked head (``lm.chunked_ce_loss``; under a
+    mesh the loss over the whole mesh, ``lm.sharded_ce_loss``)."""
+    from repro_torch.models.lm import chunked_ce_loss, sharded_ce_loss
 
     x, _ = backbone(params, embed(params["embed"], batch["tokens"]), cfg,
-                    train=True)
+                    train=True, mesh=mesh)
+    if mesh is not None:
+        return sharded_ce_loss(x, params["lm_head"]["w"], batch["labels"],
+                               batch.get("mask"), True, mesh)
     labels = torch.as_tensor(batch["labels"], device=x.device)[:, 1:]
     mask = batch.get("mask")
     mask = (torch.ones(labels.shape, device=x.device) if mask is None
@@ -135,13 +172,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0,
 
 
 def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int = 0,
-            cache_dtype=torch.bfloat16) -> tuple[torch.Tensor, dict]:
+            cache_dtype=torch.bfloat16, mesh=None
+            ) -> tuple[torch.Tensor, dict]:
     """Last-token logits (B, V) float32 and the recurrent state after the
     prompt (each layer's WKV state from the scan)."""
     tokens = batch["tokens"]
     b, t = tokens.shape
     x, states = backbone(params, embed(params["embed"], tokens), cfg,
-                         want_states=True)
+                         want_states=True, mesh=mesh)
     cache = init_cache(cfg, b, max_len, cache_dtype, x.device)
     for i, st in enumerate(states):
         for key in ("shift_tm", "shift_cm", "wkv"):
@@ -151,7 +189,7 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int = 0,
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
-                cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+                cfg: ArchConfig, mesh=None) -> tuple[torch.Tensor, dict]:
     """tokens (B, 1) -> (logits (B, V) float32, cache UPDATED IN PLACE)."""
     rcfg = cfg.rwkv_config()
     x = embed(params["embed"], tokens).to(_DTYPES[cfg.compute_dtype])
@@ -184,7 +222,8 @@ def init_slot_cache(cfg: ArchConfig, slots: int, max_len: int = 0,
 
 
 def decode_slots(params: dict, tokens: torch.Tensor, cache: dict,
-                 cfg: ArchConfig, n_valid) -> tuple[torch.Tensor, dict]:
+                 cfg: ArchConfig, n_valid, mesh=None
+                 ) -> tuple[torch.Tensor, dict]:
     """Fixed-shape continuous-batching step for the recurrent arch.
 
     tokens (slots, C); row b consumes its first ``n_valid[b]`` tokens, as C

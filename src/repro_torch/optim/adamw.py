@@ -75,12 +75,14 @@ def _f32(x: float) -> torch.Tensor:
 
 
 def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
-                 lr) -> tuple[Any, dict]:
+                 lr, gnorm: torch.Tensor | None = None) -> tuple[Any, dict]:
     """One step: clip the gradients to ``cfg.clip_norm`` by their global
     norm, update the moments, apply the bias-corrected step plus decoupled
     decay at rate ``lr``.  Returns (new params, new state); the inputs are
-    not modified."""
-    gnorm = global_norm(grads)
+    not modified.  ``gnorm`` overrides the norm of ``grads`` (a sharded
+    step passes the norm over the whole mesh and updates its pieces)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = int(state["step"]) + 1

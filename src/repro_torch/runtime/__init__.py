@@ -1,7 +1,6 @@
 """Runtime: fault tolerance (heartbeat, straggler detection, the
-resilient step loop).  The reference's compute/communication overlap
-helpers (``ag_matmul_overlapped``, ``compressed_psum``) need a mesh and
-collectives and come with the distributed slice of the port."""
+resilient step loop) and the compute/communication overlap helpers
+(:mod:`repro_torch.runtime.overlap`)."""
 
 from repro_torch.runtime.fault_tolerance import (
     Heartbeat,
@@ -9,10 +8,16 @@ from repro_torch.runtime.fault_tolerance import (
     run_resilient,
     RetryPolicy,
 )
+from repro_torch.runtime.overlap import (ag_matmul_overlapped,
+                                         compressed_psum,
+                                         rs_matmul_overlapped)
 
 __all__ = [
     "Heartbeat",
     "StragglerMonitor",
     "run_resilient",
     "RetryPolicy",
+    "ag_matmul_overlapped",
+    "rs_matmul_overlapped",
+    "compressed_psum",
 ]

@@ -50,6 +50,8 @@ across it.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import itertools
 import time
 from typing import Callable
@@ -142,7 +144,7 @@ class ServingEngine:
                  pack_fn: Callable | None = None, fault_injector=None,
                  exact_params=None, engine_id: str | None = None,
                  shadow_params=None,
-                 shadow_numerics: str | None = None) -> None:
+                 shadow_numerics: str | None = None, mesh=None) -> None:
         """``device`` defaults to ``cuda`` and raises without a card; pass
         ``device="cpu"`` (or an ``api`` built for it) to serve on the CPU.
         ``params`` serve (and, under speculation, verify); ``draft_params``
@@ -155,11 +157,20 @@ class ServingEngine:
         that is exact, e.g. ``int8``).  ``engine_id`` names the engine in
         traces and fleets (default: the numerics label).  ``shadow_params``
         is the second pack shadow replays run (``ecfg.shadow_fraction >
-        0``), labelled ``shadow_numerics``."""
+        0``), labelled ``shadow_numerics``.  ``mesh`` (a
+        ``launch.mesh.Mesh``) is threaded through every model call the
+        engine makes (the step, the probe, shadow replays, speculative
+        rounds): an MoE arch with ``moe_impl="ep_psum"`` then serves
+        expert-parallel over it."""
         self.cfg = cfg
         self.ecfg = ecfg
         self.params = params
         self.api = api or build_model(cfg, device)
+        self.mesh = mesh
+        if mesh is not None and self.api.decode_slots is not None:
+            self.api = dataclasses.replace(
+                self.api, decode_slots=functools.partial(
+                    self.api.decode_slots, mesh=mesh))
         if self.api.init_slot_cache is None or self.api.decode_slots is None:
             why = self.api.slot_refusal or "no slot cache"
             raise NotImplementedError(

@@ -242,8 +242,8 @@ def test_each_package_reads_the_others_shards(tmp_path):
 
 def test_restore_with_sharding_places_leaves(tmp_path):
     """The placement tree decides each leaf's device; the template's
-    (``meta``: nothing allocated) does not.  The reference's re-mesh
-    onto 8 devices waits for the distributed slice."""
+    (``meta``: nothing allocated) does not.  The re-mesh across ranks is
+    ``tests/test_torch_distributed.py::test_remesh_save_bytes_and_restore_slices``."""
     tree = _tree(3)
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(tree, 2)

@@ -74,12 +74,9 @@ def test_config_fields_and_counts_equal_reference(arch, reduced):
         assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
     assert tcfg.param_count() == jcfg.param_count()
     assert tcfg.active_param_count() == jcfg.active_param_count()
-    # the port has no expert parallelism: no impl, capacity or mesh axis
-    tmoe_cfg = dataclasses.asdict(tcfg.moe_config())
-    jmoe_cfg = dataclasses.asdict(jcfg.moe_config())
-    assert tmoe_cfg == {k: jmoe_cfg[k] for k in tmoe_cfg}
-    assert set(jmoe_cfg) - set(tmoe_cfg) == {"impl", "capacity_factor",
-                                             "ep_axis"}
+    # expert parallelism's fields too: impl, capacity and the mesh axis
+    assert dataclasses.asdict(tcfg.moe_config()) == dataclasses.asdict(
+        jcfg.moe_config())
     assert dataclasses.asdict(tcfg.mla_config()) == dataclasses.asdict(
         jcfg.mla_config())
 
@@ -263,9 +260,9 @@ def test_moe_apply_long_input_in_token_pieces_vs_reference(monkeypatch):
     x = np.random.default_rng(5).standard_normal((2, 150, 32)).astype(
         np.float32)
     rows = []
-    local = tmoe._moe_local
-    monkeypatch.setattr(tmoe, "_moe_local", lambda p, xf, c: (
-        rows.append(xf.shape[0]), local(p, xf, c))[1])
+    piece = tmoe._piece
+    monkeypatch.setattr(tmoe, "_piece", lambda e, xf, *a: (
+        rows.append(xf.shape[0]), piece(e, xf, *a))[1])
     got = tmoe.moe_apply(tp, torch.from_numpy(x), tcfg)
     assert rows == [128, 128, 44]
     _close(got, jmoe.moe_apply(jp, jnp.asarray(x), jcfg))
