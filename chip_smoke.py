@@ -32,8 +32,10 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    (GQA 12/2) and hymba-1.5b (GQA 25/5, D=64, window 1024 of T=2048)
    prefill shapes and hubert-xlarge's encoder (D=80, non-causal), the JAX
    kernel tests' shapes in float32 and bfloat16 (GQA,
-   window, non-causal, Tq < Tk at D=64, 80 and 128) and ragged lengths
-   (D=128 and 80), each row held to its own scale;
+   window, non-causal, Tq < Tk at D=16, 64, 80 and 128), ragged lengths
+   (D=128, 80 and 16) and the quickstart example's float32 shapes
+   (olmo-1b, and olmo-1b-reduced at D=16), each row held to its own
+   scale;
    the RWKV6 scan (out and final state, and two calls bit-equal) at the
    rwkv6-1.6b prefill shape, the JAX tests' shapes, ragged and partial
    chunks, one head, Dk != Dv and the extreme decays;
@@ -106,11 +108,23 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    engine (the main trace, bf16 KV cache): 109 fused calls a chunk step and
    136 a thin step, tokens equal to a sequential decode, the kernel path
    bit-equal to the plain one, one CUDA launch a thin step's fused call;
-   then the paged layout as above; then moonshot-v1-16b-a3b at full width
+   then the paged layout as above; then through the serve CLI
+   (`run_serve_cli`: 4 requests, built a layer at a time, the checks of
+   4d); then moonshot-v1-16b-a3b at full width
    and 8 of its 48 layers (depth cut for time and memory) with the same
    engine checks; prints gen tok/s, TTFT and ITL, a thin and a chunk
    step's wall and device ms, params GiB with the float experts apart, KV
    GiB beside a GQA cache of the same heads, peak GiB of build and run;
+4d. "granite-8b" (after the qwen2-vl-2b phase): the serve CLI in this
+   process (`run_serve_cli`: `--engine --arch granite-8b --spec-json
+   <pallas spec>`, the whole float32 tree, then its serving copy) at
+   full width and depth (36 layers), 8 requests of the main trace, slots
+   4, max_len 256, chunk 32, bf16 KV; the CLI's build route, seconds and
+   peak GiB, params GiB with the K-major codes apart, gen tok/s, TTFT and
+   ITL, a profiled thin and chunk step; every request finishes, tokens
+   equal a sequential decode on the same packs, fused launches equal the
+   steps' fused calls, 2 compiled shapes, the kernel path equal to the
+   plain one, one CUDA launch a thin step's fused call;
 5. lock-step paths (`launch.serve.run_legacy`): full-width olmo-1b,
    qwen3-4b and qwen2-vl-2b (B=4, T=1024) and rwkv6-1.6b (B=4, T=512), 32
    tokens each,
@@ -186,6 +200,22 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    the `jnp` pack's on 99% of the test images;
    prints the rows, the mean accuracy loss with and without the CV, the
    modelled power saving and Fig. 10 (`chiprun_out/paper.json`);
+6c. "examples" (`repro_torch.examples`, the reference's `jnp` backend: no
+   approx-matmul launch; quickstart's forwards run flash, a launch a
+   layer): quickstart at olmo-1b's full width (the seven mean
+   |logit err| rows, finite), and its `main` at its defaults
+   (olmo-1b-reduced, head dim 16) on the card against the host (table
+   equal, float logits within 2e-5, each forward's first differing
+   activation code on a rounding boundary, rows within 5e-3, beside the
+   host's own rows with one boundary code flipped); serve_approx on qwen3-4b
+   at full width (10 requests, int8 KV: every request finishes or is
+   rejected as the admission controller rejects it); train_lm's ~100M
+   model for 300 steps of B=8, T=256 with checkpoints every 50 (codec
+   none; tokens/s, step ms, peak GiB, the loss every 50 steps; the last
+   20 steps' mean loss below the first 20's, every loss finite); and
+   pareto_sweep on the paper phase's cached resnet44/c10 weights (every
+   power equal to the cost model's, every accuracy loss within 1 point of
+   the paper phase's row) (`chiprun_out/examples.json`);
 7. kernel times at the paths' shapes (kernel, plain, library, bound),
    the approx-matmul also at the prefills' and the encoder's shapes and
    at the decode shapes of qwen3-4b, rwkv6-1.6b (head too), qwen2-vl-2b
@@ -765,13 +795,20 @@ SCAN_RTOL = 1e-4
 #: (tensor-core route), a ragged T; qwen2-vl-2b's prefill (GQA group 6)
 #: and hubert-xlarge's encoder (D=80, non-causal) in both types, and a
 #: ragged T at D=80; hymba-1.5b's prefill (GQA group 5, window 1024) and
-#: group 5 with a window in float32 at a ragged T
+#: group 5 with a window in float32 at a ragged T; the quickstart
+#: example's float32 forwards (olmo-1b at full width, olmo-1b-reduced at
+#: D=16, GQA 2:1, T=32: one partial query and key tile), and D=16 in
+#: bfloat16 (GQA, window, Tq < Tk) and at a ragged T in float32
 QWEN_FLASH = (4, 32, 8, 1024, 1024, 128, True, None, "bfloat16")
 QWEN2VL_FLASH = (4, 12, 2, 1024, 1024, 128, True, None, "bfloat16")
 HUBERT_FLASH = (4, 16, 16, 1024, 1024, 80, False, None, "bfloat16")
 #: hymba-1.5b's lock-step prefill: GQA group 5 at D=64 in window mode
 #: (window 1024 of a 2048-token prompt)
 HYMBA_FLASH = (4, 25, 5, 2048, 2048, 64, True, 1024, "bfloat16")
+#: the quickstart example's prefill attention: olmo-1b and olmo-1b-reduced
+#: at float32 on (4, 32) tokens
+QUICKSTART_FLASH = [(4, 16, 16, 32, 32, 128, True, None, "float32"),
+                    (4, 4, 2, 32, 32, 16, True, None, "float32")]
 FLASH_CASES = [
     (4, 16, 16, 1024, 1024, 128, True, None, "bfloat16"),
     QWEN_FLASH,
@@ -786,7 +823,8 @@ FLASH_CASES = [
     HYMBA_FLASH, (2, 25, 5, 300, 300, 64, True, 128, "float32"),
     (4, 16, 16, 1000, 1000, 80, False, None, "bfloat16"),
     (4, 16, 16, 1000, 1000, 80, False, None, "float32"),
-] + [case for d in (64, 80, 128) for case in (
+    *QUICKSTART_FLASH, (2, 4, 2, 100, 100, 16, True, None, "float32"),
+] + [case for d in (16, 64, 80, 128) for case in (
     (2, 8, 2, 128, 128, d, True, None, "bfloat16"),
     (2, 4, 2, 128, 128, d, True, 64, "bfloat16"),
     (2, 4, 4, 128, 128, d, False, None, "bfloat16"),
@@ -4047,64 +4085,153 @@ def run_moe_arch(torch, dev, arch: str, n_layers: int | None = None,
     return out
 
 
-def run_moe_cli(torch, arch: str) -> dict:
-    """The serve CLI (``repro_torch.launch.serve.main``, in this process)
-    on ``arch`` at full width and depth on the kernel packs, 4 requests of
-    ``mixed_trace``, slots 4, max_len 256, chunk 32: the float32 init and
-    its serving copy do not fit on the card together, so it must build
-    the serving params a layer at a time.  Fails unless every request
-    finishes and the fused wrapper's launches, zeroed just before, equal
-    the steps' fused calls.  Returns the launches."""
+#: the serve CLI's route where the float32 init does not fit
+BY_LAYER = "build_serving_params_by_layer (a layer at a time)"
+
+
+def run_serve_cli(torch, arch: str, requests: int, by_layer: bool) -> dict:
+    """The serve CLI (``repro_torch.launch.serve.main`` in this process,
+    ``--engine``) on ``arch`` at full width and depth on ``serve-default``
+    kernel packs, ``requests`` requests of ``mixed_trace(seed=0)``, slots
+    4, max_len 256, chunk 32, bf16 KV.  The CLI's engine is logged (each
+    step's shape, each request's calls) and its build timed.  Prints the
+    build route, seconds and peak GiB, the params GiB with the K-major
+    codes apart, the engine metrics and one profiled thin and chunk step.
+    Fails unless the CLI built the serving params a layer at a time
+    exactly when ``by_layer`` (the float32 init and its serving copy do
+    not fit on the card together), every request finishes with its token
+    count, the tokens equal a sequential decode on the same packs, the
+    fused wrapper's launches (zeroed just before) equal the steps' fused
+    calls, ``compile_count() == 2``, the packs hold their codes only
+    K-major, the kernel path equals the plain one and a thin step's fused
+    calls are one CUDA launch each.  Returns the launches."""
     import gc
     import io
-    import re
 
+    from repro_torch import serving
     from repro_torch.configs import get_config
+    from repro_torch.core.approx_linear import iter_tensors
     from repro_torch.launch import serve
 
     label = f"cli {arch}"
-    spec_path = ROOT / "chiprun_out" / "moe_cli_spec.json"
+    t_start = time.perf_counter()
+    cfg = get_config(arch)
+    spec_path = ROOT / "chiprun_out" / "cli_spec.json"
     os.makedirs(spec_path.parent, exist_ok=True)
     spec_path.write_text(pallas_spec().to_json())
-    argv = ["--arch", arch, "--spec-json", str(spec_path), "--requests",
-            "4", "--slots", "4", "--max-len", "256", "--chunk", "32"]
+    argv = ["--engine", "--arch", arch, "--spec-json", str(spec_path),
+            "--requests", str(requests), "--slots", "4", "--max-len", "256",
+            "--chunk", "32"]
+    seen: dict = {"reqs": [], "steps": [], "sched": {}}
+    base_engine, base_init = serving.ServingEngine, serve._packed_init
+
+    class Logged(base_engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen["engine"] = self
+            dispatch = self._dispatch
+
+            def logged(p, batch, *rest):
+                c = batch.tokens.shape[1]
+                seen["steps"].append(c)
+                for r in batch.rows:
+                    seen["sched"].setdefault(r.rid, []).append(
+                        (c, int(batch.n_valid[r.slot])))
+                return dispatch(p, batch, *rest)
+
+            self._dispatch = logged
+
+        def submit(self, *a, **kw):
+            r = super().submit(*a, **kw)
+            seen["reqs"].append(r)
+            return r
+
+    def timed_init(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params_float, packed = base_init(*a, **kw)
+        torch.cuda.synchronize()
+        seen["build_s"] = time.perf_counter() - t0
+        seen["build_peak"] = torch.cuda.max_memory_allocated()
+        seen["route"] = ("the float32 init, then build_serving_params"
+                         if params_float is not None else BY_LAYER)
+        return params_float, packed
+
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     wr = wrappers()
     for w in wr.values():
         w.launches = 0
     buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        serve.main(argv)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    serving.ServingEngine, serve._packed_init = Logged, timed_init
+    try:
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        serving.ServingEngine, serve._packed_init = base_engine, base_init
+    cli_s = time.perf_counter() - t_start
     launches = {n: w.launches for n, w in wr.items()}
     out = buf.getvalue()
-    (ROOT / "chiprun_out" / f"moe_cli_{arch}.txt").write_text(out)
-    if "a layer at a time" not in out:
-        fail(f"{label}: the CLI did not build the serving params a layer at "
-             "a time")
-    if "finished 4/4 requests" not in out:
-        fail(f"{label}: not every request finished")
-    steps = {k: int(re.search(rf'"{k}": (\d+)', out).group(1))
-             for k in ("prefill_steps", "mixed_steps", "decode_steps")}
-    per_call = dense_calls(get_config(arch), 4)
+    (ROOT / "chiprun_out" / f"cli_{arch}.txt").write_text(out)
+    eng, reqs = seen["engine"], seen["reqs"]
+    trace = serve.mixed_trace(cfg, requests, 256, 32)
+    if (seen["route"] == BY_LAYER) != by_layer:
+        fail(f"{label}: the CLI built by {seen['route']}")
+    if f"finished {requests}/{requests} requests, 2 compiled shapes" \
+            not in out or eng.compile_count() != 2:
+        fail(f"{label}: the CLI did not finish {requests}/{requests} "
+             f"requests on 2 compiled shapes: {out[-600:]}")
+    if len(reqs) != len(trace) or not all(
+            r.finished and r.finish_reason == "length"
+            and len(r.generated) == g for r, (_, g) in zip(reqs, trace)):
+        fail(f"{label}: requests {[(r.finish_reason, len(r.generated)) for r in reqs]} "
+             f"against the trace's {[g for _, g in trace]} tokens")
+    per_call = dense_calls(cfg, 4)
     want = {n: 0 for n in wr}
-    want["approx_matmul_cv_fused"] = (
-        (steps["prefill_steps"] + steps["mixed_steps"]) * per_call(32)
-        + steps["decode_steps"] * per_call(1))
-    gen = re.search(r'"gen_tok_per_s": ([0-9.]+)', out).group(1)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"{label}: python -m repro_torch.launch.serve "
-          f"{' '.join(argv)}: built a layer at a time, 4/4 requests in "
-          f"{seconds:.1f} s (the build included; cold, no warm-up: "
-          f"{gen} gen tok/s), peak {peak:.2f} GiB; steps {steps}; wrapper "
-          f"launches {launches}, the steps imply {want}", flush=True)
+    want["approx_matmul_cv_fused"] = sum(per_call(c) for c in seen["steps"])
+    snap = eng.snapshot()
+    print(f"{label}: python -m repro_torch.launch.serve {' '.join(argv)}: "
+          f"built by {seen['route']} in {seen['build_s']:.1f} s (peak "
+          f"{seen['build_peak'] / 2**30:.2f} GiB); {requests}/{requests} requests, "
+          f"{eng.compile_count()} compiled shapes, the CLI {cli_s:.1f} s; "
+          f"steps prefill={snap['prefill_steps']} mixed={snap['mixed_steps']} "
+          f"decode={snap['decode_steps']}; wrapper launches {launches}, the "
+          f"steps imply {want}", flush=True)
     if launches != want:
         fail(f"{label}: launches {launches} != {want}")
+    api, packed, ecfg = eng.api, eng.params, eng.ecfg
+    members = check_packs(label, packed)
+    pack_gib = storage_gib(iter_tensors(packed))
+    print(f"{label}: serving params {pack_gib:.3f} GiB, of which K-major "
+          f"weight codes {k_major_gib(packed):.3f} GiB ({members} fused-group "
+          "members read row slices of their group's)", flush=True)
+    check_sequential(label, {"reqs": reqs, "sched": seen["sched"]}, trace,
+                     lambda p, g, calls: replay_dense(
+                         torch, api, packed, ecfg, p, calls))
+    g = torch.Generator(device=api.device).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (ecfg.slots, ecfg.prefill_chunk),
+                         generator=g, device=api.device)
+    kernel_vs_plain(torch, label, api, packed, ecfg, toks)
+    line = {**served_metrics(snap), "layers": cfg.n_layers,
+            "numerics": pallas_spec().name, "cache_dtype": ecfg.cache_dtype,
+            "build_route": seen["route"], "build_s": seen["build_s"],
+            "build_peak_gib": seen["build_peak"] / 2**30,
+            "pack_gib": pack_gib, "k_major_gib": k_major_gib(packed),
+            "cache_gib": cache_gib(eng.pool.cache),
+            "ttft_p95_s": eng.metrics.ttfts.percentile(0.95),
+            "cli_s": cli_s, "launches": launches}
+    line["step_breakdown"] = {
+        kind: profile_call(torch, label, api, packed, ecfg, c)
+        for kind, c in (("thin", 1), ("chunk", ecfg.prefill_chunk))}
+    check_one_launch(f"{label}: thin step", line["step_breakdown"]["thin"])
+    line["seconds"] = time.perf_counter() - t_start
+    write_line(label, f"cli_{arch}.json", line)
+    del eng, seen, api, packed
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -4127,8 +4254,8 @@ def run_moe_phase(torch, dev, between=None) -> dict:
     keep.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    out["cli deepseek-v2-lite-16b"] = run_moe_cli(torch,
-                                                  "deepseek-v2-lite-16b")
+    out["cli deepseek-v2-lite-16b"] = run_serve_cli(
+        torch, "deepseek-v2-lite-16b", 4, by_layer=True)
     out.update(run_moe_arch(torch, dev, "moonshot-v1-16b-a3b",
                             n_layers=MOON_LAYERS))
     gc.collect()
@@ -4153,9 +4280,10 @@ DRYRUN_LOG = ROOT / "chiprun_out" / "dryrun.log"
 
 def start_dryrun():
     """Starts the dry run of every reference cell on both production
-    meshes (``python -m repro_torch.launch.dryrun --all``: CPU only, on the
-    ``meta`` device) in the background, at a lower priority, writing its
-    records to ``chiprun_out/dryrun/``.  Returns the process, which the
+    meshes (``python -m repro_torch.launch.dryrun --all --force``: CPU
+    only, on the ``meta`` device) in the background, at a lower priority,
+    writing its records to ``chiprun_out/dryrun/`` (``--force``: records
+    of an earlier run there are recomputed, never reported as cached).  Returns the process, which the
     distributed phase waits for; it is stopped at exit."""
     import atexit
 
@@ -4165,7 +4293,7 @@ def start_dryrun():
     log = open(DRYRUN_LOG, "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--workers", str(DRYRUN_WORKERS), "--out", str(out)],
+         "--force", "--workers", str(DRYRUN_WORKERS), "--out", str(out)],
         cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
         preexec_fn=lambda: os.nice(10), start_new_session=True)
     log.close()
@@ -5323,6 +5451,414 @@ def attn_scan_times(torch, dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# granite-8b through the serve CLI, and the repo-root examples
+# ---------------------------------------------------------------------------
+
+GRANITE = "granite-8b"
+#: the "examples" phase: serve_approx's qwen3-4b depth (widths full; None:
+#: all 36 layers) and train_lm's steps (the example's default, 300)
+SERVE_APPROX_LAYERS, TRAIN_LM_STEPS = None, 300
+#: quickstart's entry point on the card against the host.  The float
+#: forward's logits: float32 sums in another order (flash, cuBLAS), the
+#: flash kernel's own float32 tolerance.  The uint8 activation codes of
+#: the approximate layer calls: in each forward the first call whose codes
+#: differ must differ only where the host's value lies within
+#: QUICKSTART_BOUNDARY codes of a rounding boundary (what float32 sums in
+#: another order can move); later calls inherit the change, and an
+#: approximate product turns one code into several.  The seven mean
+#: |logit err| rows: within QUICKSTART_RTOL (the card's gap was 1.79e-3,
+#: H100 80GB HBM3, 700.00 W).  The witness printed beside them: the host's
+#: own rows with one code a forward (the nearest a boundary, in call
+#: QUICKSTART_FLIP_CALL: layer 0's gate|up input) pushed across it.
+QUICKSTART_FLOAT_RTOL = 2e-5
+QUICKSTART_BOUNDARY = 1e-3
+QUICKSTART_RTOL = 5e-3
+QUICKSTART_FLIP_CALL = 2
+#: the pareto_sweep's accuracy losses (``jnp`` packs) against the paper
+#: phase's rows (``pallas`` packs, top-1 agreement >= PAPER_TOP1_MIN
+#: between the two): 1 point, plus the rows' rounding to 0.01
+PARETO_POINTS = 1.0 + 0.005
+
+
+def _zero_launches() -> dict:
+    wr = wrappers()
+    for w in wr.values():
+        w.launches = 0
+    return wr
+
+
+def _example_launches(label: str, wr: dict, flash: int = 0) -> dict:
+    """The examples keep the reference's ``backend: "jnp"`` policy: since
+    ``_zero_launches`` no approx-matmul wrapper may have launched, and
+    flash ``flash`` times (a float or packed forward's prefill attention
+    on the card is the flash kernel, a launch a layer)."""
+    launches = {n: w.launches for n, w in wr.items()}
+    want = {n: 0 for n in wr}
+    want["flash_attention"] = flash
+    if launches != want:
+        fail(f"{label}: kernel launches {launches}, want {want}")
+    return launches
+
+
+@contextlib.contextmanager
+def folded_inputs(edit):
+    """Every folded approximate layer call (the only kind quickstart's
+    ``serve-default`` packs make) inside the block passes its input
+    through ``edit(i, a, fold)`` first, i counting the calls from 0."""
+    from repro_torch.core import approx_linear as al
+
+    base, n = al.folded_linear, [0]
+
+    def folded(a, fold, *rest, **kw):
+        a = edit(n[0], a, fold)
+        n[0] += 1
+        return base(a, fold, *rest, **kw)
+
+    al.folded_linear = folded
+    try:
+        yield
+    finally:
+        al.folded_linear = base
+
+
+def quickstart_main(torch, argv: list) -> dict:
+    """``repro_torch.examples.quickstart.main(argv)`` in this process: its
+    printed text, its table and rows, and, in call order, the uint8
+    activation codes of each folded layer call with each value's distance
+    to the nearest rounding boundary (x.5) in codes, all on the host."""
+    import io
+
+    from repro_torch.examples import quickstart
+    from repro_torch.quant.quantize import QMAX, QMIN
+
+    rec = {"codes": [], "margin": []}
+    base = quickstart.quickstart
+
+    def record(i, a, fold):
+        t = a.float() / fold["sa"]
+        r = torch.round(t)
+        rec["codes"].append(torch.clamp(r + fold["za"], QMIN, QMAX).to(
+            torch.int16).cpu())
+        rec["margin"].append((0.5 - (t - r).abs()).cpu())
+        return a
+
+    def table(*a, **kw):
+        rec["table"], rec["rows"] = base(*a, **kw)
+        return rec["table"], rec["rows"]
+
+    buf = io.StringIO()
+    quickstart.quickstart = table
+    try:
+        with folded_inputs(record), contextlib.redirect_stdout(buf):
+            quickstart.main(argv)
+    finally:
+        quickstart.quickstart = base
+    rec["text"] = buf.getvalue()
+    return rec
+
+
+def quickstart_card_vs_host(torch, dev, cfg, card: dict, host: dict
+                            ) -> dict:
+    """quickstart's ``main`` on the card (``card``) against the host
+    (``host``), both ``quickstart_main`` records: the plan table and the
+    labels equal; the float forward's logits within QUICKSTART_FLOAT_RTOL;
+    in each forward, the first call whose codes differ differs only where
+    the host's value lies within QUICKSTART_BOUNDARY of a rounding
+    boundary; the rows within QUICKSTART_RTOL.  Prints beside them the
+    witness: the host's rows with one code a forward pushed across its
+    boundary (QUICKSTART_FLIP_CALL).  Returns the readings."""
+    from repro_torch.examples import quickstart
+    from repro_torch.launch.serve import _to_device
+    from repro_torch.models import build_model
+
+    label = "examples quickstart main"
+    for side, rec in (("card", card), ("host", host)):
+        print(f"{label} ({side}): {rec['text'].strip().splitlines()[-8:]}",
+              flush=True)
+    if card["table"] != host["table"] or [lb for lb, _ in card["rows"]] != [
+            lb for lb, _ in host["rows"]]:
+        fail(f"{label}: the card's plan table or labels differ from the "
+             "host's")
+    params, toks = quickstart.example_inputs(cfg)
+    with torch.no_grad():
+        want = build_model(cfg, "cpu").forward(params, {"tokens": toks})
+        got = build_model(cfg, dev).forward(_to_device(params, dev),
+                                            {"tokens": toks.to(dev)})
+    float_err = close(torch, got.cpu(), want, QUICKSTART_FLOAT_RTOL)
+    n_rows = len(host["rows"])
+    per_forward, extra = divmod(len(host["codes"]), n_rows)
+    if extra or len(card["codes"]) != len(host["codes"]) or any(
+            c.shape != h.shape for c, h in zip(card["codes"],
+                                               host["codes"])):
+        fail(f"{label}: the card made other folded layer calls than the "
+             f"host, or not {per_forward} in each of {n_rows} forwards")
+    diffs = [(c.int() - h.int()).abs() for c, h in zip(card["codes"],
+                                                       host["codes"])]
+    first = []  # (call in its forward, codes, largest host margin)
+    for f in range(n_rows):
+        for i in range(f * per_forward, (f + 1) * per_forward):
+            bad = diffs[i] > 0
+            if bool(bad.any()):
+                first.append((i % per_forward, int(bad.sum()),
+                              float(host["margin"][i][bad].max())))
+                break
+    gaps = [abs(c - h) / h for (_, c), (_, h) in zip(card["rows"],
+                                                     host["rows"])]
+
+    def flip(i, a, fold):
+        if i % per_forward != QUICKSTART_FLIP_CALL:
+            return a
+        t = (a.float() / fold["sa"]).flatten()
+        frac = t - torch.round(t)
+        j = int((0.5 - frac.abs()).argmin())
+        a = a.clone()
+        a.view(-1)[j] = ((torch.round(t[j]) + torch.sign(frac[j]) * 0.501)
+                         * fold["sa"]).to(a.dtype)
+        return a
+
+    with folded_inputs(flip):
+        _, w_rows = quickstart.quickstart(cfg, params, toks, "cpu")
+    witness = [abs(w - h) / h for (_, w), (_, h) in zip(w_rows,
+                                                        host["rows"])]
+    out = {"float_logits_max_abs_err": float_err,
+           "codes": sum(d.numel() for d in diffs),
+           "codes_differing": sum(int((d > 0).sum()) for d in diffs),
+           "code_max_abs_diff": max(int(d.max()) for d in diffs),
+           "first_divergence": first,
+           "rows_card": card["rows"], "rows_host": host["rows"],
+           "rows_max_rel_gap": max(gaps),
+           "host_one_flip_rows_max_rel_gap": max(witness)}
+    margin = max((m for _, _, m in first), default=0.0)
+    print(f"{label}: card against host: float logits max abs err "
+          f"{float_err:.3g} (rtol {QUICKSTART_FLOAT_RTOL}); "
+          f"{out['codes_differing']} of {out['codes']} activation codes "
+          f"differ, by at most {out['code_max_abs_diff']}; each forward's "
+          f"first divergence (call, codes, largest host margin) {first}: "
+          f"within {margin:.3g} of a rounding boundary (limit "
+          f"{QUICKSTART_BOUNDARY}); rows' largest relative gap "
+          f"{max(gaps):.3g} (tolerance {QUICKSTART_RTOL}); the host with "
+          f"one code a forward flipped at call {QUICKSTART_FLIP_CALL}: "
+          f"{max(witness):.3g}", flush=True)
+    if margin > QUICKSTART_BOUNDARY or max(gaps) > QUICKSTART_RTOL:
+        fail(f"{label}: the card's table differs from the host's beyond "
+             f"the cascade of a rounding-boundary code: {out}")
+    return out
+
+
+def run_examples(torch, dev) -> dict:
+    """Phase 6c, "examples", after the paper phase: the repo-root examples
+    through ``repro_torch.examples``, each on the card.
+
+    - quickstart at olmo-1b's full width (16 layers, float32, (4, 32)
+      tokens): the seven mean |logit err| rows (fails on a non-finite
+      one); then its ``main`` at its defaults (olmo-1b-reduced, head dim
+      16) on the card and on the host (``quickstart_card_vs_host``).
+    - serve_approx at qwen3-4b's full width (SERVE_APPROX_LAYERS deep):
+      10 requests, slots 4, max_len 128, chunk 32, int8 KV; fails unless
+      every request finishes with its token count or is rejected for the
+      admission controller's reason.
+    - train_lm at its ~100M default, TRAIN_LM_STEPS steps of B=8, T=256
+      (checkpoints every 50 under codec none in a directory under build/,
+      removed after): tokens/s, step ms, peak GiB, the loss every 50
+      steps, checkpoints, stragglers; fails unless every loss is finite
+      and the last 20 steps' mean loss is below the first 20's.
+    - pareto_sweep on the paper phase's cached resnet44/c10 weights: the
+      rows and the front; fails unless every power equals the cost
+      model's and every accuracy loss is within PARETO_POINTS of the
+      paper phase's row for that point.
+
+    Every example runs the plain ``jnp`` path: no approx-matmul kernel
+    may launch; quickstart's forwards run the flash kernel in their
+    prefill attention.  Returns the launches by path."""
+    import dataclasses
+    import gc
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.cnn_suite import get_cnn
+    from repro_torch.core import cost_model as cm
+    from repro_torch.examples import (pareto_sweep, quickstart, serve_approx,
+                                      train_lm)
+    from repro_torch.launch.serve import _to_device, mixed_trace
+    from repro_torch.models import build_model
+    from repro_torch.paper import tables2_4_accuracy as t24
+    from repro_torch.serving import AdmissionController, Request, RequestQueue
+
+    t_start = time.perf_counter()
+    paths, line, seconds = {}, {}, {}
+
+    # quickstart, full width
+    t0 = time.perf_counter()
+    cfg = quickstart.quickstart_config("olmo-1b")
+    params = build_model(cfg, dev).init(0)
+    toks = torch.randint(0, cfg.vocab, (4, 32), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    wr = _zero_launches()
+    table, rows = quickstart.quickstart(cfg, params, toks, dev)
+    # the float forward and one a point
+    paths["examples quickstart"] = _example_launches(
+        "quickstart", wr, (1 + len(rows)) * cfg.n_layers)
+    del params
+    for lbl, err in rows:
+        print(f"examples quickstart olmo-1b: {lbl:34s} {err:18.4f}",
+              flush=True)
+    if not all(math.isfinite(err) for _, err in rows):
+        fail(f"quickstart: a non-finite error in {rows}")
+    line["quickstart"] = {"arch": cfg.name, "layers": cfg.n_layers,
+                          "rows": rows, "plan_lines": len(table.splitlines())}
+    # the entry point at its defaults (olmo-1b-reduced, head dim 16) on
+    # the card against the host, both from main's host-seeded init
+    wr = _zero_launches()
+    card = quickstart_main(torch, [])
+    rcfg = quickstart.quickstart_config()
+    paths["examples quickstart main"] = _example_launches(
+        "quickstart main", wr, (1 + len(card["rows"])) * rcfg.n_layers)
+    host = quickstart_main(torch, ["--device", "cpu"])
+    line["quickstart"]["main"] = quickstart_card_vs_host(
+        torch, dev, rcfg, card, host)
+    seconds["quickstart"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serve_approx, qwen3-4b at full width
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-4b")
+    if SERVE_APPROX_LAYERS is not None:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_APPROX_LAYERS)
+    params = build_model(cfg, dev).init(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wr = _zero_launches()
+    res = serve_approx.serve_approx(
+        cfg, params, dev,
+        out=lambda s: print(f"examples serve_approx: {s}", flush=True))
+    paths["examples serve_approx"] = _example_launches("serve_approx", wr)
+    del params
+    trace = mixed_trace(cfg, 10, 128, 32)
+    adm, queue = AdmissionController(max_queue=256, max_len=128,
+                                     prefill_chunk=32), RequestQueue()
+    want_rej = [(i, reason) for i, (p, g) in enumerate(trace)
+                for _, reason in [adm.check(queue, Request(
+                    rid=i, prompt=p, max_new_tokens=g))[:2]] if reason]
+    done = [r for r in res["requests"] if r.state.value != "rejected"]
+    if res["rejected"] != want_rej or not all(
+            r.finished and len(r.generated) == g for r, (_, g) in zip(
+                res["requests"], trace) if r.state.value != "rejected"):
+        fail(f"serve_approx: rejected {res['rejected']} (the admission "
+             f"controller's: {want_rej}); finished "
+             f"{[(r.rid, len(r.generated)) for r in done]}")
+    snap = res["snapshot"]
+    line["serve_approx"] = {
+        **served_metrics(snap), "layers": cfg.n_layers,
+        "depth": "full" if SERVE_APPROX_LAYERS is None else "cut",
+        "rejected": res["rejected"],
+        "compiled_shapes": res["engine"].compile_count(),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del res
+    seconds["serve_approx"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # train_lm, the ~100M default
+    t0 = time.perf_counter()
+    cfg = train_lm.train_lm_config()
+    tcfg, dcfg = train_lm.example_configs(cfg, TRAIN_LM_STEPS)
+    ckpt = ROOT / "build" / "train_lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"examples train_lm: arch={cfg.name} "
+          f"~{cfg.param_count() / 1e6:.0f}M params, {TRAIN_LM_STEPS} steps "
+          f"of B={dcfg.batch}, T={dcfg.seq_len}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wr = _zero_launches()
+    try:
+        res = train_lm.train_lm(
+            cfg, tcfg, dcfg, str(ckpt), dev, codec="none",
+            out=lambda s: print(f"examples train_lm: {s}", flush=True))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    paths["examples train_lm"] = _example_launches("train_lm", wr)
+    losses = res["losses"]
+    n = len(losses)
+    first, last = (statistics.mean(losses[:20]),
+                   statistics.mean(losses[-20:]))
+    step_ms = statistics.median(res["step_s"]) * 1e3
+    tok = dcfg.batch * dcfg.seq_len
+    line["train_lm"] = {
+        "arch": cfg.name, "params": cfg.param_count(), "steps": n,
+        "tokens_per_s": n * tok / sum(res["step_s"]),
+        "step_ms_median": step_ms,
+        "step_ms_min_max": [min(res["step_s"]) * 1e3,
+                            max(res["step_s"]) * 1e3],
+        "wall_s": res["seconds"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "loss_every_50": {i: losses[i] for i in range(0, n, 50)}
+        | {n - 1: losses[-1]},
+        "loss_first20_mean": first, "loss_last20_mean": last,
+        "checkpoints_written": -(-n // train_lm.CHECKPOINT_EVERY),
+        "checkpoints_kept": res["checkpoints"],
+        "stragglers": res["flagged"]}
+    print(f"examples train_lm: {n} steps, {line['train_lm']['tokens_per_s']:.0f} "
+          f"tokens/s, median step {step_ms:.2f} ms, loss "
+          f"{json.dumps(line['train_lm']['loss_every_50'])}, mean of the "
+          f"first 20 {first:.4f} -> last 20 {last:.4f}", flush=True)
+    if n != TRAIN_LM_STEPS or not all(math.isfinite(x) for x in losses) \
+            or not last < first:
+        fail(f"train_lm: {n} steps, loss {first} -> {last} (must fall and "
+             "stay finite)")
+    del res
+    seconds["train_lm"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # pareto_sweep on the paper phase's cached resnet44/c10 weights
+    t0 = time.perf_counter()
+    cfg = get_cnn("resnet44", 10)
+    if not os.path.exists(t24.weights_path("resnet44", cfg)):
+        fail("pareto_sweep: no cached resnet44/c10 weights from the paper "
+             f"phase under {t24.ART_DIR}")
+    cache = t24._load_cache()
+    xtr, ytr, xte, yte = t24.dataset(10, dev)
+    params, _ = t24.train_cnn("resnet44", cfg, xtr, ytr, device=dev)
+    wr = _zero_launches()
+    res = pareto_sweep.pareto_sweep(
+        cfg, params, xtr, xte, yte, dev,
+        out=lambda s: print(f"examples pareto_sweep: {s}", flush=True))
+    paths["examples pareto_sweep"] = _example_launches("pareto_sweep", wr)
+    gaps = []
+    for lbl, power, d_cv, d_no in res["rows"]:
+        mode, m = lbl.split("/m")
+        ref = cache[f"tables2_4/resnet44/c10/{mode}/m{m}"]
+        gap = max(abs(d_cv - ref["loss_cv_pct"]),
+                  abs(d_no - ref["loss_no_cv_pct"]))
+        gaps.append(gap)
+        if power != 1 - cm.power_saving(mode, int(m), 64) / 100 \
+                or gap > PARETO_POINTS:
+            fail(f"pareto_sweep {lbl}: power {power}, loss {d_cv:.2f} / "
+                 f"{d_no:.2f} points against the paper phase's "
+                 f"{ref['loss_cv_pct']} / {ref['loss_no_cv_pct']}")
+    line["pareto_sweep"] = {"acc_float": res["acc_float"],
+                            "rows": res["rows"], "front": res["front"],
+                            "max_gap_to_paper_points": max(gaps)}
+    print(f"examples pareto_sweep: every power equals the cost model's; "
+          f"accuracy losses within {max(gaps):.2f} points of the paper "
+          f"phase's pallas rows; float accuracy {res['acc_float']:.3f} "
+          "against chance 0.100"
+          + (": the reference's recipe barely trains this net (ROADMAP "
+             "queue 3), so the front is noise on a near-collapsed net"
+             if res["acc_float"] < 0.3 else ""), flush=True)
+    del params, res
+    seconds["pareto_sweep"] = time.perf_counter() - t0
+    line["seconds"] = seconds
+    write_line("examples", "examples.json", line)
+    print(f"examples: {time.perf_counter() - t_start:.1f} s "
+          f"{json.dumps(seconds)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -5432,6 +5968,9 @@ def main() -> int:
     per_layer = {"embeds qwen2-vl-2b": max(res["per_layer_max_abs_err"])}
     torch.cuda.empty_cache()
     lap("qwen2-vl-2b engine, embeds")
+    paths["cli granite-8b"] = run_serve_cli(torch, GRANITE, 8,
+                                            by_layer=False)
+    lap("granite-8b")
     paths.update(run_moe_phase(torch, dev, between=lambda keep: (
         run_distributed_phase(torch, dev, keep, dryrun))))
     lap("moe, distributed")
@@ -5464,6 +6003,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.update(run_paper(torch, dev))
     lap("paper")
+    paths.update(run_examples(torch, dev))
+    lap("examples")
     ratios = {f"{r['mode']}(m={r['m']})": [
         round(cnn[name]["c10"][i]["err_ratio_no_cv_over_cv"], 3)
         for name in cnn] for i, r in enumerate(next(iter(cnn.values()))["c10"])}

@@ -35,10 +35,15 @@
 // registers (no trip through shared memory); the output is staged through
 // shared memory for 16-byte stores.
 //
-// float32 route (fa_kernel; only the float32 cases of the tests and the
-// card check use it): float32 FMA on the CUDA cores, Q (pre-scaled) and K
-// transposed in shared memory.  The tensor cores would round float32
-// inputs to bf16 or TF32, so this route keeps them exact to float32 sums.
+// float32 route (fa_kernel; the float32 forwards of the examples, e.g.
+// quickstart, and the float32 cases of the card check): float32 FMA on the
+// CUDA cores, Q (pre-scaled) and K transposed in shared memory.  The
+// tensor cores would round float32 inputs to bf16 or TF32, so this route
+// keeps them exact to float32 sums.
+//
+// Head dims 16, 32, 64, 80 and 128 are compiled on both routes.  At 16
+// (olmo-1b-reduced) a bf16 tile row is two 16-byte chunks, swizzled with
+// r & 1, and a float32 thread owns one accumulator column.
 //
 // Bound on the H100: causal prefill at (4, 16, 1024, 128) bf16 is ~17
 // GFLOP of products on ~67 MB of q/k/v/out: ~17 us at the bf16 tensor-core
@@ -613,6 +618,11 @@ int launch_d(int bf16, int d, const void* q, const void* k, const void* v,
              int window, float scale, const long long* st,
              cudaStream_t stream) {
   switch (d) {
+    case 16:
+      return bf16 ? tc::launch<16>(q, k, v, o, b, hq, hkv, tq, tk, causal,
+                                   window, scale, st, stream)
+                  : launch<float, 16>(q, k, v, o, b, hq, hkv, tq, tk, causal,
+                                      window, scale, st, stream);
     case 32:
       return bf16 ? tc::launch<32>(q, k, v, o, b, hq, hkv, tq, tk, causal,
                                    window, scale, st, stream)

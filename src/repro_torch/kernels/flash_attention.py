@@ -38,7 +38,7 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BUILD_DIR = nvcc.BUILD_DIR
 NVCC_FLAGS = nvcc.BASE_FLAGS
 #: head dims the kernel is compiled for
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 
 _LIB: ctypes.CDLL | None = None
 

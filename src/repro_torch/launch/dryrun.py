@@ -229,8 +229,10 @@ def device_gib(record: dict) -> float:
         / 2**30
 
 
-def cell_line(rec: dict) -> str:
+def cell_line(rec: dict, variant: str = "") -> str:
     label = f"{rec['arch']} {rec['shape']} multi_pod={rec['multi_pod']}"
+    if variant:
+        label += f" variant={variant}"
     if rec["status"] == "skip":
         return f"[skip] {label} ({rec['reason']})"
     if rec["status"] != "ok":
@@ -255,9 +257,17 @@ def _cell(args) -> dict:
                 "traceback": traceback.format_exc()[-4000:]}
 
 
-def _out_path(out_dir: str, arch: str, shape: str, multi_pod: bool) -> str:
+def _out_path(out_dir: str, arch: str, shape: str, multi_pod: bool,
+              variant: str = "") -> str:
+    """A cell's record; a ``variant``'s goes to the sibling ``perf``
+    directory with ``__<variant>`` in its name, as the reference's."""
+    if variant:
+        out_dir = os.path.join(os.path.dirname(os.path.abspath(out_dir)),
+                               "perf")
+    os.makedirs(out_dir, exist_ok=True)
     pod = "multipod" if multi_pod else "singlepod"
-    return os.path.join(out_dir, f"{arch}__{shape}__{pod}.json")
+    suffix = f"__{variant}" if variant else ""
+    return os.path.join(out_dir, f"{arch}__{shape}__{pod}{suffix}.json")
 
 
 def main(argv=None) -> None:
@@ -267,8 +277,12 @@ def main(argv=None) -> None:
     ap.add_argument("--multi-pod", default="both",
                     choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true",
+                    help="recompute cached cells")
     ap.add_argument("--approx-mode", default="perforated")
     ap.add_argument("--approx-m", type=int, default=2)
+    ap.add_argument("--variant", default="",
+                    help="perf-variant artifact label")
     ap.add_argument("--backend", default="pallas", choices=["pallas", "jnp"])
     ap.add_argument("--set", action="append", default=[],
                     help="ArchConfig override, e.g. --set "
@@ -291,17 +305,25 @@ def main(argv=None) -> None:
             "both": [False, True]}[args.multi_pod]
     kw = dict(approx_mode=args.approx_mode, approx_m=args.approx_m,
               overrides=overrides or None, backend=args.backend)
-    jobs = [(a, s, mp, kw) for a in archs for s in shapes for mp in pods]
-    os.makedirs(args.out, exist_ok=True)
+    jobs = []
+    for a in archs:
+        for s in shapes:
+            for mp in pods:
+                if os.path.exists(_out_path(args.out, a, s, mp,
+                                            args.variant)) \
+                        and not args.force:
+                    print(f"[cached] {a} {s} multi_pod={mp}")
+                    continue
+                jobs.append((a, s, mp, kw))
     t0 = time.time()
     failures, records = [], []
 
     def done(rec: dict) -> None:
         records.append(rec)
         with open(_out_path(args.out, rec["arch"], rec["shape"],
-                            rec["multi_pod"]), "w") as f:
+                            rec["multi_pod"], args.variant), "w") as f:
             json.dump(rec, f, indent=2)
-        print(cell_line(rec), flush=True)
+        print(cell_line(rec, args.variant), flush=True)
         if rec["status"] == "error":
             failures.append(rec)
 

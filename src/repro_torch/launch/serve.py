@@ -957,6 +957,9 @@ def main(argv: list[str] | None = None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     _add_numerics_flags(ap)
+    ap.add_argument("--engine", action="store_true",
+                    help="continuous-batching engine (the default path; "
+                    "--legacy wins when both are given)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)

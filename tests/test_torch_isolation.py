@@ -4,7 +4,8 @@ the MLA/MoE archs with ``nn.moe`` and ``core.grouped_approx``, the hybrid
 with ``nn.ssm``, the training step with ``optim``, ``data.synthetic``
 and ``launch.train``, and the checkpoint store (``checkpoint.manager``,
 ``checkpoint._msgpack``, ``checkpoint.elastic``), ``data.loader`` and
-``runtime.fault_tolerance`` with the train CLI), without the ``msgpack``,
+``runtime.fault_tolerance`` with the train CLI, and the examples under
+``repro_torch.examples``), without the ``msgpack``,
 ``zstandard`` and ``ml_dtypes`` wheels; and its entry points run on the
 card unless the caller asks for the CPU."""
 
@@ -36,7 +37,8 @@ def _imports(path: pathlib.Path) -> set[str]:
     ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_and_no_reference_imports(path):
     bad = {n for n in _imports(path)
-           if n.split(".")[0] in ("jax", "jaxlib", "flax", "repro")}
+           if n.split(".")[0] in ("jax", "jaxlib", "flax", "repro",
+                                  "benchmarks")}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
@@ -45,6 +47,7 @@ def test_port_runs_with_jax_unimportable():
         import sys
         sys.modules["jax"] = None
         sys.modules["repro"] = None
+        sys.modules["benchmarks"] = None
         for wheel in ("msgpack", "zstandard", "ml_dtypes"):
             sys.modules[wheel] = None
         import torch
@@ -217,7 +220,14 @@ def test_port_runs_with_jax_unimportable():
                 train_main(["--device", "cpu", "--steps", "2", "--batch",
                             "2", "--seq", "8", "--ckpt-dir", d + "/t"])
             assert "done: 2 steps" in out.getvalue()
-        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+        # the examples
+        from repro_torch.examples import (pareto_sweep, quickstart,
+                                          serve_approx, train_lm)
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            quickstart.main(["--device", "cpu"])
+        assert "truncated(m=6)+cv(g=1)" in out.getvalue()
+        assert not any(m in ("jax", "benchmarks")
+                       or m.startswith(("jax.", "repro.", "benchmarks."))
                        for m in sys.modules if sys.modules[m] is not None)
         assert not any(sys.modules.get(w) for w in (
             "msgpack", "zstandard", "ml_dtypes"))
@@ -269,3 +279,9 @@ def test_entry_points_default_to_cuda(tmp_path):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         train_main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+    from repro_torch.examples import (pareto_sweep, quickstart, serve_approx,
+                                      train_lm)
+
+    for example in (quickstart, serve_approx, train_lm, pareto_sweep):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            example.main([])
