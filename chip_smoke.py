@@ -27,7 +27,11 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    the plain version on every matmul tile of the source, and every decode
    call twice bit-equal;
    the CNN suite's conv and head shapes (K = 16 ... 1152, N = 4 ... 128)
-   in float32 at M = 4, 250, 16,000 and 256,000, every mode, CV on and off;
+   in float32 at M = 4, 250, 4,001, 16,000 and 256,000 and one in
+   bfloat16 at (16,000, 27, 16), every mode, CV on and off, each call
+   above 8 rows on the conv kernel where K * N <= 36,864 (every (K, N)
+   but vgg's (576, 128) and (1152, 128), which keep the wgmma tile; the
+   route of each (K, N) printed);
    flash attention at the olmo-1b, qwen3-4b (GQA 32/8), qwen2-vl-2b
    (GQA 12/2) and hymba-1.5b (GQA 25/5, D=64, window 1024 of T=2048)
    prefill shapes and hubert-xlarge's encoder (D=80, non-causal), the JAX
@@ -177,8 +181,10 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    top-1 agreement against the float model with and without the CV, the
    modelled power saving, the `int8` preset's error, kernel-path logits
    bit-equal to the plain version's at one point per mode, one point per
-   mode at 100 classes, a profiled B=250 forward and the time of each
-   net's largest approx call; and one point per mode of the reference's
+   mode at 100 classes, a profiled B=250 forward (one conv-kernel launch
+   a conv-shaped call, no prep kernel) and the time of each net's largest
+   approx call at perforated m=2 and truncated m=7; and one point per
+   mode of the reference's
    default `backend: "jnp"` grid, CV on: folded float32 operands against
    `fold=False` (the exact-integer product) and the kernel sweep, the fold
    bytes against the plan's, a grouped-CV (4 groups) pack's error beside
@@ -344,9 +350,12 @@ DECODE_CASES = [(1, 2048, 2048), (8, 2048, 2048), (1, 8192, 2048),
 #: accuracy benchmark's calibration images, test images and eval batch
 #: (benchmarks/tables2_4_accuracy.py), and the row counts at which every
 #: conv and head shape is held against its plain version: split-K rows,
-#: the heads at the eval batch, 8 x 8 and 32 x 32 maps at B = 250
+#: the heads at the eval batch, a partial last row tile after a hundred
+#: and more full ones (4,001), 8 x 8 and 32 x 32 maps at B = 250
 CNN_CALIB, CNN_TEST, CNN_BATCH = 256, 1000, 250
-CONV_M = (4, 250, 16_000, 256_000)
+CONV_M = (4, 250, 4_001, 16_000, 256_000)
+#: the conv shape also held against its plain version with bfloat16 x
+CONV_BF16_CASE = (16_000, 27, 16)
 #: approx calls a forward of each suite net makes (its convs and fcs)
 CNN_LAYERS = {"vgg13": 8, "vgg16": 11, "resnet44": 16, "resnet56": 22,
               "googlenet": 20, "shufflenet": 12}
@@ -749,10 +758,24 @@ def check_kernels(torch, dev) -> dict:
             n_twice += mm <= amk.DECODE_M_MAX
     # the CNN suite's convs (im2col) and heads, float32 in and out as the
     # CNN phase runs them, every mode with the CV on and off, at every row
-    # count of CONV_M: fan-ins below one 128-byte K tile and off multiples
-    # of 8 (27, 100), widths below one column tile (4 ... 128)
+    # count of CONV_M, and one shape in bfloat16: fan-ins off multiples of
+    # 8 (27, 100), widths below one 8-column mma tile (4); every call above
+    # DECODE_M_MAX rows must take the conv kernel where the source's rule
+    # sends it there (all but vgg's two widest (K, N)), and a wgmma tile
+    # elsewhere
     conv_kn = cnn_kn(torch, dev)
     n_conv = 0
+
+    def conv_case(x, blocked, mode, m, use_cv):
+        fused(x, blocked, mode, m, "conv", use_cv)
+        mm, k, n = x.shape[0], blocked.k, blocked.n
+        want = ({"split_k"} if mm <= amk.DECODE_M_MAX else
+                {"conv"} if not amk._takes_prep(mm, k, n) else
+                set(amk.TILES) - {"split_k", "conv"})
+        if amk.tile(mm, k, n, mode, m) not in want:
+            fail(f"conv shape ({mm}, {k}, {n}) {mode} m={m} took "
+                 f"{amk.tile(mm, k, n, mode, m)}, not {sorted(want)}")
+
     for mode, m in MODES:
         cvs = (True, False) if mode != "exact" else (True,)
         for k, n in conv_kn:
@@ -760,14 +783,24 @@ def check_kernels(torch, dev) -> dict:
             for mm in CONV_M:
                 x = torch.randn(mm, k, generator=gen, device=dev) * 1.5
                 for use_cv in cvs:
-                    fused(x, blocked, mode, m, "conv", use_cv)
+                    conv_case(x, blocked, mode, m, use_cv)
                     n_conv += 1
                     n_twice += mm <= amk.DECODE_M_MAX
+                if (mm, k, n) == CONV_BF16_CASE:
+                    for use_cv in cvs:
+                        conv_case(x.to(torch.bfloat16), blocked, mode, m,
+                                  use_cv)
+                        n_conv += 1
                 del x
             del blocked
     n_cases += n_conv
+    routes = {f"{k}x{n}": sorted({amk.tile(mm, k, n, "perforated", 2)
+                                   for mm in CONV_M})
+              for k, n in conv_kn}
     print(f"kernels: {n_conv} conv-shape cases (float32, (K, N) "
-          f"{conv_kn}, M {CONV_M}) equal their plain versions", flush=True)
+          f"{conv_kn}, M {CONV_M}; bfloat16 at {CONV_BF16_CASE}) equal "
+          f"their plain versions; routes by (K, N) over M {CONV_M}: "
+          + json.dumps(routes), flush=True)
     for name, seen in tiles.items():
         if set(amk.TILES) - seen:
             fail(f"{name}: tiles {sorted(set(amk.TILES) - seen)} were never "
@@ -1212,8 +1245,8 @@ def engine_run(torch, label: str, cfg, api, params, ecfg, trace, per_call,
           f"{snap['mixed_steps']} decode={snap['decode_steps']} spec="
           f"{snap['spec_rounds']} (draft calls {snap['draft_calls']}); "
           f"wrapper launches {launches}, the schedule implies {expected} (a "
-          "fused call is one CUDA launch at decode rows, prep and matmul "
-          "above)", flush=True)
+          "fused call is one CUDA launch at decode rows and at conv "
+          "shapes, prep and matmul above)", flush=True)
     if launches != expected:
         fail(f"{label}: launches {launches} != {expected}")
     if compiles is not None and eng.compile_count() != compiles:
@@ -3105,10 +3138,13 @@ def profile_fn(torch, label: str, call, host_profile: str) -> dict:
         prof.step()
         time.sleep(PROFILE_GAP_S)
         calls0 = amk.approx_matmul_cv_fused.launches
+        kerns0 = amk.kernel_launches()
         for _ in range(3):
             call()
         torch.cuda.synchronize()
         fused_calls = amk.approx_matmul_cv_fused.launches - calls0
+        counted = {k: v - kerns0[k] for k, v in amk.kernel_launches().items()
+                   if v > kerns0[k]}
         time.sleep(PROFILE_GAP_S)
         prof.step()
 
@@ -3130,17 +3166,19 @@ def profile_fn(torch, label: str, call, host_profile: str) -> dict:
         by_name[e.key[:48]] = by_name.get(e.key[:48], 0.0) + dev_us(e) / 3
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:6]
     # the approx-matmul source's CUDA launches in the profiled calls, by
-    # kernel, beside the fused wrapper's calls there
+    # kernel, as the trace shows them and as the source counted them,
+    # beside the fused wrapper's calls there
     approx = {}
     for e in kernels:
-        for kern in ("prep_kernel", "am_splitk_kernel", "am_wgmma_kernel"):
+        for kern in amk.LAUNCH_KINDS:
             if kern in e.key:
                 approx[kern] = approx.get(kern, 0) + e.count
     out = {"wall_ms": wall_s * 1e3,
            "device_ms": device_s * 1e3 if kernels else None,
            "device_idle_share": 1 - device_s / wall_s if kernels else None,
            "top_device_us": dict(top),
-           "fused_calls": fused_calls, "approx_launches": approx}
+           "fused_calls": fused_calls, "approx_launches": approx,
+           "counted_launches": counted}
     print(f"{label}: " + json.dumps(out), flush=True)
     return out
 
@@ -4669,23 +4707,29 @@ def recorded_calls(calls: list):
 
 
 def conv_time(torch, dev, card: str, mm: int, k: int, n: int) -> dict:
-    """One conv-shaped approx call, float32 in and out (perforated m=2 +
-    CV): kernel (prep + tile), plain version, float32 ``torch.matmul``
-    (TF32 off) at the same (M, K, N), and the bound.  The activations
-    (M x K float32, hundreds of MB at B = 250) exceed the 50 MB L2, so one
-    operand copy serves every replay, as the path reads them."""
+    """One conv-shaped approx call, float32 in and out: the kernel (the
+    route it takes) at perforated m=2 + CV, its plain version, float32
+    ``torch.matmul`` (TF32 off) at the same (M, K, N), and the bound; and
+    the kernel at truncated m=7 (eight products a code, the most of any
+    mode) beside its own bound.  The activations (M x K float32, hundreds of
+    MB at B = 250) exceed the 50 MB L2, so one operand copy serves every
+    replay, as the path reads them."""
     from repro_torch.kernels import approx_matmul as amk
 
     gen = torch.Generator(device=dev).manual_seed(2)
     _, _, b = random_pack(torch, k, n, "perforated", 2, gen, dev)
+    _, _, b7 = random_pack(torch, k, n, "truncated", 7, gen, dev)
     x = torch.randn(mm, k, generator=gen, device=dev)
     w = torch.randn(k, n, generator=gen, device=dev)
     args = (x, b.w_qbt, b.epilogue, b.meta)
     kw = dict(k=k, n=n, mode="perforated", m=2)
     bound, by = approx_bound(mm, k, n, b.w_qbt.numel(), b.epilogue.numel(),
                              b.meta.numel(), 4, 4, card)
+    bound7, by7 = approx_bound(mm, k, n, b7.w_qbt.numel(),
+                               b7.epilogue.numel(), b7.meta.numel(), 4, 4,
+                               card, "truncated", 7)
     return {
-        "M": mm, "K": k, "N": n,
+        "M": mm, "K": k, "N": n, "route": amk.tile(mm, k, n, "perforated", 2),
         "kernel_us": time_calls(torch, [
             lambda: amk.approx_matmul_cv_fused(*args, **kw)] * 3) * 1e6,
         "plain_us": time_calls(torch, [
@@ -4694,7 +4738,41 @@ def conv_time(torch, dev, card: str, mm: int, k: int, n: int) -> dict:
         "library_us": time_calls(torch, [lambda: torch.matmul(x, w)] * 3)
         * 1e6,
         "library": "float32 torch.matmul, TF32 off",
-        "bound_us": bound * 1e6, "bound_by": by}
+        "bound_us": bound * 1e6, "bound_by": by,
+        "truncated7_us": time_calls(torch, [
+            lambda: amk.approx_matmul_cv_fused(
+                x, b7.w_qbt, b7.epilogue, b7.meta, k=k, n=n,
+                mode="truncated", m=7)] * 3) * 1e6,
+        "truncated7_bound_us": bound7 * 1e6, "truncated7_bound_by": by7}
+
+
+def check_conv_launches(label: str, prof: dict, calls: list,
+                        forwards: int) -> None:
+    """Each approx call of ``forwards`` profiled forwards (one forward's
+    (M, K, N) calls in ``calls``) launched what its route launches: a
+    conv-shaped call one conv kernel and no prep kernel, a decode-shaped
+    one one split-K kernel, any other the prep kernel and one wgmma tile.
+    The source's own launch counts must equal that exactly; the trace,
+    which can drop a record at its window's edge but shows no kernel that
+    did not run, must hold no other kernel and no more launches."""
+    from repro_torch.kernels import approx_matmul as amk
+
+    want: dict[str, int] = {}
+    for mm, k, n in calls:
+        route = amk.tile(mm, k, n, "perforated", 2)
+        kerns = (("am_conv_kernel",) if route == "conv" else
+                 ("am_splitk_kernel",) if route == "split_k" else
+                 ("prep_kernel", "am_wgmma_kernel"))
+        for kern in kerns:
+            want[kern] = want.get(kern, 0) + forwards
+    counted, traced = prof["counted_launches"], prof["approx_launches"]
+    if counted != want or any(v > want.get(k, 0) for k, v in traced.items()):
+        fail(f"{label}: the profiled forwards launched {counted} (traced "
+             f"{traced}), want {want} (one conv launch a conv-shaped call, "
+             "no prep kernel)")
+    print(f"{label}: {prof['fused_calls']} approx calls in {forwards} "
+          f"profiled forwards, CUDA launches {counted} (traced {traced}): "
+          "one a conv-shaped call, no prep kernel", flush=True)
 
 
 def run_cnn_net(torch, dev, card: str, name: str, data: dict) -> dict:
@@ -4846,6 +4924,7 @@ def run_cnn_net(torch, dev, card: str, name: str, data: dict) -> dict:
     if prof["fused_calls"] != 3 * len(paths):
         fail(f"{label}: the profiled forwards made {prof['fused_calls']} "
              f"approx calls, want {3 * len(paths)}")
+    check_conv_launches(label, prof, calls, 3)
     big = max(calls, key=lambda c: c[0] * c[1] * c[2])
     row = {"net": name, **conv_time(torch, dev, card, *big),
            "calls_per_forward": calls.count(big)}
@@ -6093,7 +6172,8 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/approx_matmul.cu",
             "replaces": f"src/repro/kernels/approx_matmul.py:{src_line}",
             # wrapper calls on every path (a fused call is one CUDA launch
-            # at decode rows, the prep and a matmul kernel above)
+            # at decode rows and conv shapes, the prep and a matmul kernel
+            # at other shapes)
             "launches": launches[name],
             "max_abs_err": errs[name],
             "ms": (dec["kernel_us"] + pre["kernel_us"]) / 1e3,

@@ -10,15 +10,21 @@ Two entries of one hand-written CUDA source (``csrc/approx_matmul.cu``):
 * :func:`approx_matmul_cv` replaces ``approx_matmul_cv`` (body ``_kernel``):
   the same arithmetic over pre-quantized codes with per-tensor quant params.
 
-Both read the weights K-major.  Decode-shaped calls (at most
-:data:`DECODE_M_MAX` rows) are one CUDA launch: a split-K kernel that
-quantizes x itself, multiplies on ``mma.sync`` and adds the K slices of a
-thread-block cluster in the leader's shared memory (bound by the weight
-bytes).  Larger calls run a prep kernel (quantize x once, mask the codes,
-per-row statistics) and then the TMA + ``wgmma`` prefill tile (bound by
-int8 operations at prefill sizes): two launches.  The design notes are in
-the source.  The source is compiled with ``nvcc`` for ``sm_90a`` into
-``build/`` at first use and bound with ``ctypes``.
+Both read the weights K-major, by one of three routes.  Decode-shaped
+calls (at most :data:`DECODE_M_MAX` rows) are one CUDA launch: a split-K
+kernel that quantizes x itself, multiplies on ``mma.sync`` and adds the K
+slices of a thread-block cluster in the leader's shared memory (bound by
+the weight bytes).  Conv-shaped calls (more rows, fan-in at most
+:data:`CONV_K_MAX`, width at most :data:`CONV_N_MAX` and K * N at most
+:data:`CONV_KN_MAX`: the CNNs' im2col calls) are one launch too:
+persistent blocks stream x once through a ring of bulk copies, quantize in
+registers, keep the pack in shared memory and multiply on ``mma.sync``
+(bound by the bytes of x and out).  Other calls run a prep kernel
+(quantize x once, mask the codes, per-row statistics) and then the TMA +
+``wgmma`` prefill tile (bound by int8 operations at prefill sizes): two
+launches.  The design notes are in the source.  The source is compiled
+with ``nvcc`` for ``sm_90a`` into ``build/`` at first use and bound with
+``ctypes``.
 
 Each wrapper takes a CPU tensor to its plain PyTorch version
 (``*_plain``, the float64-exact integer product of
@@ -51,9 +57,14 @@ BUILD_DIR = nvcc.BUILD_DIR
 NVCC_FLAGS = nvcc.BASE_FLAGS + ("-fmad=false",)
 
 #: Row counts at or below this are decode-shaped (engine slot counts): one
-#: split-K launch, which quantizes x in each block.  Above it the prep
-#: kernel and the prefill tile.
+#: split-K launch, which quantizes x in each block.  Above it the conv
+#: kernel or the prep kernel and the prefill tile.
 DECODE_M_MAX = 8
+
+#: Calls above DECODE_M_MAX rows whose fan-in, width and K * N are at most
+#: these take the conv kernel (one launch, no scratch); the source's
+#: ``CONV_K_MAX``/``CONV_N_MAX``/``CONV_KN_MAX`` hold the same values
+CONV_K_MAX, CONV_N_MAX, CONV_KN_MAX = 1152, 128, 36864
 
 #: K-major weight rows are padded to this many bytes (TMA row strides)
 K_ALIGN = 16
@@ -89,15 +100,18 @@ def _lib() -> ctypes.CDLL:
         lib.am_codes_launch.restype = I
         lib.am_tile.argtypes = [I, I, I, I, I]
         lib.am_tile.restype = I
+        lib.am_launches.argtypes = [P]
+        lib.am_launches.restype = None
         _LIB = lib
     return _LIB
 
 
 #: the matmul kernel instantiations, named in the order of the source's
 #: ``TileId`` (``am_tile``): the split-K decode kernel, the wgmma tiles for
-#: modes with subtractive planes, then those for one product
+#: modes with subtractive planes, then those for one product, then the conv
+#: kernel
 TILES = ("split_k", "128x128 planes", "64x128 planes", "128x256", "128x128",
-         "64x128")
+         "64x128", "conv")
 
 
 def tile(mm: int, k: int, n: int, mode: am.Mode, m: int) -> str:
@@ -105,6 +119,22 @@ def tile(mm: int, k: int, n: int, mode: am.Mode, m: int) -> str:
     launches, as the source chooses it (needs the built library)."""
     planes = len(decomposition(mode, m)[1])
     return TILES[_lib().am_tile(int(mm <= DECODE_M_MAX), mm, k, n, planes)]
+
+
+#: the CUDA kernels of the source, named as their launches are counted
+#: (``LaunchKind`` order) and as a profile shows them
+LAUNCH_KINDS = ("prep_kernel", "am_wgmma_kernel", "am_splitk_kernel",
+                "am_conv_kernel")
+
+
+def kernel_launches() -> dict[str, int]:
+    """CUDA launches of each kernel of the source since it was loaded, as
+    its launch functions count them (needs the built library): a fused call
+    launches one split-K or conv kernel, or the prep kernel and a wgmma
+    tile."""
+    out = (ctypes.c_ulonglong * len(LAUNCH_KINDS))()
+    _lib().am_launches(out)
+    return dict(zip(LAUNCH_KINDS, map(int, out)))
 
 
 def decomposition(mode: am.Mode, m: int) -> tuple[int, list[tuple[int, int]]]:
@@ -194,11 +224,19 @@ def _check_scratch(name: str, buf: torch.Tensor, mm: int, ldq: int) -> None:
                          f"statistics ({mm}, 2): {mm * (ldq + 8)} bytes")
 
 
-def _prep_scratch(name: str, mm: int, k: int, device, decode: bool):
+def _takes_prep(mm: int, k: int, n: int) -> bool:
+    """Whether a call runs the prep kernel and a wgmma tile: above
+    DECODE_M_MAX rows and not conv-shaped (the split-K and conv kernels
+    quantize x themselves)."""
+    return mm > DECODE_M_MAX and not (k <= CONV_K_MAX and n <= CONV_N_MAX
+                                      and k * n <= CONV_KN_MAX)
+
+
+def _prep_scratch(name: str, mm: int, k: int, n: int, device):
     """(buffer, ldq, address of its codes) of the prep kernel's scratch, or
-    (None, 0, 0) for decode rows, which take none: the kernel reads the
-    statistics at codes + M * ldq."""
-    if decode:
+    (None, 0, 0) for a call that takes none (:func:`_takes_prep`): the
+    kernel reads the statistics at codes + M * ldq."""
+    if not _takes_prep(mm, k, n):
         return None, 0, 0
     buf, ldq = _scratch(mm, k, device)
     _check_scratch(name, buf, mm, ldq)
@@ -253,8 +291,8 @@ def approx_matmul_cv_fused(x: torch.Tensor, w_qbt: torch.Tensor | None,
     x (M, k) float32/bfloat16; w_qbt (>= n, ldt) uint8, the pack's K-major
     codes (ldt >= k, a multiple of K_ALIGN); epilogue (EPI_ROWS, >= n)
     float32; meta (1, META_LEN) float32.  Returns (M, n) in x's dtype.  On
-    the card a call of at most DECODE_M_MAX rows is one CUDA launch and
-    allocates only its output.
+    the card a call of at most DECODE_M_MAX rows, or a conv-shaped one, is
+    one CUDA launch and allocates only its output.
     """
     name = "approx_matmul_cv_fused"
     if x.device.type == "cpu":
@@ -281,7 +319,7 @@ def approx_matmul_cv_fused(x: torch.Tensor, w_qbt: torch.Tensor | None,
     if mm == 0:
         return out
     decode = mm <= DECODE_M_MAX
-    scratch, ldq, codes = _prep_scratch(name, mm, k, x.device, decode)
+    scratch, ldq, codes = _prep_scratch(name, mm, k, n, x.device)
     status = lib.am_fused_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), codes, ldq,
         codes + mm * ldq, w_qbt.data_ptr(),
@@ -358,8 +396,8 @@ def approx_matmul_cv(a_q: torch.Tensor, w_q: torch.Tensor, c: torch.Tensor,
     if mm == 0:
         return out
     decode = mm <= DECODE_M_MAX
-    scratch, ldq, codes = _prep_scratch("approx_matmul_cv", mm, kk,
-                                        a_q.device, decode)
+    scratch, ldq, codes = _prep_scratch("approx_matmul_cv", mm, kk, nn,
+                                        a_q.device)
     w_qt = k_major(w_q)
     _check_k_major("approx_matmul_cv", w_qt, nn, kk)
     status = lib.am_codes_launch(

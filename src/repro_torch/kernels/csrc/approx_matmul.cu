@@ -29,7 +29,7 @@
 // Partial sums stay below 255*255*K < 2^31 for K <= 33025 (the wrapper
 // checks), so the 32-bit accumulators hold the exact value.
 //
-// Both routes read the weights from the pack's K-major codes w_qbt (N rows
+// Every route reads the weights from the pack's K-major codes w_qbt (N rows
 // of ldt bytes, K contiguous; made once with the pack, so no tile is
 // transposed on the card):
 //
@@ -38,7 +38,13 @@
 //   staged in a two-stage shared-memory ring and adds the K slices of a
 //   cluster through distributed shared memory (design notes at
 //   am_splitk_kernel).
-// * Prefill rows: a prep kernel (one block of eight warps per row)
+// * Conv-shaped rows (above DECODE_M_MAX, K <= 1152, N <= 128, K * N <=
+//   36,864: the CNNs' im2col calls but vgg's two widest; no LLM layer is
+//   that narrow): one launch of the conv kernel, which streams x once
+//   through a ring of bulk copies, quantizes in registers, keeps the pack
+//   in shared memory and multiplies on mma.sync (design notes at
+//   am_conv_kernel).
+// * Other prefill rows: a prep kernel (one block of eight warps per row)
 //   quantizes x once (to_code: quantize_i32's quotient, round half to
 //   even), writes the codes
 //   masked with `main` into an (M, ldq) buffer (zeros past K, rows padded
@@ -78,7 +84,7 @@
 // warpgroups alternate between tiles would hide the rest.  The prep pass
 // reads x once and writes one byte per code, so it is bound by bytes.
 // Decode rows and the engine's M = 128 chunks are bound by the weight
-// bytes.
+// bytes; conv-shaped calls by the bytes of x and out.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the CUDA driver's
                    // tensor-map encoder is fetched at run time, libcuda is
@@ -1039,6 +1045,502 @@ am_splitk_kernel(const InT* __restrict__ x, int vec,
          epi_value(a_sum, (float)sx_sum, (float)sqa_sum, kc, epi.use_cv));
 }
 
+// --- conv route: one fused launch for im2col-shaped calls ------------------
+//
+// The CNNs' im2col calls are tall and narrow: M = 16,000-256,000 rows of
+// K = 16-1152 values against N = 4-128 columns.  They are bound by bytes
+// (x read once, out written once: at (256,000, 288, 32) float32, 295 MB in
+// and 33 MB out); truncated m=7's eight products are a fifth of that time
+// on the int8 tensor cores.  The prep kernel and wgmma tile paid a block
+// launch a row, wrote and read the codes back, and padded N to 128 and K
+// to 128 bytes.  Here one launch streams x once and keeps everything else
+// on the chip:
+//   * Persistent blocks (as many as fit, at most one a row tile) walk row
+//     tiles of bm rows.  x is row-major and contiguous, so a tile is one
+//     span of bm * K values: its whole 16-byte vectors, whatever K's
+//     alignment (a K = 27 row starts at a 108-byte offset), arrive by bulk
+//     copies (cp.async.bulk, completion on an mbarrier) of CV_CHUNK vectors
+//     into a ring of CV_STAGES slots.  A producer warp issues them, up to
+//     the ring's depth ahead and across tile boundaries, so the next tile's
+//     x is on its way while the eight consumer warps multiply, run the
+//     epilogue and store.  Values before the first or after the last whole
+//     vector of a tile (a misaligned x, the last partial tile) are read one
+//     by one.
+//   * A consumer thread takes every CV_THREADS-th vector of a slot, finds
+//     its k and code-tile offset from its previous vector's by a constant
+//     step with one carry (a division once a tile), quantizes in registers
+//     (codes4: to_code's codes, four values' chains interleaved) and writes
+//     only the codes to shared memory: one store where the vector lies in
+//     one row at a 4-aligned k, bytes where it wraps.  Code rows are padded
+//     to kp = K rounded up to 32 with code 0 (zeroed once a block;
+//     quantizing never writes there) and to a stride of kp + 16 bytes, so
+//     the 8 rows of an ldmatrix hit distinct banks.
+//   * The pack is read once a block: the K-major codes of all N columns
+//     (N padded to 16, K to kp, with zeros) and the epilogue's per-column
+//     constants stay in shared memory.
+//   * Products: a warp takes items in turn, each a 16-row m-tile and a
+//     group of its 16-column pairs (so that every warp has one where the
+//     m-tiles are few); ldmatrix.x4 loads the unmasked A fragment and two
+//     8-column B fragments for 32 K bytes, and mma.sync m16n8k32 u8
+//     accumulates (A & main).W and each plane's (A & amask).(W & wmask) in
+//     registers.  The row statistics (sum of codes, CV statistic) come from
+//     the same unmasked A fragments, once an item: a row's codes lie in the
+//     4 lanes of one quad, so two shuffles finish them, with no block
+//     barrier a row.
+//   * The epilogue (load_col / epi_value, as the other routes) writes the
+//     tile's values into shared memory, rows ss elements apart (ss >= N, ss
+//     = 8 mod 16, so the 8-byte column pairs of a half warp's four rows hit
+//     distinct banks), and the consumers store the rows as one contiguous
+//     span of out in 16-byte pieces, coalesced at any N (N = 4 included).
+// Two consumer barriers a tile: codes written -> products; values staged
+// -> store (which also frees the codes for the next tile).  A call is one
+// launch with no scratch.  What keeps it above its byte bound (PERF.md):
+// while a block multiplies, runs the epilogue and stores, it quantizes
+// nothing, and the ring only refills.  Consumers split into quantizer and
+// multiplier warps on two code tiles were tried and were no faster: fewer
+// warps were left to quantize.
+
+constexpr int CONV_K_MAX = 1152;          // the route's widest fan-in,
+constexpr int CONV_N_MAX = 128;           // widest output
+constexpr int CONV_KN_MAX = 36864;        // and largest K * N
+constexpr int CV_THREADS = 256;           // consumer threads
+constexpr int CV_WARPS = CV_THREADS / 32;
+constexpr int CV_BLOCK = CV_THREADS + 32;  // and one producer warp
+constexpr int CV_CHUNK = 512;             // 16-byte vectors a ring slot
+constexpr int CV_STAGES = 3;              // ring slots
+constexpr int CV_TILE_BYTES = 64 * 1024;  // x bytes a row tile aims at
+constexpr int CV_BM_MIN = 32, CV_BM_MAX = 128;
+constexpr int CV_SMEM = 232448 - 1024;    // dynamic shared memory a block
+static_assert(CV_CHUNK % CV_THREADS == 0, "whole rounds of vectors a slot");
+
+// A call's row-tile geometry and shared-memory layout (conv_geom)
+struct ConvGeom {
+  int bm;       // rows a tile, a multiple of 16
+  int kp;       // K rounded up to 32 (one mma's depth)
+  int lda;      // byte stride of a code row and of a weight row: kp + 16
+  int np;       // N rounded up to 16 (two mma widths)
+  int ss;       // element stride of a staged output row (= 8 mod 16)
+  int tiles;    // ceil(M / bm)
+  int codes_off, w_off, out_off, col_off, bar_off;  // byte offsets
+  int smem;     // dynamic shared-memory bytes
+};
+
+// 1-D bulk copy of `bytes` (a multiple of 16) global -> shared, completion
+// on an mbarrier
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CV_THREADS) : "memory");
+}
+
+// the first n bytes of w (n <= 0: none, n >= 4: all)
+__device__ __forceinline__ uint32_t keep_bytes(uint32_t w, int n) {
+  return n >= 4 ? w : n <= 0 ? 0u : w & ((1u << (8 * n)) - 1u);
+}
+
+// The conv kernel's quantizer: to_code's codes, four at a time, in fewer
+// operations.  t = q + 1.5 * 2^23 is 1.5 * 2^23 + round(q) (one rounding,
+// half to even) wherever the code does not clip; t + za clamped to [1.5 *
+// 2^23, 1.5 * 2^23 + 255] holds the code in its low byte.  The four fast
+// quotients and their tie tests come first, so the four chains interleave;
+// a value near a tie takes the IEEE quotient on to_code's condition, in a
+// branch taken once for the four.  to_code's |q| < 512 test only spares
+// the division where both quotients clip alike, so it is left out.
+struct QuantC {
+  float sa, inv, za;
+};
+__device__ __forceinline__ QuantC make_quant_c(float sa, float za) {
+  return {sa, __fdiv_rn(1.0f, sa), za};
+}
+__device__ __forceinline__ uint32_t codes4(float x0, float x1, float x2,
+                                           float x3, const QuantC& qc) {
+  constexpr float kRound = 12582912.0f, kTie = 0.5f - 0x1p-12f;
+  const float x[4] = {x0, x1, x2, x3};
+  float t[4];
+  bool near = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float q = x[i] * qc.inv;
+    t[i] = q + kRound;
+    near |= fabsf(q - (t[i] - kRound)) > kTie;
+  }
+  if (near) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float q = x[i] * qc.inv;
+      if (fabsf(q - (t[i] - kRound)) > kTie)
+        t[i] = __fdiv_rn(x[i], qc.sa) + kRound;
+    }
+  }
+  uint32_t c[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    c[i] = __float_as_uint(fminf(fmaxf(t[i] + qc.za, kRound), kRound + 255.0f));
+  // the low bytes of c[0..3], in that order
+  return __byte_perm(__byte_perm(c[0], c[1], 0x0040),
+                     __byte_perm(c[2], c[3], 0x0040), 0x5410);
+}
+
+// One 16-byte vector of x: its V values' codes, four to a word
+template <typename InT>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int V = 4;
+  __device__ static void codes(const uint4& u, const QuantC& qc,
+                               uint32_t (&w)[1]) {
+    w[0] = codes4(__uint_as_float(u.x), __uint_as_float(u.y),
+                  __uint_as_float(u.z), __uint_as_float(u.w), qc);
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int V = 8;
+  // a bfloat16 is the high half of the float32 of the same value
+  __device__ static uint32_t four(uint32_t h0, uint32_t h1,
+                                  const QuantC& qc) {
+    return codes4(__uint_as_float(h0 << 16),
+                  __uint_as_float(h0 & 0xFFFF0000u),
+                  __uint_as_float(h1 << 16),
+                  __uint_as_float(h1 & 0xFFFF0000u), qc);
+  }
+  __device__ static void codes(const uint4& u, const QuantC& qc,
+                               uint32_t (&w)[2]) {
+    w[0] = four(u.x, u.y, qc);
+    w[1] = four(u.z, u.w, qc);
+  }
+};
+template <>
+struct Vec16<uint8_t> {
+  static constexpr int V = 16;
+  __device__ static void codes(const uint4& u, const QuantC&,
+                               uint32_t (&w)[4]) {
+    w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+  }
+};
+
+// A vector's 4 W codes at byte ofs = row * lda + k of the code tile, k <
+// K: one store where they lie in one row at a 4-aligned k, else byte by
+// byte across the row's end
+template <int W>
+__device__ __forceinline__ void put_codes(uint8_t* codes, int ofs, int k,
+                                          int K, int lda,
+                                          const uint32_t (&w)[W]) {
+  if (k + 4 * W <= K && (k & 3) == 0) {
+    uint32_t* p = reinterpret_cast<uint32_t*>(codes + ofs);
+#pragma unroll
+    for (int i = 0; i < W; ++i) p[i] = w[i];
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4 * W; ++i) {
+    codes[ofs++] = (uint8_t)(w[i / 4] >> (8 * (i % 4)));
+    if (++k == K) { k = 0; ofs += lda - K; }
+  }
+}
+// W words at a 4 W-aligned address
+__device__ __forceinline__ void st_words(uint8_t* p, const uint32_t (&w)[1]) {
+  *reinterpret_cast<uint32_t*>(p) = w[0];
+}
+__device__ __forceinline__ void st_words(uint8_t* p, const uint32_t (&w)[2]) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+}
+__device__ __forceinline__ void st_words(uint8_t* p, const uint32_t (&w)[4]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// a column's constants in shared memory, padded to two 16-byte loads
+struct __align__(16) ColS {
+  Col c;
+  float pad;
+};
+
+template <typename InT>
+__global__ void __launch_bounds__(CV_BLOCK, 3)
+am_conv_kernel(const InT* __restrict__ x, const uint8_t* __restrict__ wt,
+               int ldt, int M, int K, int N, ConvGeom g, Epi epi, Planes pl,
+               uint32_t main4, int stat_kind, uint32_t stat4) {
+  using VT = Vec16<InT>;
+  constexpr int V = VT::V, W = V / 4;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ uint32_t s_am[8], s_wm[8];
+  const uint4* ring = reinterpret_cast<const uint4*>(smem);  // (S, CHUNK)
+  uint8_t* codes = smem + g.codes_off;                 // (bm, lda)
+  uint8_t* wsm = smem + g.w_off;                       // (np, lda)
+  uint8_t* stage = smem + g.out_off;                   // (bm, ss), out's type
+  ColS* cols = reinterpret_cast<ColS*>(smem + g.col_off);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + g.bar_off);
+  uint64_t* empty = full + CV_STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // x as 16-byte vectors: vector q holds elements [q V - s, q V - s + V)
+  const int s = (int)(((uintptr_t)x & 15) / sizeof(InT));
+  const uint4* xv = reinterpret_cast<const uint4*>(
+      reinterpret_cast<const uint8_t*>(x) - s * (int)sizeof(InT));
+  // tile t's whole vectors: [qa, qa + nv)
+  auto span = [&](int t, long long& qa, long long& nv) {
+    const long long e0 = (long long)t * g.bm * K;
+    const long long e1 = (long long)min(t * g.bm + g.bm, M) * K;
+    qa = (e0 + s + V - 1) / V;
+    const long long qb = (e1 + s) / V;
+    nv = qb > qa ? qb - qa : 0;
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < CV_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CV_WARPS);  // one release per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CV_WARPS) {  // producer: one lane keeps the ring full
+    if (lane == 0) {
+      uint32_t q = 0;  // slots filled so far
+      for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
+        long long qa, nv;
+        span(t, qa, nv);
+        for (long long c0 = 0; c0 < nv; c0 += CV_CHUNK, ++q) {
+          const int sl = q % CV_STAGES;
+          mbar_wait(&empty[sl], ((q / CV_STAGES) & 1) ^ 1);
+          const int bytes = (int)min((long long)CV_CHUNK, nv - c0) * 16;
+          mbar_expect_tx(&full[sl], bytes);
+          bulk_load(smem + sl * CV_CHUNK * 16, xv + qa + c0, bytes,
+                    &full[sl]);
+        }
+      }
+    }
+    return;  // the consumers synchronise among themselves (barrier 1)
+  }
+
+  // once a block: code tile zeroed (the K padding stays 0), the weights
+  // (zeros past K and N), the column constants, the plane masks
+  for (int i = tid; i < g.bm * g.lda / 16; i += CV_THREADS)
+    reinterpret_cast<uint4*>(codes)[i] = make_uint4(0u, 0u, 0u, 0u);
+  const int wch = g.kp / 16;
+  for (int i = tid; i < g.np * wch; i += CV_THREADS) {
+    const int n = i / wch, kb = (i - n * wch) * 16;
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (n < N && kb < K) {  // kb + 16 <= ldt: ldt >= K, a multiple of 16
+      w = *reinterpret_cast<const uint4*>(wt + (size_t)n * ldt + kb);
+      const int keep = K - kb;
+      w.x = keep_bytes(w.x, keep);
+      w.y = keep_bytes(w.y, keep - 4);
+      w.z = keep_bytes(w.z, keep - 8);
+      w.w = keep_bytes(w.w, keep - 12);
+    }
+    *reinterpret_cast<uint4*>(wsm + n * g.lda + kb) = w;
+  }
+  {
+    const Scalars sc = load_scalars(epi);
+    for (int i = tid; i < N; i += CV_THREADS) cols[i].c = load_col(epi, sc, i);
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) { s_am[i] = pl.amask[i]; s_wm[i] = pl.wmask[i]; }
+  }
+  const Quant qp = make_quant(epi.meta[0], epi.meta[1]);  // single values
+  const QuantC qc = make_quant_c(epi.meta[0], epi.meta[1]);
+  // a thread's successive vectors lie CV_THREADS * V elements apart: dk
+  // further in K, dofs further in the code tile (before K's carry); where
+  // K is a multiple of V and x 16-byte aligned, each lies in one row at a
+  // V-aligned k
+  const int dk = (int)((long long)CV_THREADS * V % K);
+  const int dofs = (int)((long long)CV_THREADS * V / K) * g.lda + dk;
+  const bool whole = s == 0 && K % V == 0;
+  const int MT = g.bm / 16, NPAIR = g.np / 16, KC = g.kp / 32;
+  const int G = max(1, min(NPAIR, CV_WARPS / MT));
+  const int n_planes = pl.n;
+  const int es = epi.out_bf16 ? 2 : 4;
+  // ldmatrix row addresses: A rows (lane & 7) + 8 * bit 3, K bytes 16 *
+  // bit 4 (fragments a0..a3); B columns (lane & 7) + 8 * bit 4, K bytes 16
+  // * bit 3 (b0, b1 of two 8-column tiles)
+  const uint32_t a_lane =
+      smem_addr(codes) + ((lane & 7) + ((lane >> 3) & 1) * 8) * g.lda +
+      (lane >> 4) * 16;
+  const uint32_t b_lane =
+      smem_addr(wsm) + ((lane >> 4) * 8 + (lane & 7)) * g.lda +
+      ((lane >> 3) & 1) * 16;
+  const int qr = lane >> 2, qt = lane & 3;
+  // 16-byte pieces of out: E elements, a row's worth cpr of them where N
+  // is a multiple of E (else the store goes element by element)
+  const int E = 16 / es, cpr = N % E == 0 ? N / E : 0;
+  consumer_sync();
+
+  uint32_t q = 0;  // slots consumed so far
+  for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
+    const int m0 = t * g.bm, m1 = min(m0 + g.bm, M);
+    long long qa, nv;
+    span(t, qa, nv);
+    // (k, code-tile offset) of this thread's first vector
+    const long long e = (qa + tid) * V - s;
+    const int r0 = (int)(e / K);
+    int k = (int)(e - (long long)r0 * K);
+    int ofs = (r0 - m0) * g.lda + k;
+    for (long long c0 = 0; c0 < nv; c0 += CV_CHUNK, ++q) {
+      const int sl = q % CV_STAGES;
+      const int cnt = (int)min((long long)CV_CHUNK, nv - c0);
+      mbar_wait(&full[sl], (q / CV_STAGES) & 1);
+      const uint4* src = ring + sl * CV_CHUNK;
+#pragma unroll
+      for (int u = 0; u < CV_CHUNK / CV_THREADS; ++u) {
+        const int i = u * CV_THREADS + tid;
+        if (i < cnt) {
+          uint32_t w[W];
+          VT::codes(src[i], qc, w);
+          if (whole) st_words(codes + ofs, w);
+          else put_codes(codes, ofs, k, K, g.lda, w);
+        }
+        k += dk;
+        ofs += dofs;
+        if (k >= K) { k -= K; ofs += g.lda - K; }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[sl]);  // the warp's reads are done
+    }
+    {  // values outside the whole vectors, one by one
+      const long long e0 = (long long)m0 * K, e1 = (long long)m1 * K;
+      const long long h1 = nv > 0 ? qa * V - s : e1;
+      const long long t0 = nv > 0 ? (qa + nv) * V - s : e1;
+      const int nh = (int)(h1 - e0), nt = (int)(e1 - t0);
+      for (int i = tid; i < nh + nt; i += CV_THREADS) {
+        const long long ee = i < nh ? e0 + i : t0 + (i - nh);
+        const int rr = (int)(ee / K), kk = (int)(ee - (long long)rr * K);
+        codes[(rr - m0) * g.lda + kk] = (uint8_t)code_of(x[ee], qp);
+      }
+    }
+    consumer_sync();  // the tile's codes are in shared memory
+
+    // items: a 16-row m-tile and one of G groups of its 16-column pairs
+    // (every G-th pair), G as large as keeps every warp busy; a warp takes
+    // items in turn, and the row statistics once an item
+    for (int it = warp; it < MT * G; it += CV_WARPS) {
+      const int mt = it / G;
+      const uint32_t pa = a_lane + mt * 16 * g.lda;
+      uint32_t sq[2] = {0u, 0u}, sx[2] = {0u, 0u};
+      for (int pr = it - mt * G; pr < NPAIR; pr += G) {
+        const bool first = pr < G;
+        int acc[2][4], sub[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) { acc[j][i] = 0; sub[j][i] = 0; }
+        const uint32_t pb = b_lane + pr * 16 * g.lda;
+        for (int kc = 0; kc < KC; ++kc) {
+          uint32_t a[4], b[4];
+          ldsm_x4(a, pa + kc * 32);
+          ldsm_x4(b, pb + kc * 32);
+          if (first) {  // row statistics, once an item
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {  // a0, a2: row qr; a1, a3: qr + 8
+              sq[i & 1] = __dp4a(a[i], 0x01010101u, sq[i & 1]);
+              if (stat_kind == 1)
+                sx[i & 1] = __dp4a(a[i] & stat4, 0x01010101u, sx[i & 1]);
+              else if (stat_kind == 2)
+                sx[i & 1] += __popc(nonzero_bytes(a[i] & stat4));
+            }
+          }
+          const uint32_t am[4] = {a[0] & main4, a[1] & main4, a[2] & main4,
+                                  a[3] & main4};
+          const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+          mma_u8(acc[0], am, b0);
+          mma_u8(acc[1], am, b1);
+          for (int p = 0; p < n_planes; ++p) {
+            const uint32_t amk = s_am[p], wmk = s_wm[p];
+            const uint32_t ap[4] = {a[0] & amk, a[1] & amk, a[2] & amk,
+                                    a[3] & amk};
+            const uint32_t bp0[2] = {b[0] & wmk, b[1] & wmk};
+            const uint32_t bp1[2] = {b[2] & wmk, b[3] & wmk};
+            mma_u8(sub[0], ap, bp0);
+            mma_u8(sub[1], ap, bp1);
+          }
+        }
+        if (first) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // the quad's four K slices of a row
+            sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
+            sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
+            sx[h] += __shfl_xor_sync(0xffffffffu, sx[h], 1);
+            sx[h] += __shfl_xor_sync(0xffffffffu, sx[h], 2);
+          }
+        }
+        // lane (qr, qt) holds rows qr, qr + 8 and columns 2 qt, 2 qt + 1
+        // of each 8-column tile
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = pr * 16 + 8 * j + 2 * qt;
+          if (col >= N) continue;
+          const bool two = col + 1 < N;
+          const Col k0 = cols[col].c, k1 = cols[two ? col + 1 : col].c;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = mt * 16 + qr + 8 * h;
+            const float v0 = epi_value(acc[j][2 * h] - sub[j][2 * h],
+                                       (float)sx[h], (float)sq[h], k0,
+                                       epi.use_cv);
+            const float v1 = epi_value(acc[j][2 * h + 1] - sub[j][2 * h + 1],
+                                       (float)sx[h], (float)sq[h], k1,
+                                       epi.use_cv);
+            const int o = row * g.ss + col;
+            if (epi.out_bf16) {
+              __nv_bfloat16* d = reinterpret_cast<__nv_bfloat16*>(stage) + o;
+              if (two) *reinterpret_cast<__nv_bfloat162*>(d) =
+                  __floats2bfloat162_rn(v0, v1);
+              else d[0] = __float2bfloat16_rn(v0);
+            } else {
+              float* d = reinterpret_cast<float*>(stage) + o;
+              if (two) *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+              else d[0] = v0;
+            }
+          }
+        }
+      }
+    }
+    consumer_sync();  // the tile's values are staged; the codes are free
+
+    // rows m0..m1 of out are one contiguous span
+    const int rows = m1 - m0;
+    uint8_t* gout = static_cast<uint8_t*>(epi.out) + (size_t)m0 * N * es;
+    if (cpr) {  // whole 16-byte pieces, each within one row
+      // piece i is at byte so of the stage; a thread's pieces lie
+      // CV_THREADS apart: sdo further on, then the row's end carried
+      int c = tid % cpr;
+      int so = (tid / cpr) * g.ss * es + c * 16;
+      const int sdc = CV_THREADS % cpr;
+      const int sdo = (CV_THREADS / cpr) * g.ss * es + sdc * 16;
+      for (int i = tid; i < rows * cpr; i += CV_THREADS) {
+        reinterpret_cast<uint4*>(gout)[i] =
+            *reinterpret_cast<const uint4*>(stage + so);
+        c += sdc;
+        so += sdo;
+        if (c >= cpr) { c -= cpr; so += g.ss * es - cpr * 16; }
+      }
+    } else {
+      for (int i = tid; i < rows * N; i += CV_THREADS) {
+        const int rr = i / N, c = i - rr * N;
+        const uint8_t* src = stage + (rr * g.ss + c) * es;
+        for (int b = 0; b < es; ++b) gout[i * es + b] = src[b];
+      }
+    }
+  }
+}
+
 // --- host side --------------------------------------------------------------
 
 Planes make_planes(int n, unsigned long long amasks, unsigned long long wmasks) {
@@ -1049,6 +1551,19 @@ Planes make_planes(int n, unsigned long long amasks, unsigned long long wmasks) 
     p.wmask[i] = (uint32_t)((wmasks >> (8 * i)) & 0xff) * 0x01010101u;
   }
   return p;
+}
+
+// CUDA launches of each matmul kernel that the launch functions made since
+// the library was loaded (read by am_launches), in the wrapper's
+// LAUNCH_KINDS order; one host thread launches
+enum LaunchKind { L_PREP, L_WGMMA, L_SPLIT_K, L_CONV, L_KINDS };
+unsigned long long g_launches[L_KINDS];
+
+// cudaGetLastError after a launch of `kind`, counted if it is 0
+int counted(LaunchKind kind) {
+  const int err = (int)cudaGetLastError();
+  if (err == 0) ++g_launches[kind];
+  return err;
 }
 
 // status codes beyond cudaError_t's range (the wrapper names them)
@@ -1123,7 +1638,7 @@ int launch_wgmma(const Operands& o, const Epi& epi, const Planes& pl,
   if (st != 0) return st;
   const dim3 grid((o.M + T::BM - 1) / T::BM, (o.N + T::BN - 1) / T::BN);
   kern<<<grid, T::THREADS, T::SMEM, stream>>>(ta, tb, o.M, o.N, o.K, epi, pl);
-  return (int)cudaGetLastError();
+  return counted(L_WGMMA);
 }
 
 constexpr int SMS = 132;
@@ -1183,26 +1698,91 @@ int launch_split_k(const InT* x, int vec, const Operands& o, const Epi& epi,
                                        o.K, o.N, sp.ks, epi, pl, main4,
                                        stat_kind, stat4);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return counted(L_SPLIT_K);
+}
+
+// The conv route's row tile: about CV_TILE_BYTES of x (bm rows of K
+// values, bm a multiple of 16 in [CV_BM_MIN, CV_BM_MAX]), halved while the
+// call has fewer tiles than SMs.  Under the route's bounds (K * N <=
+// CONV_KN_MAX) the block's shared memory (ring, codes, weights, staged
+// output, column constants, barriers) stays under 183 KB, below CV_SMEM
+// (the most: uint8 x at K = 545, N = 67).
+ConvGeom conv_geom(int M, int K, int N, int in_es, int out_es) {
+  ConvGeom g;
+  g.kp = (K + 31) / 32 * 32;
+  g.lda = g.kp + 16;
+  g.np = (N + 15) / 16 * 16;
+  g.ss = (N + 7) / 16 * 16 + 8;  // the least ss >= N with ss = 8 mod 16
+  int bm = (CV_TILE_BYTES / (K * in_es) + 15) / 16 * 16;
+  bm = std::min(CV_BM_MAX, std::max(CV_BM_MIN, bm));
+  while (bm > CV_BM_MIN && (M + bm - 1) / bm < SMS)
+    bm = std::max(CV_BM_MIN, bm / 32 * 16);
+  g.bm = bm;
+  g.codes_off = CV_STAGES * CV_CHUNK * 16;
+  g.w_off = g.codes_off + bm * g.lda;
+  g.out_off = g.w_off + g.np * g.lda;
+  g.col_off = g.out_off + (bm * g.ss * out_es + 15) / 16 * 16;
+  g.bar_off = g.col_off + N * (int)sizeof(ColS);
+  g.smem = g.bar_off + 2 * CV_STAGES * 8;
+  g.tiles = (M + bm - 1) / bm;
+  return g;
+}
+
+// One launch: persistent blocks, as many as fit on the SMs (at most one a
+// row tile)
+template <typename InT>
+int launch_conv(const InT* x, const Operands& o, const Epi& epi,
+                const Planes& pl, uint32_t main4, int stat_kind,
+                uint32_t stat4, cudaStream_t stream) {
+  auto kern = am_conv_kernel<InT>;
+  static bool attr_set = false;  // per instantiation
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, CV_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  if ((uintptr_t)epi.out % 16) return (int)cudaErrorMisalignedAddress;
+  const ConvGeom g = conv_geom(o.M, o.K, o.N, (int)sizeof(InT),
+                               epi.out_bf16 ? 2 : 4);
+  int occ = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &occ, kern, CV_BLOCK, g.smem);
+  if (err != cudaSuccess) return (int)err;
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = std::min(g.tiles, SMS * occ);
+  kern<<<grid, CV_BLOCK, g.smem, stream>>>(x, o.wt, o.ldt, o.M, o.K, o.N,
+                                             g, epi, pl, main4, stat_kind,
+                                             stat4);
+  return counted(L_CONV);
 }
 
 // The matmul kernels, as am_tile names them (the wrapper's TILES lists the
 // same names in this order).
 enum TileId {
   TILE_SPLIT_K, TILE_128x128_PLANES, TILE_64x128_PLANES, TILE_128x256,
-  TILE_128x128, TILE_64x128
+  TILE_128x128, TILE_64x128, TILE_CONV
 };
 
-// Decode rows take the split-K kernel.  Above them the widest wgmma tile
-// whose grid still gives every SM a block.  128 x 256 (one block per SM)
-// only where K >= 4096: its main loop is long enough to hide an epilogue
-// that nothing overlaps; at shorter K two 128 x 128 blocks per SM, whose
-// epilogues overlap each other's main loops, are faster.
+bool conv_shaped(int K, int N) {
+  return K <= CONV_K_MAX && N <= CONV_N_MAX && K * N <= CONV_KN_MAX;
+}
+
+// Decode rows take the split-K kernel; conv-shaped calls (K <= CONV_K_MAX,
+// N <= CONV_N_MAX, K * N <= CONV_KN_MAX: the CNN suite's im2col calls but
+// its two widest, no LLM layer) the conv kernel.  At K * N = 73,728 and
+// 147,456 (vgg's (16,000, 576, 128) and (16,000, 1152, 128)) the prep and
+// wgmma tile were measured faster; at 36,864 the conv kernel.  Above them the widest wgmma tile whose grid still gives
+// every SM a block.  128 x 256 (one block per SM) only where K >= 4096: its
+// main loop is long enough to hide an epilogue that nothing overlaps; at
+// shorter K two 128 x 128 blocks per SM, whose epilogues overlap each
+// other's main loops, are faster.
 int choose_tile(int decode, int M, int K, int N, int n_planes) {
   auto blocks = [&](int bm, int bn) {
     return ((M + bm - 1) / bm) * ((N + bn - 1) / bn);
   };
   if (decode) return TILE_SPLIT_K;
+  if (conv_shaped(K, N)) return TILE_CONV;
   if (n_planes > 0)
     return blocks(128, 128) >= SMS ? TILE_128x128_PLANES : TILE_64x128_PLANES;
   if (K >= 4096 && blocks(128, 256) >= SMS) return TILE_128x256;
@@ -1233,11 +1813,12 @@ int launch_prep(const InT* x, int M, int K, int vec, const float* meta,
   // each thread converts 8 codes per iteration: a 2048-wide row is one
   prep_kernel<InT><<<M, 256, 0, s>>>(x, K, vec, meta, codes, ldq, stats,
                                      main4, stat_kind, stat4);
-  return (int)cudaGetLastError();
+  return counted(L_PREP);
 }
 
-// Decode rows: one split-K launch.  Above them: prep, then a wgmma tile
-// (codes and stats are the prep kernel's scratch, unused for decode rows).
+// Decode rows: one split-K launch; conv-shaped calls: one conv launch.
+// Else prep, then a wgmma tile (codes and stats are the prep kernel's
+// scratch, unused by the other two routes).
 template <typename InT>
 int launch_call(const InT* x, int vec, int decode, uint8_t* codes, int ldq,
                 int* stats, Operands o, const Epi& epi0, const Planes& pl,
@@ -1246,6 +1827,10 @@ int launch_call(const InT* x, int vec, int decode, uint8_t* codes, int ldq,
   Epi epi = epi0;
   if (decode)
     return launch_split_k(x, vec, o, epi, pl, main4, stat_kind, stat4, s);
+  if (conv_shaped(o.K, o.N))
+    return launch_conv(x, o, epi, pl, main4, stat_kind, stat4, s);
+  if (codes == nullptr || stats == nullptr)
+    return (int)cudaErrorInvalidValue;
   int st = launch_prep(x, o.M, o.K, vec, epi.meta, codes, ldq, stats, main4,
                        stat_kind, stat4, s);
   if (st != 0) return st;
@@ -1259,6 +1844,11 @@ int launch_call(const InT* x, int vec, int decode, uint8_t* codes, int ldq,
 
 extern "C" {
 
+// The launch counts (L_KINDS of them) into out
+void am_launches(unsigned long long* out) {
+  for (int i = 0; i < L_KINDS; ++i) out[i] = g_launches[i];
+}
+
 // The TileId that a call of M x K x N with n_planes subtractive planes
 // launches (decode: the wrapper's thin-M choice).
 int am_tile(int decode, int M, int K, int N, int n_planes) {
@@ -1268,10 +1858,12 @@ int am_tile(int decode, int M, int K, int N, int n_planes) {
 // Float-in entry (kernel 1).  x (M, K) float32 (x_bf16 = 0) or bfloat16
 // (x_bf16 = 1), row-major; w_qbt (wt_rows >= N, ldt) uint8, K contiguous,
 // ldt >= K a multiple of 16; epilogue (8, lde) float32, lde >= N; meta
-// [sa, za, true_k, ...]; out (M, N) in x's dtype.  decode (M <=
-// DECODE_M_MAX): one split-K launch, codes and stats unused (may be null);
-// else codes: scratch (M, ldq) uint8, ldq = K rounded up to 16, stats:
-// scratch (M, 2) int32, and the prep kernel then a wgmma tile.  Returns 0,
+// [sa, za, true_k, ...]; out (M, N) in x's dtype, 16-byte aligned.  decode
+// (M <= DECODE_M_MAX): one split-K launch; conv-shaped (K <= CONV_K_MAX, N
+// <= CONV_N_MAX): one conv launch; in both codes and stats are unused (may
+// be null); else codes: scratch (M, ldq) uint8, ldq = K rounded up to 16,
+// stats: scratch (M, 2) int32, and the prep kernel then a wgmma tile.
+// Returns 0,
 // a cudaError_t, or a negative status (tensor maps).
 int am_fused_launch(const void* x, int x_bf16, uint8_t* codes, int ldq,
                     int* stats, const uint8_t* w_qbt, int ldt, int wt_rows,
@@ -1307,7 +1899,7 @@ int am_fused_launch(const void* x, int x_bf16, uint8_t* codes, int ldq,
 }
 
 // Codes-in entry (kernel 2).  a_q (M, K) uint8; codes, stats: scratch as
-// above (unused for decode rows); w_qt (N, ldt) the K-major copy of the
+// above (unused for decode rows and conv-shaped calls); w_qt (N, ldt) the K-major copy of the
 // (K, N) weight codes; c, c0, bias (N,) float32 (bias may be null); sum_qw
 // (N,) int32; meta [sa, sw, za, zw, true_k]; out (M, N) float32.
 int am_codes_launch(const uint8_t* a_q, uint8_t* codes, int ldq, int* stats,

@@ -109,6 +109,11 @@ def _blocked_pair(rng, kk, nn, mode, m, members=1):
     (8, 200, 48, 1, "bfloat16"),    # DECODE_M_MAX rows, ragged K and N
     (16, 200, 48, 1, "float32"),    # ragged K and N
     (40, 128, 256, 2, "bfloat16"),  # prefill-shaped, bf16, fused gate|up
+    # conv-shaped (the CNNs' im2col calls, the conv route on the card):
+    # ragged M, K off a multiple of 8, N below 64
+    (300, 27, 16, 1, "float32"),
+    (300, 24, 48, 1, "float32"),
+    (260, 288, 32, 1, "float32"),
 ])
 def test_fused_kernel_plain_vs_jax(mode, m, mm, kk, nn, members, dtype):
     rng = np.random.default_rng(mm * kk + m)
@@ -134,6 +139,26 @@ def test_fused_kernel_plain_vs_jax(mode, m, mm, kk, nn, members, dtype):
             a_q, tb.w_qb[:kk, :nn], epi[0], epi[1], epi[2], epi[3],
             tb.meta[0, 0], epi[4, 0], tb.meta[0, 1], epi[5, 0], mode=mode, m=m))
         np.testing.assert_allclose(got32, want_r, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("mode,m", MODES)
+def test_fused_kernel_cv_off_conv_shape(mode, m):
+    """A conv-shaped call (300 rows, K = 27, N = 16) with the CV off
+    agrees with the JAX kernel (interpret mode) with the CV off."""
+    mm, kk, nn = 300, 27, 16
+    rng = np.random.default_rng(7 + m)
+    jb, tb = _blocked_pair(rng, kk, nn, mode, m)
+    x = rng.normal(0, 1.5, (mm, kk)).astype(np.float32)
+    got = to_np(tops.quantized_dense_fused_op(torch.from_numpy(x), tb,
+                                              mode=mode, m=m, use_cv=False))
+    want = np.asarray(jops.quantized_dense_fused_op(
+        jnp.asarray(x), jb, mode=mode, m=m, use_cv=False, interpret=True))
+    atol = _atol(kk, float(tb.meta[0, 0]), float(tb.epilogue[4].max()))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=atol)
+    if mode != "exact":  # the CV moves the output
+        with_cv = to_np(tops.quantized_dense_fused_op(
+            torch.from_numpy(x), tb, mode=mode, m=m, use_cv=True))
+        assert not np.array_equal(with_cv, got)
 
 
 @pytest.mark.parametrize("mode,m", MODES)
@@ -266,6 +291,60 @@ def test_tile_names_follow_the_source():
     ids = [t.strip() for t in body.group(1).split(",") if t.strip()]
     assert [i.removeprefix("TILE_").replace("_PLANES", " planes").lower()
             for i in ids] == list(amk.TILES)
+
+
+def test_launch_kinds_follow_the_source():
+    """``approx_matmul.LAUNCH_KINDS`` names the source's ``LaunchKind``
+    counters in their order, each by a kernel the source defines, since
+    ``kernel_launches`` zips them with the ``am_launches`` counts."""
+    import re
+
+    src = amk.SOURCE.read_text()
+    body = re.search(r"enum LaunchKind \{([^}]*)\}", src).group(1)
+    kinds = [t.strip() for t in body.split(",") if t.strip()]
+    assert kinds == ["L_PREP", "L_WGMMA", "L_SPLIT_K", "L_CONV", "L_KINDS"]
+    assert len(amk.LAUNCH_KINDS) == len(kinds) - 1
+    for kind, name in zip(kinds, amk.LAUNCH_KINDS):
+        assert re.search(rf"\n{name}\(", src), name  # a kernel's definition
+        assert f"counted({kind})" in src
+
+
+def test_conv_route_bounds_follow_the_source():
+    """The wrapper skips the prep kernel's scratch exactly where the source
+    takes the conv route: its CONV_K_MAX and CONV_N_MAX are the source's."""
+    import re
+
+    src = amk.SOURCE.read_text()
+    for name in ("CONV_K_MAX", "CONV_N_MAX", "CONV_KN_MAX"):
+        want = int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+        assert getattr(amk, name) == want
+    assert not amk._takes_prep(amk.DECODE_M_MAX, 4096, 4096)  # split-K
+    assert not amk._takes_prep(256_000, 27, 16)                # conv
+    assert not amk._takes_prep(9, amk.CONV_K_MAX, 32)
+    assert not amk._takes_prep(16_000, 576, 64)
+    assert amk._takes_prep(9, amk.CONV_K_MAX + 1, 16)          # prep + wgmma
+    assert amk._takes_prep(4096, 288, amk.CONV_N_MAX + 1)
+    assert amk._takes_prep(16_000, 576, 128)                   # K * N
+    assert amk._prep_scratch("t", 256_000, 288, 32, "meta") == (None, 0, 0)
+
+
+@pytest.mark.parametrize("arch", sorted(
+    __import__("repro_torch.configs.registry",
+               fromlist=["ARCH_REGISTRY"]).ARCH_REGISTRY))
+def test_no_llm_layer_is_conv_shaped(arch):
+    """Every packable layer of every registered model at full size (built
+    on the meta device, a uniform spec packing them all) keeps its route:
+    none is narrow enough for the conv kernel, so only the CNNs take it."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import build_model
+    from repro_torch.numerics import uniform_spec
+
+    params = build_model(get_config(arch), "meta").init(0)
+    shapes = {tuple(e.w_shape[-2:])
+              for e in uniform_spec(None).resolve(params).entries}
+    assert shapes
+    assert not [kn for kn in shapes
+                if kn[0] <= amk.CONV_K_MAX and kn[1] <= amk.CONV_N_MAX]
 
 
 @pytest.mark.parametrize("mode,m", [("perforated", 2), ("truncated", 5)])
