@@ -228,10 +228,17 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    and hymba-1.5b (head too), and (kernel only: no phase drives them) at
    the shapes of hubert-xlarge's `--legacy` decode step and head, flash at
    the five prefill and encoder shapes beside
-   `scaled_dot_product_attention` (hymba's window as its boolean mask).
+   `scaled_dot_product_attention` (hymba's window as its boolean mask);
+   the codes-in entry also at olmo-1b's prefill rows, and its other
+   design (the rows tile) beside it at the chunk and prefill rows.
 
 Prints the card line and one `kernels` JSON line before the last line, and
 ends with `{"ok": true, "device": {...}}`.  Any failure exits non-zero.
+
+`python3 chip_smoke.py --compare-codes-entry OTHER` runs no check: it times
+the codes-in entry on olmo-1b's layers in the checkout at OTHER (say, the
+parent commit unpacked with `git archive`) and in this one, each tree in
+processes of its own, in the order other, this, this, other.
 """
 
 from __future__ import annotations
@@ -346,6 +353,22 @@ HYMBA_PREFILL_M = 8192
 DECODE_CASES = [(1, 2048, 2048), (8, 2048, 2048), (1, 8192, 2048),
                 (8, 8192, 2048), (8, 2048, 8192), (4, 2048, 7168),
                 (4, 7168, 2048), (4,) + RWKV_HEAD_KN, (3, 1000, 1000)]
+#: the codes-in entry's prefill-row times: olmo-1b's lock-step prefill
+CODES_PREFILL = {(OLMO_PREFILL_M, k, n) for k, n in PREFILL_KN}
+#: ragged codes-in cases (M, K, N): the CNNs' first-layer fan-in (27) at
+#: 16 and 48 columns, K = 2000 at an odd N (the rows tile), K = 2000 at N
+#: = 1008 and 2000 (the transposing tiles' K and N edges: 2000 = 15 x 128
+#: + 80, 1008 and 2000 off their 128- and 256-column tiles), hymba-1.5b's
+#: head at decode rows; 9 rows (just past the decode window) and 4,001 (a
+#: partial last row tile after many full ones)
+CODES_RAGGED = [(mm, 27, n) for mm in (4, 9, 4_001) for n in (16, 48)] + [
+    (mm, 2000, 1001) for mm in (4, 9, 4_001)] + [
+    (9, 2000, 1008), (4_001, 2000, 1008), (4_001, 2000, 2000),
+    (4, 1600, 32001)]
+#: the codes-in entry's other design, timed beside it at olmo-1b's chunk
+#: and prefill rows: the mma.sync rows tile (the transposing wgmma tiles
+#: take those calls)
+CODES_OTHER = "rows_64x128"
 #: the CNN phase (the paper's six CNNs, CIFAR geometry): the reference
 #: accuracy benchmark's calibration images, test images and eval batch
 #: (benchmarks/tables2_4_accuracy.py), and the row counts at which every
@@ -538,8 +561,8 @@ def check_kernels(torch, dev) -> dict:
     """Phase 3: both approx-matmul entries against their plain versions on
     the card, equal (max abs err 0) in every case, and every decode-row
     call of the fused entry made twice with bit-equal outputs; fails unless
-    each entry was compared on every matmul tile the source instantiates
-    (``approx_matmul.TILES``)."""
+    each entry was compared on every matmul tile the source gives it
+    (``approx_matmul.ENTRY_TILES``)."""
     import dataclasses
 
     from repro_torch.kernels import approx_matmul as amk
@@ -557,7 +580,8 @@ def check_kernels(torch, dev) -> dict:
             fail(f"{name} {mode} m={m} ({mm}, {k}, {n}): max abs err {err} "
                  "against its plain version, not 0")
         errs[name] = max(errs[name], err)
-        tiles[name].add(amk.tile(mm, k, n, mode, m))
+        tiles[name].add(amk.tile(mm, k, n, mode, m,
+                                 codes=name == "approx_matmul_cv"))
 
     def fused(x, blocked, mode, m, label, use_cv=True):
         """The fused kernel against its plain version; decode rows twice."""
@@ -650,7 +674,7 @@ def check_kernels(torch, dev) -> dict:
               for k, n in ((1600, 2240), (1600, 6400), (3200, 1600))]
     cases += [(4, k, (n,), both, False, False)
               for k, n in sorted(set(HYMBA_DECODE_KN) - set(HYMBA_KN))]
-    n_cases = n_twice = 0
+    n_cases = n_twice = n_ragged = 0
     for mode, m in MODES:
         for mm, k, ws, dtypes, codes_in, bias in cases:
             n = sum(ws)
@@ -681,13 +705,13 @@ def check_kernels(torch, dev) -> dict:
                 # fused)
                 a_q = torch.randint(0, 256, (mm, k), generator=gen,
                                     device=dev, dtype=torch.uint8)
-                meta = torch.tensor([0.015, 0.02, 7.0, 131.0, float(k)],
-                                    device=dev)
+                meta = torch.tensor([0.015, 0.02, 7.0, 131.0], device=dev)
                 bias = torch.randn(n, generator=gen, device=dev)
                 args = (a_q, pack.w_q, pack.c, pack.c0, pack.sum_qw, bias,
                         meta)
-                got = amk.approx_matmul_cv(*args, mode=mode, m=m)
-                want = amk.approx_matmul_cv_plain(*args, mode=mode, m=m)
+                kw = dict(mode=mode, m=m, true_k=float(k))
+                got = amk.approx_matmul_cv(*args, **kw)
+                want = amk.approx_matmul_cv_plain(*args, **kw)
                 torch.cuda.synchronize()
                 equal("approx_matmul_cv", got, want, mm, k, n, mode, m)
                 n_cases += 1
@@ -715,16 +739,43 @@ def check_kernels(torch, dev) -> dict:
             got2 = amk.approx_matmul_cv(
                 a_q, w_q, zeros, zeros, torch.zeros(n, dtype=torch.int32,
                                                     device=dev), zeros,
-                torch.tensor([1.0, 1.0, 0.0, 0.0, float(k)], device=dev),
-                mode=mode, m=m, use_cv=False)
+                torch.tensor([1.0, 1.0, 0.0, 0.0], device=dev),
+                mode=mode, m=m, use_cv=False, true_k=float(k))
             torch.cuda.synchronize()
             for name, got in (("approx_matmul_cv_fused", got1),
                               ("approx_matmul_cv", got2)):
                 if not torch.equal(got, want):
                     fail(f"{name} accumulator not exact for {mode} m={m}"
                          f" M={mm}: max diff {float((got - want).abs().max())}")
-                tiles[name].add(amk.tile(mm, k, n, mode, m))
+                tiles[name].add(amk.tile(mm, k, n, mode, m,
+                                         codes=name == "approx_matmul_cv"))
             n_cases += 2
+        # the codes-in entry on ragged operands, as the op calls it (meta
+        # [sa, sw, za, zw], the fan-in by value), CV on and off: K = 27 (off
+        # 16 bytes; conv-shaped above 8 rows), K = 2000 at odd N (the weight
+        # rows off 16 bytes: byte-by-byte copies; every rows tile's edges),
+        # hymba-1.5b's head (N = 32,001) at decode rows, and row counts just
+        # past the decode window (9) and past a hundred row tiles (4,001)
+        for mm, k, n in CODES_RAGGED:
+            a_q = torch.randint(0, 256, (mm, k), generator=gen, device=dev,
+                                dtype=torch.uint8)
+            w_q = torch.randint(0, 256, (k, n), generator=gen, device=dev,
+                                dtype=torch.uint8)
+            c = torch.randn(n, generator=gen, device=dev) * 30
+            c0 = torch.randn(n, generator=gen, device=dev)
+            sqw = w_q.to(torch.int32).sum(0, dtype=torch.int32)
+            bias = torch.randn(n, generator=gen, device=dev)
+            meta4 = torch.tensor([0.015, 0.02, 7.0, 131.0], device=dev)
+            for use_cv in (True, False):
+                args = (a_q, w_q, c, c0, sqw, bias, meta4)
+                kw = dict(mode=mode, m=m, use_cv=use_cv, true_k=float(k))
+                got = amk.approx_matmul_cv(*args, **kw)
+                want = amk.approx_matmul_cv_plain(*args, **kw)
+                torch.cuda.synchronize()
+                equal("approx_matmul_cv", got, want, mm, k, n, mode, m)
+                n_cases += 1
+                n_ragged += 1
+            del a_q, w_q
     # a fused q|k|v pack with per-column biases (qkv_bias) at qwen3-4b's
     # widths: the bias row of the epilogue on the split-K kernel (M=4) and
     # the prefill tile (M=128); the bias must move the output
@@ -771,7 +822,8 @@ def check_kernels(torch, dev) -> dict:
         mm, k, n = x.shape[0], blocked.k, blocked.n
         want = ({"split_k"} if mm <= amk.DECODE_M_MAX else
                 {"conv"} if not amk._takes_prep(mm, k, n) else
-                set(amk.TILES) - {"split_k", "conv"})
+                set(amk.ENTRY_TILES["approx_matmul_cv_fused"])
+                - {"split_k", "conv"})
         if amk.tile(mm, k, n, mode, m) not in want:
             fail(f"conv shape ({mm}, {k}, {n}) {mode} m={m} took "
                  f"{amk.tile(mm, k, n, mode, m)}, not {sorted(want)}")
@@ -802,12 +854,14 @@ def check_kernels(torch, dev) -> dict:
           f"their plain versions; routes by (K, N) over M {CONV_M}: "
           + json.dumps(routes), flush=True)
     for name, seen in tiles.items():
-        if set(amk.TILES) - seen:
-            fail(f"{name}: tiles {sorted(set(amk.TILES) - seen)} were never "
-                 "compared with the plain version")
+        if set(amk.ENTRY_TILES[name]) - seen:
+            fail(f"{name}: tiles {sorted(set(amk.ENTRY_TILES[name]) - seen)} "
+                 "were never compared with the plain version")
     print(f"kernels: {n_cases} approx-matmul cases equal their plain "
-          f"versions (max abs err 0) on every tile {list(amk.TILES)}; "
-          f"{n_twice} decode-row cases called twice, bit-equal", flush=True)
+          f"versions (max abs err 0) on every tile of each entry "
+          f"{json.dumps(amk.ENTRY_TILES)}; {n_twice} decode-row cases called "
+          f"twice, bit-equal; {n_ragged} ragged codes-in cases (M, K, N) "
+          f"{CODES_RAGGED} every mode, CV on and off", flush=True)
     return errs
 
 
@@ -1000,7 +1054,10 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
     (perforated m=2 + CV, bf16 activations, as served): decode rows (olmo-1b,
     qwen3-4b and rwkv6-1.6b, head included) and engine chunk rows (olmo-1b,
     qwen3-4b) for both entries, the three lock-step prefills' rows for the
-    fused entry (its plain version timed at one prefill shape only)."""
+    fused entry and olmo-1b's for the codes-in entry, whose other design
+    (CODES_OTHER, kernel only) is timed beside it at olmo-1b's chunk and
+    prefill rows, and at one prefill shape each transposing tile (plain
+    versions timed at one prefill shape only)."""
     from repro_torch.kernels import approx_matmul as amk
     from repro_torch.launch import roofline
     from repro_torch.quant.quantize import BlockedPack
@@ -1047,24 +1104,38 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
             bound=approx_bound(mm, k, n, w_bytes, blocked.epilogue.numel(),
                                blocked.meta.numel(), 2, 2, card, mode, m))
         entries = [("approx_matmul_cv_fused", fused)]
-        if mm <= 128:
+        if mm <= 128 or (mm, k, n) in CODES_PREFILL:
             wqs = [pack.w_q] + [pack.w_q.clone() for _ in range(copies - 1)]
             a_q = torch.randint(0, 256, (mm, k), generator=gen, device=dev,
                                 dtype=torch.uint8)
-            meta5 = torch.tensor([0.015, 0.02, 7.0, 131.0, float(k)],
-                                 device=dev)
+            meta4 = torch.tensor([0.015, 0.02, 7.0, 131.0], device=dev)
             bias = torch.zeros(n, device=dev)
-            # as callers call it: the wrapper makes the K-major copy of w_q
-            # each call, and that transpose is timed
+            # as the op calls it: the kernel reads each copy's row-major
+            # w_q in place, the fan-in by value
+            kw = dict(mode=mode, m=m, true_k=float(k))
+            bound = roofline.bound(*roofline.approx_codes_work(
+                mm, k, n, mode, m), int8_peak, bw)
             entries.append(("approx_matmul_cv", dict(
                 kern=[lambda w=w: amk.approx_matmul_cv(
-                    a_q, w, pack.c, pack.c0, pack.sum_qw, bias, meta5,
-                    mode=mode, m=m) for w in wqs],
+                    a_q, w, pack.c, pack.c0, pack.sum_qw, bias, meta4, **kw)
+                    for w in wqs],
                 plain=[lambda w=w: amk.approx_matmul_cv_plain(
-                    a_q, w, pack.c, pack.c0, pack.sum_qw, bias, meta5,
-                    mode=mode, m=m) for w in wqs[:2]],
-                bound=roofline.bound(*roofline.approx_codes_work(
-                    mm, k, n, mode, m), int8_peak, bw))))
+                    a_q, w, pack.c, pack.c0, pack.sum_qw, bias, meta4, **kw)
+                    for w in wqs[:2]],
+                bound=bound)))
+            # the other design on the same operands at olmo-1b's chunk and
+            # prefill rows, and at one prefill shape the transposing tiles
+            # that the source's rule passes over (kernel only)
+            others = ([CODES_OTHER] if mm > amk.DECODE_M_MAX
+                      and (k, n) in PREFILL_KN else [])
+            if (mm, k, n) == plain_at:
+                others += ["tr_128x128", "tr_64x128"]
+            for other in others:
+                entries.append((f"approx_matmul_cv/{other}", dict(
+                    kern=[lambda w=w, t=other: amk.approx_matmul_cv(
+                        a_q, w, pack.c, pack.c0, pack.sum_qw, bias, meta4,
+                        tile=t, **kw) for w in wqs],
+                    plain=None, bound=bound)))
         w_f = [torch.randn(k, n, generator=gen, device=dev).to(torch.bfloat16)
                for _ in range(copies)]
         t_lib = time_calls(torch, [lambda w=w: torch.matmul(x, w) for w in w_f])
@@ -1079,9 +1150,13 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
                                         for w in w8])
             del w8, x8
         for name, d in entries:
-            timed_plain = mm <= 128 or (mm, k, n) == plain_at
+            timed_plain = d["plain"] is not None and (
+                mm <= 128 or (mm, k, n) == plain_at)
             rows.append({
                 "kernel": name, "M": mm, "K": k, "N": n,
+                "tile": (name.split("/")[1] if "/" in name else
+                         amk.tile(mm, k, n, mode, m,
+                                  codes=name == "approx_matmul_cv")),
                 "kernel_us": time_calls(torch, d["kern"]) * 1e6,
                 "plain_us": (time_calls(torch, d["plain"], reps=3) * 1e6
                              if timed_plain else None),
@@ -1091,6 +1166,92 @@ def kernel_times(torch, dev, card: str) -> list[dict]:
             print("time " + json.dumps(rows[-1]), flush=True)
         del blks, fused, entries
     return rows
+
+
+def codes_entry_layers(torch, dev) -> dict:
+    """Device us of the codes-in entry on olmo-1b's layers (perforated m=2
+    + CV; decode DECODE_KN at M=4, chunk and prefill PREFILL_KN at M=128
+    and OLMO_PREFILL_M), called as the checkout's ``approx_matmul_cv``
+    takes it: the fan-in by value, or, in a tree from before that, as
+    meta[4]; whatever the call does (a copy of w_q included) is timed."""
+    import inspect
+
+    from repro_torch.kernels import approx_matmul as amk
+
+    by_value = "true_k" in inspect.signature(amk.approx_matmul_cv).parameters
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+    for label, kns, mm in (("decode", DECODE_KN, 4),
+                           ("chunk", PREFILL_KN, 128),
+                           ("prefill", PREFILL_KN, OLMO_PREFILL_M)):
+        total = 0.0
+        for k, n in kns:
+            copies = max(2, -(-(128 << 20) // (k * n)))
+            wqs = [torch.randint(0, 256, (k, n), generator=gen, device=dev,
+                                 dtype=torch.uint8) for _ in range(copies)]
+            a_q = torch.randint(0, 256, (mm, k), generator=gen, device=dev,
+                                dtype=torch.uint8)
+            c = torch.randn(n, generator=gen, device=dev) * 30
+            c0 = torch.randn(n, generator=gen, device=dev)
+            sqw = wqs[0].to(torch.int32).sum(0, dtype=torch.int32)
+            bias = torch.zeros(n, device=dev)
+            scal = [0.015, 0.02, 7.0, 131.0] + ([] if by_value else [k])
+            meta = torch.tensor(scal, dtype=torch.float32, device=dev)
+            kw = dict(mode="perforated", m=2)
+            if by_value:
+                kw["true_k"] = float(k)
+            total += time_calls(torch, [
+                lambda w=w: amk.approx_matmul_cv(a_q, w, c, c0, sqw, bias,
+                                                 meta, **kw) for w in wqs])
+            del wqs
+        out[label] = total * 1e6
+    return out
+
+
+def compare_codes_entry(other: pathlib.Path) -> None:
+    """``--compare-codes-entry OTHER``: the codes-in entry's olmo-1b layer
+    times (codes_entry_layers) of the checkout at OTHER (an unpacked
+    parent commit) and of this one, each in a process of its own that
+    builds its tree's source, in the order other, this, this, other."""
+    runs = []
+    for root in (other, ROOT, ROOT, other):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--codes-entry-times", str(root)],
+                           capture_output=True, text=True, timeout=1200)
+        lines = [ln for ln in r.stdout.splitlines()
+                 if ln.startswith("codes-entry ")]
+        if r.returncode or not lines:
+            print(r.stdout[-3000:] + r.stderr[-3000:], flush=True)
+            fail(f"codes-entry times of {root} failed ({r.returncode})")
+        runs.append(json.loads(lines[-1][len("codes-entry "):]))
+        print(f"{lines[-1]} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print("codes-entry comparison, us a layer, median of each tree's two "
+          "runs: " + json.dumps({
+              str(root): {key: statistics.median(
+                  [r["layers"][key] for r in runs if r["root"] == str(root)])
+                  for key in runs[0]["layers"]} for root in (other, ROOT)}),
+          flush=True)
+
+
+def codes_entry_times(root: pathlib.Path) -> None:
+    """``--codes-entry-times ROOT``: codes_entry_layers with ROOT's port
+    (ROOT/src first on the path), one ``codes-entry`` JSON line."""
+    sys.path.insert(0, str(root / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    from repro_torch.kernels import approx_matmul as amk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    amk._lib()
+    build_s = time.perf_counter() - t0
+    layers = codes_entry_layers(torch, torch.device("cuda"))
+    print("codes-entry " + json.dumps({
+        "root": str(root), "source": str(amk.SOURCE), "card": card_line(),
+        "build_s": build_s, "layers": layers}), flush=True)
 
 
 def step_entry(rows: list[dict], name: str, kn_list, mm) -> dict:
@@ -1431,6 +1592,122 @@ def run_main_path(torch, dev, n_layers: int) -> dict:
             "trace": trace, "ecfg": ecfg, "run": run, "packed": packed,
             "packed_nocv": packed_nocv, "verify": verify,
             "numerics": spec.name, "float": params}
+
+
+#: the legacy-pack phase: one (B, T) prefill, then decode steps
+LEGACY_PACK_SHAPE, LEGACY_PACK_STEPS = (4, 128), 3
+
+
+def legacy_packs(tree):
+    """The reference's legacy packs: every pack of ``tree`` rebuilt without
+    its blocked layout over the same buffers (its row-major ``w_q`` and CV
+    constants; no copy, checked), groups with their members rebuilt alike.
+    Returns the tree and the number of single packs outside groups and of
+    group members."""
+    from repro_torch.core.approx_linear import (LayerStack, QuantizedDense,
+                                                QuantizedDenseGroup)
+
+    counts = {"single": 0, "member": 0, "group": 0}
+
+    def one(m, kind):
+        new = QuantizedDense(m.pack, m.a_qp, m.policy, None)
+        if new.w_q is not m.w_q or new.blocked is not None:
+            fail("legacy-pack: a rebuilt pack copied its codes or kept its "
+                 "blocked layout")
+        counts[kind] += 1
+        return new
+
+    def walk(node):
+        if isinstance(node, QuantizedDenseGroup):
+            counts["group"] += 1
+            return QuantizedDenseGroup(
+                node.pack, node.a_qp, node.policy, None, node.names,
+                node.splits, [one(x, "member") for x in node.members])
+        if isinstance(node, QuantizedDense):
+            return one(node, "single")
+        if isinstance(node, LayerStack):
+            return LayerStack([walk(x) for x in node.layers])
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(tree), counts
+
+
+def run_legacy_packs(torch, built: dict) -> dict:
+    """Phase 4b: the reference's legacy-pack route (``backend: "pallas"``
+    packs without a blocked layout: quantize, then the codes-in kernel) at
+    olmo-1b's full width on the main path's packs, rebuilt as views of the
+    same codes: one (4, 128) prefill and a few greedy decode steps.  Single
+    packs run ``approx_matmul_cv`` (the prefill's o and down, every
+    projection of a decode step, whose groups run their members); a
+    group's wide prefill call goes where the reference sends it, the exact
+    integer ``quantized_linear``.  Fails unless the counted launches equal
+    the single packs' calls, the groups' calls equal theirs, the logits
+    are finite and bit-equal to a run with the kernel swapped for its plain
+    version."""
+    from repro_torch.core import approx_linear as al
+    from repro_torch.kernels import approx_matmul as amk
+
+    cfg, api, label = built["cfg"], built["api"], "legacy-pack olmo-1b"
+    dev = api.device
+    t0 = time.perf_counter()
+    legacy, counts = legacy_packs(built["packed"])
+    (b, t), steps = LEGACY_PACK_SHAPE, LEGACY_PACK_STEPS
+    g = torch.Generator(device=dev).manual_seed(11)
+    prompt = torch.randint(0, cfg.vocab, (b, t), generator=g, device=dev)
+
+    def run():
+        logits, cache = api.prefill(legacy, {"tokens": prompt}, t + steps)
+        outs = [logits]
+        for _ in range(steps):
+            tok = torch.argmax(outs[-1], -1)[:, None]
+            logits, cache = api.decode_step(legacy, tok, cache)
+            outs.append(logits)
+        return torch.stack(outs)
+
+    run()  # warm-up, not counted
+    group_calls = [0]
+    plain_linear = al.quantized_linear
+
+    def spy(*a, **kw):
+        group_calls[0] += 1
+        return plain_linear(*a, **kw)
+
+    al.quantized_linear = spy
+    try:
+        expected = {"approx_matmul_cv": counts["single"] * (1 + steps)
+                    + counts["member"] * steps,
+                    "flash_attention": cfg.n_layers}
+        out, wall, launches, peak = counted_run(
+            torch, label, run, expected,
+            f"{counts['single']} single packs x {1 + steps} calls + "
+            f"{counts['member']} group members x {steps} decode steps")
+    finally:
+        al.quantized_linear = plain_linear
+    if group_calls[0] != counts["group"]:
+        fail(f"{label}: {group_calls[0]} quantized_linear calls, want one a "
+             f"group at the prefill ({counts['group']})")
+    with plain_swapped(label, [(amk, "approx_matmul_cv",
+                                amk.approx_matmul_cv_plain)]):
+        plain = run()
+    torch.cuda.synchronize()
+    if tuple(out.shape) != (1 + steps, b, cfg.vocab) \
+            or not bool(torch.isfinite(out).all()):
+        fail(f"{label}: logits {tuple(out.shape)} not finite")
+    if not torch.equal(out, plain):
+        fail(f"{label}: kernel run differs from the plain run: max "
+             f"{float((out - plain).abs().max())}")
+    line = {"arch": cfg.name, "layers": cfg.n_layers, "batch": b,
+            "prompt_len": t, "decode_steps": steps, **counts,
+            "launches": launches, "quantized_linear_calls": group_calls[0],
+            "kernel_equals_plain": True, "wall_s": wall,
+            "peak_mem_gib": peak / 2**30,
+            "phase_s": time.perf_counter() - t0}
+    write_line(label, "legacy_packs_olmo-1b.json", line)
+    return launches
 
 
 #: tokens a KV block of the paged phases, and the speculative draft depth
@@ -3185,16 +3462,19 @@ def profile_fn(torch, label: str, call, host_profile: str) -> dict:
 
 def check_one_launch(label: str, prof: dict) -> None:
     """A decode step's fused calls (M <= DECODE_M_MAX) are one CUDA launch
-    each: the step's profile holds no prep kernel and no prefill tile, and
-    as many split-K launches as fused wrapper calls."""
-    got = prof["approx_launches"]
-    if set(got) - {"am_splitk_kernel"} or \
-            got.get("am_splitk_kernel", 0) != prof["fused_calls"]:
-        fail(f"{label}: {prof['fused_calls']} fused calls launched {got}, "
-             "want one split-K launch each and nothing else")
+    each: the source counted as many split-K launches as fused wrapper
+    calls and no other launch (no prep kernel, no prefill tile); the trace,
+    which can drop or repeat a record at its window's edge, may show no
+    other approx kernel."""
+    counted, traced = prof["counted_launches"], prof["approx_launches"]
+    want = {"am_splitk_kernel": prof["fused_calls"]}
+    if counted != want or set(traced) - {"am_splitk_kernel"}:
+        fail(f"{label}: {prof['fused_calls']} fused calls launched {counted} "
+             f"(traced {traced}), want one split-K launch each and nothing "
+             "else")
     print(f"{label}: {prof['fused_calls']} fused calls, "
-          f"{got.get('am_splitk_kernel', 0)} CUDA launches (split-K only, no "
-          "prep kernel)", flush=True)
+          f"{counted['am_splitk_kernel']} CUDA launches (traced {traced}; "
+          "split-K only, no prep kernel)", flush=True)
 
 
 def profile_call(torch, label: str, api, params, ecfg, c: int) -> dict:
@@ -4929,6 +5209,14 @@ def run_cnn_net(torch, dev, card: str, name: str, data: dict) -> dict:
     row = {"net": name, **conv_time(torch, dev, card, *big),
            "calls_per_forward": calls.count(big)}
     print("time " + json.dumps(row), flush=True)
+    # the first layer's call (fan-in 3 x 3 x 3 = 27) and the calls the
+    # rule leaves on prep + tile (vgg's two widest), beside float32 matmul
+    others = []
+    for c in sorted({c for c in calls if c[1] == 27 or amk._takes_prep(*c)}
+                    - {big}):
+        others.append({"net": name, **conv_time(torch, dev, card, *c),
+                       "calls_per_forward": calls.count(c)})
+        print("time " + json.dumps(others[-1]), flush=True)
 
     # one point per mode at 100 classes
     del packs, ys
@@ -4941,8 +5229,8 @@ def run_cnn_net(torch, dev, card: str, name: str, data: dict) -> dict:
         "sweep_s": wall, "phase_s": time.perf_counter() - t0,
         "pack_gib": storage_gib(iter_tensors(fwd)),
         "peak_mem_gib": peak / 2**30, "forward": prof, "largest_call": row,
-        "calls": sorted(set(calls)), **out})
-    out["largest_call"] = row
+        "other_calls": others, "calls": sorted(set(calls)), **out})
+    out["largest_call"], out["other_calls"] = row, others
     return out
 
 
@@ -5445,32 +5733,41 @@ def run_paper(torch, dev) -> dict:
 def attn_scan_times(torch, dev, card: str) -> dict:
     """Phase 7, second half: flash attention at the prefill shapes of
     olmo-1b, qwen3-4b, qwen2-vl-2b and hymba-1.5b (window 1024) and of
-    hubert-xlarge's encoder, and
+    hubert-xlarge's encoder, its float32 route at the quickstart example's
+    olmo-1b shape, olmo-1b's prefill and hubert's encoder (bound at the
+    float32 CUDA-core rate, SDPA in float32 with TF32 off), and
     the scan at the rwkv6-1.6b prefill shape (kernel, plain, library,
     bound)."""
     from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import rwkv6_scan as rsk
     from repro_torch.launch import roofline
 
-    bw, _, bf16_peak, _ = peaks(card)
+    bw, _, bf16_peak, f32_peak = peaks(card)
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = {}
 
     bf = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for key, (b, hq, hkv, t, _, d, causal, window, _) in (
+    for key, (b, hq, hkv, t, _, d, causal, window, dtype) in (
             ("flash_attention", FLASH_CASES[0]),
             ("flash_attention qwen3-4b", QWEN_FLASH),
             ("flash_attention qwen2-vl-2b", QWEN2VL_FLASH),
             ("flash_attention hubert-xlarge", HUBERT_FLASH),
-            ("flash_attention hymba-1.5b", HYMBA_FLASH)):
-        # 28-80 MB of q, k, v per call: three copies exceed the 50 MB L2
-        qkv = [tuple(torch.randn(b, h, t, d, generator=gen, device=dev).to(bf)
+            ("flash_attention hymba-1.5b", HYMBA_FLASH),
+            ("flash_attention f32 quickstart", QUICKSTART_FLASH[0]),
+            ("flash_attention f32", FLASH_CASES[0][:8] + ("float32",)),
+            ("flash_attention f32 hubert-xlarge",
+             HUBERT_FLASH[:8] + ("float32",))):
+        # 28-160 MB of q, k, v per call: three copies exceed the 50 MB L2
+        # (quickstart's 3 MB: its repeated calls read from the L2)
+        dt = getattr(torch, dtype)
+        qkv = [tuple(torch.randn(b, h, t, d, generator=gen, device=dev).to(dt)
                      for h in (hq, hkv, hkv)) for _ in range(3)]
         # QK and PV over the visible (query, key) pairs: causal, or a
-        # window of W keys (query i sees min(i + 1, W)); q and out, k and v
+        # window of W keys (query i sees min(i + 1, W)); q and out, k and v;
+        # bfloat16 on the tensor cores, float32 on the CUDA cores
         nbytes, flops = roofline.flash_attention_work(
-            b, hq, hkv, t, t, d, causal, window, 2)
+            b, hq, hkv, t, t, d, causal, window, dt.itemsize)
         # SDPA's own GQA (enable_gqa), or, in a PyTorch without it, KV heads
         # repeated beforehand (the yardstick then reads the copies); a
         # window is SDPA's boolean mask (SDPA has no window argument)
@@ -5489,9 +5786,10 @@ def attn_scan_times(torch, dev, card: str) -> dict:
                         v.repeat_interleave(reps, 1)) for q, k, v in qkv]
         else:
             gqa = {}
-        bound, by = roofline.bound(nbytes, flops, bf16_peak, bw)
+        bound, by = roofline.bound(
+            nbytes, flops, bf16_peak if dt == bf else f32_peak, bw)
         rows[key] = {
-            "shape": [b, hq, hkv, t, d], "dtype": "bfloat16", "causal": causal,
+            "shape": [b, hq, hkv, t, d], "dtype": dtype, "causal": causal,
             "window": window,
             "kernel_us": time_calls(torch, [
                 lambda a=a: fak.flash_attention(*a, causal=causal,
@@ -5947,7 +6245,19 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=16,
                     help="olmo-1b depth for its engine path (widths are "
                     "never cut; the other paths run at full depth)")
+    ap.add_argument("--compare-codes-entry", type=pathlib.Path,
+                    metavar="OTHER", help="instead of the check: the "
+                    "codes-in entry's olmo-1b layer times of the checkout "
+                    "at OTHER and of this one, in turn")
+    ap.add_argument("--codes-entry-times", type=pathlib.Path,
+                    metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.codes_entry_times is not None:
+        codes_entry_times(args.codes_entry_times.resolve())
+        return 0
+    if args.compare_codes_entry is not None:
+        compare_codes_entry(args.compare_codes_entry.resolve())
+        return 0
     t_start = time.perf_counter()
 
     import torch
@@ -6002,12 +6312,13 @@ def main() -> int:
     # read just after it
     built = run_main_path(torch, dev, args.layers)
     paths = {"engine olmo-1b": built["launches"]}
+    paths["legacy-pack olmo-1b"] = run_legacy_packs(torch, built)
     paths["paged olmo-1b"] = run_paged(
         torch, "paged olmo-1b", built["cfg"], built["api"], built["packed"],
         built["ecfg"], built["trace"], built["run"], built["numerics"])
     paths["deadlines olmo-1b"] = run_deadlines(torch, built)
     paths.update(run_speculative(torch, built))
-    lap("olmo-1b engine, paged, deadlines, speculative")
+    lap("olmo-1b engine, legacy packs, paged, deadlines, speculative")
     phase_s, t0 = {}, time.perf_counter()
     launches, probe_summ = run_probe_phase(torch, built)
     paths.update(launches)
@@ -6101,7 +6412,9 @@ def main() -> int:
     (ROOT / "chiprun_out" / "kernel_times.json").write_text(
         json.dumps({"card": card, "rows": rows, "attention_scan": new_rows,
                     "cnn_largest_calls": [r["largest_call"]
-                                          for r in cnn.values()]},
+                                          for r in cnn.values()],
+                    "cnn_other_calls": [c for r in cnn.values()
+                                        for c in r["other_calls"]]},
                    indent=1))
     entries = []
     for name, src_line in (("approx_matmul_cv_fused", 332),
@@ -6153,6 +6466,16 @@ def main() -> int:
                  "M=4)", [HYMBA_HEAD_KN], 4)):
             print(f"{name} per layer, {label}: "
                   + json.dumps(step_entry(rows, name, kn, mm)), flush=True)
+        if name == "approx_matmul_cv":
+            for label, nm in (("", name),
+                              (f" (the other design, {CODES_OTHER})",
+                               f"{name}/{CODES_OTHER}")):
+                for mm in (128, OLMO_PREFILL_M):
+                    print(f"{name} per layer{label}, olmo-1b "
+                          f"{'chunk' if mm == 128 else 'prefill'} "
+                          f"({len(PREFILL_KN)} launches, M={mm}): "
+                          + json.dumps(step_entry(rows, nm, PREFILL_KN, mm)),
+                          flush=True)
         if name == "approx_matmul_cv_fused":
             for label, kn, mm in (
                     ("olmo-1b", PREFILL_KN, OLMO_PREFILL_M),

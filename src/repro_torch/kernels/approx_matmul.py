@@ -8,10 +8,12 @@ Two entries of one hand-written CUDA source (``csrc/approx_matmul.cu``):
   (the K-major uint8 codes ``w_qbt``, an (EPI_ROWS, Nb) epilogue table and
   meta scalars);
 * :func:`approx_matmul_cv` replaces ``approx_matmul_cv`` (body ``_kernel``):
-  the same arithmetic over pre-quantized codes with per-tensor quant params.
+  the same arithmetic over pre-quantized codes with per-tensor quant params,
+  reading the caller's row-major (K, N) weight codes in place.
 
-Both read the weights K-major, by one of three routes.  Decode-shaped
-calls (at most :data:`DECODE_M_MAX` rows) are one CUDA launch: a split-K
+The fused entry reads the weights K-major, by one of three routes.
+Decode-shaped calls (at most :data:`DECODE_M_MAX` rows) are one CUDA
+launch: a split-K
 kernel that quantizes x itself, multiplies on ``mma.sync`` and adds the K
 slices of a thread-block cluster in the leader's shared memory (bound by
 the weight bytes).  Conv-shaped calls (more rows, fan-in at most
@@ -22,7 +24,15 @@ registers, keep the pack in shared memory and multiply on ``mma.sync``
 (bound by the bytes of x and out).  Other calls run a prep kernel
 (quantize x once, mask the codes, per-row statistics) and then the TMA +
 ``wgmma`` prefill tile (bound by int8 operations at prefill sizes): two
-launches.  The design notes are in the source.  The source is compiled
+launches.  The codes-in entry takes the split-K and conv kernels built
+over row-major weights (byte transposes in registers or on the way into
+shared memory) and, for other calls, the prefill tile's transposing
+variant: TMA loads row-major weight boxes, the producer warpgroup
+transposes them into the K-major stage that ``wgmma`` reads and takes the
+row statistics from the codes (where an operand is off 16 bytes, which TMA
+refuses, an ``mma.sync`` rows tile instead): one launch a call at every
+shape, no scratch, no copy of the weights.  The design notes are in the
+source.  The source is compiled
 with ``nvcc`` for ``sm_90a`` into ``build/`` at first use and bound with
 ``ctypes``.
 
@@ -46,8 +56,7 @@ from repro_torch.core import multipliers as am
 from repro_torch.kernels import nvcc
 from repro_torch.quant.quantize import (EPI_BIAS, EPI_C, EPI_C0, EPI_ROWS,
                                         EPI_SUM_QW, EPI_SW, EPI_ZW, META_SA,
-                                        META_TRUE_K, META_ZA, QMAX, QMIN,
-                                        k_major)
+                                        META_TRUE_K, META_ZA, QMAX, QMIN)
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "approx_matmul.cu"
 BUILD_DIR = nvcc.BUILD_DIR
@@ -93,12 +102,13 @@ def _lib() -> ctypes.CDLL:
         lib.am_fused_launch.argtypes = [P, I, P, I, P, P, I, I, P, I, P, P,
                                         I, I, I, I, I, I, U, U, I, I, I, P]
         lib.am_fused_launch.restype = I
-        # a_q, codes, ldq, stats, w_qt, ldt, c, c0, sum_qw, bias, meta, out,
-        # M, K, N, decode, then _mode_args, stream
-        lib.am_codes_launch.argtypes = [P, P, I, P, P, I, P, P, P, P, P, P,
-                                        I, I, I, I, I, I, U, U, I, I, I, P]
+        # a_q, w_q, ldw, c, c0, sum_qw, bias, meta, true_k, tile, out, M,
+        # K, N, decode, then _mode_args, stream
+        lib.am_codes_launch.argtypes = [P, P, I, P, P, P, P, P,
+                                        ctypes.c_float, I, P, I, I, I, I, I,
+                                        I, U, U, I, I, I, P]
         lib.am_codes_launch.restype = I
-        lib.am_tile.argtypes = [I, I, I, I, I]
+        lib.am_tile.argtypes = [I, I, I, I, I, I]
         lib.am_tile.restype = I
         lib.am_launches.argtypes = [P]
         lib.am_launches.restype = None
@@ -109,29 +119,40 @@ def _lib() -> ctypes.CDLL:
 #: the matmul kernel instantiations, named in the order of the source's
 #: ``TileId`` (``am_tile``): the split-K decode kernel, the wgmma tiles for
 #: modes with subtractive planes, then those for one product, then the conv
-#: kernel
+#: kernel, then the codes-in entry's rows tiles (operands off 16 bytes;
+#: planes, then one product) and its transposing wgmma tiles (planes, then
+#: one product)
 TILES = ("split_k", "128x128 planes", "64x128 planes", "128x256", "128x128",
-         "64x128", "conv")
+         "64x128", "conv", "rows_64x128 planes", "rows_64x128",
+         "tr_64x128 planes", "tr_128x256", "tr_128x128", "tr_64x128")
+
+#: the tiles each entry can take (the codes-in entry's split-K and conv
+#: kernels are their row-major-weight instantiations)
+ENTRY_TILES = {"approx_matmul_cv_fused": TILES[:7],
+               "approx_matmul_cv": ("split_k", "conv") + TILES[7:]}
 
 
-def tile(mm: int, k: int, n: int, mode: am.Mode, m: int) -> str:
+def tile(mm: int, k: int, n: int, mode: am.Mode, m: int,
+         codes: bool = False) -> str:
     """The matmul kernel that a call of ``mm`` rows against a (k, n) pack
+    (``codes``: the codes-in entry's call on 16-byte aligned operands)
     launches, as the source chooses it (needs the built library)."""
     planes = len(decomposition(mode, m)[1])
-    return TILES[_lib().am_tile(int(mm <= DECODE_M_MAX), mm, k, n, planes)]
+    return TILES[_lib().am_tile(int(mm <= DECODE_M_MAX), mm, k, n, planes,
+                                int(codes))]
 
 
 #: the CUDA kernels of the source, named as their launches are counted
 #: (``LaunchKind`` order) and as a profile shows them
 LAUNCH_KINDS = ("prep_kernel", "am_wgmma_kernel", "am_splitk_kernel",
-                "am_conv_kernel")
+                "am_conv_kernel", "am_rows_kernel")
 
 
 def kernel_launches() -> dict[str, int]:
     """CUDA launches of each kernel of the source since it was loaded, as
     its launch functions count them (needs the built library): a fused call
     launches one split-K or conv kernel, or the prep kernel and a wgmma
-    tile."""
+    tile; a codes-in call one split-K, conv or rows kernel."""
     out = (ctypes.c_ulonglong * len(LAUNCH_KINDS))()
     _lib().am_launches(out)
     return dict(zip(LAUNCH_KINDS, map(int, out)))
@@ -171,6 +192,16 @@ def _mode_args(mode: am.Mode, m: int, use_cv: bool):
     stat_kind = 0 if not cv_on else (2 if mode == "truncated" else 1)
     return (main, len(planes), amasks, wmasks, stat_kind,
             (1 << m) - 1 if cv_on else 0, int(cv_on))
+
+
+def _stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as the launch takes it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _out(shape: tuple[int, int], dtype, device) -> torch.Tensor:
+    """A call's output: the only allocation a codes-in call makes."""
+    return torch.empty(shape, dtype=dtype, device=device)
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -325,8 +356,7 @@ def approx_matmul_cv_fused(x: torch.Tensor, w_qbt: torch.Tensor | None,
         codes + mm * ldq, w_qbt.data_ptr(),
         w_qbt.shape[1], w_qbt.shape[0], epilogue.data_ptr(),
         epilogue.shape[1], meta.data_ptr(), out.data_ptr(), mm, k, n,
-        int(decode), *_mode_args(mode, m, use_cv),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        int(decode), *_mode_args(mode, m, use_cv), _stream(x))
     _launch_status(name, status)
     approx_matmul_cv_fused.launches += 1
     return out
@@ -344,10 +374,11 @@ def approx_matmul_cv_plain(a_q: torch.Tensor, w_q: torch.Tensor,
                            c: torch.Tensor, c0: torch.Tensor,
                            sum_qw: torch.Tensor, bias: torch.Tensor | None,
                            meta: torch.Tensor, *, mode: am.Mode, m: int,
+                           true_k: float,
                            use_cv: bool = True) -> torch.Tensor:
     """Plain PyTorch version of :func:`approx_matmul_cv`.  meta is
-    [sa, sw, za, zw, true_k] float32; returns float32 (M, N)."""
-    sa, sw, za, zw, true_k = (meta[i] for i in range(5))
+    [sa, sw, za, zw] float32; returns float32 (M, N)."""
+    sa, sw, za, zw = (meta[i] for i in range(4))
     a = a_q.to(torch.int32)
     acc = am.approx_matmul(a, w_q, mode, m)
     sqa = a.sum(dim=-1, dtype=torch.int64)
@@ -362,51 +393,57 @@ def approx_matmul_cv_plain(a_q: torch.Tensor, w_q: torch.Tensor,
 def approx_matmul_cv(a_q: torch.Tensor, w_q: torch.Tensor, c: torch.Tensor,
                      c0: torch.Tensor, sum_qw: torch.Tensor,
                      bias: torch.Tensor | None, meta: torch.Tensor, *,
-                     mode: am.Mode, m: int, use_cv: bool = True) -> torch.Tensor:
+                     mode: am.Mode, m: int, true_k: float,
+                     use_cv: bool = True,
+                     tile: str | None = None) -> torch.Tensor:
     """Approximate matmul + CV over uint8 codes a_q (M, K) and w_q (K, N),
-    with c, c0, bias float32 (N,), sum_qw int32 (N,) and meta float32
-    [sa, sw, za, zw, true_k].  Returns float32 (M, N).  Every call on the
-    card makes :func:`k_major` of w_q, the layout both kernels read (no path
-    runs this entry: every served pack carries its K-major codes and takes
-    the fused entry)."""
+    both contiguous, with c, c0, bias float32 (N,), sum_qw int32 (N,) and
+    meta float32 [sa, sw, za, zw]; ``true_k`` is the fan-in of the epilogue's
+    K * za * zw term, passed by value.  Returns float32 (M, N).  On the
+    card the kernels read w_q in place, row-major: a call is one launch at
+    every shape (split-K at most DECODE_M_MAX rows, the conv kernel at conv
+    shapes, else a transposing wgmma tile, or a rows tile where an operand
+    is off 16 bytes) and allocates only its output.  ``tile`` names
+    another of ENTRY_TILES to launch above the split-K and conv routes
+    (``chip_smoke.py`` times both designs with it); the source refuses one
+    that does not compute the call."""
+    name = "approx_matmul_cv"
     if a_q.device.type == "cpu":
         return approx_matmul_cv_plain(a_q, w_q, c, c0, sum_qw, bias, meta,
-                                      mode=mode, m=m, use_cv=use_cv)
+                                      mode=mode, m=m, use_cv=use_cv,
+                                      true_k=true_k)
     if a_q.device.type != "cuda":
-        raise ValueError(f"approx_matmul_cv: unsupported device {a_q.device}")
+        raise ValueError(f"{name}: unsupported device {a_q.device}")
     lib = _lib()
     ops = [a_q, w_q, c, c0, sum_qw, meta] + ([bias] if bias is not None else [])
-    _check_cuda("approx_matmul_cv", *ops)
+    _check_cuda(name, *ops)
     if a_q.dtype != torch.uint8 or w_q.dtype != torch.uint8 \
-            or sum_qw.dtype != torch.int32 or meta.numel() < 5 \
+            or sum_qw.dtype != torch.int32 \
+            or meta.numel() < 4 \
             or any(t.dtype != torch.float32
                    for t in (c, c0, meta) + ((bias,) if bias is not None
                                              else ())):
-        raise ValueError("approx_matmul_cv: operand dtypes")
+        raise ValueError(f"{name}: operand dtypes")
     mm, kk = a_q.shape
     kk2, nn = w_q.shape
     if kk != kk2 or any(t.shape != (nn,) for t in (c, c0, sum_qw)) \
             or (bias is not None and bias.shape != (nn,)):
-        raise ValueError(f"approx_matmul_cv: shapes a {tuple(a_q.shape)} "
+        raise ValueError(f"{name}: shapes a {tuple(a_q.shape)} "
                          f"w {tuple(w_q.shape)}")
     if kk > MAX_K:
         raise ValueError(f"fan-in {kk} > {MAX_K} overflows the int32 "
                          "accumulator")
-    out = torch.empty((mm, nn), dtype=torch.float32, device=a_q.device)
+    out = _out((mm, nn), torch.float32, a_q.device)
     if mm == 0:
         return out
-    decode = mm <= DECODE_M_MAX
-    scratch, ldq, codes = _prep_scratch("approx_matmul_cv", mm, kk, nn,
-                                        a_q.device)
-    w_qt = k_major(w_q)
-    _check_k_major("approx_matmul_cv", w_qt, nn, kk)
     status = lib.am_codes_launch(
-        a_q.data_ptr(), codes, ldq, codes + mm * ldq, w_qt.data_ptr(),
-        w_qt.shape[1], c.data_ptr(), c0.data_ptr(), sum_qw.data_ptr(),
-        bias.data_ptr() if bias is not None else None, meta.data_ptr(),
-        out.data_ptr(), mm, kk, nn, int(decode), *_mode_args(mode, m, use_cv),
-        torch.cuda.current_stream(a_q.device).cuda_stream)
-    _launch_status("approx_matmul_cv", status)
+        a_q.data_ptr(), w_q.data_ptr(), nn, c.data_ptr(), c0.data_ptr(),
+        sum_qw.data_ptr(), bias.data_ptr() if bias is not None else None,
+        meta.data_ptr(), float(true_k),
+        -1 if tile is None else TILES.index(tile), out.data_ptr(), mm, kk,
+        nn, int(mm <= DECODE_M_MAX), *_mode_args(mode, m, use_cv),
+        _stream(a_q))
+    _launch_status(name, status)
     approx_matmul_cv.launches += 1
     return out
 

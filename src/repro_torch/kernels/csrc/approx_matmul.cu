@@ -29,9 +29,9 @@
 // Partial sums stay below 255*255*K < 2^31 for K <= 33025 (the wrapper
 // checks), so the 32-bit accumulators hold the exact value.
 //
-// Every route reads the weights from the pack's K-major codes w_qbt (N rows
-// of ldt bytes, K contiguous; made once with the pack, so no tile is
-// transposed on the card):
+// The float-in entry reads the weights from the pack's K-major codes w_qbt
+// (N rows of ldt bytes, K contiguous; made once with the pack, so no tile
+// is transposed on the card), by three routes:
 //
 // * Decode rows (M <= DECODE_M_MAX): one split-K kernel per call, which
 //   quantizes its own slice of x, runs mma.sync m16n8k32 over the codes
@@ -74,6 +74,37 @@
 // K and N edges are masked in the kernels (TMA zero-fills out of bounds),
 // so the caller pads nothing.
 //
+// The codes-in entry reads the caller's operands in place, as the
+// reference's kernel takes them: (M, K) activation codes and the row-major
+// (K, N) weight codes w_q, at any alignment (N = 32,001, K = 27).  It makes
+// no copy of w_q (the K-major copy it used to make on every call cost ~500
+// of the 567 us of an olmo-1b decode layer), no scratch and no prep pass,
+// and one launch a call:
+// * Decode rows: the split-K kernel over row-major weights (ROWW): a round
+//   is 256 weight rows of the block's 32 columns in the ring; each lane
+//   turns four 32-bit row words into four K-contiguous column words with
+//   a 4 x 4 byte transpose (__byte_perm) and feeds them to mma.sync as B
+//   fragments, the codes' matching 8 bytes as A (design notes at
+//   am_splitk_kernel).  Bound by the weight bytes.
+// * Conv-shaped calls: the conv kernel, which reads the row-major pack
+//   once a block into its K-major shared-memory copy.
+// * Other calls: the prefill tile's transposing variant (Tile ROWW, the
+//   tr_ tiles).  wgmma takes 8-bit B only K-major from shared memory, so
+//   the transpose happens on the chip, between the loads and the products:
+//   TMA loads the codes box into the stage (128-byte swizzle, as the
+//   K-major tile has it) and a row-major (128, BN) weight box into a raw
+//   slot; the producer warpgroup takes each row's statistics from the
+//   unmasked codes, masks them with `main`, transposes the weight box into
+//   the stage's K-major slot in the same swizzle (byte permutes, one 16-
+//   byte store per column chunk) and releases the stage to the consumers,
+//   which run the tile's own wgmma loop and epilogue (design notes at
+//   rowmajor_producer).  Where K, N or a base is off 16 bytes, which TMA
+//   refuses, a rows tile (mma.sync over cp.async stages, B fragments by
+//   the same byte transposes in registers) runs the call instead.
+// Zeros fill the K and N edges on the chip, so true_k (by value) stays the
+// only fan-in term, where the reference pads and then subtracts its pad
+// terms.
+
 // Bound on the H100: prefill at M >= 2048 is bound by int8 operations (one
 // product per output for perforated: 2*M*K*N at 1,979 TOP/s).  The main
 // loop alone comes close to that rate with the epilogue cut out; what
@@ -258,6 +289,20 @@ __device__ __forceinline__ void wgmma_u8(int (&d)[N / 2], uint64_t a,
   else wgmma_n64(d, a, b);
 }
 
+// the 4 x 4 byte transpose: out[i] = byte i of v0, v1, v2, v3 (in order)
+__device__ __forceinline__ void transpose4(uint32_t v0, uint32_t v1,
+                                           uint32_t v2, uint32_t v3,
+                                           uint32_t (&out)[4]) {
+  const uint32_t t0 = __byte_perm(v0, v1, 0x5140);  // v0.0 v1.0 v0.1 v1.1
+  const uint32_t t1 = __byte_perm(v0, v1, 0x7362);  // v0.2 v1.2 v0.3 v1.3
+  const uint32_t t2 = __byte_perm(v2, v3, 0x5140);
+  const uint32_t t3 = __byte_perm(v2, v3, 0x7362);
+  out[0] = __byte_perm(t0, t2, 0x5410);
+  out[1] = __byte_perm(t0, t2, 0x7632);
+  out[2] = __byte_perm(t1, t3, 0x5410);
+  out[3] = __byte_perm(t1, t3, 0x7632);
+}
+
 // --- prep: quantize, mask, row statistics -----------------------------------
 
 // 16-byte load through the read-only path, issued where it is written
@@ -438,10 +483,11 @@ struct Epi {
   const float* sw;       // (N,) per-column weight scale, or null: meta
   const float* zw;       // (N,) per-column weight zero point, or null: meta
   const float* meta;     // per column: [sa, za, true_k]; per tensor:
-                         // [sa, sw, za, zw, true_k]
+                         // [sa, sw, za, zw]
   const int* stats;      // (M, 2) row statistics from the prep kernel
   void* out;             // (M, N) bfloat16 (out_bf16) or float32
   int out_bf16, use_cv;
+  float k_arg;           // per tensor: true_k, by value
 };
 
 struct Scalars {
@@ -455,7 +501,7 @@ __device__ __forceinline__ Scalars load_scalars(const Epi& e) {
     s.sw = 0.0f; s.zw = 0.0f;
   } else {
     s.sa = e.meta[0]; s.sw = e.meta[1]; s.za = e.meta[2]; s.zw = e.meta[3];
-    s.true_k = e.meta[4];
+    s.true_k = e.k_arg;
   }
   return s;
 }
@@ -514,43 +560,207 @@ static_assert(sizeof(Col) == EPI_COLS * 4, "column constants");
 // consumers (setmaxnreg: 168 -> 40 and 232); two blocks hold 96 KB each and
 // a producer warp, at 112 registers a thread, and one block's epilogue then
 // runs beside the other block's main loop.
-template <int BM_, int BN_, bool PLANES_, int CTAS_>
+// ROWW (the codes-in entry, row-major weights): one block an SM, whose
+// producer warpgroup also transposes, so it keeps its registers (no
+// hand-over: every thread keeps the 168 that ptxas fits the tile into);
+// beside the ring RAWS slots of row-major (PBK, BN) weight boxes, fewer
+// than the stages (the producer waits for stage kt + RAWS - S to be
+// released while it holds stage kt).
+template <int BM_, int BN_, bool PLANES_, int CTAS_, bool ROWW_ = false>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_, CTAS = CTAS_;
-  static constexpr bool PLANES = PLANES_;
+  static constexpr bool PLANES = PLANES_, ROWW = ROWW_;
   static constexpr int THREADS = CTAS == 1 ? 384 : 288;
-  static constexpr int P_RING = (CTAS == 1 ? 192 : 96) * 1024;
+  static constexpr int P_RING =
+      (ROWW ? (BN == 256 ? 144 : 128) : CTAS == 1 ? 192 : 96) * 1024;
   // 128-row tiles give each consumer warpgroup 64 rows and every column;
   // 64-row tiles give each one half of the columns
   static constexpr int WGN = BM == 128 ? BN : BN / 2;
   static constexpr int A_BYTES = BM * PBK, B_BYTES = BN * PBK;
   static constexpr int STAGE = A_BYTES + B_BYTES;
   static constexpr int STAGES = P_RING / STAGE - (PLANES ? 1 : 0);
-  // after the ring: full/empty barriers, then the epilogue's per-column
-  // constants (EPI_COLS floats per column) and per-row statistics
-  static constexpr int BARS = 2 * STAGES * 8;
+  static constexpr int RAW = ROWW ? PBK * BN : 0;
+  static constexpr int RAWS =
+      !ROWW ? 0 : (BN == 256 ? 2 : 4) < STAGES ? (BN == 256 ? 2 : 4)
+                                               : STAGES - 1;
+  // after the ring (and the raw slots): full/empty barriers (ROWW: also
+  // the transposed stages' and the row statistics'), then the epilogue's
+  // per-column constants (EPI_COLS floats per column) and per-row
+  // statistics
+  static constexpr int BARS = (ROWW ? 3 * STAGES + 1 : 2 * STAGES) * 8;
+  static constexpr int BARS_OFF = P_RING + RAWS * RAW;
   static constexpr int COLS = EPI_COLS * BN * 4, ROWS = 2 * BM * 4;
-  static constexpr int SMEM = 1024 + P_RING + BARS + COLS + ROWS;
+  static constexpr int SMEM = 1024 + BARS_OFF + BARS + COLS + ROWS;
   static_assert(BM == 64 || BM == 128, "tile rows");
   static_assert(WGN == 64 || WGN == 128 || WGN == 256, "wgmma width");
   static_assert(STAGES >= 3, "ring depth");
   static_assert(BM * (BN * 4 + 16) <= P_RING, "staged output tile");
   static_assert(CTAS == 1 || CTAS == 2, "blocks per SM");
+  static_assert(!ROWW || (CTAS == 1 && RAWS >= 2), "transposer");
+  static_assert(SMEM <= 232448, "shared memory");
 };
+
+// The ROWW producer warpgroup (128 threads).  Warp 0 issues tile kt's
+// TMA loads: the (BM, PBK) codes box into the stage's A slot (128-byte
+// swizzle, as every K-major operand of the tile) and the row-major (PBK, BN)
+// weight box into raw slot kt % RAWS, both on full[s].  Then all 128:
+//  * A: the row statistics from the unmasked codes, then main4 in place
+//    (thread: row tid % BM, 8 BM / 128 of its 16-byte chunks, taken from
+//    chunk (j + row) & 7 so that a quarter warp's eight rows hit eight
+//    distinct banks; the swizzle does not matter to a sum or a mask);
+//  * B: the transpose into the stage's K-major slot in wgmma's 128-byte
+//    swizzle.  A warp's unit is 16 k rows of 128 columns: lane l reads the
+//    32-bit word at columns 4l .. 4l + 3 of each row (the warp reads whole
+//    rows), rotates its bytes by rot = (l >> 1) & 3, transposes each four
+//    rows (transpose4) and stores column 4l + ((i + rot) & 3)'s 16 k bytes
+//    as one 16-byte store into chunk kc ^ (n & 7): the rotation puts a
+//    quarter warp's eight stores in eight distinct chunks;
+//  * fence.proxy.async (wgmma reads what the threads wrote), arrive on
+//    ready[s]; once all 128 have read the raw slot (named barrier 2),
+//    warp 0 loads tile kt + RAWS into it, after stage (kt + RAWS) % S is
+//    released: tile kt + RAWS - S, which the consumers release once they
+//    hold tile kt + RAWS - S + 1 <= kt (RAWS < S), so the wait ends.
+// Zero-filled TMA edges (rows past M or K, columns past N or K) give zero
+// codes: no product, no statistic.  At the end the row statistics go to
+// rstats, then stats_done.
+template <class T>
+__device__ __forceinline__ void rowmajor_producer(
+    uint8_t* smem, uint8_t* raw, uint64_t* full, uint64_t* empty,
+    uint64_t* ready, uint64_t* stats_done, int* rstats,
+    const CUtensorMap* tma_a, const CUtensorMap* tma_b, int nkt, int m0,
+    int n0, uint32_t main4, int stat_kind, uint32_t stat4) {
+  constexpr int S = T::STAGES, R = T::RAWS, BM = T::BM, BN = T::BN;
+  constexpr int CH = 8 * BM / 128;  // codes chunks a thread a stage
+  constexpr int CB = BN / 128, UPW = CB * (PBK / 16) / 4;  // units a warp
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  // warp 0 issues: its lanes wait together and lane 0 copies, so that the
+  // warp arrives converged at the next barrier
+  auto issue = [&](int kt) {
+    const int s = kt % S;
+    mbar_wait(&empty[s], ((kt / S) & 1) ^ 1);
+    if (lane == 0) {
+      mbar_expect_tx(&full[s], T::A_BYTES + T::RAW);
+      tma_load(smem + s * T::STAGE, tma_a, kt * PBK, m0, &full[s]);
+      tma_load(raw + (kt % R) * T::RAW, tma_b, n0, kt * PBK, &full[s]);
+    }
+    __syncwarp();
+  };
+  if (warp == 0)
+    for (int kt = 0; kt < R && kt < nkt; ++kt) issue(kt);
+  const int ar = tid % BM, ac = (tid / BM) * CH;
+  const int rot = (lane >> 1) & 3;
+  const uint32_t rsel = (uint32_t)(rot | ((rot + 1) & 3) << 4 |
+                                   ((rot + 2) & 3) << 8 |
+                                   ((rot + 3) & 3) << 12);
+  uint32_t sq = 0u, sx = 0u;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int s = kt % S;
+    mbar_wait(&full[s], (kt / S) & 1);
+    uint8_t* st = smem + s * T::STAGE;
+    uint4* arow = reinterpret_cast<uint4*>(st + ar * PBK);
+    const uint8_t* rs = raw + (kt % R) * T::RAW;
+    uint8_t* bs = st + T::A_BYTES;
+    // every load of the stage first, in registers: the compiler cannot
+    // tell the slots apart, so a store would hold up each later load (a
+    // warp a sub-partition has little else to hide their latency with)
+    uint4 av[CH];
+#pragma unroll
+    for (int j = 0; j < CH; ++j) av[j] = arow[(ac + j + ar) & 7];
+    uint32_t bv[UPW][16];
+#pragma unroll
+    for (int uu = 0; uu < UPW; ++uu) {
+      const int u = warp + 4 * uu, cb = u % CB, kc = u / CB;
+      const uint8_t* src = rs + 16 * kc * BN + 128 * cb + 4 * lane;
+#pragma unroll
+      for (int r = 0; r < 16; ++r)
+        bv[uu][r] = *reinterpret_cast<const uint32_t*>(src + r * BN);
+    }
+    // A: the statistics in two chains, the masked codes back
+    uint32_t q2[2] = {0u, 0u}, x2[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const uint32_t w[4] = {av[j].x, av[j].y, av[j].z, av[j].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        q2[e & 1] = __dp4a(w[e], 0x01010101u, q2[e & 1]);
+        if (stat_kind == 1)
+          x2[e & 1] = __dp4a(w[e] & stat4, 0x01010101u, x2[e & 1]);
+        else if (stat_kind == 2)
+          x2[e & 1] += __popc(nonzero_bytes(w[e] & stat4));
+      }
+    }
+    sq += q2[0] + q2[1];
+    sx += x2[0] + x2[1];
+    if (main4 != 0xFFFFFFFFu) {
+#pragma unroll
+      for (int j = 0; j < CH; ++j)
+        arow[(ac + j + ar) & 7] =
+            make_uint4(av[j].x & main4, av[j].y & main4, av[j].z & main4,
+                       av[j].w & main4);
+    }
+    // B: rotate, transpose, one 16-byte store a column
+#pragma unroll
+    for (int uu = 0; uu < UPW; ++uu) {
+      const int u = warp + 4 * uu, cb = u % CB, kc = u / CB;
+      uint32_t col[4][4];  // [column (i + rot) & 3][k bytes 4b .. 4b + 3]
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        uint32_t o[4];
+        transpose4(__byte_perm(bv[uu][4 * b], 0u, rsel),
+                   __byte_perm(bv[uu][4 * b + 1], 0u, rsel),
+                   __byte_perm(bv[uu][4 * b + 2], 0u, rsel),
+                   __byte_perm(bv[uu][4 * b + 3], 0u, rsel), o);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) col[i][b] = o[i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = 128 * cb + 4 * lane + ((i + rot) & 3);
+        *reinterpret_cast<uint4*>(bs + n * PBK + ((kc ^ (n & 7)) << 4)) =
+            make_uint4(col[i][0], col[i][1], col[i][2], col[i][3]);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(&ready[s]);
+    asm volatile("barrier.sync 2, 128;\n" ::: "memory");  // raw slot read
+    if (warp == 0 && kt + R < nkt) issue(kt + R);
+  }
+  // a row's statistics (BM = 64: threads tid and tid + 64 hold halves)
+  if (tid < BM) {
+    rstats[2 * ar] = (int)sq;
+    rstats[2 * ar + 1] = (int)sx;
+  }
+  if constexpr (BM < 128) {
+    asm volatile("barrier.sync 2, 128;\n" ::: "memory");
+    if (tid >= BM) {
+      rstats[2 * ar] += (int)sq;
+      rstats[2 * ar + 1] += (int)sx;
+    }
+  }
+  mbar_arrive(stats_done);
+}
 
 template <class T>
 __global__ void __launch_bounds__(T::THREADS, T::CTAS)
 am_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
                 const __grid_constant__ CUtensorMap tma_b, int M, int N,
-                int K, Epi epi, Planes pl) {
-  constexpr int S = T::STAGES, WGN = T::WGN, P_RING = T::P_RING;
+                int K, Epi epi, Planes pl, uint32_t main4, int stat_kind,
+                uint32_t stat4) {
+  // tma_a: the (M, K) codes; tma_b: the K-major weights, or (ROWW) the
+  // row-major (K, N) weights in (PBK, BN) boxes.  main4, stat_kind, stat4:
+  // ROWW only (the prep kernel's masks elsewhere)
+  constexpr int S = T::STAGES, WGN = T::WGN;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P_RING);
+  uint8_t* raw = smem + T::P_RING;  // ROWW: the row-major weight boxes
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::BARS_OFF);
   uint64_t* empty = full + S;
-  Col* cols = reinterpret_cast<Col*>(smem + P_RING + T::BARS);
-  int* rstats = reinterpret_cast<int*>(smem + P_RING + T::BARS + T::COLS);
+  uint64_t* ready = empty + S;        // ROWW: stage transposed
+  uint64_t* stats_done = ready + S;   // ROWW: row statistics in rstats
+  Col* cols = reinterpret_cast<Col*>(smem + T::BARS_OFF + T::BARS);
+  int* rstats =
+      reinterpret_cast<int*>(smem + T::BARS_OFF + T::BARS + T::COLS);
   uint8_t* scratch = smem + S * T::STAGE;  // plane operands (PLANES only)
 
   const int nkt = (K + PBK - 1) / PBK;
@@ -562,15 +772,21 @@ am_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2);  // one release per consumer warpgroup
+      if constexpr (T::ROWW) mbar_init(&ready[s], 128);
     }
+    if constexpr (T::ROWW) mbar_init(stats_done, 128);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == 2) {  // producer: one thread keeps the ring full
-    if constexpr (T::CTAS == 1)
+  if (wg == 2) {
+    if constexpr (T::CTAS == 1 && !T::ROWW)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (tid == 0) {
+    if constexpr (T::ROWW) {  // the producer warpgroup loads and transposes
+      rowmajor_producer<T>(smem, raw, full, empty, ready, stats_done, rstats,
+                           &tma_a, &tma_b, nkt, m0, n0, main4, stat_kind,
+                           stat4);
+    } else if (tid == 0) {  // one thread keeps the ring full
       for (int kt = 0; kt < nkt; ++kt) {
         const int s = kt % S;
         mbar_wait(&empty[s], ((kt / S) & 1) ^ 1);
@@ -581,7 +797,7 @@ am_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
       }
     }
   } else {  // consumers: wgmma over the ring, then the epilogue
-    if constexpr (T::CTAS == 1)
+    if constexpr (T::CTAS == 1 && !T::ROWW)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     {  // the epilogue's column constants and row statistics, read while
        // the ring fills (visible to both warpgroups after the main loop)
@@ -589,7 +805,7 @@ am_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
       const Scalars sc = load_scalars(epi);
       for (int i = ct; i < T::BN; i += 256)
         if (n0 + i < N) cols[i] = load_col(epi, sc, n0 + i);
-      for (int i = ct; i < T::BM; i += 256) {
+      for (int i = ct; i < (T::ROWW ? 0 : T::BM); i += 256) {
         const bool ok = m0 + i < M;
         rstats[2 * i] = ok ? epi.stats[2 * (m0 + i)] : 0;
         rstats[2 * i + 1] = ok ? epi.stats[2 * (m0 + i) + 1] : 0;
@@ -607,7 +823,7 @@ am_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
 
     for (int kt = 0; kt < nkt; ++kt) {
       const int s = kt % S;
-      mbar_wait(&full[s], (kt / S) & 1);
+      mbar_wait(T::ROWW ? &ready[s] : &full[s], (kt / S) & 1);
       const uint32_t st = base + s * T::STAGE;
       fence_regs(acc);
       wgmma_fence();
@@ -656,6 +872,7 @@ am_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
     fence_regs(acc);
     // both warpgroups' wgmma reads of the ring are done, constants staged
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    if constexpr (T::ROWW) mbar_wait(stats_done, 0);
 
     // epilogue from registers: thread owns rows r, r + 8 and column pairs
     const int warp = tid >> 5, lane = tid & 31;
@@ -752,6 +969,23 @@ am_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
 //     the epilogue (its per-column constants are prefetched into L2 at the
 //     start).  No global scratch, no atomics: two calls are bit-equal.
 
+//
+// Row-major weights (ROWW: the codes-in entry's (K, N) w_q, read in place):
+// the same block, cluster and epilogue, with the K round split over all
+// eight warps (32 K bytes each, every warp all 32 columns).  A round is 256
+// rows of 32 column bytes, copied by 16-byte pieces into the ring (rows
+// past K and columns past N zero; where N or w_q is off 16 bytes, byte by
+// byte).  A lane (g, t) reads four 32-bit words, rows 8t .. 8t + 3 of its
+// warp's 32 at bytes 4g .. 4g + 3, and transposes them (__byte_perm) into
+// four words, each 4 consecutive K bytes of one column; with rows 8t + 4
+// .. 8t + 7 that is the B fragment (b0, b1) of column 4g + i for the i-th
+// of four mmas.  So mma i's column index g stands for column 4g + i, and
+// its K index 4t + e (16 + 4t + e) for row 8t + e (8t + 4 + e): the A
+// fragment is then the 8 consecutive codes of row g at 8t, one 8-byte load.
+// Lane (g, t)'s accumulators are columns 8t .. 8t + 7 of row g.  Ring rows
+// are stored at row ^ ((row >> 3) & 3), so the four t of one load hit
+// distinct banks.
+
 constexpr int SK_BN = 32;                   // columns per block
 constexpr int SK_WN = 2, SK_WK = 4;         // warps along N, along K
 constexpr int SK_CG = SK_BN / (8 * SK_WN);  // 8-column groups per warp
@@ -764,18 +998,36 @@ constexpr int SK_RLD = SK_BN + 8;           // row stride of the warp sums
 constexpr int SK_SLOT = 8 * SK_BN + 16;     // a block's partial: acc, stats
 constexpr int SK_WLD = SK_KR + 64;          // weight ring row (one column)
 constexpr int SK_RING = SK_STAGES * SK_BN * SK_WLD;
+constexpr int SK_WK_ROWS = SK_THREADS / 32;  // row-major: warps along K
 static_assert(SK_THREADS == 8 * SK_BN, "one output per thread");
 static_assert(SK_MAX_CS * SK_MAX_ROUNDS * SK_KR >= 33025, "MAX_K");
+static_assert(SK_WK_ROWS * 32 == SK_KR, "row-major: 32 K bytes a warp");
+static_assert(SK_STAGES * SK_KR * SK_BN <= SK_RING, "row-major ring");
 
-// Dynamic shared memory: the weight ring (SK_STAGES, SK_BN, SK_WLD) and the
-// codes (8, ks + 64), whose 64-byte row pads put the 8 rows of a quarter
-// warp's 16-byte loads on distinct banks; the warps' sums (SK_WK, 8,
-// SK_RLD) and statistics (SK_WK, 8, 2); the cluster's partials (SK_MAX_CS
+// Dynamic shared memory: the weight ring (SK_STAGES, SK_BN, SK_WLD), or
+// row-major (SK_STAGES, SK_KR, SK_BN), and the codes (8, ks + pad), whose
+// row pads (64 bytes K-major, 32 row-major) put the 8 rows of a warp's
+// 16-byte (8-byte) loads on distinct banks; the warps' sums (wk, 8,
+// SK_RLD) and statistics (wk, 8, 2); the cluster's partials (SK_MAX_CS
 // slots, written by the other blocks at any time after the first cluster
 // barrier).
-__host__ __device__ constexpr int sk_smem(int ks) {
-  return SK_RING + 8 * (ks + 64) +
-         4 * (SK_WK * 8 * SK_RLD + SK_WK * 16 + SK_MAX_CS * SK_SLOT);
+__host__ __device__ constexpr int sk_lda(int ks, bool rows) {
+  return ks + (rows ? 32 : 64);
+}
+__host__ __device__ constexpr int sk_smem(int ks, bool rows) {
+  return SK_RING + 8 * sk_lda(ks, rows) +
+         4 * ((rows ? SK_WK_ROWS : SK_WK) * (8 * SK_RLD + 16) +
+              SK_MAX_CS * SK_SLOT);
+}
+
+// 16 bytes of a row-major weight row at src, the first nb (0..16) of them,
+// the rest 0, loaded byte by byte (src off 16 bytes)
+__device__ __forceinline__ uint4 ld_bytes16(const uint8_t* src, int nb) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    if (e < nb) w[e / 4] |= (uint32_t)__ldg(src + e) << (8 * (e % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // 16-byte async copy; bytes beyond src_bytes (0 or 16) are zero-filled
@@ -832,53 +1084,80 @@ __device__ __forceinline__ void mma_rows8(int (&d)[4], uint32_t a0,
   mma_u8(d, a, b);
 }
 
-template <typename InT>
+template <typename InT, bool ROWW>
 __global__ void __launch_bounds__(SK_THREADS, 4)
 am_splitk_kernel(const InT* __restrict__ x, int vec,
-                 const uint8_t* __restrict__ wt, int ldt, int M, int K,
-                 int N, int ks, Epi epi, Planes pl, uint32_t main4,
+                 const uint8_t* __restrict__ wt, int ldt, int wvec, int M,
+                 int K, int N, int ks, Epi epi, Planes pl, uint32_t main4,
                  int stat_kind, uint32_t stat4) {
+  // ROWW: wt is row-major (K rows of ldt bytes), wvec: 16-byte copies
+  // allowed (ldt and wt 16-byte aligned); else wt is K-major (N rows of ldt
+  // bytes, ldt a multiple of 16)
+  constexpr int WK = ROWW ? SK_WK_ROWS : SK_WK, WN = ROWW ? 1 : SK_WN;
+  constexpr int CG = ROWW ? 4 : SK_CG;  // mmas per K step a warp
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ uint32_t s_am[8], s_wm[8];
-  const int lda = ks + 64;
-  uint8_t* ring = smem;  // (SK_STAGES, SK_BN, SK_WLD) weights
+  const int lda = sk_lda(ks, ROWW);
+  uint8_t* ring = smem;  // weights, (SK_STAGES, SK_BN, SK_WLD) or row-major
   uint8_t* codes = smem + SK_RING;  // (8, lda)
   int* red = reinterpret_cast<int*>(codes + 8 * lda);
-  int* sred = red + SK_WK * 8 * SK_RLD;
-  int* slots = sred + SK_WK * 16;
+  int* sred = red + WK * 8 * SK_RLD;
+  int* slots = sred + WK * 16;
 
   const int cs = gridDim.x;
   const uint32_t rank = cluster_rank();
   const int n0 = blockIdx.y * SK_BN, k0 = (int)rank * ks;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int wn = warp % SK_WN, wk = warp / SK_WN;
+  const int wn = warp % WN, wk = warp / WN;
   // rounds of this block's slice that reach into K (split_k leaves every
   // block at least one)
   const int nr = min(ks, K - k0 + SK_KR - 1) / SK_KR;
   cluster_arrive_relaxed();  // this block runs (waited on before DSMEM)
 
-  // a round's weights, (SK_BN, SK_KR) bytes, copied by 16-byte pieces:
-  // piece q = 256 j + tid is column q / 16, bytes 16 (q % 16) of the round,
-  // so a warp's copy covers two whole 256-byte runs; past ldt or N they read
-  // as zero
-  const int koff = 64 * wk + 16 * t;
-  const uint8_t* wsrc[SK_CG];
-  int wk0[SK_CG], wdst[SK_CG];
+  // K-major: a round's weights, (SK_BN, SK_KR) bytes, copied by 16-byte
+  // pieces: piece q = 256 j + tid is column q / 16, bytes 16 (q % 16) of the
+  // round, so a warp's copy covers two whole 256-byte runs; past ldt or N
+  // they read as zero.  Row-major: piece q is row q / 2 of the round,
+  // column bytes 16 (q % 2), stored at ring row q / 2 ^ ((q / 16) & 3).
+  const int koff = ROWW ? 32 * wk + 8 * t : 64 * wk + 16 * t;
+  const uint8_t* wsrc[2];
+  int wk0[2], wdst[2];
 #pragma unroll
-  for (int j = 0; j < SK_CG; ++j) {
-    const int q = j * SK_THREADS + tid, c = q / 16, b = 16 * (q % 16);
-    // a column past N reads as zero: its K offset is put past ldt
-    wk0[j] = n0 + c < N ? k0 + b : ldt;
-    wsrc[j] = wt + (size_t)(n0 + c < N ? n0 + c : 0) * ldt + k0 + b;
-    wdst[j] = c * SK_WLD + b;
+  for (int j = 0; j < 2; ++j) {
+    const int q = j * SK_THREADS + tid;
+    if constexpr (ROWW) {
+      const int row = q / 2, c = 16 * (q % 2);
+      wk0[j] = n0 + c < N ? min(16, N - n0 - c) : 0;  // bytes of the piece
+      wsrc[j] = wt + (size_t)(k0 + row) * ldt + n0 + c;
+      wdst[j] = (row ^ ((row >> 3) & 3)) * SK_BN + c;
+    } else {
+      const int c = q / 16, b = 16 * (q % 16);
+      // a column past N reads as zero: its K offset is put past ldt
+      wk0[j] = n0 + c < N ? k0 + b : ldt;
+      wsrc[j] = wt + (size_t)(n0 + c < N ? n0 + c : 0) * ldt + k0 + b;
+      wdst[j] = c * SK_WLD + b;
+    }
   }
   auto load_round = [&](int r) {
-    uint8_t* stage = ring + (r % SK_STAGES) * SK_BN * SK_WLD;
+    if constexpr (ROWW) {
+      uint8_t* stage = ring + (r % SK_STAGES) * SK_KR * SK_BN;
 #pragma unroll
-    for (int j = 0; j < SK_CG; ++j) {
-      const bool ok = wk0[j] + r * SK_KR < ldt;  // 16-byte units
-      cp_async16(stage + wdst[j], ok ? wsrc[j] + r * SK_KR : wt, ok ? 16 : 0);
+      for (int j = 0; j < 2; ++j) {
+        const int row = (j * SK_THREADS + tid) / 2;
+        const int nb = k0 + r * SK_KR + row < K ? wk0[j] : 0;
+        const uint8_t* src = wsrc[j] + (size_t)r * SK_KR * ldt;
+        if (wvec) cp_async16(stage + wdst[j], nb ? src : wt, nb);
+        else *reinterpret_cast<uint4*>(stage + wdst[j]) = ld_bytes16(src, nb);
+      }
+    } else {
+      uint8_t* stage = ring + (r % SK_STAGES) * SK_BN * SK_WLD;
+#pragma unroll
+      for (int j = 0; j < SK_CG; ++j) {
+        const bool ok = wk0[j] + r * SK_KR < ldt;  // 16-byte units
+        cp_async16(stage + wdst[j], ok ? wsrc[j] + r * SK_KR : wt,
+                   ok ? 16 : 0);
+      }
     }
   };
   // first the quant params and this thread's first two items of x (8
@@ -952,56 +1231,94 @@ am_splitk_kernel(const InT* __restrict__ x, int vec,
     quantize(i, nullptr);
   __syncthreads();
 
-  int acc[SK_CG][4], sub[SK_CG][4];
+  int acc[CG][4], sub[CG][4];
 #pragma unroll
-  for (int j = 0; j < SK_CG; ++j)
+  for (int j = 0; j < CG; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) { acc[j][e] = 0; sub[j][e] = 0; }
   uint32_t sqa = 0u, sx = 0u;
   const bool arow = g < M;
   const uint8_t* afrag = codes + g * lda + koff;
   const int n_planes = pl.n;
+  // row statistics, once per K byte (K-major: the warps of wn == 0)
+  auto stats = [&](uint32_t a) {
+    sqa = __dp4a(a, 0x01010101u, sqa);
+    if (stat_kind == 1) sx = __dp4a(a & stat4, 0x01010101u, sx);
+    else if (stat_kind == 2) sx += __popc(nonzero_bytes(a & stat4));
+  };
   for (int r = 0; r < nr; ++r) {
     cp_async_wait<SK_STAGES - 2>();  // this thread's pieces of round r
     __syncthreads();  // everyone's; round r - 1's stage is free again
     if (r + SK_STAGES - 1 < nr) load_round(r + SK_STAGES - 1);
     cp_async_commit();
-    const uint4 a = arow ? *reinterpret_cast<const uint4*>(afrag + r * SK_KR)
-                         : make_uint4(0u, 0u, 0u, 0u);
-    const uint32_t au[4] = {a.x, a.y, a.z, a.w};
-    if (wn == 0) {  // row statistics, once per K byte
+    if constexpr (ROWW) {
+      const uint2 a = arow ? *reinterpret_cast<const uint2*>(afrag + r * SK_KR)
+                           : make_uint2(0u, 0u);
+      stats(a.x);
+      stats(a.y);
+      // rows 8t .. 8t + 7 of the warp's 32, word g, transposed: b0[i], b1[i]
+      // are column 4g + i's K bytes 8t .. 8t + 3 and 8t + 4 .. 8t + 7
+      const uint8_t* stage = ring + (r % SK_STAGES) * SK_KR * SK_BN;
+      const uint8_t* wrow = stage + (32 * wk + 8 * t) * SK_BN + 4 * g;
+      uint32_t v[8], b0[4], b1[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sqa = __dp4a(au[e], 0x01010101u, sqa);
-        if (stat_kind == 1) sx = __dp4a(au[e] & stat4, 0x01010101u, sx);
-        else if (stat_kind == 2) sx += __popc(nonzero_bytes(au[e] & stat4));
+      for (int e = 0; e < 8; ++e)
+        v[e] = *reinterpret_cast<const uint32_t*>(wrow + (e ^ t) * SK_BN);
+      transpose4(v[0], v[1], v[2], v[3], b0);
+      transpose4(v[4], v[5], v[6], v[7], b1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        mma_rows8(acc[i], a.x & main4, a.y & main4, b0[i], b1[i]);
+      for (int p = 0; p < n_planes; ++p) {
+        const uint32_t am = s_am[p], wm = s_wm[p];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          mma_rows8(sub[i], a.x & am, a.y & am, b0[i] & wm, b1[i] & wm);
       }
-    }
-    const uint8_t* stage = ring + (r % SK_STAGES) * SK_BN * SK_WLD;
-    uint4 w[SK_CG];
+    } else {
+      const uint4 a = arow ? *reinterpret_cast<const uint4*>(afrag + r * SK_KR)
+                           : make_uint4(0u, 0u, 0u, 0u);
+      const uint32_t au[4] = {a.x, a.y, a.z, a.w};
+      if (wn == 0) {
 #pragma unroll
-    for (int j = 0; j < SK_CG; ++j) {
-      w[j] = *reinterpret_cast<const uint4*>(
-          stage + (wn * 8 * SK_CG + 8 * j + g) * SK_WLD + koff);
-      mma_rows8(acc[j], au[0] & main4, au[1] & main4, w[j].x, w[j].y);
-      mma_rows8(acc[j], au[2] & main4, au[3] & main4, w[j].z, w[j].w);
-    }
-    for (int p = 0; p < n_planes; ++p) {
-      const uint32_t am = s_am[p], wm = s_wm[p];
+        for (int e = 0; e < 4; ++e) stats(au[e]);
+      }
+      const uint8_t* stage = ring + (r % SK_STAGES) * SK_BN * SK_WLD;
+      uint4 w[SK_CG];
 #pragma unroll
       for (int j = 0; j < SK_CG; ++j) {
-        mma_rows8(sub[j], au[0] & am, au[1] & am, w[j].x & wm, w[j].y & wm);
-        mma_rows8(sub[j], au[2] & am, au[3] & am, w[j].z & wm, w[j].w & wm);
+        w[j] = *reinterpret_cast<const uint4*>(
+            stage + (wn * 8 * SK_CG + 8 * j + g) * SK_WLD + koff);
+        mma_rows8(acc[j], au[0] & main4, au[1] & main4, w[j].x, w[j].y);
+        mma_rows8(acc[j], au[2] & main4, au[3] & main4, w[j].z, w[j].w);
+      }
+      for (int p = 0; p < n_planes; ++p) {
+        const uint32_t am = s_am[p], wm = s_wm[p];
+#pragma unroll
+        for (int j = 0; j < SK_CG; ++j) {
+          mma_rows8(sub[j], au[0] & am, au[1] & am, w[j].x & wm, w[j].y & wm);
+          mma_rows8(sub[j], au[2] & am, au[3] & am, w[j].z & wm, w[j].w & wm);
+        }
       }
     }
   }
 
   // the block's partial: warps' sums in shared memory, added in warp order
+  if constexpr (ROWW) {  // lane (g, t): mma i's columns 8t + i, 8t + 4 + i
+    int* dst = red + (wk * 8 + g) * SK_RLD + 8 * t;
+    *reinterpret_cast<int4*>(dst) = make_int4(
+        acc[0][0] - sub[0][0], acc[1][0] - sub[1][0], acc[2][0] - sub[2][0],
+        acc[3][0] - sub[3][0]);
+    *reinterpret_cast<int4*>(dst + 4) = make_int4(
+        acc[0][1] - sub[0][1], acc[1][1] - sub[1][1], acc[2][1] - sub[2][1],
+        acc[3][1] - sub[3][1]);
+  } else {
 #pragma unroll
-  for (int j = 0; j < SK_CG; ++j) {
-    const int c = wn * 8 * SK_CG + 8 * j + 2 * t;
-    *reinterpret_cast<int2*>(red + (wk * 8 + g) * SK_RLD + c) =
-        make_int2(acc[j][0] - sub[j][0], acc[j][1] - sub[j][1]);
+    for (int j = 0; j < SK_CG; ++j) {
+      const int c = wn * 8 * SK_CG + 8 * j + 2 * t;
+      *reinterpret_cast<int2*>(red + (wk * 8 + g) * SK_RLD + c) =
+          make_int2(acc[j][0] - sub[j][0], acc[j][1] - sub[j][1]);
+    }
   }
   if (wn == 0) {
     sqa += __shfl_xor_sync(0xffffffffu, sqa, 1);
@@ -1017,7 +1334,7 @@ am_splitk_kernel(const InT* __restrict__ x, int vec,
   const int orow = tid / SK_BN, ocol = tid % SK_BN;
   int v = 0, st = 0;
 #pragma unroll
-  for (int w = 0; w < SK_WK; ++w) {
+  for (int w = 0; w < WK; ++w) {
     v += red[(w * 8 + orow) * SK_RLD + ocol];
     if (tid < 16) st += sred[w * 16 + tid];
   }
@@ -1270,11 +1587,13 @@ struct __align__(16) ColS {
   float pad;
 };
 
-template <typename InT>
+template <typename InT, bool ROWW>
 __global__ void __launch_bounds__(CV_BLOCK, 3)
 am_conv_kernel(const InT* __restrict__ x, const uint8_t* __restrict__ wt,
                int ldt, int M, int K, int N, ConvGeom g, Epi epi, Planes pl,
                uint32_t main4, int stat_kind, uint32_t stat4) {
+  // wt: K-major (N rows of ldt bytes, ldt >= K a multiple of 16), or with
+  // ROWW row-major (K rows of ldt >= N bytes, any alignment)
   using VT = Vec16<InT>;
   constexpr int V = VT::V, W = V / 4;
   extern __shared__ __align__(128) uint8_t smem[];
@@ -1333,19 +1652,34 @@ am_conv_kernel(const InT* __restrict__ x, const uint8_t* __restrict__ wt,
   // (zeros past K and N), the column constants, the plane masks
   for (int i = tid; i < g.bm * g.lda / 16; i += CV_THREADS)
     reinterpret_cast<uint4*>(codes)[i] = make_uint4(0u, 0u, 0u, 0u);
-  const int wch = g.kp / 16;
-  for (int i = tid; i < g.np * wch; i += CV_THREADS) {
-    const int n = i / wch, kb = (i - n * wch) * 16;
-    uint4 w = make_uint4(0u, 0u, 0u, 0u);
-    if (n < N && kb < K) {  // kb + 16 <= ldt: ldt >= K, a multiple of 16
-      w = *reinterpret_cast<const uint4*>(wt + (size_t)n * ldt + kb);
-      const int keep = K - kb;
-      w.x = keep_bytes(w.x, keep);
-      w.y = keep_bytes(w.y, keep - 4);
-      w.z = keep_bytes(w.z, keep - 8);
-      w.w = keep_bytes(w.w, keep - 12);
+  if constexpr (ROWW) {
+    // a thread takes 4 rows of one column (neighbouring threads:
+    // neighbouring columns) and stores them as one K-major word
+    const int kq = g.kp / 4;
+    for (int i = tid; i < g.np * kq; i += CV_THREADS) {
+      const int kb = (i / g.np) * 4, n = i - (i / g.np) * g.np;
+      uint32_t w = 0u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n < N && kb + e < K)
+          w |= (uint32_t)__ldg(wt + (size_t)(kb + e) * ldt + n) << (8 * e);
+      *reinterpret_cast<uint32_t*>(wsm + n * g.lda + kb) = w;
     }
-    *reinterpret_cast<uint4*>(wsm + n * g.lda + kb) = w;
+  } else {
+    const int wch = g.kp / 16;
+    for (int i = tid; i < g.np * wch; i += CV_THREADS) {
+      const int n = i / wch, kb = (i - n * wch) * 16;
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (n < N && kb < K) {  // kb + 16 <= ldt: ldt >= K, a multiple of 16
+        w = *reinterpret_cast<const uint4*>(wt + (size_t)n * ldt + kb);
+        const int keep = K - kb;
+        w.x = keep_bytes(w.x, keep);
+        w.y = keep_bytes(w.y, keep - 4);
+        w.z = keep_bytes(w.z, keep - 8);
+        w.w = keep_bytes(w.w, keep - 12);
+      }
+      *reinterpret_cast<uint4*>(wsm + n * g.lda + kb) = w;
+    }
   }
   {
     const Scalars sc = load_scalars(epi);
@@ -1541,6 +1875,319 @@ am_conv_kernel(const InT* __restrict__ x, const uint8_t* __restrict__ wt,
   }
 }
 
+// --- rows tile: codes-in calls whose operands are off 16 bytes -----------
+//
+// The transposing wgmma tiles read both operands by TMA, which needs row
+// strides and bases that are multiples of 16 bytes.  Where an operand is
+// not (K = 2000 at an odd N, hymba's head at N = 32,001 above 8 rows), the
+// rows tile runs the call: mma.sync over cp.async stages of both operands
+// as they lie in memory, B fragments by register transposes.
+//   * One 64 x 128 block tile of eight warps (2 x 4, each 32 x 32); K steps
+//     of 128 bytes (64 with planes, which take a second accumulator array)
+//     through a ring of four stages, both operands copied in 16-byte
+//     pieces by cp.async where aligned, else byte by byte (rows or columns
+//     past M, N, K zero).  The codes rows are padded by 16 bytes, so
+//     ldmatrix's 8 rows fall on distinct banks; a weight row (one k, BN
+//     columns) is BN bytes with its 16-byte chunks XOR-swizzled by 2
+//     ((k >> 2) & 3), so the four k rows 4t + e of one B load fall on
+//     distinct banks.
+//   * A fragments by ldmatrix.x4 (the codes are K-major already); a lane
+//     (g, t) reads 32-bit words at rows 4t .. 4t + 3 and 16 + 4t .. 16 + 4t
+//     + 3 of a 32-byte K step, bytes 4g .. 4g + 3 of its warp's 32 columns,
+//     and transposes each four (transpose4) into the B fragments of four
+//     mmas: mma i's column index g stands for column 4g + i (the K order is
+//     the mma's own).  Lane (g, t) so holds columns 8t .. 8t + 7 of rows g
+//     and g + 8 of each m16 tile, stored as two 16-byte pieces a row.
+//   * The planes mask A and W after the transpose, on the same registers;
+//     the row statistics come from the unmasked A fragments, each m16
+//     tile's from one warp of its row slab (m-tile mt: warp wn = mt),
+//     summed over the quad and handed to the other warps through shared
+//     memory: no prep kernel, no scratch, one launch a call.
+//   * The epilogue is load_col / epi_value, as every route, from the
+//     accumulators straight to out (float32).
+// No served call takes it; it is kept for the alignments TMA refuses, not
+// tuned (PERF.md row 2 has its time at the olmo-1b shapes).
+
+constexpr int RT_THREADS = 256;
+
+// BK: K bytes a stage (128: more bytes in flight a block); 2 warps along
+// M, 4 along N
+template <int BM_, int BN_, int BK_, int STAGES_, bool PLANES_>
+struct RowTile {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, STAGES = STAGES_;
+  static constexpr bool PLANES = PLANES_;
+  static constexpr int WM = 2, WN = RT_THREADS / 32 / WM;
+  static constexpr int ALD = BK + 16;  // codes row stride in the ring
+  static constexpr int MT = BM / (16 * WM);  // m16 tiles a warp
+  static constexpr int NG = BN / (32 * WN);  // 32-column groups a warp
+  static constexpr int A_BYTES = BM * ALD, B_BYTES = BK * BN;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int A_PIECES = BM * BK / 16;
+  static constexpr int PIECES = (A_PIECES + BK * BN / 16) / RT_THREADS;
+  static constexpr int COLS_OFF = STAGES * STAGE;
+  static constexpr int ROWS_OFF = COLS_OFF + BN * (int)sizeof(Col);
+  static constexpr int SMEM = ROWS_OFF + 2 * BM * 4;
+  // MT * NG * 16 accumulators a thread (twice with planes): two blocks an
+  // SM at 64 of them
+  static constexpr int CTAS = (PLANES ? 2 : 1) * MT * NG <= 4 ? 2 : 1;
+  static_assert(BM == 64 || BM == 128, "tile rows");
+  static_assert(MT * WM * 16 == BM && NG * WN * 32 == BN, "warp tiles");
+  static_assert(NG == 1 || NG == 2, "tile columns");
+  static_assert(BK == 64 || BK == 128, "stage depth");
+  static_assert(MT <= WN, "a warp of the row slab for each m16 tile");
+  static_assert(A_PIECES % RT_THREADS == 0, "whole rounds of pieces");
+  static_assert(ROWS_OFF % 16 == 0, "aligned row statistics");
+  static_assert(CTAS * SMEM <= 232448, "shared memory");
+};
+
+// byte offset of weight chunk c (16 bytes) of ring row k, rows bn bytes:
+// chunks XOR 2 ((k >> 2) & 3), kept inside a 64-byte row (there t and t + 2
+// share banks)
+__device__ __forceinline__ int rt_swz(int k, int bn) {
+  return (((k >> 2) & 3) << 1) & (bn / 16 - 1);
+}
+__device__ __forceinline__ int rt_wofs(int k, int c, int bn) {
+  return k * bn + ((c ^ rt_swz(k, bn)) << 4);
+}
+
+template <class T>
+__global__ void __launch_bounds__(RT_THREADS, T::CTAS)
+am_rows_kernel(const uint8_t* __restrict__ a, int avec,
+               const uint8_t* __restrict__ w, int ldw, int wvec, int M,
+               int K, int N, Epi epi, Planes pl, uint32_t main4,
+               int stat_kind, uint32_t stat4) {
+  // a: (M, K) codes, rows K bytes apart; w: (K, N) codes, rows ldw bytes
+  // apart; avec / wvec: 16-byte copies allowed (K / ldw and the base a
+  // multiple of 16)
+  constexpr int BM = T::BM, MT = T::MT, S = T::STAGES;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ uint32_t s_am[8], s_wm[8];
+  Col* cols = reinterpret_cast<Col*>(smem + T::COLS_OFF);
+  int* rstats = reinterpret_cast<int*>(smem + T::ROWS_OFF);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  constexpr int WN = T::WN, SLAB = BM / T::WM;  // rows a warp
+  const int wm = warp / WN, wn = warp % WN;
+  constexpr int BN = T::BN, NG = T::NG, CPR = BN / 16, BK = T::BK;
+  constexpr int ALD = T::ALD, APR = BK / 16;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int nkt = (K + BK - 1) / BK;
+
+  // stage kt: piece q < A_PIECES is codes row q / APR, K bytes 16 (q % APR);
+  // the rest weight row (q - A_PIECES) / CPR, column chunk (q - A_PIECES)
+  // % CPR
+  auto load_stage = [&](int kt) {
+    uint8_t* st = smem + (kt % S) * T::STAGE;
+    const int kb = kt * BK;
+#pragma unroll
+    for (int j = 0; j < T::PIECES; ++j) {
+      const int q = j * RT_THREADS + tid;
+      if (j < T::A_PIECES / RT_THREADS) {
+        const int r = q / APR, c = (q % APR) * 16;
+        const int nb = m0 + r < M ? max(0, min(16, K - kb - c)) : 0;
+        const uint8_t* src = a + (size_t)(m0 + r) * K + kb + c;
+        uint8_t* dst = st + r * ALD + c;
+        if (avec) cp_async16(dst, nb ? src : a, nb);
+        else *reinterpret_cast<uint4*>(dst) = ld_bytes16(src, nb);
+      } else {
+        const int qb = q - T::A_PIECES, r = qb / CPR, c = qb % CPR;
+        const int nb = kb + r < K ? max(0, min(16, N - n0 - 16 * c)) : 0;
+        const uint8_t* src = w + (size_t)(kb + r) * ldw + n0 + 16 * c;
+        uint8_t* dst = st + T::A_BYTES + rt_wofs(r, c, BN);
+        if (wvec) cp_async16(dst, nb ? src : w, nb);
+        else *reinterpret_cast<uint4*>(dst) = ld_bytes16(src, nb);
+      }
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nkt) load_stage(s);
+    cp_async_commit();
+  }
+  {  // the epilogue's column constants (read after the main loop)
+    const Scalars sc = load_scalars(epi);
+    for (int i = tid; i < BN; i += RT_THREADS)
+      if (n0 + i < N) cols[i] = load_col(epi, sc, n0 + i);
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) { s_am[i] = pl.amask[i]; s_wm[i] = pl.wmask[i]; }
+  }
+
+  int acc[MT][4 * NG][4], sub[T::PLANES ? MT : 1][4 * NG][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4 * NG; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[mt][i][e] = 0;
+        if constexpr (T::PLANES) sub[mt][i][e] = 0;
+      }
+  // row statistics of m16 tile wn (rows g, g + 8), from its warp of the
+  // row half (the tile's other warps skip them)
+  uint32_t sq0 = 0u, sq1 = 0u, sx0 = 0u, sx1 = 0u;
+  auto stat = [&](uint32_t a, uint32_t& q, uint32_t& x) {
+    q = __dp4a(a, 0x01010101u, q);
+    if (stat_kind == 1) x = __dp4a(a & stat4, 0x01010101u, x);
+    else if (stat_kind == 2) x += __popc(nonzero_bytes(a & stat4));
+  };
+  const int n_planes = pl.n;
+  // ldmatrix rows: (lane & 7) + 8 * bit 3, K bytes 16 * bit 4
+  const uint32_t a_lane = smem_addr(smem) +
+      (wm * SLAB + (lane & 7) + ((lane >> 3) & 1) * 8) * ALD +
+      (lane >> 4) * 16;
+  // B words of 32-column group gi: chunk 2 (NG wn + gi) + g / 4, word g %
+  // 4 of rows 4t + e (swizzle: 2t)
+  int b_lane[NG];
+#pragma unroll
+  for (int gi = 0; gi < NG; ++gi)
+    b_lane[gi] = T::A_BYTES + 4 * t * BN +
+                 (((2 * (NG * wn + gi) + (g >> 2)) ^ rt_swz(4 * t, BN)) << 4) +
+                 4 * (g & 3);
+  // the fragments of 32-byte K step kc of the stage at byte st
+  auto frags = [&](int st, int kc, uint32_t (&af)[MT][4],
+                   uint32_t (&b0)[4 * NG], uint32_t (&b1)[4 * NG]) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      ldsm_x4(af[mt], a_lane + st + mt * 16 * ALD + kc * 32);
+#pragma unroll
+    for (int gi = 0; gi < NG; ++gi) {
+      const uint8_t* bp = smem + st + b_lane[gi] + kc * 32 * BN;
+      uint32_t v[8], t0[4], t1[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = *reinterpret_cast<const uint32_t*>(bp + e * BN);
+        v[4 + e] = *reinterpret_cast<const uint32_t*>(bp + (16 + e) * BN);
+      }
+      transpose4(v[0], v[1], v[2], v[3], t0);
+      transpose4(v[4], v[5], v[6], v[7], t1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        b0[4 * gi + i] = t0[i];
+        b1[4 * gi + i] = t1[i];
+      }
+    }
+  };
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<S - 2>();  // this thread's pieces of stage kt
+    __syncthreads();  // everyone's; stage kt - 1 is free again
+    if (kt + S - 1 < nkt) load_stage(kt + S - 1);
+    cp_async_commit();
+    const int st = (kt % S) * T::STAGE;
+    // two fragment sets: step kc + 1's loads are issued before step kc's
+    // products
+    uint32_t af[2][MT][4], b0[2][4 * NG], b1[2][4 * NG];
+    frags(st, 0, af[0], b0[0], b1[0]);
+#pragma unroll
+    for (int kc = 0; kc < BK / 32; ++kc) {
+      const int cur = kc & 1;
+      if (kc + 1 < BK / 32) frags(st, kc + 1, af[cur ^ 1], b0[cur ^ 1],
+                                  b1[cur ^ 1]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint32_t* a = af[cur][mt];
+        if (mt == wn) {  // a0, a2: row g; a1, a3: row g + 8
+          stat(a[0], sq0, sx0);
+          stat(a[2], sq0, sx0);
+          stat(a[1], sq1, sx1);
+          stat(a[3], sq1, sx1);
+        }
+        const uint32_t am[4] = {a[0] & main4, a[1] & main4, a[2] & main4,
+                                a[3] & main4};
+#pragma unroll
+        for (int i = 0; i < 4 * NG; ++i) {
+          const uint32_t b[2] = {b0[cur][i], b1[cur][i]};
+          mma_u8(acc[mt][i], am, b);
+        }
+      }
+      if constexpr (T::PLANES) {
+        for (int p = 0; p < n_planes; ++p) {
+          const uint32_t amk = s_am[p], wmk = s_wm[p];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const uint32_t* a = af[cur][mt];
+            const uint32_t ap[4] = {a[0] & amk, a[1] & amk, a[2] & amk,
+                                    a[3] & amk};
+#pragma unroll
+            for (int i = 0; i < 4 * NG; ++i) {
+              const uint32_t bp2[2] = {b0[cur][i] & wmk, b1[cur][i] & wmk};
+              mma_u8(sub[mt][i], ap, bp2);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4 * NG; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if constexpr (T::PLANES) acc[mt][i][e] -= sub[mt][i][e];
+
+  // the quad's four K slices of a row, then to the block
+  if (wn < MT) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t q = h ? sq1 : sq0, x = h ? sx1 : sx0;
+      q += __shfl_xor_sync(0xffffffffu, q, 1);
+      q += __shfl_xor_sync(0xffffffffu, q, 2);
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      if (t == 0) {
+        const int r = wm * SLAB + wn * 16 + g + 8 * h;
+        rstats[2 * r] = (int)q;
+        rstats[2 * r + 1] = (int)x;
+      }
+    }
+  }
+  __syncthreads();
+
+  // lane (g, t): columns c0 .. c0 + 7 of each 32-column group, rows g and
+  // g + 8 of each m16 tile; column c0 + j is mma (j & 3)'s accumulator j >>
+  // 2 (row g) or 2 + (j >> 2)
+  float* out = static_cast<float*>(epi.out);
+#pragma unroll
+  for (int gi = 0; gi < NG; ++gi)
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int c0 = (NG * wn + gi) * 32 + 8 * t;
+    const bool whole = (N & 3) == 0 && n0 + c0 + 8 <= N;
+    const int rl = wm * SLAB + mt * 16 + g;
+    float f[2][8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const Col k = cols[n0 + c0 + j < N ? c0 + j : 0];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int v = acc[mt][4 * gi + (j & 3)][2 * h + (j >> 2)];
+        f[h][j] = epi_value(v, (float)rstats[2 * (rl + 8 * h) + 1],
+                            (float)rstats[2 * (rl + 8 * h)], k, epi.use_cv);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + rl + 8 * h;
+      if (row >= M) continue;
+      float* o = out + (size_t)row * N + n0 + c0;
+      if (whole) {
+        *reinterpret_cast<float4*>(o) =
+            make_float4(f[h][0], f[h][1], f[h][2], f[h][3]);
+        *reinterpret_cast<float4*>(o + 4) =
+            make_float4(f[h][4], f[h][5], f[h][6], f[h][7]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (n0 + c0 + j < N) o[j] = f[h][j];
+      }
+    }
+  }
+}
+
 // --- host side --------------------------------------------------------------
 
 Planes make_planes(int n, unsigned long long amasks, unsigned long long wmasks) {
@@ -1556,7 +2203,7 @@ Planes make_planes(int n, unsigned long long amasks, unsigned long long wmasks) 
 // CUDA launches of each matmul kernel that the launch functions made since
 // the library was loaded (read by am_launches), in the wrapper's
 // LAUNCH_KINDS order; one host thread launches
-enum LaunchKind { L_PREP, L_WGMMA, L_SPLIT_K, L_CONV, L_KINDS };
+enum LaunchKind { L_PREP, L_WGMMA, L_SPLIT_K, L_CONV, L_ROWS, L_KINDS };
 unsigned long long g_launches[L_KINDS];
 
 // cudaGetLastError after a launch of `kind`, counted if it is 0
@@ -1596,33 +2243,39 @@ EncodeTiledFn encoder() {
 }
 
 // (rows, inner) uint8 matrix with row stride ld bytes, read in boxes of
-// (box_rows, 128) with 128-byte swizzle; out-of-bounds bytes read as 0
+// (box_rows, box_inner): with 128-byte swizzle (sw128: the K-major
+// operands, box_inner = PBK), else as they lie (row-major weights);
+// out-of-bounds bytes read as 0
 int tma_map(CUtensorMap* map, const void* base, int inner, int rows, int ld,
-            int box_rows) {
+            int box_inner, int box_rows, bool sw128) {
   EncodeTiledFn fn = encoder();
   if (fn == nullptr) return ERR_NO_ENCODER;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld};
-  const cuuint32_t box[2] = {(cuuint32_t)PBK, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows};
   const cuuint32_t es[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
                         const_cast<void*>(base), dims, strides, box, es,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        sw128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                              : CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_TMA_MAP;
 }
 
 struct Operands {
-  const uint8_t* q; int ldq;    // (M, ldq) masked codes (prefill tile)
-  const uint8_t* wt; int ldt;   // (wt_rows >= N, ldt) K-major weights
-  int wt_rows;
+  const uint8_t* q; int ldq;    // (M, ldq) codes (prefill tile: masked)
+  const uint8_t* wt; int ldt;   // (wt_rows >= N, ldt) K-major weights, or
+  int wt_rows;                  // (K, ldt >= N) row-major (codes entry)
   int M, K, N;
 };
 
+// ROWW tiles: o.q, o.wt the codes-in entry's a_q (ldq = K) and row-major
+// w_q, both 16-byte aligned with row strides a multiple of 16
 template <class T>
 int launch_wgmma(const Operands& o, const Epi& epi, const Planes& pl,
+                 uint32_t main4, int stat_kind, uint32_t stat4,
                  cudaStream_t stream) {
   auto kern = am_wgmma_kernel<T>;
   static bool attr_set = false;  // per instantiation
@@ -1633,11 +2286,15 @@ int launch_wgmma(const Operands& o, const Epi& epi, const Planes& pl,
     attr_set = true;
   }
   CUtensorMap ta, tb;
-  int st = tma_map(&ta, o.q, o.ldq, o.M, o.ldq, T::BM);
-  if (st == 0) st = tma_map(&tb, o.wt, o.ldt, o.wt_rows, o.ldt, T::BN);
+  int st = tma_map(&ta, o.q, o.ldq, o.M, o.ldq, PBK, T::BM, true);
+  if (st == 0)
+    st = T::ROWW
+        ? tma_map(&tb, o.wt, o.N, o.K, o.ldt, T::BN, PBK, false)
+        : tma_map(&tb, o.wt, o.ldt, o.wt_rows, o.ldt, PBK, T::BN, true);
   if (st != 0) return st;
   const dim3 grid((o.M + T::BM - 1) / T::BM, (o.N + T::BN - 1) / T::BN);
-  kern<<<grid, T::THREADS, T::SMEM, stream>>>(ta, tb, o.M, o.N, o.K, epi, pl);
+  kern<<<grid, T::THREADS, T::SMEM, stream>>>(ta, tb, o.M, o.N, o.K, epi, pl,
+                                              main4, stat_kind, stat4);
   return counted(L_WGMMA);
 }
 
@@ -1661,17 +2318,22 @@ SplitK split_k(int K, int N) {
   return {(chunks + r - 1) / r, r * SK_KR};
 }
 
+// 16-byte copies of a row-major (K, ldt) operand: ldt and base aligned
+int row_vec(const void* p, int ld) {
+  return ld % 16 == 0 && (uintptr_t)p % 16 == 0;
+}
+
 // One launch: quantize, products, cluster reduction and epilogue
-template <typename InT>
+template <typename InT, bool ROWW>
 int launch_split_k(const InT* x, int vec, const Operands& o, const Epi& epi,
                    const Planes& pl, uint32_t main4, int stat_kind,
                    uint32_t stat4, cudaStream_t stream) {
-  auto kern = am_splitk_kernel<InT>;
+  auto kern = am_splitk_kernel<InT, ROWW>;
   static bool attr_set = false;  // per instantiation
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        sk_smem(SK_MAX_ROUNDS * SK_KR));
+        sk_smem(SK_MAX_ROUNDS * SK_KR, ROWW));
     if (err == cudaSuccess)  // the largest shared-memory carveout: four
       err = cudaFuncSetAttribute(  // blocks a SM at the served slices
           kern, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -1685,7 +2347,7 @@ int launch_split_k(const InT* x, int vec, const Operands& o, const Epi& epi,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(sp.cs, (o.N + SK_BN - 1) / SK_BN, 1);
   cfg.blockDim = dim3(SK_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = sk_smem(sp.ks);
+  cfg.dynamicSmemBytes = sk_smem(sp.ks, ROWW);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1694,8 +2356,9 @@ int launch_split_k(const InT* x, int vec, const Operands& o, const Epi& epi,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kern, x, vec, o.wt, o.ldt, o.M,
-                                       o.K, o.N, sp.ks, epi, pl, main4,
+  const int wvec = ROWW ? row_vec(o.wt, o.ldt) : 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kern, x, vec, o.wt, o.ldt, wvec,
+                                       o.M, o.K, o.N, sp.ks, epi, pl, main4,
                                        stat_kind, stat4);
   if (err != cudaSuccess) return (int)err;
   return counted(L_SPLIT_K);
@@ -1730,11 +2393,11 @@ ConvGeom conv_geom(int M, int K, int N, int in_es, int out_es) {
 
 // One launch: persistent blocks, as many as fit on the SMs (at most one a
 // row tile)
-template <typename InT>
+template <typename InT, bool ROWW>
 int launch_conv(const InT* x, const Operands& o, const Epi& epi,
                 const Planes& pl, uint32_t main4, int stat_kind,
                 uint32_t stat4, cudaStream_t stream) {
-  auto kern = am_conv_kernel<InT>;
+  auto kern = am_conv_kernel<InT, ROWW>;
   static bool attr_set = false;  // per instantiation
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -1758,15 +2421,22 @@ int launch_conv(const InT* x, const Operands& o, const Epi& epi,
 }
 
 // The matmul kernels, as am_tile names them (the wrapper's TILES lists the
-// same names in this order).
+// same names in this order); the codes-in entry takes the split-K and conv
+// kernels over row-major weights, the transposing wgmma tiles (tr_*) and,
+// where an operand is off 16 bytes, the rows tiles.
 enum TileId {
   TILE_SPLIT_K, TILE_128x128_PLANES, TILE_64x128_PLANES, TILE_128x256,
-  TILE_128x128, TILE_64x128, TILE_CONV
+  TILE_128x128, TILE_64x128, TILE_CONV, TILE_ROWS_64x128_PLANES,
+  TILE_ROWS_64x128, TILE_TR_64x128_PLANES, TILE_TR_128x256, TILE_TR_128x128,
+  TILE_TR_64x128
 };
 
 bool conv_shaped(int K, int N) {
   return K <= CONV_K_MAX && N <= CONV_N_MAX && K * N <= CONV_KN_MAX;
 }
+
+// What codes-in calls take above the split-K and conv routes (choose_tile)
+enum CodesIn { FLOAT_IN = 0, CODES_ALIGNED = 1, CODES_BYTES = 2 };
 
 // Decode rows take the split-K kernel; conv-shaped calls (K <= CONV_K_MAX,
 // N <= CONV_N_MAX, K * N <= CONV_KN_MAX: the CNN suite's im2col calls but
@@ -1777,12 +2447,32 @@ bool conv_shaped(int K, int N) {
 // main loop is long enough to hide an epilogue that nothing overlaps; at
 // shorter K two 128 x 128 blocks per SM, whose epilogues overlap each
 // other's main loops, are faster.
-int choose_tile(int decode, int M, int K, int N, int n_planes) {
+// The codes-in entry (codes): with K, N and both bases multiples of 16
+// (CODES_ALIGNED: TMA reads them) a transposing wgmma tile (planes: 64 x
+// 128), one block an SM: the tile with the least time by waves of blocks
+// (ceil(blocks / SMS)) times a block's time, a 128 x 128 block taking ~0.7
+// and a 64 x 128 block ~0.47 of a 128 x 256 block's (at M = 4096, K = N =
+// 2048: chip_smoke.py times the three there), so that a grid just past one
+// wave of wide blocks takes narrower ones; else (CODES_BYTES) the rows
+// tile, which copies byte by byte.
+int choose_tile(int decode, int M, int K, int N, int n_planes, int codes) {
   auto blocks = [&](int bm, int bn) {
     return ((M + bm - 1) / bm) * ((N + bn - 1) / bn);
   };
   if (decode) return TILE_SPLIT_K;
   if (conv_shaped(K, N)) return TILE_CONV;
+  if (codes != FLOAT_IN) {
+    if (codes == CODES_BYTES || K % 16 || N % 16)
+      return n_planes > 0 ? TILE_ROWS_64x128_PLANES : TILE_ROWS_64x128;
+    if (n_planes > 0) return TILE_TR_64x128_PLANES;
+    auto cost = [&](int bm, int bn, int per_block) {
+      return (blocks(bm, bn) + SMS - 1) / SMS * per_block;
+    };
+    const int c256 = cost(128, 256, 100), c128 = cost(128, 128, 70),
+              c64 = cost(64, 128, 47);
+    if (c256 <= c128 && c256 <= c64) return TILE_TR_128x256;
+    return c128 <= c64 ? TILE_TR_128x128 : TILE_TR_64x128;
+  }
   if (n_planes > 0)
     return blocks(128, 128) >= SMS ? TILE_128x128_PLANES : TILE_64x128_PLANES;
   if (K >= 4096 && blocks(128, 256) >= SMS) return TILE_128x256;
@@ -1792,17 +2482,16 @@ int choose_tile(int decode, int M, int K, int N, int n_planes) {
 // The prefill route: the prep kernel, then one wgmma tile
 int launch_prefill(const Operands& o, const Epi& epi, const Planes& pl,
                    cudaStream_t stream) {
-  switch (choose_tile(0, o.M, o.K, o.N, pl.n)) {
-    case TILE_128x128_PLANES:
-      return launch_wgmma<Tile<128, 128, true, 1>>(o, epi, pl, stream);
-    case TILE_64x128_PLANES:
-      return launch_wgmma<Tile<64, 128, true, 1>>(o, epi, pl, stream);
-    case TILE_128x256:
-      return launch_wgmma<Tile<128, 256, false, 1>>(o, epi, pl, stream);
-    case TILE_128x128:
-      return launch_wgmma<Tile<128, 128, false, 2>>(o, epi, pl, stream);
-    default:
-      return launch_wgmma<Tile<64, 128, false, 2>>(o, epi, pl, stream);
+  auto go = [&](auto tile) {  // the prep kernel has masked the codes
+    return launch_wgmma<decltype(tile)>(o, epi, pl, 0xFFFFFFFFu, 0, 0u,
+                                        stream);
+  };
+  switch (choose_tile(0, o.M, o.K, o.N, pl.n, FLOAT_IN)) {
+    case TILE_128x128_PLANES: return go(Tile<128, 128, true, 1>());
+    case TILE_64x128_PLANES: return go(Tile<64, 128, true, 1>());
+    case TILE_128x256: return go(Tile<128, 256, false, 1>());
+    case TILE_128x128: return go(Tile<128, 128, false, 2>());
+    default: return go(Tile<64, 128, false, 2>());
   }
 }
 
@@ -1816,6 +2505,81 @@ int launch_prep(const InT* x, int M, int K, int vec, const float* meta,
   return counted(L_PREP);
 }
 
+template <class T>
+int launch_rows(const uint8_t* a, int avec, const Operands& o,
+                const Epi& epi, const Planes& pl, uint32_t main4,
+                int stat_kind, uint32_t stat4, cudaStream_t stream) {
+  auto kern = am_rows_kernel<T>;
+  static bool attr_set = false;  // per instantiation
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const dim3 grid((o.M + T::BM - 1) / T::BM, (o.N + T::BN - 1) / T::BN);
+  kern<<<grid, RT_THREADS, T::SMEM, stream>>>(
+      a, avec, o.wt, o.ldt, row_vec(o.wt, o.ldt), o.M, o.K, o.N, epi, pl,
+      main4, stat_kind, stat4);
+  return counted(L_ROWS);
+}
+
+// The codes-in entry over row-major weights: decode rows one split-K
+// launch, conv-shaped calls one conv launch, the rest one transposing
+// wgmma tile or (an operand off 16 bytes) one rows tile.  tile: the
+// TileId to launch, or -1 for choose_tile's; another tile than that only
+// where it computes the call too (a tr_ or rows tile above the split-K and
+// conv routes; a planes mode only on a planes tile; tr_ tiles need the
+// aligned operands), else cudaErrorInvalidValue.
+int launch_codes(const uint8_t* a, int tile, int decode, const Operands& o,
+                 const Epi& epi, const Planes& pl, uint32_t main4,
+                 int stat_kind, uint32_t stat4, cudaStream_t s) {
+  const int avec = row_vec(a, o.K);
+  const int codes = avec && row_vec(o.wt, o.ldt) ? CODES_ALIGNED
+                                                 : CODES_BYTES;
+  const int own = choose_tile(decode, o.M, o.K, o.N, pl.n, codes);
+  if (tile < 0) {
+    tile = own;
+  } else if (tile != own) {
+    const bool tr = tile >= TILE_TR_64x128_PLANES && tile <= TILE_TR_64x128;
+    const bool rows = tile == TILE_ROWS_64x128_PLANES ||
+                      tile == TILE_ROWS_64x128;
+    const bool planes_tile = tile == TILE_ROWS_64x128_PLANES ||
+                             tile == TILE_TR_64x128_PLANES;
+    if (own == TILE_SPLIT_K || own == TILE_CONV || !(tr || rows) ||
+        (pl.n > 0 && !planes_tile) || (tr && codes != CODES_ALIGNED))
+      return (int)cudaErrorInvalidValue;
+  }
+  auto rows_go = [&](auto t) {
+    return launch_rows<decltype(t)>(a, avec, o, epi, pl, main4, stat_kind,
+                                    stat4, s);
+  };
+  Operands q = o;  // the transposing tiles read the codes by TMA as well
+  q.q = a;
+  q.ldq = o.K;
+  auto tr_go = [&](auto t) {
+    return launch_wgmma<decltype(t)>(q, epi, pl, main4, stat_kind, stat4,
+                                     s);
+  };
+  switch (tile) {
+    case TILE_SPLIT_K:
+      return launch_split_k<uint8_t, true>(
+          a, o.K % 8 == 0 && (uintptr_t)a % 8 == 0, o, epi, pl, main4,
+          stat_kind, stat4, s);
+    case TILE_CONV:
+      return launch_conv<uint8_t, true>(a, o, epi, pl, main4, stat_kind,
+                                        stat4, s);
+    case TILE_ROWS_64x128_PLANES:
+      return rows_go(RowTile<64, 128, 64, 4, true>());
+    case TILE_ROWS_64x128: return rows_go(RowTile<64, 128, 128, 4, false>());
+    case TILE_TR_64x128_PLANES:
+      return tr_go(Tile<64, 128, true, 1, true>());
+    case TILE_TR_128x256: return tr_go(Tile<128, 256, false, 1, true>());
+    case TILE_TR_128x128: return tr_go(Tile<128, 128, false, 1, true>());
+    default: return tr_go(Tile<64, 128, false, 1, true>());
+  }
+}
+
 // Decode rows: one split-K launch; conv-shaped calls: one conv launch.
 // Else prep, then a wgmma tile (codes and stats are the prep kernel's
 // scratch, unused by the other two routes).
@@ -1826,9 +2590,11 @@ int launch_call(const InT* x, int vec, int decode, uint8_t* codes, int ldq,
                 cudaStream_t s) {
   Epi epi = epi0;
   if (decode)
-    return launch_split_k(x, vec, o, epi, pl, main4, stat_kind, stat4, s);
+    return launch_split_k<InT, false>(x, vec, o, epi, pl, main4, stat_kind,
+                                      stat4, s);
   if (conv_shaped(o.K, o.N))
-    return launch_conv(x, o, epi, pl, main4, stat_kind, stat4, s);
+    return launch_conv<InT, false>(x, o, epi, pl, main4, stat_kind, stat4,
+                                   s);
   if (codes == nullptr || stats == nullptr)
     return (int)cudaErrorInvalidValue;
   int st = launch_prep(x, o.M, o.K, vec, epi.meta, codes, ldq, stats, main4,
@@ -1850,9 +2616,11 @@ void am_launches(unsigned long long* out) {
 }
 
 // The TileId that a call of M x K x N with n_planes subtractive planes
-// launches (decode: the wrapper's thin-M choice).
-int am_tile(int decode, int M, int K, int N, int n_planes) {
-  return choose_tile(decode, M, K, N, n_planes);
+// launches (decode: the wrapper's thin-M choice; codes: the codes-in
+// entry's, on 16-byte aligned operands).
+int am_tile(int decode, int M, int K, int N, int n_planes, int codes) {
+  return choose_tile(decode, M, K, N, n_planes,
+                     codes ? CODES_ALIGNED : FLOAT_IN);
 }
 
 // Float-in entry (kernel 1).  x (M, K) float32 (x_bf16 = 0) or bfloat16
@@ -1889,6 +2657,7 @@ int am_fused_launch(const void* x, int x_bf16, uint8_t* codes, int ldq,
   epi.out = out;
   epi.out_bf16 = x_bf16;
   epi.use_cv = use_cv;
+  epi.k_arg = 0.0f;  // per column: true_k is meta[2]
   const Operands o{nullptr, 0, w_qbt, ldt, wt_rows, M, K, N};
   const Planes pl = make_planes(n_planes, amasks, wmasks);
   return x_bf16
@@ -1898,18 +2667,22 @@ int am_fused_launch(const void* x, int x_bf16, uint8_t* codes, int ldq,
                     pl, main4, stat_kind, stat4, s);
 }
 
-// Codes-in entry (kernel 2).  a_q (M, K) uint8; codes, stats: scratch as
-// above (unused for decode rows and conv-shaped calls); w_qt (N, ldt) the K-major copy of the
-// (K, N) weight codes; c, c0, bias (N,) float32 (bias may be null); sum_qw
-// (N,) int32; meta [sa, sw, za, zw, true_k]; out (M, N) float32.
-int am_codes_launch(const uint8_t* a_q, uint8_t* codes, int ldq, int* stats,
-                    const uint8_t* w_qt, int ldt, const float* c,
-                    const float* c0, const int* sum_qw, const float* bias,
-                    const float* meta, float* out, int M, int K, int N,
+// Codes-in entry (kernel 2), over the caller's operands in place: a_q (M,
+// K) uint8 codes, rows K bytes apart; w_q (K, N) uint8 codes, row-major,
+// rows ldw >= N bytes apart (any alignment: off 16 bytes the kernels copy
+// byte by byte); c, c0, bias (N,) float32 (bias may be null); sum_qw (N,)
+// int32; meta [sa, sw, za, zw] float32 on the device, and true_k by value;
+// out (M, N) float32, 16-byte aligned.  Decode rows: one split-K launch;
+// conv-shaped calls: one conv launch; the rest: one transposing wgmma tile
+// (one rows tile where an operand is off 16 bytes).  No scratch.  tile:
+// -1, or the TileId to launch instead (launch_codes says which).
+int am_codes_launch(const uint8_t* a_q, const uint8_t* w_q, int ldw,
+                    const float* c, const float* c0, const int* sum_qw,
+                    const float* bias, const float* meta, float true_k,
+                    int tile, float* out, int M, int K, int N,
                     int decode, int main_mask, int n_planes,
                     unsigned long long amasks, unsigned long long wmasks,
                     int stat_kind, int stat_mask, int use_cv, void* stream) {
-  const int vec = (K % 8 == 0) && ((uintptr_t)a_q % 8 == 0);
   Epi epi;
   epi.c = c;
   epi.c0 = c0;
@@ -1923,12 +2696,14 @@ int am_codes_launch(const uint8_t* a_q, uint8_t* codes, int ldq, int* stats,
   epi.out = out;
   epi.out_bf16 = 0;
   epi.use_cv = use_cv;
-  const Operands o{nullptr, 0, w_qt, ldt, N, M, K, N};
-  // the codes pass through unchanged, so the quantize reads no sa or za
-  return launch_call(a_q, vec, decode, codes, ldq, stats, o, epi,
-                     make_planes(n_planes, amasks, wmasks),
-                     (uint32_t)main_mask * 0x01010101u, stat_kind,
-                     (uint32_t)stat_mask * 0x01010101u, (cudaStream_t)stream);
+  epi.k_arg = true_k;
+  const Operands o{nullptr, 0, w_q, ldw, K, M, K, N};
+  // the codes pass through unchanged, so no kernel quantizes with sa or za
+  return launch_codes(a_q, tile, decode, o, epi,
+                      make_planes(n_planes, amasks, wmasks),
+                      (uint32_t)main_mask * 0x01010101u, stat_kind,
+                      (uint32_t)stat_mask * 0x01010101u,
+                      (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -18,24 +18,35 @@ from repro_torch.kernels import approx_matmul as _amk
 DECODE_M_MAX = _amk.DECODE_M_MAX
 
 
+def _scalar(v, dev) -> torch.Tensor:
+    """A float32 scalar on ``dev``: a tensor already there is converted
+    there; a number is filled in by a kernel that takes it by value (no
+    copy from the host, no sync)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=dev, dtype=torch.float32).reshape(())
+    return torch.full((), float(v), dtype=torch.float32, device=dev)
+
+
 def approx_matmul_cv_op(a_q: torch.Tensor, w_q: torch.Tensor,
                         c: torch.Tensor, c0: torch.Tensor,
                         sum_qw: torch.Tensor, bias: torch.Tensor | None,
                         sa, sw, za, zw, *, mode: Mode, m: int,
                         use_cv: bool = True) -> torch.Tensor:
-    """Approx-matmul + CV over codes with arbitrary leading dims -> f32."""
+    """Approx-matmul + CV over codes with arbitrary leading dims -> f32.
+    The kernel reads w_q (K, N) in place; meta [sa, sw, za, zw] is built on
+    a_q's device from the caller's tensors (a pack's are there already) and
+    the fan-in goes by value."""
     lead, kk = a_q.shape[:-1], a_q.shape[-1]
     nn = w_q.shape[-1]
     a2 = a_q.reshape(-1, kk).contiguous()
     dev = a_q.device
-    meta = torch.stack([torch.as_tensor(v, dtype=torch.float32).to(dev)
-                        .reshape(()) for v in (sa, sw, za, zw, float(kk))])
+    meta = torch.stack([_scalar(v, dev) for v in (sa, sw, za, zw)])
     out = _amk.approx_matmul_cv(
         a2, w_q.contiguous(), c.to(torch.float32).contiguous(),
         c0.to(torch.float32).contiguous(),
         sum_qw.to(torch.int32).contiguous(),
         None if bias is None else bias.to(torch.float32).contiguous(),
-        meta, mode=mode, m=m, use_cv=use_cv)
+        meta, mode=mode, m=m, use_cv=use_cv, true_k=float(kk))
     return out.reshape(*lead, nn)
 
 

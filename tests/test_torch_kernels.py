@@ -274,7 +274,8 @@ def test_cuda_call_without_the_library_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         amk.approx_matmul_cv(a, tb.w_qb, tb.epilogue[0], tb.epilogue[1],
                              torch.zeros(16, dtype=torch.int32), None,
-                             torch.ones(5), mode="perforated", m=2)
+                             torch.ones(4), mode="perforated", m=2,
+                             true_k=32.0)
     with pytest.raises(ValueError, match="unsupported device"):
         amk.approx_matmul_cv_fused(torch.empty(3, 32, device="meta"),
                                    tb.w_qbt, tb.epilogue, tb.meta, k=32, n=16,
@@ -302,7 +303,8 @@ def test_launch_kinds_follow_the_source():
     src = amk.SOURCE.read_text()
     body = re.search(r"enum LaunchKind \{([^}]*)\}", src).group(1)
     kinds = [t.strip() for t in body.split(",") if t.strip()]
-    assert kinds == ["L_PREP", "L_WGMMA", "L_SPLIT_K", "L_CONV", "L_KINDS"]
+    assert kinds == ["L_PREP", "L_WGMMA", "L_SPLIT_K", "L_CONV", "L_ROWS",
+                     "L_KINDS"]
     assert len(amk.LAUNCH_KINDS) == len(kinds) - 1
     for kind, name in zip(kinds, amk.LAUNCH_KINDS):
         assert re.search(rf"\n{name}\(", src), name  # a kernel's definition
