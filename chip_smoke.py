@@ -37,15 +37,20 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    prefill shapes and hubert-xlarge's encoder (D=80, non-causal), the JAX
    kernel tests' shapes in float32 and bfloat16 (GQA,
    window, non-causal, Tq < Tk at D=16, 64, 80 and 128), ragged lengths
-   (D=128, 80 and 16) and the quickstart example's float32 shapes
-   (olmo-1b, and olmo-1b-reduced at D=16), each row held to its own
-   scale;
+   (D=128, 80 and 16), the quickstart example's float32 shapes
+   (olmo-1b, and olmo-1b-reduced at D=16), and in float32 at D=16 and 128
+   Tq > Tk and a window with Tq > Tk (rows with no visible key give 0),
+   and at D=64 a non-causal Tk = 4096, each row held to its own scale,
+   every float32 call twice bit-equal and also held to a float64
+   reference;
    the RWKV6 scan (out and final state, and two calls bit-equal) at the
    rwkv6-1.6b prefill shape, the JAX tests' shapes, ragged and partial
    chunks, one head, Dk != Dv and the extreme decays;
 4. engine paths, each served by the port's continuous-batching engine (8
    requests of `mixed_trace(seed=0)`, slots 4, max_len 256, chunk 32):
-   full-width olmo-1b and qwen3-4b (36 layers) on `backend: "pallas"`
+   full-width olmo-1b (8 of its 16 layers by default, `--layers`; every
+   olmo-1b phase below runs on these packs) and qwen3-4b (36 layers) on
+   `backend: "pallas"`
    packs with a bf16 KV cache, each again on the paged KV layout (blocks
    of 16, prefix cache on) after a warmed shared-prefix pair and a
    full-prompt repeat (tokens equal the contiguous run's and a sequential
@@ -93,7 +98,8 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    (its policies, forwards and seconds, mean modeled saving, and relative
    logit error on 1,000 test images beside serve-default's);
    "checkpoint" (after the fleet phase): the olmo-1b engine phase's
-   full-width float32 parameters (4.71 GB) saved with `save_pytree`
+   full-width float32 parameters (2.56 GB at 8 layers) saved with
+   `save_pytree`
    (codec none, the NumericsSpec in the meta), restored onto the card
    (every leaf bit-equal), packed again (byte-equal to the engine phase's
    packs) and served on the main trace through the approx kernel (tokens
@@ -216,7 +222,8 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    host's own rows with one boundary code flipped); serve_approx on qwen3-4b
    at full width (10 requests, int8 KV: every request finishes or is
    rejected as the admission controller rejects it); train_lm's ~100M
-   model for 300 steps of B=8, T=256 with checkpoints every 50 (codec
+   model for 100 steps (the example's default is 300) of B=8, T=256
+   with checkpoints every 50 (codec
    none; tokens/s, step ms, peak GiB, the loss every 50 steps; the last
    20 steps' mean loss below the first 20's, every loss finite); and
    pareto_sweep on the paper phase's cached resnet44/c10 weights (every
@@ -228,7 +235,11 @@ Drives the port (`src/repro_torch`, no JAX) on one CUDA card:
    and hymba-1.5b (head too), and (kernel only: no phase drives them) at
    the shapes of hubert-xlarge's `--legacy` decode step and head, flash at
    the five prefill and encoder shapes beside
-   `scaled_dot_product_attention` (hymba's window as its boolean mask);
+   `scaled_dot_product_attention` (hymba's window as its boolean mask),
+   and its float32 route (3xTF32 on the TF32 tensor cores, bound at three
+   passes at the TF32 rate, the float32 CUDA-core figure beside it) at
+   quickstart's two shapes, olmo-1b's prefill and hubert's encoder beside
+   SDPA in float32;
    the codes-in entry also at olmo-1b's prefill rows, and its other
    design (the rows tile) beside it at the chunk and prefill rows.
 
@@ -238,7 +249,9 @@ ends with `{"ok": true, "device": {...}}`.  Any failure exits non-zero.
 `python3 chip_smoke.py --compare-codes-entry OTHER` runs no check: it times
 the codes-in entry on olmo-1b's layers in the checkout at OTHER (say, the
 parent commit unpacked with `git archive`) and in this one, each tree in
-processes of its own, in the order other, this, this, other.
+processes of its own, in the order other, this, this, other;
+`--compare-flash-f32 OTHER` does the same for flash's float32 route at its
+four timed shapes.
 """
 
 from __future__ import annotations
@@ -877,7 +890,7 @@ FLASH_RTOL = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
 SCAN_RTOL = 1e-4
 #: (B, Hq, Hkv, Tq, Tk, D, causal, window, dtype): the olmo-1b and
 #: qwen3-4b (GQA group 4) prefill shapes, the JAX kernel tests' cases
-#: (tests/test_kernels.py) in float32 (CUDA-core route) and their GQA,
+#: (tests/test_kernels.py) in float32 (3xTF32 route) and their GQA,
 #: window, non-causal and Tq < Tk cases in bfloat16 at D=64, 80 and 128
 #: (tensor-core route), a ragged T; qwen2-vl-2b's prefill (GQA group 6)
 #: and hubert-xlarge's encoder (D=80, non-causal) in both types, and a
@@ -885,7 +898,12 @@ SCAN_RTOL = 1e-4
 #: group 5 with a window in float32 at a ragged T; the quickstart
 #: example's float32 forwards (olmo-1b at full width, olmo-1b-reduced at
 #: D=16, GQA 2:1, T=32: one partial query and key tile), and D=16 in
-#: bfloat16 (GQA, window, Tq < Tk) and at a ragged T in float32
+#: bfloat16 (GQA, window, Tq < Tk) and at a ragged T in float32; in
+#: float32 at D=16 and 128, Tq > Tk (the first Tq - Tk rows see no key)
+#: and a window with Tq > Tk (rows with no key, then rows that see fewer
+#: keys than the window), both ragged; a long non-causal key axis (Tk =
+#: 4096, where sums over the whole axis in one tensor-core accumulator
+#: lose the tolerance)
 QWEN_FLASH = (4, 32, 8, 1024, 1024, 128, True, None, "bfloat16")
 QWEN2VL_FLASH = (4, 12, 2, 1024, 1024, 128, True, None, "bfloat16")
 HUBERT_FLASH = (4, 16, 16, 1024, 1024, 80, False, None, "bfloat16")
@@ -911,7 +929,10 @@ FLASH_CASES = [
     (4, 16, 16, 1000, 1000, 80, False, None, "bfloat16"),
     (4, 16, 16, 1000, 1000, 80, False, None, "float32"),
     *QUICKSTART_FLASH, (2, 4, 2, 100, 100, 16, True, None, "float32"),
-] + [case for d in (16, 64, 80, 128) for case in (
+] + [case for d in (16, 128) for case in (
+    (2, 8, 2, 200, 130, d, True, None, "float32"),
+    (2, 4, 2, 150, 90, d, True, 24, "float32"))
+] + [(1, 8, 2, 4096, 4096, 64, False, None, "float32")] + [case for d in (16, 64, 80, 128) for case in (
     (2, 8, 2, 128, 128, d, True, None, "bfloat16"),
     (2, 4, 2, 128, 128, d, True, 64, "bfloat16"),
     (2, 4, 4, 128, 128, d, False, None, "bfloat16"),
@@ -986,9 +1007,41 @@ def check_scan(torch, dev, gen) -> float:
     return worst
 
 
+def flash_ref64(torch, q, k, v, causal: bool, window) -> "torch.Tensor":
+    """Flash attention's function in float64 (the plain version's
+    arithmetic, which casts to float32, in double): the yardstick a float32
+    call's error is also held to."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    qg = q.double().reshape(b, hkv, hq // hkv, tq, d) * d ** -0.5
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.double())
+    qi = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    ki = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (ki <= qi)
+    if window is not None:
+        mask = mask & (ki > qi - window)
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True).clamp_min(-1e300))
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-300)
+    return torch.einsum("bhgqk,bhkd->bhgqd", p, v.double()).reshape(
+        b, hq, tq, d)
+
+
+def rtol_share(got, want, rtol: float) -> float:
+    """The largest |got - want| / (rtol (|want| + max |want| of its row)):
+    the share of ``close(..., per_row=True)``'s bound a result uses."""
+    want = want.double()
+    bound = rtol * (want.abs() + want.abs().amax(dim=-1, keepdim=True))
+    return float(((got.double() - want).abs() / bound.clamp_min(1e-300))
+                 .max())
+
+
 def check_attention_and_scan(torch, dev) -> dict:
-    """Phase 3, second half: flash attention and the RWKV6 scan against
-    their plain versions on the card."""
+    """Phase 3, second half: flash attention (a float32 call also against
+    float64, and two float32 calls on the same inputs bit-equal) and the
+    RWKV6 scan against their plain versions on the card."""
     from repro_torch.kernels import flash_attention as fak
 
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -999,15 +1052,29 @@ def check_attention_and_scan(torch, dev) -> dict:
         k = torch.randn(b, hkv, tk, d, generator=gen, device=dev).to(dtype)
         v = torch.randn(b, hkv, tk, d, generator=gen, device=dev).to(dtype)
         got = fak.flash_attention(q, k, v, causal=causal, window=window)
+        again = (fak.flash_attention(q, k, v, causal=causal, window=window)
+                 if dt == "float32" else got)
         want = fak.flash_attention_plain(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         if got.dtype != dtype or got.shape != want.shape:
             fail(f"flash output {got.dtype} {tuple(got.shape)}")
+        if not torch.equal(got, again):
+            fail(f"flash B={b} Hq={hq} Hkv={hkv} Tq={tq} Tk={tk} D={d} {dt}: "
+                 "two calls on the same inputs differ")
         err = close(torch, got, want, FLASH_RTOL[dt], per_row=True)
         errs["flash_attention"] = max(errs["flash_attention"], err)
+        f64 = ""
+        if dt == "float32":
+            ref = flash_ref64(torch, q, k, v, causal, window)
+            close(torch, got, ref, FLASH_RTOL[dt], per_row=True)
+            f64 = (f"; two calls bit-equal; share of the bound against "
+                   f"float64: kernel "
+                   f"{rtol_share(got, ref, FLASH_RTOL[dt]):.4f}, "
+                   f"plain {rtol_share(want, ref, FLASH_RTOL[dt]):.4f}")
+            del ref
         print(f"kernels: flash_attention B={b} Hq={hq} Hkv={hkv} Tq={tq} "
               f"Tk={tk} D={d} causal={causal} window={window} {dt}: max abs "
-              f"err {err:.3g} (rtol {FLASH_RTOL[dt]:.3g})", flush=True)
+              f"err {err:.3g} (rtol {FLASH_RTOL[dt]:.3g}){f64}", flush=True)
     errs["rwkv6_scan"] = check_scan(torch, dev, gen)
     return errs
 
@@ -1208,50 +1275,61 @@ def codes_entry_layers(torch, dev) -> dict:
     return out
 
 
-def compare_codes_entry(other: pathlib.Path) -> None:
-    """``--compare-codes-entry OTHER``: the codes-in entry's olmo-1b layer
-    times (codes_entry_layers) of the checkout at OTHER (an unpacked
+def compare_trees(kind: str, other: pathlib.Path) -> None:
+    """``--compare-codes-entry OTHER`` (kind "codes-entry": the codes-in
+    entry's olmo-1b layer times, codes_entry_layers) or
+    ``--compare-flash-f32 OTHER`` (kind "flash-f32": flash's float32 route
+    at FLASH_F32_TIMED, kernel only) of the checkout at OTHER (an unpacked
     parent commit) and of this one, each in a process of its own that
     builds its tree's source, in the order other, this, this, other."""
     runs = []
     for root in (other, ROOT, ROOT, other):
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                            "--codes-entry-times", str(root)],
+                            "--tree-times", kind, str(root)],
                            capture_output=True, text=True, timeout=1200)
         lines = [ln for ln in r.stdout.splitlines()
-                 if ln.startswith("codes-entry ")]
+                 if ln.startswith(kind + " ")]
         if r.returncode or not lines:
             print(r.stdout[-3000:] + r.stderr[-3000:], flush=True)
-            fail(f"codes-entry times of {root} failed ({r.returncode})")
-        runs.append(json.loads(lines[-1][len("codes-entry "):]))
+            fail(f"{kind} times of {root} failed ({r.returncode})")
+        runs.append(json.loads(lines[-1][len(kind) + 1:]))
         print(f"{lines[-1]} ({time.perf_counter() - t0:.1f} s)", flush=True)
-    print("codes-entry comparison, us a layer, median of each tree's two "
-          "runs: " + json.dumps({
+    print(f"{kind} comparison, us, median of each tree's two runs: "
+          + json.dumps({
               str(root): {key: statistics.median(
-                  [r["layers"][key] for r in runs if r["root"] == str(root)])
-                  for key in runs[0]["layers"]} for root in (other, ROOT)}),
+                  [r["us"][key] for r in runs if r["root"] == str(root)])
+                  for key in runs[0]["us"]} for root in (other, ROOT)}),
           flush=True)
 
 
-def codes_entry_times(root: pathlib.Path) -> None:
-    """``--codes-entry-times ROOT``: codes_entry_layers with ROOT's port
-    (ROOT/src first on the path), one ``codes-entry`` JSON line."""
+def tree_times(kind: str, root: pathlib.Path) -> None:
+    """``--tree-times KIND ROOT``: compare_trees' timing with ROOT's port
+    (ROOT/src first on the path), one ``KIND`` JSON line."""
     sys.path.insert(0, str(root / "src"))
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device")
     from repro_torch.kernels import approx_matmul as amk
+    from repro_torch.kernels import flash_attention as fak
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    mod = amk if kind == "codes-entry" else fak
     t0 = time.perf_counter()
-    amk._lib()
+    mod._lib()
     build_s = time.perf_counter() - t0
-    layers = codes_entry_layers(torch, torch.device("cuda"))
-    print("codes-entry " + json.dumps({
-        "root": str(root), "source": str(amk.SOURCE), "card": card_line(),
-        "build_s": build_s, "layers": layers}), flush=True)
+    if kind == "codes-entry":
+        us = codes_entry_layers(torch, dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(3)
+        rows = flash_rows(torch, dev, card_line(), FLASH_F32_TIMED, gen,
+                          plain=False)
+        us = {key: row["kernel_us"] for key, row in rows.items()}
+    print(f"{kind} " + json.dumps({
+        "root": str(root), "source": str(mod.SOURCE), "card": card_line(),
+        "build_s": build_s, "us": us}), flush=True)
 
 
 def step_entry(rows: list[dict], name: str, kn_list, mm) -> dict:
@@ -2771,7 +2849,7 @@ def bits_equal(torch, a, b) -> bool:
 
 def run_checkpoint_phase(torch, built: dict) -> dict:
     """Phase 4b': full-width olmo-1b served from a checkpoint the port
-    wrote.  The engine phase's float32 parameters (16 layers, 4.71 GB) are
+    wrote.  The engine phase's float32 parameters (8 layers, 2.56 GB) are
     saved with ``save_pytree`` (codec "none", the NumericsSpec of their
     packs in the meta), restored onto the card through ``load_pytree``
     with a ``meta`` template and a placement tree (every leaf bit-equal),
@@ -5730,42 +5808,38 @@ def run_paper(torch, dev) -> dict:
     return launches
 
 
-def attn_scan_times(torch, dev, card: str) -> dict:
-    """Phase 7, second half: flash attention at the prefill shapes of
-    olmo-1b, qwen3-4b, qwen2-vl-2b and hymba-1.5b (window 1024) and of
-    hubert-xlarge's encoder, its float32 route at the quickstart example's
-    olmo-1b shape, olmo-1b's prefill and hubert's encoder (bound at the
-    float32 CUDA-core rate, SDPA in float32 with TF32 off), and
-    the scan at the rwkv6-1.6b prefill shape (kernel, plain, library,
-    bound)."""
+#: flash's float32 route as ``attn_scan_times`` and ``--compare-flash-f32``
+#: time it: the quickstart example's olmo-1b forward and its ``main``'s
+#: olmo-1b-reduced (D=16), olmo-1b's prefill shape and hubert-xlarge's
+#: encoder (non-causal, D=80)
+FLASH_F32_TIMED = (
+    ("flash_attention f32 quickstart", QUICKSTART_FLASH[0]),
+    ("flash_attention f32 quickstart main", QUICKSTART_FLASH[1]),
+    ("flash_attention f32", FLASH_CASES[0][:8] + ("float32",)),
+    ("flash_attention f32 hubert-xlarge", HUBERT_FLASH[:8] + ("float32",)))
+
+
+def flash_rows(torch, dev, card: str, shapes, gen, plain: bool = True
+               ) -> dict:
+    """Flash attention timed at each (key, case) of ``shapes``: kernel,
+    plain version (unless ``plain`` is False), SDPA, and the bound.  A
+    bfloat16 row is bound at the bf16 tensor-core rate; a float32 row at
+    its three TF32 passes (half the bf16 rate on Hopper), with the float32
+    CUDA-core rate's figure for one pass beside it."""
     from repro_torch.kernels import flash_attention as fak
-    from repro_torch.kernels import rwkv6_scan as rsk
     from repro_torch.launch import roofline
 
     bw, _, bf16_peak, f32_peak = peaks(card)
-    gen = torch.Generator(device=dev).manual_seed(3)
     rows = {}
-
-    bf = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for key, (b, hq, hkv, t, _, d, causal, window, dtype) in (
-            ("flash_attention", FLASH_CASES[0]),
-            ("flash_attention qwen3-4b", QWEN_FLASH),
-            ("flash_attention qwen2-vl-2b", QWEN2VL_FLASH),
-            ("flash_attention hubert-xlarge", HUBERT_FLASH),
-            ("flash_attention hymba-1.5b", HYMBA_FLASH),
-            ("flash_attention f32 quickstart", QUICKSTART_FLASH[0]),
-            ("flash_attention f32", FLASH_CASES[0][:8] + ("float32",)),
-            ("flash_attention f32 hubert-xlarge",
-             HUBERT_FLASH[:8] + ("float32",))):
+    for key, (b, hq, hkv, t, _, d, causal, window, dtype) in shapes:
         # 28-160 MB of q, k, v per call: three copies exceed the 50 MB L2
         # (quickstart's 3 MB: its repeated calls read from the L2)
         dt = getattr(torch, dtype)
         qkv = [tuple(torch.randn(b, h, t, d, generator=gen, device=dev).to(dt)
                      for h in (hq, hkv, hkv)) for _ in range(3)]
         # QK and PV over the visible (query, key) pairs: causal, or a
-        # window of W keys (query i sees min(i + 1, W)); q and out, k and v;
-        # bfloat16 on the tensor cores, float32 on the CUDA cores
+        # window of W keys (query i sees min(i + 1, W)); q and out, k and v
         nbytes, flops = roofline.flash_attention_work(
             b, hq, hkv, t, t, d, causal, window, dt.itemsize)
         # SDPA's own GQA (enable_gqa), or, in a PyTorch without it, KV heads
@@ -5786,8 +5860,10 @@ def attn_scan_times(torch, dev, card: str) -> dict:
                         v.repeat_interleave(reps, 1)) for q, k, v in qkv]
         else:
             gqa = {}
-        bound, by = roofline.bound(
-            nbytes, flops, bf16_peak if dt == bf else f32_peak, bw)
+        if dt == torch.bfloat16:
+            bound, by = roofline.bound(nbytes, flops, bf16_peak, bw)
+        else:
+            bound, by = roofline.bound(nbytes, 3 * flops, bf16_peak / 2, bw)
         rows[key] = {
             "shape": [b, hq, hkv, t, d], "dtype": dtype, "causal": causal,
             "window": window,
@@ -5798,7 +5874,7 @@ def attn_scan_times(torch, dev, card: str) -> dict:
             "plain_us": time_calls(torch, [
                 lambda a=a: fak.flash_attention_plain(*a, causal=causal,
                                                       window=window)
-                for a in qkv[:2]], reps=5) * 1e6,
+                for a in qkv[:2]], reps=5) * 1e6 if plain else None,
             "library_us": time_calls(torch, [
                 lambda a=a: sdpa(*a, **mask, **gqa)
                 for a in lib]) * 1e6,
@@ -5806,9 +5882,34 @@ def attn_scan_times(torch, dev, card: str) -> dict:
                         + (" enable_gqa" if gqa else "")
                         + (" attn_mask" if window is not None else "")),
             "bound_us": bound * 1e6, "bound_by": by}
+        if dt != torch.bfloat16:
+            rows[key]["cuda_core_bound_us"] = roofline.bound(
+                nbytes, flops, f32_peak, bw)[0] * 1e6
         print("time " + json.dumps(rows[key]), flush=True)
         del qkv, lib
+    return rows
 
+
+def attn_scan_times(torch, dev, card: str) -> dict:
+    """Phase 7, second half: flash attention at the prefill shapes of
+    olmo-1b, qwen3-4b, qwen2-vl-2b and hymba-1.5b (window 1024) and of
+    hubert-xlarge's encoder, its float32 route at ``FLASH_F32_TIMED``
+    (SDPA in float32 with TF32 off), and the scan at the rwkv6-1.6b
+    prefill shape (kernel, plain, library, bound)."""
+    from repro_torch.kernels import rwkv6_scan as rsk
+    from repro_torch.launch import roofline
+
+    bw, _, bf16_peak, _ = peaks(card)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = flash_rows(torch, dev, card, (
+        ("flash_attention", FLASH_CASES[0]),
+        ("flash_attention qwen3-4b", QWEN_FLASH),
+        ("flash_attention qwen2-vl-2b", QWEN2VL_FLASH),
+        ("flash_attention hubert-xlarge", HUBERT_FLASH),
+        ("flash_attention hymba-1.5b", HYMBA_FLASH),
+        *FLASH_F32_TIMED), gen)
+
+    bf = torch.bfloat16
     b, t, h, dk, dv, *_ = SCAN_CASES[0]
     ins = [scan_inputs(torch, b, t, h, dk, dv, bf, gen, dev) for _ in range(3)]
     # the products on the TF32 tensor cores (half the bf16 rate on Hopper)
@@ -5833,8 +5934,9 @@ def attn_scan_times(torch, dev, card: str) -> dict:
 
 GRANITE = "granite-8b"
 #: the "examples" phase: serve_approx's qwen3-4b depth (widths full; None:
-#: all 36 layers) and train_lm's steps (the example's default, 300)
-SERVE_APPROX_LAYERS, TRAIN_LM_STEPS = None, 300
+#: all 36 layers) and train_lm's steps (the example's default is 300; cut
+#: to 100 to keep the whole check inside its time limit on a slow host)
+SERVE_APPROX_LAYERS, TRAIN_LM_STEPS = None, 100
 #: quickstart's entry point on the card against the host.  The float
 #: forward's logits: float32 sums in another order (flash, cuBLAS), the
 #: flash kernel's own float32 tolerance.  The uint8 activation codes of
@@ -6242,22 +6344,29 @@ def run_examples(torch, dev) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=16,
+    ap.add_argument("--layers", type=int, default=8,
                     help="olmo-1b depth for its engine path (widths are "
                     "never cut; the other paths run at full depth)")
     ap.add_argument("--compare-codes-entry", type=pathlib.Path,
                     metavar="OTHER", help="instead of the check: the "
                     "codes-in entry's olmo-1b layer times of the checkout "
                     "at OTHER and of this one, in turn")
-    ap.add_argument("--codes-entry-times", type=pathlib.Path,
-                    metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--compare-flash-f32", type=pathlib.Path,
+                    metavar="OTHER", help="instead of the check: flash's "
+                    "float32 route at its timed shapes in the checkout at "
+                    "OTHER and in this one, in turn")
+    ap.add_argument("--tree-times", nargs=2, metavar=("KIND", "ROOT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.codes_entry_times is not None:
-        codes_entry_times(args.codes_entry_times.resolve())
+    if args.tree_times is not None:
+        tree_times(args.tree_times[0],
+                   pathlib.Path(args.tree_times[1]).resolve())
         return 0
-    if args.compare_codes_entry is not None:
-        compare_codes_entry(args.compare_codes_entry.resolve())
-        return 0
+    for kind, other in (("codes-entry", args.compare_codes_entry),
+                        ("flash-f32", args.compare_flash_f32)):
+        if other is not None:
+            compare_trees(kind, other.resolve())
+            return 0
     t_start = time.perf_counter()
 
     import torch

@@ -11,48 +11,79 @@
 // never repeated.  A row with no visible key gives 0 (the TPU kernel's
 // max(l, 1e-30) clamp).  Output in the input type (float32 or bfloat16).
 //
-// Both routes: one block owns one (batch * q-head, 64-row query tile) and
-// walks the key axis in 64-key tiles (the TPU's sequential K grid axis
-// becomes a loop; blocks of heavy causal tiles are issued first).  The loop
-// visits only the key tiles that the causal/window mask does not hide
-// entirely, and masks element by element only the tiles that the mask
-// cuts.  Running max m, denominator l and the (64, D) accumulator stay in
-// float32 registers.  Tq/Tk edges are zero-filled in the kernel (rows past
-// Tq are not stored).
+// Both routes: one block owns one (batch * q-head, 64-row query tile), four
+// warps of 16 rows, and walks the key axis in tiles (the TPU's sequential K
+// grid axis becomes a loop; blocks of heavy causal tiles are issued first).
+// The loop visits only the key tiles that the causal/window mask does not
+// hide entirely, and masks element by element only the tiles that the mask
+// cuts.  K and V tiles are double-buffered in shared memory by cp.async
+// (the next tile loads while this one is multiplied).  Scores are taken in
+// log2 units (times
+// scale * log2(e)) and exponentiated with exp2f.  Running max m,
+// denominator l and the (16, D) accumulator of each warp stay in float32
+// registers.  P goes from the S accumulator registers straight into the A
+// fragments of P.V (no trip through shared memory).  Tq/Tk edges are
+// zero-filled in the kernel (rows past Tq are not stored).
 //
-// bfloat16 route (fa_tc_kernel, every path): both products on the bf16
-// tensor cores, mma.sync m16n8k16 with float32 accumulation, in the
-// FlashAttention-2 pattern.  Four warps own 16 query rows each; Q's
-// fragments stay in registers for the whole key loop; K and V tiles are
-// double-buffered in shared memory by cp.async (the next tile loads while
-// this one is multiplied), rows of 16-byte chunks XOR-swizzled (D = 80:
-// rows padded to an odd stride of 11 chunks instead) so that ldmatrix (K,
-// for S = Q.K^T) and ldmatrix.trans (V, for O += P.V) read conflict-free.
-// Q is staged in the second buffer's K slot before the loop, so a block
-// holds 64 KB (D = 128) and three fit on an SM.  S is
-// scaled in float32 by scale*log2(e) and exponentiated with exp2f; P is
-// rounded to bf16 as the A operand of P.V straight from the S accumulator
-// registers (no trip through shared memory); the output is staged through
-// shared memory for 16-byte stores.
+// bfloat16 route (fa_tc_kernel, every serving path): both products on the
+// bf16 tensor cores, mma.sync m16n8k16 with float32 accumulation, in the
+// FlashAttention-2 pattern, 64-key tiles.  Q passes through the second
+// buffer before the loop and its fragments stay in registers for the whole
+// key loop; rows of 16-byte chunks XOR-swizzled (D = 80: rows
+// padded to an odd stride of 11 chunks instead) so that ldmatrix (K, for
+// S = Q.K^T) and ldmatrix.trans (V, for O += P.V) read conflict-free; a
+// block holds 64 KB (D = 128) and three fit on an SM.  P is rounded to bf16
+// for P.V; the output is staged through shared memory for 16-byte stores.
+// Bound on the H100: causal prefill at (4, 16, 1024, 128) is ~17 GFLOP of
+// products on ~67 MB of q/k/v/out: ~17 us at the bf16 tensor-core rate, ~20
+// us at the memory rate.  What holds this route above that: mma.sync does
+// not reach wgmma's rate on Hopper; every warp reads the whole K and V tile
+// from shared memory for its 16 rows (one ldmatrix per two mma); and each
+// 64-row block fetches its K/V tiles from L2 on its own.  A wgmma tile with
+// 64 rows per warpgroup, K/V by TMA and P from registers would address all
+// three.
 //
-// float32 route (fa_kernel; the float32 forwards of the examples, e.g.
-// quickstart, and the float32 cases of the card check): float32 FMA on the
-// CUDA cores, Q (pre-scaled) and K transposed in shared memory.  The
-// tensor cores would round float32 inputs to bf16 or TF32, so this route
-// keeps them exact to float32 sums.
+// float32 route (fa_f32_kernel: the float32 forwards, e.g. the examples'
+// quickstart, and the float32 cases of the card check): both of _kernel's
+// float32 dots on the TF32 tensor cores in 3xTF32, mma.sync m16n8k8 with
+// float32 sums.  Each operand x = hi + lo, hi = x rounded to TF32 (to
+// nearest, ties away from zero), lo = the exact float32 remainder (read by
+// the tensor cores cut to TF32), and a.b = a_lo.b_hi + a_hi.b_lo +
+// a_hi.b_hi.  Bound on the H100: causal (4, 16, 1024, 128) is ~17 GFLOP of
+// products, three passes of it at the TF32 rate (495 TFLOP/s) ~104 us,
+// against ~40 us for its ~134 MB at the memory rate and ~257 us for one
+// pass on the float32 CUDA cores (67 TFLOP/s).  What holds the route above
+// that: mma.sync m16n8k8 does not reach the data sheet's rate; every B
+// fragment comes from 32-bit shared-memory loads and is split in
+// registers (one 8 x 8 block, 256 bytes a warp, feeds the three mma of its
+// 16 rows); and at 255 registers two blocks (8 warps) share an SM, too few
+// to hide the chains of dependent mma.  The design: K and V are staged as
+// they are in memory and split as they are read (hi and lo planes in
+// shared memory would double the B loads and the footprint); Q (times
+// scale * log2(e)) stays in shared memory and its A fragments are read and
+// split at each k-step (in registers, D / 2 of them, it spilled at D = 128
+// beside the (16, D) accumulator, and was slower at D = 64).  P's A
+// fragment takes the S accumulator's columns (2t, 2t + 1) of each 8-key
+// slice as its k = t and t + 4, and V's B fragment reads keys 2t and
+// 2t + 1 to match, so P needs no shuffle.  Rows are padded to D + 4 floats
+// (4 times an odd number), so that K's (key g, dim t) and V's (key 2t or
+// 2t + 1, dim g) fragment reads both hit 32 distinct banks.  Key tiles of
+// 64 up to D = 64 and of 32 above: two stages and Q stay at or under 99 KB,
+// two blocks an SM.
+// Error: each product keeps all but ~2^-20 of itself (lo.lo, dropped, is
+// under 2^-22; the cut lo parts 2^-21 each).  The tensor cores also drop
+// low bits of the accumulator at each mma: one accumulator over the whole
+// key axis missed the card check's FLASH_RTOL (2e-5 of each row's scale)
+// against a float64 reference at Tk = 4096 on the H100.  So S sums its two
+// small passes apart from the big one, and P.V sums each key tile in fresh
+// registers that a rounded FMA adds to the rescaled accumulator; the card
+// check holds every float32 case to FLASH_RTOL of a float64 reference too.
+// The tests' _tf32x3_route repeats the split arithmetic on the CPU against
+// the JAX kernel.
 //
 // Head dims 16, 32, 64, 80 and 128 are compiled on both routes.  At 16
 // (olmo-1b-reduced) a bf16 tile row is two 16-byte chunks, swizzled with
-// r & 1, and a float32 thread owns one accumulator column.
-//
-// Bound on the H100: causal prefill at (4, 16, 1024, 128) bf16 is ~17
-// GFLOP of products on ~67 MB of q/k/v/out: ~17 us at the bf16 tensor-core
-// rate, ~20 us at the memory rate.  What holds this route above that:
-// mma.sync does not reach wgmma's rate on Hopper; every warp reads the
-// whole K and V tile from shared memory for its 16 rows (one ldmatrix per
-// two mma); and each 64-row block fetches its K/V tiles from L2 on its
-// own.  A wgmma tile with 64 rows per warpgroup, K/V by TMA and P from
-// registers would address all three.
+// r & 1, and a float32 row four.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -61,77 +92,107 @@
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int PS = BK + 4;    // padded row stride of the probability tile
-constexpr int NT = 256;       // threads per block (16 row groups x 16)
-constexpr float NEG = -1e30f; // masked score (finite, as in the TPU kernel)
-
-// 8 consecutive floats from a 32-byte aligned address
-__device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   saddr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-// accumulator column c (of NC = D/16) of thread tx.  NC >= 4: groups of
-// four columns at 64-column strides (float4 reads of V), then, where 4 does
-// not divide NC (D = 80), the NC % 4 columns left, tx's own past the last
-// group: D = 80 maps c < 4 to tx*4 + c (0..63) and c = 4 to 64 + tx.
+// --- float32 route: TF32 tensor cores in 3xTF32 ----------------------------
+
+namespace tf32 {
+
+constexpr int BQ = 64;   // query rows per block: four warps of 16
+constexpr int NT = 128;  // threads per block
+
+// keys per tile: 64 up to D = 64, 32 above
 template <int D>
-__device__ __forceinline__ int acc_col(int tx, int c) {
-  constexpr int NC = D / 16, NF = NC / 4 * 4, NR = NC % 4;
-  if constexpr (NC >= 4) {
-    if (c < NF) return (c / 4) * 64 + tx * 4 + (c % 4);
-    return NF * 16 + tx * NR + (c - NF);
-  } else {
-    return tx * NC + c;
+__host__ __device__ constexpr int bkv() {
+  return D <= 64 ? 64 : 32;
+}
+// row stride of a staged tile, in floats: D + 4, 4 times an odd number
+template <int D>
+__host__ __device__ constexpr int row_stride() {
+  return D + 4;
+}
+template <int D>
+constexpr int smem_bytes() {
+  // two (K, V) stages and the Q tile
+  return (2 * 2 * bkv<D>() + BQ) * row_stride<D>() * (int)sizeof(float);
+}
+
+// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away from zero:
+// the bits of a finite float plus half of the dropped place, cut), lo the
+// exact float32 remainder, which the tensor cores read cut to TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+// d (16 x 8) += a (16 x 8, row) b (8 x 8, col) in TF32, float32 sums;
+// fragments for lane 4 g + t: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); b0 (t, g), b1 (t + 4, g); d0, d1 (g, 2t and 2t + 1),
+// d2, d3 (g + 8, 2t and 2t + 1)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// rows [r0, r0 + R) of a (T, D) float32 operand (row stride st elements)
+// into a tile of row_stride<D>() floats a row; rows at or past t are
+// zero-filled
+template <int D, int R>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          long long st, int r0, int t,
+                                          int tid) {
+  constexpr int CH = D / 4;  // 16-byte chunks a row
+#pragma unroll
+  for (int i = tid; i < R * CH; i += NT) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = r0 + r < t;
+    cp_async16(dst + r * row_stride<D>() + c * 4,
+               ok ? src + (long long)(r0 + r) * st + c * 4 : src, ok);
   }
 }
 
 template <int D>
-constexpr size_t smem_bytes() {
-  return (size_t)(D * BQ + D * BK + BK * D + BQ * PS) * sizeof(float);
-}
+__global__ void __launch_bounds__(NT, 2) fa_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int hq, int hkv,
+    int tq, int tk, int causal, int window, float scale_log2, long long qsb,
+    long long qsh, long long qst, long long ksb, long long ksh, long long kst,
+    long long vsb, long long vsh, long long vst, long long osb, long long osh,
+    long long ost) {
+  constexpr int BKV = bkv<D>(), RS = row_stride<D>();
+  constexpr int KS = D / 8;     // 8-wide steps of D: S's k-steps, O's n-tiles
+  constexpr int NB = BKV / 8;   // 8-key slices of a tile
+  constexpr int TILE = BKV * RS;  // floats of one K or V tile
+  extern __shared__ __align__(16) float KVs[];  // stage b: K at 2b, V at
+                                                // 2b + 1; then Q
+  float* Qs = KVs + 4 * TILE;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) fa_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int hq, int hkv, int tq, int tk, int causal, int window,
-    float scale, long long qsb, long long qsh, long long qst, long long ksb,
-    long long ksh, long long kst, long long vsb, long long vsh, long long vst,
-    long long osb, long long osh, long long ost) {
-  constexpr int CH = D / 8;   // 8-element chunks per row
-  constexpr int NC = D / 16;  // accumulator columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;            // [D][BQ], pre-scaled
-  float* Kt = Qt + D * BQ;     // [D][BK]
-  float* Vs = Kt + D * BK;     // [BK][D]
-  float* Ps = Vs + BK * D;     // [BQ][PS]
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heavy tiles first
   const int bi = blockIdx.y / hq, h = blockIdx.y % hq;
   const int hk = h / (hq / hkv);
-  const T* qb = q + bi * qsb + h * qsh;
-  const T* kb = k + bi * ksb + hk * ksh;
-  const T* vb = v + bi * vsb + hk * vsh;
-  T* ob = o + bi * osb + h * osh;
-
-  for (int c = tid; c < BQ * CH; c += NT) {
-    const int r = c % BQ, dc = c / BQ;
-    float x[8];
-    if (q0 + r < tq) {
-      load8(qb + (long long)(q0 + r) * qst + dc * 8, x);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) x[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) Qt[(dc * 8 + i) * BQ + r] = x[i] * scale;
-  }
+  const float* qb = q + bi * qsb + h * qsh;
+  const float* kb = k + bi * ksb + hk * ksh;
+  const float* vb = v + bi * vsb + hk * vsh;
 
   // key tiles the mask does not hide entirely
   const int off = tk - tq;
@@ -139,169 +200,194 @@ __global__ void __launch_bounds__(NT) fa_kernel(
   const int last_q = min(q0 + BQ, tq) - 1 + off;
   const int kend = causal ? min(tk, last_q + 1) : tk;
   int kbeg = window > 0 ? max(0, first_q - window + 1) : 0;
-  kbeg = (kbeg / BK) * BK;
+  kbeg = (kbeg / BKV) * BKV;
+  const int ntiles = kend > kbeg ? (kend - kbeg + BKV - 1) / BKV : 0;
 
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
+  auto load_kv = [&](int it) {
+    const int k0 = kbeg + it * BKV;
+    float* buf = KVs + (it & 1) * 2 * TILE;
+    load_tile<D, BKV>(buf, kb, kst, k0, tk, tid);
+    load_tile<D, BKV>(buf + TILE, vb, vst, k0, tk, tid);
+  };
 
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    __syncthreads();  // Q written; the previous tile's K/V/P reads are done
-    for (int c = tid; c < BK * CH; c += NT) {
-      const int r = c % BK, dc = c / BK;
-      float x[8];
-      if (k0 + r < tk) {
-        load8(kb + (long long)(k0 + r) * kst + dc * 8, x);
-      } else {
+  load_tile<D, BQ>(Qs, qb, qst, q0, tq, tid);
+  if (ntiles > 0) load_kv(0);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  // Q in log2 units; its A fragments are read (and split) at each use: in
+  // registers they would spill at D = 128 beside the accumulator
+  for (int i = tid; i < BQ * D; i += NT)
+    Qs[(i / D) * RS + i % D] *= scale_log2;
+
+  const int wr = warp * 16;
+  float acc[KS][4];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) x[i] = 0.f;
-      }
+  for (int j = 0; j < KS; ++j)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) Kt[(dc * 8 + i) * BK + r] = x[i];
-    }
-    for (int c = tid; c < BK * CH; c += NT) {
-      const int r = c / CH, dc = c % CH;
-      float x[8];
-      if (k0 + r < tk) {
-        load8(vb + (long long)(k0 + r) * vst + dc * 8, x);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) x[i] = 0.f;
-      }
-      float4* dst = reinterpret_cast<float4*>(Vs + r * D + dc * 8);
-      dst[0] = make_float4(x[0], x[1], x[2], x[3]);
-      dst[1] = make_float4(x[4], x[5], x[6], x[7]);
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = kbeg + it * BKV;
+    if (it + 1 < ntiles) {
+      load_kv(it + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
+    const float* Ks = KVs + (it & 1) * 2 * TILE;
+    const float* Vs = Ks + TILE;
 
-    // scores: rows ty*4 + i, keys tx*4 + j
-    float s[4][4];
+    // S = Q . K^T for this warp's 16 rows and the tile's keys; the B
+    // fragment of slice j at k-step ks is K[8j + g][8ks + t] and
+    // [8ks + t + 4].  The two small passes sum apart from the big one (the
+    // tensor cores' sums lose low bits to each addition: the big pass's
+    // chain is a third as long)
+    float s[NB][4], sl[NB][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NB; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(Qt + d * BQ + ty * 4);
-      const float4 b = *reinterpret_cast<const float4*>(Kt + d * BK + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+      for (int e = 0; e < 4; ++e) s[j][e] = sl[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int ks = 0; ks < KS; ++ks) {
+      const float* pq = Qs + (wr + g) * RS + 8 * ks + t4;
+      const float a[4] = {pq[0], pq[8 * RS], pq[4], pq[8 * RS + 4]};
+      uint32_t ah[4], al[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+      for (int e = 0; e < 4; ++e) split(a[e], ah[e], al[e]);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const float* p = Ks + (8 * j + g) * RS + 8 * ks + t4;
+        uint32_t bh0, bl0, bh1, bl1;
+        split(p[0], bh0, bl0);
+        split(p[4], bh1, bl1);
+        mma(sl[j], al, bh0, bh1);
+        mma(sl[j], ah, bl0, bl1);
+        mma(s[j], ah, bh0, bh1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += sl[j][e];
+
+    // mask only the tiles the mask cuts
+    const bool cut = (k0 + BKV > tk) || (causal && k0 + BKV - 1 > first_q) ||
+                     (window > 0 && k0 <= last_q - window);
+    if (cut) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
+          const int qp = q0 + wr + g + 8 * (e >> 1) + off;
+          const bool vis = kp < tk && (!causal || kp <= qp) &&
+                           (window <= 0 || kp > qp - window);
+          if (!vis) s[j][e] = -INFINITY;
+        }
     }
 
-    // mask, online softmax update
+    // online softmax, rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    float corr[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i + off;
-      float mx = NEG;
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx * 4 + j;
-        const bool vis = kp < tk && (!causal || kp <= qp) &&
-                         (window <= 0 || kp > qp - window);
-        s[i][j] = vis ? s[i][j] : NEG;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int w = 1; w < 16; w <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float mnew = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - mnew);
+      for (int j = 0; j < NB; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mnew = fmaxf(m[hh], mx);
+      const float base = mnew == -INFINITY ? 0.f : mnew;  // empty so far
+      corr[hh] = exp2f(m[hh] - base);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = s[i][j] > 0.5f * NEG ? expf(s[i][j] - mnew) : 0.f;
-        s[i][j] = p;
-        sum += p;
-      }
+      for (int j = 0; j < NB; ++j)
 #pragma unroll
-      for (int w = 1; w < 16; w <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, w);
-      l[i] = l[i] * corr + sum;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
-      m[i] = mnew;
-      *reinterpret_cast<float4*>(Ps + (ty * 4 + i) * PS + tx * 4) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-    }
-    __syncthreads();
-
-    // acc += P . V
-    for (int j = 0; j < BK; j += 4) {
-      float pv[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 t =
-            *reinterpret_cast<const float4*>(Ps + (ty * 4 + i) * PS + j);
-        pv[i][0] = t.x; pv[i][1] = t.y; pv[i][2] = t.z; pv[i][3] = t.w;
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float* vr = Vs + (j + jj) * D;
-        float vv[NC];
-        if constexpr (NC >= 4) {
-#pragma unroll
-          for (int g = 0; g < NC / 4; ++g) {
-            const float4 t =
-                *reinterpret_cast<const float4*>(vr + g * 64 + tx * 4);
-            vv[g * 4] = t.x; vv[g * 4 + 1] = t.y;
-            vv[g * 4 + 2] = t.z; vv[g * 4 + 3] = t.w;
-          }
-#pragma unroll
-          for (int c = NC / 4 * 4; c < NC; ++c) vv[c] = vr[acc_col<D>(tx, c)];
-        } else {
-#pragma unroll
-          for (int c = 0; c < NC; ++c) vv[c] = vr[tx * NC + c];
+        for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
+          const float p = exp2f(s[j][e] - base);
+          s[j][e] = p;
+          sum += p;
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < NC; ++c)
-            acc[i][c] = fmaf(pv[i][jj], vv[c], acc[i][c]);
-      }
+      l[hh] = l[hh] * corr[hh] + sum;  // this thread's share of the row
+      m[hh] = mnew;
     }
+
+    // O = O * corr + P . V.  P's A fragment of slice kk takes keys 2t and
+    // 2t + 1 as its k = t and t + 4, so the B fragment of n-tile dd is
+    // V[8kk + 2t][8dd + g] and V[8kk + 2t + 1][8dd + g].  Each n-tile sums
+    // this tile's keys in registers of its own (a chain of 3 NB products,
+    // not one over the whole key axis), then one rounded FMA adds it in
+    uint32_t ph[NB][4], pl[NB][4];
+#pragma unroll
+    for (int kk = 0; kk < NB; ++kk) {
+      const float a[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(a[e], ph[kk][e], pl[kk][e]);
+    }
+#pragma unroll
+    for (int dd = 0; dd < KS; ++dd) {
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NB; ++kk) {
+        const float* p = Vs + (8 * kk + 2 * t4) * RS + 8 * dd + g;
+        uint32_t bh0, bl0, bh1, bl1;
+        split(p[0], bh0, bl0);
+        split(p[RS], bh1, bl1);
+        mma(t, pl[kk], bh0, bh1);
+        mma(t, ph[kk], bl0, bl1);
+        mma(t, ph[kk], bh0, bh1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[dd][e] = fmaf(acc[dd][e], corr[e >> 1], t[e]);
+    }
+    __syncthreads();  // this stage is refilled two tiles on
   }
 
+  // normalise (IEEE division, as _kernel's acc / max(l, 1e-30)) and store
+  // each thread's (row, 2t and 2t + 1) pairs
+  float* ob = o + bi * osb + h * osh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    const float den = fmaxf(l[hh], 1e-30f);
+    const int r = q0 + wr + g + 8 * hh;
     if (r >= tq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    T* orow = ob + (long long)r * ost;
+    float* orow = ob + (long long)r * ost + 2 * t4;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) store1(orow + acc_col<D>(tx, c), acc[i][c] / den);
+    for (int dd = 0; dd < KS; ++dd)
+      *reinterpret_cast<float2*>(orow + 8 * dd) =
+          make_float2(acc[dd][2 * hh] / den, acc[dd][2 * hh + 1] / den);
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int hq, int hkv, int tq, int tk, int causal, int window,
            float scale, const long long* st, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+  constexpr int smem = smem_bytes<D>();
   static bool attr_set = false;  // per instantiation, outside graph capture
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        fa_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        fa_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const dim3 grid((tq + BQ - 1) / BQ, b * hq);
-  fa_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, tq, tk, causal,
-      window, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11]);
+  fa_f32_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, tq, tk,
+      causal, window, scale * 1.4426950408889634f, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return (int)cudaGetLastError();
 }
+
+}  // namespace tf32
 
 // --- bfloat16 route: tensor cores ------------------------------------------
 
@@ -343,22 +429,6 @@ constexpr int smem_bytes() {
   return 4 * BKV * row_chunks<D>() * 16;
 }
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   saddr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t a) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -612,40 +682,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 
 }  // namespace tc
 
-// bfloat16 -> tensor-core route, float32 -> CUDA-core route
+// bfloat16 -> bf16 tensor-core route, float32 -> 3xTF32 route
 int launch_d(int bf16, int d, const void* q, const void* k, const void* v,
              void* o, int b, int hq, int hkv, int tq, int tk, int causal,
              int window, float scale, const long long* st,
              cudaStream_t stream) {
+#define FA_CASE(D)                                                         \
+  case D:                                                                  \
+    return bf16 ? tc::launch<D>(q, k, v, o, b, hq, hkv, tq, tk, causal,    \
+                                window, scale, st, stream)                 \
+                : tf32::launch<D>(q, k, v, o, b, hq, hkv, tq, tk, causal,  \
+                                  window, scale, st, stream);
   switch (d) {
-    case 16:
-      return bf16 ? tc::launch<16>(q, k, v, o, b, hq, hkv, tq, tk, causal,
-                                   window, scale, st, stream)
-                  : launch<float, 16>(q, k, v, o, b, hq, hkv, tq, tk, causal,
-                                      window, scale, st, stream);
-    case 32:
-      return bf16 ? tc::launch<32>(q, k, v, o, b, hq, hkv, tq, tk, causal,
-                                   window, scale, st, stream)
-                  : launch<float, 32>(q, k, v, o, b, hq, hkv, tq, tk, causal,
-                                      window, scale, st, stream);
-    case 64:
-      return bf16 ? tc::launch<64>(q, k, v, o, b, hq, hkv, tq, tk, causal,
-                                   window, scale, st, stream)
-                  : launch<float, 64>(q, k, v, o, b, hq, hkv, tq, tk, causal,
-                                      window, scale, st, stream);
-    case 80:
-      return bf16 ? tc::launch<80>(q, k, v, o, b, hq, hkv, tq, tk, causal,
-                                   window, scale, st, stream)
-                  : launch<float, 80>(q, k, v, o, b, hq, hkv, tq, tk, causal,
-                                      window, scale, st, stream);
-    case 128:
-      return bf16 ? tc::launch<128>(q, k, v, o, b, hq, hkv, tq, tk, causal,
-                                    window, scale, st, stream)
-                  : launch<float, 128>(q, k, v, o, b, hq, hkv, tq, tk,
-                                       causal, window, scale, st, stream);
+    FA_CASE(16)
+    FA_CASE(32)
+    FA_CASE(64)
+    FA_CASE(80)
+    FA_CASE(128)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef FA_CASE
 }
 
 }  // namespace

@@ -9,10 +9,12 @@ denominator and accumulator, key tiles that the mask hides entirely
 skipped, output in q's dtype.  The hand-written CUDA source is
 ``csrc/flash_attention.cu``, compiled with ``nvcc`` for ``sm_90a`` into
 ``build/`` at first use and bound with ``ctypes``.  bfloat16 inputs (every
-path) run both products on the bf16 tensor cores (``mma.sync`` m16n8k16,
-float32 sums, P rounded to bf16 for P.V as FlashAttention does); float32
-inputs keep a CUDA-core kernel, which the tensor cores' rounding would not
-match.
+serving path) run both products on the bf16 tensor cores (``mma.sync``
+m16n8k16, float32 sums, P rounded to bf16 for P.V as FlashAttention does);
+float32 inputs run both on the TF32 tensor cores in 3xTF32 (``mma.sync``
+m16n8k8: each operand split into its TF32 rounding and the float32
+remainder, three passes), which keeps the result within float32 sums'
+tolerance of the float32 reference.
 
 Unlike the TPU wrapper, Tq and Tk need not divide a tile: the kernel masks
 the ragged edges.  A query row with no visible key (possible with a window,

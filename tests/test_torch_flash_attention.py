@@ -1,5 +1,7 @@
 """The port's flash-attention op on the CPU (its plain version) against the
-JAX kernel in interpret mode and both packages' oracles.
+JAX kernel in interpret mode and both packages' oracles, and the arithmetic
+of the kernel's two routes (bf16 tensor cores; 3xTF32 for float32) in plain
+PyTorch against the JAX kernel.
 
 Tolerance: rtol = atol = 2e-5, the JAX kernel tests' own
 (tests/test_kernels.py): every side computes float32 softmax attention,
@@ -234,3 +236,98 @@ def test_tensor_core_route_arithmetic_vs_jax_kernel(b, hq, hkv, tq, tk, d,
     assert plain.dtype == torch.bfloat16
     err_p = np.abs(to_np(plain.float()) - want)
     assert np.all(err_p <= 2.0 ** -7 * (np.abs(want) + np.abs(want).max()))
+
+
+def _tf32_round(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as the kernel's split does on the bits of a finite float."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_cut(x):
+    """x cut to TF32, as the tensor cores read a float32 operand."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32x3(eq, a, b):
+    """The kernel's 3xTF32 product: a = hi + lo with hi rounded to TF32 and
+    lo the float32 remainder read cut to TF32, a.b = a_lo.b_hi + a_hi.b_lo
+    + a_hi.b_hi, each pass summed in float32 (its products are exact)."""
+    ah, bh = _tf32_round(a), _tf32_round(b)
+    al, bl = _tf32_cut(a - ah), _tf32_cut(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _tf32x3_route(q, k, v, *, causal, window):
+    """The arithmetic of the kernel's float32 route, in plain PyTorch: q
+    times scale*log2(e) in float32, both products in 3xTF32 over the
+    kernel's key tile (64 keys up to D = 64, 32 above), scores
+    exponentiated base 2 against the running max, float32 running max,
+    denominator and accumulator, rows with no visible key giving 0."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    bkv = 64 if d <= 64 else 32
+    c = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(
+        1.4426950408889634, dtype=torch.float32)
+    qs = q.reshape(b, hkv, hq // hkv, tq, d) * c
+    qi = torch.arange(tq)[:, None] + (tk - tq)
+    m = torch.full((b, hkv, hq // hkv, tq), float("-inf"))
+    den = torch.zeros_like(m)
+    acc = torch.zeros(b, hkv, hq // hkv, tq, d)
+    for k0 in range(0, tk, bkv):
+        kt, vt = k[:, :, k0:k0 + bkv], v[:, :, k0:k0 + bkv]
+        s = _tf32x3("bhgqd,bhkd->bhgqk", qs, kt)
+        ki = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        vis = torch.ones(tq, kt.shape[2], dtype=torch.bool)
+        if causal:
+            vis = vis & (ki <= qi)
+        if window is not None:
+            vis = vis & (ki > qi - window)
+        s = s.masked_fill(~vis, float("-inf"))
+        mnew = torch.maximum(m, s.amax(-1))
+        base = torch.where(mnew == float("-inf"), 0.0, mnew)
+        p = torch.exp2(s - base[..., None])
+        corr = torch.exp2(m - base)
+        den = den * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _tf32x3("bhgqk,bhkd->bhgqd", p, vt)
+        m = mnew
+    out = acc / den.clamp_min(1e-30)[..., None]
+    return out.reshape(b, hq, tq, d)
+
+
+#: float32 cases at every compiled head dim, one batch row, two a dim:
+#: GQA, window, non-causal, Tq < Tk, and Tq > Tk with rows that see no key
+#: (with a window at D = 64)
+F32_CASES = [
+    (1, 4, 2, 128, 128, 16, True, 64),
+    (1, 4, 2, 64, 32, 16, True, None),
+    (1, 4, 4, 128, 128, 32, False, None),
+    (1, 4, 2, 64, 256, 32, True, None),
+    (1, 8, 2, 128, 128, 64, True, None),
+    (1, 4, 2, 128, 64, 64, True, 32),
+    (1, 4, 4, 128, 128, 80, False, None),
+    (1, 4, 2, 64, 256, 80, True, 64),
+    (1, 8, 2, 128, 128, 128, True, None),
+    (1, 4, 2, 128, 64, 128, True, None),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,causal,window", F32_CASES)
+def test_tf32x3_route_arithmetic_vs_jax_kernel(b, hq, hkv, tq, tk, d, causal,
+                                               window):
+    """The 3xTF32 products of the kernel's float32 route keep the result
+    within chip_smoke.py's float32 tolerance of the JAX kernel (interpret
+    mode): |got - want| <= 2e-5 (|want| + max|want| of the row); rows with
+    no visible key are 0 on both sides."""
+    q, k, v = map(torch.from_numpy, _qkv(tq * 3 + d, b, hq, hkv, tq, tk, d))
+    got = to_np(_tf32x3_route(q, k, v, causal=causal, window=window))
+    want = np.asarray(jax_flash(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)), causal=causal,
+        window=window, bq=64, bk=64, interpret=True))
+    err = np.abs(got - want)
+    bound = 2e-5 * (np.abs(want) + np.abs(want).max(-1, keepdims=True))
+    assert np.all(err <= bound), float((err / np.maximum(bound, 1e-30)).max())
+    if tq > tk:
+        assert np.all(got[:, :, :tq - tk] == 0) and np.all(
+            want[:, :, :tq - tk] == 0)
